@@ -5,7 +5,11 @@ Counterpart of `elasticsearch_tpu/ops/pallas_knn.py`. The Pallas TPU
 kernel there (`_score_kernel`, launched by `int8_dot_scores`) becomes a
 hand-written CUDA C++ kernel for Hopper, `csrc/int8_knn.cu`, built with
 `nvcc` for sm_90a into `_build/` at first use and bound through
-`ctypes`. The source's head comment states what bounds it on an H100.
+`ctypes`. The kernel runs on the tensor cores (`mma.sync`, bf16) and
+still computes the f32 function: each f32 query is split exactly into
+three bf16 parts (`bf16x3_split`), and int8 values and bf16 products are
+exact. The source's head comment states why, and what bounds it on an
+H100.
 
 `int8_dot_scores` launches that kernel for CUDA tensors and computes the
 plain version `int8_dot_scores_plain` for CPU tensors; it never moves
@@ -42,6 +46,9 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
+K_CHUNK = 64  # the kernel pads d to whole 64-wide chunks in shared memory
+QUERY_CHUNKS = (8, 16, 32)  # queries per block: the kernel's three variants
+SMEM_LIMIT = 232_448  # dynamic shared memory one Hopper block may use
 
 
 def quantize_int8(vectors: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -105,9 +112,42 @@ def _library() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     fn = lib.es_int8_dot_scores
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def query_smem_bytes(qb: int, d: int) -> int:
+    """Shared memory of one block: three bf16 panels of qb query rows,
+    d padded to whole 64-wide chunks plus 16 bytes a row."""
+    d_pad = -(-d // K_CHUNK) * K_CHUNK
+    return 3 * qb * (d_pad + 8) * 2
+
+
+def query_chunk(B: int, d: int) -> int:
+    """Queries per block: the smallest variant that holds all B queries
+    if it fits the block's shared memory, else the largest that fits."""
+    fits = [qb for qb in QUERY_CHUNKS if query_smem_bytes(qb, d) <= SMEM_LIMIT]
+    if not fits:
+        raise ValueError(f"int8_dot_scores: d={d} too wide for the kernel's query panels")
+    return next((qb for qb in fits if qb >= B), fits[-1])
+
+
+def bf16x3_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernel's exact split of f32 values into bf16 parts, in plain
+    PyTorch: hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid),
+    each rounded to nearest, with hi + mid + lo == x for finite normal
+    f32 up to bf16's largest value."""
+    hi = x.to(torch.bfloat16)
+    r = x - hi.to(torch.float32)
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.to(torch.float32)).to(torch.bfloat16)
+    return hi, mid, lo
 
 
 def int8_dot_scores_plain(
@@ -120,7 +160,7 @@ def int8_dot_scores_plain(
 
 def int8_dot_scores(
     queries: torch.Tensor,  # f32 [B, d]
-    qvecs: torch.Tensor,  # int8 [N, d], d % 16 == 0
+    qvecs: torch.Tensor,  # int8 [N, d], d % 16 == 0, d <= 4800
     scales: torch.Tensor,  # f32 [N]
 ) -> torch.Tensor:
     """Dequantized dot products f32 [B, N]. CUDA tensors launch the
@@ -151,8 +191,9 @@ def int8_dot_scores(
         raise ValueError(f"int8_dot_scores: d={d} must be a multiple of 16")
     if not (queries.is_contiguous() and qvecs.is_contiguous() and scales.is_contiguous()):
         raise ValueError("int8_dot_scores: tensors must be contiguous")
-    if qvecs.data_ptr() % 16:
-        raise ValueError("int8_dot_scores: int8 rows must be 16-byte aligned")
+    if qvecs.data_ptr() % 16 or queries.data_ptr() % 16:
+        raise ValueError("int8_dot_scores: queries and int8 rows must be 16-byte aligned")
+    qb = query_chunk(B, d)
     out = torch.empty(B, N, dtype=torch.float32, device=device)
     if B == 0 or N == 0:
         return out
@@ -161,7 +202,8 @@ def int8_dot_scores(
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.es_int8_dot_scores(
             queries.data_ptr(), qvecs.data_ptr(), scales.data_ptr(),
-            out.data_ptr(), B, N, d, stream,
+            out.data_ptr(), B, N, d, _num_sms(torch.cuda.current_device()),
+            qb, stream,
         )
     if rc != 0:
         raise RuntimeError(f"int8_dot_scores: kernel launch failed (cudaError {rc})")

@@ -130,4 +130,78 @@ def test_kernel_source_and_build_flags():
     assert 'extern "C" int es_int8_dot_scores' in src
     assert "cudaGetLastError" in src
     assert "pallas_knn.py:_score_kernel" in src
+    assert "mma.sync.aligned.m16n8k16" in src
     assert "arch=compute_90a,code=sm_90a" in int8_knn.NVCC_FLAGS
+
+
+def _f32_from_bits(*bits):
+    return np.array(bits, np.uint32).view(np.float32)
+
+
+def _split_cases():
+    rng = np.random.default_rng(5)
+    unit = rng.standard_normal((64, 768))
+    unit /= np.linalg.norm(unit, axis=1, keepdims=True)
+    n = 200_000
+    return {
+        "unit_768": unit,
+        "standard_normal": rng.standard_normal(n),
+        "spread_1e30": rng.choice([-1.0, 1.0], n) * 10.0 ** rng.uniform(-30, 30, n),
+        "signed_zeros": np.array([0.0, -0.0]),
+        # the smallest normal, the widest mantissa whose lo part stays a
+        # normal bf16 (exponent -110), and the largest f32 that does not
+        # round to a bf16 infinity
+        "extremes": np.concatenate([
+            _f32_from_bits(0x00800000, 0x80800000, 0x08FFFFFF, 0x88FFFFFF),
+            _f32_from_bits(0x7F7F7FFF, 0xFF7F7FFF, 0x3F800001, 0xBF7FFFFF),
+        ]),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_split_cases()))
+def test_bf16x3_split_is_exact(case):
+    """The kernel's query split: hi + mid + lo rebuilds every f32 bit for
+    bit (zeros by value: -0.0 keeps its sign in hi, and -0.0 + 0.0 is
+    +0.0), and each part is a bf16 value, so its products are exact."""
+    x = torch.from_numpy(np.asarray(_split_cases()[case], np.float32))
+    hi, mid, lo = int8_knn.bf16x3_split(x)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    total = (hi.float() + mid.float()) + lo.float()
+    assert torch.equal(total, x)
+    nz = x != 0
+    assert torch.equal(total[nz].view(torch.int32), x[nz].view(torch.int32))
+    assert torch.equal(torch.signbit(hi.float()), torch.signbit(x))
+    # the three parts in float64 sum to the same value: nothing was rounded
+    assert torch.equal(hi.double() + mid.double() + lo.double(), x.double())
+
+
+@pytest.mark.parametrize("d", [16, 208, 768])
+def test_three_pass_product_matches_float64(d):
+    """What the kernel computes, on the CPU: three products of bf16 query
+    parts by the int8 rows (each bf16 product exact in f32), summed in
+    f32, then scaled; within 1e-6 of max|dots| of a float64 product."""
+    rng = np.random.default_rng(d)
+    v, scales = int8_knn.quantize_int8(rng.standard_normal((4096, d)).astype(np.float32))
+    q = torch.from_numpy(rng.standard_normal((32, v.shape[1])).astype(np.float32))
+    vt = torch.from_numpy(v).to(torch.bfloat16)
+    s = torch.from_numpy(scales)
+    dots = sum(part.float() @ vt.float().T for part in reversed(int8_knn.bf16x3_split(q)))
+    got = dots * s[None, :]
+    exact = (q.double() @ torch.from_numpy(v).double().T) * s.double()[None, :]
+    assert float((got.double() - exact).abs().max()) <= 1e-6 * float(exact.abs().max())
+
+
+@pytest.mark.parametrize(
+    "B,d,qb",
+    [(32, 768, 32), (1, 768, 8), (9, 768, 16), (70, 384, 32), (9, 4096, 8), (3, 4800, 8)],
+)
+def test_query_chunk_fits_shared_memory(B, d, qb):
+    """Queries per block: the smallest variant that holds B, else the
+    largest whose three bf16 panels fit a Hopper block's shared memory."""
+    assert int8_knn.query_chunk(B, d) == qb
+    assert int8_knn.query_smem_bytes(qb, d) <= int8_knn.SMEM_LIMIT
+
+
+def test_query_chunk_rejects_too_wide_vectors():
+    with pytest.raises(ValueError, match="too wide"):
+        int8_knn.query_chunk(1, 4816)
