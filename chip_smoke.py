@@ -23,7 +23,25 @@ with a non-zero exit on any failure:
      (a)-(c) are held to the port's NumPy oracle on 8 queries each
      (same totals and hits, scores within rtol 1e-5), (d) to recall@10
      >= 0.9 against exact f32 cosine; every kernel must have launched;
-  4. a `kernels` JSON line and per-phase wall times.
+  4. serving on the card over HTTP: the port's ElasticsearchTpuServer
+     (REST → ClusterService → IndexService → QueryBatcher →
+     TorchExecutor) with `/bench` (torch) and `/bench_oracle` (numpy)
+     over the same 1M-doc segment, and `/small` / `/small_oracle` (2
+     shards, built by two `_bulk?refresh=true` calls and a few deletes,
+     so every shard has two small segments and the chunked path runs).
+     64 `match` and 32 `knn` bodies go to `/bench` from 8 client
+     threads, then from 1, in a client process of their own; `/small`
+     gets its own bodies. Served hits
+     are held to the numpy indices (same totals and ids, scores within
+     rtol 1e-5); `_nodes/stats` must show batched launches, a bucket
+     wider than 1 and the chunked path; matmuls must run at float32
+     precision "highest". QPS, p50/p99 per route and client count, one
+     profiled match group and one knn group (with the host-device
+     synchronisations each makes) are printed, and the
+     8-client drive is repeated with 1, 2 and 6 batcher workers, at two
+     interpreter switch intervals, and once under a host stack sampler
+     (measured, not checked);
+  5. a `kernels` JSON line and per-phase wall times.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device,
 or without the rest of the repository beside it, the script exits
@@ -33,10 +51,15 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import multiprocessing
 import subprocess
 import sys
+import threading
 import time
+import urllib.error
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -50,6 +73,10 @@ BATCH = 32
 KNN_QUERIES = 32
 ORACLE_QUERIES = 8
 K = 10
+CLIENTS = 8  # concurrent HTTP clients in phase 4
+SMALL_DOCS = 2000  # docs of the small 2-shard index, in 2 _bulk calls
+SMALL_DELETES = 5
+SMALL_QUERIES = 16
 RTOL = 1e-5
 KERNEL_RTOL = 1e-5  # of max|dots|: f32 sums in another order
 
@@ -212,19 +239,29 @@ def sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def same_ids(ref_ids: list, ref_scores, got_ids: list, what: str) -> None:
+    """Ids agree position by position; within a run of oracle scores that
+    tie within RTOL, the run's ids agree as a set (both sides order exact
+    ties lowest index first; only ulp-level differences reorder a run)."""
+    check(len(got_ids) == len(ref_ids), f"{what}: {len(got_ids)} hits != oracle {len(ref_ids)}")
+    i = 0
+    while i < len(ref_ids):
+        j = i + 1
+        while j < len(ref_ids) and np.isclose(ref_scores[j], ref_scores[j - 1], rtol=RTOL, atol=0):
+            j += 1
+        check(set(got_ids[i:j]) == set(ref_ids[i:j]),
+              f"{what}: ids {got_ids[i:j]} at ranks {i}-{j - 1} != oracle {ref_ids[i:j]}")
+        i = j
+
+
 def same_hits(ref, got, what: str) -> None:
-    """Same totals, same hit count, scores within RTOL; docs equal except
-    where scores tie within the tolerance."""
+    """Same totals, same hit count, scores within RTOL, same docs."""
     check(ref.total == got.total, f"{what}: total {got.total} != oracle {ref.total}")
     check(len(ref.hits) == len(got.hits), f"{what}: {len(got.hits)} hits != oracle {len(ref.hits)}")
     rs = np.array([h.score for h in ref.hits])
     gs = np.array([h.score for h in got.hits])
     check(np.allclose(gs, rs, rtol=RTOL, atol=1e-6), f"{what}: scores {gs} != oracle {rs}")
-    for hr, hg in zip(ref.hits, got.hits):
-        check(
-            hr.doc_id == hg.doc_id or np.isclose(hr.score, hg.score, rtol=RTOL),
-            f"{what}: doc {hg.doc_id} != oracle {hr.doc_id} at unequal scores",
-        )
+    same_ids([h.doc_id for h in ref.hits], rs, [h.doc_id for h in got.hits], what)
 
 
 # ---------------------------------------------------------------------------
@@ -396,9 +433,10 @@ def phase_main(reader, oracle, vecs, qv, seed: int, device) -> dict:
         check(int(totals[j].sum()) == ref.total, f"(b) total {int(totals[j].sum())} != oracle {ref.total}")
         got = [(float(s), str(int(d))) for s, d in zip(scores[j], docs[j]) if np.isfinite(s)][:K]
         check(len(got) == len(ref.hits), f"(b) {len(got)} hits != oracle {len(ref.hits)}")
-        for (gs, gd), h in zip(got, ref.hits):
+        rs = np.array([h.score for h in ref.hits])
+        for (gs, _), h in zip(got, ref.hits):
             check(np.isclose(gs, h.score, rtol=RTOL, atol=1e-6), f"(b) score {gs} != oracle {h.score}")
-            check(gd == h.doc_id or np.isclose(gs, h.score, rtol=RTOL), f"(b) doc {gd} != oracle {h.doc_id}")
+        same_ids([h.doc_id for h in ref.hits], rs, [gd for _, gd in got], f"(b) match [{texts[i]}]")
         ref = oracle.search(None, knn=[secs[i]], size=K)
         same_hits(ref, res_c[i], f"(c) knn query {i}")
     # (d) recall@10 against exact f32 cosine, computed on the card
@@ -426,12 +464,59 @@ def phase_main(reader, oracle, vecs, qv, seed: int, device) -> dict:
             "totals_a": [r.total for r in res_a[:ORACLE_QUERIES]], "profile": profile}
 
 
-def _device_us(evt) -> float:
-    for name in ("self_device_time_total", "self_cuda_time_total"):
+def _device_us(evt, names=("self_device_time_total", "self_cuda_time_total")) -> float:
+    for name in names:
         v = getattr(evt, name, None)
         if v is not None:
             return float(v)
     return 0.0
+
+
+# host ranges named while profiling (ops/scoring.topk_desc, see
+# named_topk_desc); the profiler mirrors each on the device timeline as
+# an annotation spanning the range's kernels and the gaps between them,
+# so it is never summed with the kernels
+RANGES = ("topk_desc",)
+
+
+@contextlib.contextmanager
+def named_topk_desc():
+    """Runs every `ops/scoring.topk_desc` call inside the host range
+    "topk_desc" until the block ends. The port itself names no range, so
+    its calls outside a profile carry none."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops import int8_knn, scoring
+
+    plain = scoring.topk_desc
+
+    def named(x, k):
+        with torch.profiler.record_function("topk_desc"):
+            return plain(x, k)
+
+    scoring.topk_desc = int8_knn.topk_desc = named
+    try:
+        yield
+    finally:
+        scoring.topk_desc = int8_knn.topk_desc = plain
+
+
+def _range_kernel_us(prof, name: str) -> float:
+    """Device time of the kernels launched inside every host range
+    `name` traced on this thread: the kernels of its ops, summed."""
+    from torch.autograd import DeviceType
+
+    total = 0.0
+    stack = [e for e in prof.events() if e.name == name and e.device_type == DeviceType.CPU]
+    seen = set()
+    while stack:
+        e = stack.pop()
+        if id(e) in seen:
+            continue
+        seen.add(id(e))
+        total += sum(k.duration for k in e.kernels if k.name not in RANGES)
+        stack.extend(e.cpu_children)
+    return total
 
 
 def profile_routes(routes: dict, device) -> dict:
@@ -446,27 +531,551 @@ def profile_routes(routes: dict, device) -> dict:
     for name, fn in routes.items():
         fn()  # warm
         sync(device)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with named_topk_desc(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
             fn()
             sync(device)
             wall_us = (time.perf_counter() - t) * 1e6
         # device activity only (kernels, copies, memsets): the aten ops
         # that launched them carry the same time again
-        evts = [
+        dev = [
             e for e in prof.key_averages()
             if e.device_type != DeviceType.CPU and _device_us(e) > 0
         ]
+        evts = [e for e in dev if e.key not in RANGES]
         busy = sum(_device_us(e) for e in evts)
         top = sorted(evts, key=_device_us, reverse=True)[:6]
+        # ops/scoring.topk_desc's kernels (traced only for calls made on
+        # this thread)
+        topk = _range_kernel_us(prof, "topk_desc")
         out[name] = {
             "wall_us": wall_us,
             "device_us": busy,
             "device_idle_share": max(0.0, 1.0 - busy / wall_us) if wall_us else None,
+            "topk_desc_device_us": topk,
+            "topk_desc_share_of_device": topk / busy if busy else None,
             "top_kernels_us": [[e.key[:80], _device_us(e), e.count] for e in top],
         }
-        log(f"profile {name}: wall {wall_us:.0f}us device {busy:.0f}us")
+        log(f"profile {name}: wall {wall_us:.0f}us device {busy:.0f}us topk_desc {topk:.0f}us")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4: serving over HTTP
+# ---------------------------------------------------------------------------
+
+
+class Http:
+    """A JSON client of the port's server on this machine's loopback."""
+
+    def __init__(self, port: int):
+        self.base = f"http://127.0.0.1:{port}"
+
+    def call(self, method: str, path: str, body=None, ndjson=None):
+        data = None
+        headers = {}
+        if ndjson is not None:
+            data = "".join(json.dumps(x) + "\n" for x in ndjson).encode()
+            headers["Content-Type"] = "application/x-ndjson"
+        elif body is not None:
+            data = json.dumps(body).encode()
+            headers["Content-Type"] = "application/json"
+        req = urllib.request.Request(self.base + path, data=data, method=method, headers=headers)
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    def ok(self, method: str, path: str, body=None, ndjson=None):
+        status, out = self.call(method, path, body, ndjson)
+        check(status == 200, f"{method} {path}: HTTP {status}: {json.dumps(out)[:400]}")
+        return out
+
+
+def install_segment(svc, seg) -> None:
+    """One prebuilt segment as shard 0's whole searchable state (bench.py's
+    make_service): `_bulk` of 1M docs through host analysis is set-up,
+    not the thing served."""
+    eng = svc.shards[0]
+    n = seg.num_docs
+    eng.segments = [seg]
+    eng.live_docs = [None]
+    eng.seg_versions = [np.ones(n, np.int64)]
+    eng.seg_seqnos = [np.arange(n, dtype=np.int64)]
+    eng.seg_names = ["seg_0_0"]
+    eng._next_seq = n
+    eng.change_generation += 1
+
+
+def small_docs(seed: int, vocab: int, dims: int):
+    """SMALL_DOCS documents over the same Zipf vocabulary as the corpus."""
+    rng = np.random.default_rng(seed + 17)
+    probs = 1.0 / np.arange(1, vocab + 1)
+    probs /= probs.sum()
+    out = []
+    for i in range(SMALL_DOCS):
+        words = rng.choice(vocab, size=int(rng.integers(15, 35)), p=probs)
+        v = rng.standard_normal(dims).astype(np.float32)
+        out.append((f"s{i}", {"body": " ".join(f"w{w:05d}" for w in words),
+                              "vec": [round(float(x), 6) for x in v]}))
+    return out
+
+
+def hits_of(resp: dict):
+    return [(h["_id"], h["_score"]) for h in resp["hits"]["hits"]]
+
+
+def same_served(ref: dict, got: dict, what: str) -> None:
+    """Served responses agree: same total, same ids, scores within RTOL."""
+    check(ref["hits"]["total"] == got["hits"]["total"],
+          f"{what}: total {got['hits']['total']} != oracle {ref['hits']['total']}")
+    rh, gh = hits_of(ref), hits_of(got)
+    check(len(rh) == len(gh), f"{what}: {len(gh)} hits != oracle {len(rh)}")
+    for (_, rs), (_, gs) in zip(rh, gh):
+        check(np.isclose(gs, rs, rtol=RTOL, atol=1e-6), f"{what}: score {gs} != oracle {rs}")
+    same_ids([i for i, _ in rh], [s for _, s in rh], [i for i, _ in gh], what)
+
+
+def drive(http: Http, path: str, bodies: list, clients: int):
+    """Sends every body once from `clients` threads; returns (responses
+    in body order, per-request latencies in ms, wall seconds)."""
+    out = [None] * len(bodies)
+    lat = [0.0] * len(bodies)
+    nxt = iter(range(len(bodies)))
+    lock = threading.Lock()
+    errors = []
+
+    def worker():
+        while True:
+            with lock:
+                i = next(nxt, None)
+            if i is None:
+                return
+            t = time.perf_counter()
+            try:
+                out[i] = http.ok("POST", path, bodies[i])
+            except BaseException as e:  # surfaced after the join
+                errors.append(e)
+                return
+            lat[i] = (time.perf_counter() - t) * 1e3
+
+    threads = [threading.Thread(target=worker) for _ in range(clients)]
+    t = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t
+    check(not any(th.is_alive() for th in threads), f"{path}: a client thread hung")
+    if errors:
+        raise errors[0]
+    return out, lat, wall
+
+
+def _client_loop(port: int, conn) -> None:
+    """The load generator's process: runs `drive` for each (path,
+    bodies, clients) it receives, until it receives None."""
+    http = Http(port)
+    while True:
+        msg = conn.recv()
+        if msg is None:
+            break
+        try:
+            conn.send(("ok", drive(http, *msg)))
+        except BaseException as e:  # reported to the parent
+            conn.send(("err", repr(e)))
+    conn.close()
+
+
+class ClientProcess:
+    """HTTP clients in a process of their own, so the load they generate
+    does not compete with the server for its interpreter lock (what the
+    server's users feel). Started with `spawn`; closed by `close()`."""
+
+    def __init__(self, port: int):
+        ctx = multiprocessing.get_context("spawn")
+        self.conn, child = ctx.Pipe()
+        self.proc = ctx.Process(target=_client_loop, args=(port, child), daemon=True)
+        self.proc.start()
+        child.close()
+
+    def drive(self, path: str, bodies: list, clients: int):
+        self.conn.send((path, bodies, clients))
+        tag, out = self.conn.recv()
+        check(tag == "ok", f"client process: {out}")
+        return out
+
+    def close(self) -> None:
+        try:
+            self.conn.send(None)
+        except OSError:
+            pass
+        self.proc.join(timeout=30)
+        if self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join(timeout=10)
+
+
+def latency_row(lat: list, wall: float) -> dict:
+    a = np.asarray(lat)
+    return {"requests": len(lat), "qps": len(lat) / wall, "p50_ms": float(np.percentile(a, 50)),
+            "p99_ms": float(np.percentile(a, 99)), "mean_ms": float(a.mean())}
+
+
+def drive_measured(clients_proc: ClientProcess, path: str, bodies: list, clients: int):
+    """`drive` in the client process; the latency row also carries this
+    (the server's) process's CPU time over the drive: its share of the
+    wall (1.0 = one core busy throughout) and its time per request."""
+    cpu = time.process_time()
+    out, lat, wall = clients_proc.drive(path, bodies, clients)
+    cpu = time.process_time() - cpu
+    row = latency_row(lat, wall)
+    row["server_cpu_share"] = cpu / wall
+    row["server_cpu_ms_per_request"] = cpu * 1e3 / len(lat)
+    return out, row
+
+
+# innermost frames of a thread that is blocked, not running Python
+WAIT_FRAMES = {
+    ("threading.py", "wait"), ("queue.py", "get"), ("socket.py", "readinto"),
+    ("socket.py", "accept"), ("selectors.py", "select"), ("threading.py", "_wait_for_tstate_lock"),
+    ("thread.py", "_worker"),  # an idle ThreadPoolExecutor thread
+}
+
+
+def thread_role(name: str):
+    if name.startswith("query-batcher"):
+        return "batcher"
+    if name.startswith("search-fanout"):
+        return "fanout"
+    if "process_request_thread" in name:
+        return "http"
+    return None
+
+
+class HostSampler:
+    """Samples the Python stack of every HTTP, fan-out and batcher thread
+    of this process every `period` seconds, from a thread of its own
+    (what a sampling profiler does; none is installed). Per role it
+    counts the share of samples blocked in a wait (WAIT_FRAMES) and, of
+    the others, the innermost frames (file:function). The sampler's own wake-up delay past
+    `period` is how long a runnable thread waited for the interpreter
+    lock at that moment."""
+
+    def __init__(self, period: float = 0.001):
+        self.period = period
+        self.counts: dict = {}
+        self.lags: list = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="host-sampler", daemon=True)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=10)
+
+    def _run(self) -> None:
+        from collections import Counter
+
+        while not self._stop.is_set():
+            t = time.perf_counter()
+            time.sleep(self.period)
+            self.lags.append(time.perf_counter() - t - self.period)
+            names = {th.ident: th.name for th in threading.enumerate()}
+            for ident, frame in sys._current_frames().items():
+                role = thread_role(names.get(ident, ""))
+                if role is None:
+                    continue
+                code = frame.f_code
+                where = (Path(code.co_filename).name, code.co_name)
+                self.counts.setdefault(role, Counter())[where] += 1
+
+    def summary(self, top: int = 8) -> dict:
+        lags = np.asarray(self.lags) * 1e3
+        out = {"samples": len(lags), "period_ms": self.period * 1e3,
+               "lock_wait_ms_mean": float(lags.mean()) if len(lags) else None,
+               "lock_wait_ms_p50": float(np.percentile(lags, 50)) if len(lags) else None,
+               "lock_wait_ms_p99": float(np.percentile(lags, 99)) if len(lags) else None}
+        for role, c in sorted(self.counts.items()):
+            n = sum(c.values())
+            running = [(w, v) for w, v in c.most_common() if w not in WAIT_FRAMES]
+            n_run = sum(v for _, v in running)
+            out[role] = {
+                "thread_samples": n,
+                "blocked_share": 1.0 - n_run / n,
+                "top_running": [[f"{f}:{fn}", v / n_run] for (f, fn), v in running[:top]],
+            }
+        return out
+
+
+def count_syncs(fn) -> dict:
+    """Host-device synchronisations made by one call of `fn` on this
+    thread (`torch.cuda.set_sync_debug_mode`, which warns at every
+    synchronising call), with the source lines that made them."""
+    import warnings
+    from collections import Counter
+
+    import torch
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    where = Counter(f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                    if "synchroniz" in str(w.message))
+    return {"syncs": sum(where.values()), "where": where.most_common(6)}
+
+
+# the 8-client /bench drive again under each variant: (name, batcher
+# workers, the interpreter's thread switch interval in s, host sampler)
+DIAG_VARIANTS = (
+    ("workers6_switch5ms", 6, 0.005, False),
+    ("workers1_switch5ms", 1, 0.005, False),
+    ("workers2_switch5ms", 2, 0.005, False),
+    ("workers6_switch0.5ms", 6, 0.0005, False),
+    ("workers1_switch0.5ms", 1, 0.0005, False),
+    ("workers6_switch5ms_sampled", 6, 0.005, True),
+)
+
+
+def diagnose_concurrency(srv, http: Http, clients_proc: ClientProcess,
+                         match_bodies: list, knn_bodies: list) -> dict:
+    """Why 8 clients form few groups and serve fewer QPS than 1: each
+    variant gets a fresh `/bench` batcher (one warm request per route
+    first), then the 8-client drive of both routes; its QPS, latency,
+    the server's CPU share, launches by bucket and, where sampled, where
+    the server's threads were."""
+    from elasticsearch_tpu_torch.search.batcher import QueryBatcher
+
+    bench = srv.cluster.get_index("bench")
+    switch0 = sys.getswitchinterval()
+    out = {}
+    try:
+        for name, workers, switch, sampled in DIAG_VARIANTS:
+            old, bench._batcher = bench._batcher, QueryBatcher(workers=workers)
+            old.close()
+            sys.setswitchinterval(switch)
+            for bodies in (match_bodies, knn_bodies):
+                http.ok("POST", "/bench/_search", bodies[0])
+            bench._batcher.wait_warm_idle()
+            b = bench._batcher
+            base = b.batching_stats()
+            launches0, jobs0 = b.stats["launches"], b.stats["jobs"]
+            res = {}
+            sampler = HostSampler() if sampled else contextlib.nullcontext()
+            with sampler:
+                for route, bodies in (("match", match_bodies), ("knn", knn_bodies)):
+                    _, res[route] = drive_measured(clients_proc, "/bench/_search", bodies, CLIENTS)
+            bs = b.batching_stats()
+            res["launches"] = b.stats["launches"] - launches0
+            res["jobs"] = b.stats["jobs"] - jobs0
+            res["launches_by_bucket"] = {
+                k: n - base["launches_by_bucket"].get(k, 0) for k, n in bs["launches_by_bucket"].items()
+            }
+            res["express_lane_hits"] = bs["express_lane_hits"] - base["express_lane_hits"]
+            if sampled:
+                res["host_samples"] = sampler.summary()
+            log(f"diagnosis {name}: match {res['match']} knn {res['knn']} "
+                f"launches {res['launches']} for {res['jobs']} jobs, by bucket {res['launches_by_bucket']}")
+            out[name] = res
+    finally:
+        sys.setswitchinterval(switch0)
+    return out
+
+
+def node_stats(http: Http) -> dict:
+    node = http.ok("GET", "/_nodes/stats")["nodes"]["node-0"]
+    return {"search": node["thread_pool"]["search"], "batching": node["pipeline"]["batching"],
+            "pipeline": {k: v for k, v in node["pipeline"].items() if k != "batching"}}
+
+
+def phase_serve(reader, dims: int, seed: int, device, card: str) -> dict:
+    import torch
+
+    from elasticsearch_tpu_torch.rest.server import ElasticsearchTpuServer
+    from elasticsearch_tpu_torch.search import dsl
+    from elasticsearch_tpu_torch.search.admission import admission
+    from elasticsearch_tpu_torch.search.batcher import QueryBatcher, extract_knn_plan, extract_match_plan
+    from elasticsearch_tpu_torch.search.executor_torch import TorchExecutor
+
+    # a closed-loop measurement of the serving path, as bench.py's
+    # closed-loop sections run it: the admission layer's queueing and
+    # brownout tiers stay out of it
+    admission.configure(enabled=False)
+    check(torch.get_float32_matmul_precision() == "highest",
+          f"float32 matmul precision is {torch.get_float32_matmul_precision()!r}, not 'highest'")
+    seg = reader.segments[0]
+    pf = seg.postings["body"]
+    vocab = len(pf.terms)
+    mapping = {"properties": {
+        "body": {"type": "text"},
+        "vec": {"type": "dense_vector", "dims": dims, "similarity": "cosine"},
+    }}
+    times = {}
+    t = time.perf_counter()
+    srv = ElasticsearchTpuServer(port=0, device=device)
+    srv.start_background()
+    clients_proc = None
+    try:
+        http = Http(srv.port)
+        clients_proc = ClientProcess(srv.port)
+        for name, backend, shards in (("bench", "torch", 1), ("bench_oracle", "numpy", 1),
+                                      ("small", "torch", 2), ("small_oracle", "numpy", 2)):
+            # refresh_interval -1: segments come from the explicit
+            # refreshes below only, not from the background refresher
+            http.ok("PUT", f"/{name}", {"settings": {"number_of_shards": shards,
+                                                     "search.backend": backend,
+                                                     "refresh_interval": "-1"},
+                                        "mappings": mapping})
+        for name in ("bench", "bench_oracle"):
+            install_segment(srv.cluster.get_index(name), seg)
+        docs = small_docs(seed, vocab, dims)
+        half = len(docs) // 2
+        for name in ("small", "small_oracle"):
+            for part in (docs[:half], docs[half:]):
+                lines = []
+                for doc_id, src in part:
+                    lines += [{"index": {"_id": doc_id}}, src]
+                out = http.ok("POST", f"/{name}/_bulk?refresh=true", ndjson=lines)
+                check(not out["errors"], f"/{name}/_bulk reported errors")
+            for i in range(SMALL_DELETES):
+                http.ok("DELETE", f"/{name}/_doc/s{i * 37}")
+            http.ok("POST", f"/{name}/_refresh")
+            check(all(len(e.segments) == 2 for e in srv.cluster.get_index(name).shards),
+                  f"/{name}: expected two segments per shard")
+        times["setup_s"] = time.perf_counter() - t
+
+        texts = match_texts(pf.term_df, MATCH_QUERIES, seed)
+        rng = np.random.default_rng(seed + 19)
+        match_bodies = [{"query": {"match": {"body": s}}, "size": K} for s in texts]
+        knn_bodies = [
+            {"knn": {"field": "vec", "query_vector": [float(x) for x in v], "k": K,
+                     "num_candidates": 100}, "size": K}
+            for v in rng.standard_normal((KNN_QUERIES, dims)).astype(np.float32)
+        ]
+        # one of each first: the executor's uploads and dense rows are
+        # set-up, not serving
+        t = time.perf_counter()
+        http.ok("POST", "/bench/_search", match_bodies[0])
+        http.ok("POST", "/bench/_search", knn_bodies[0])
+        times["first_requests_s"] = time.perf_counter() - t
+        stats0 = node_stats(http)
+
+        # ---- the served path: 8 clients, then 1 (client process) ----
+        served = {}
+        rows = {}
+        for clients in (CLIENTS, 1):
+            for route, bodies in (("match", match_bodies), ("knn", knn_bodies)):
+                out, rows[f"{route}_{clients}_clients"] = drive_measured(
+                    clients_proc, "/bench/_search", bodies, clients)
+                served[(route, clients)] = out
+                log(f"/bench {route} x{len(bodies)} from {clients} clients: "
+                    f"{rows[f'{route}_{clients}_clients']}")
+        stats_bench = node_stats(http)
+        bench_search = {k: stats_bench["search"][k] - stats0["search"][k]
+                        for k in ("launches", "fused_jobs", "chunked_jobs", "completed")}
+        by_bucket = {
+            b: n - stats0["batching"]["launches_by_bucket"].get(b, 0)
+            for b, n in stats_bench["batching"]["launches_by_bucket"].items()
+        }
+        log(f"/bench batcher: {bench_search}, launches by bucket {by_bucket}")
+        check(bench_search["launches"] > 0, "/bench: the batcher launched nothing")
+        check(bench_search["fused_jobs"] > 0, "/bench: no job went through a batched launch")
+        check(any(int(b) > 1 and n > 0 for b, n in by_bucket.items()),
+              f"/bench: no launch wider than one query row ({by_bucket})")
+
+        # ---- held to the numpy oracle ----
+        t = time.perf_counter()
+        for route, bodies in (("match", match_bodies), ("knn", knn_bodies)):
+            for i in range(ORACLE_QUERIES):
+                ref = http.ok("POST", "/bench_oracle/_search", bodies[i])
+                for clients in (CLIENTS, 1):
+                    same_served(ref, served[(route, clients)][i],
+                                f"/bench {route} body {i} ({clients} clients)")
+        times["bench_oracle_s"] = time.perf_counter() - t
+
+        # ---- the small index: chunked path, 2 shards, deletes ----
+        t = time.perf_counter()
+        rng = np.random.default_rng(seed + 23)
+        words = [w for _, src in docs[:200] for w in src["body"].split()]
+        small_bodies = []
+        for i in range(SMALL_QUERIES):
+            q = " ".join(rng.choice(words, size=int(rng.integers(2, 5))))
+            if i % 4 == 3:
+                small_bodies.append({"query": {"match": {"body": {"query": q, "operator": "and"}}}})
+            else:
+                small_bodies.append({"query": {"match": {"body": q}}, "size": K})
+        for v in rng.standard_normal((SMALL_QUERIES // 2, dims)).astype(np.float32):
+            small_bodies.append({"knn": {"field": "vec", "query_vector": [float(x) for x in v],
+                                         "k": K, "num_candidates": 50}})
+        out, rows["small_mixed_8_clients"] = drive_measured(
+            clients_proc, "/small/_search", small_bodies, CLIENTS)
+        for i, body in enumerate(small_bodies):
+            same_served(http.ok("POST", "/small_oracle/_search", body), out[i], f"/small body {i}")
+        stats_small = node_stats(http)
+        chunked = stats_small["search"]["chunked_jobs"] - stats_bench["search"]["chunked_jobs"]
+        log(f"/small: {chunked} (job, segment) pairs through the chunked path")
+        check(chunked > 0, "/small: the chunked path was not taken")
+        times["small_s"] = time.perf_counter() - t
+        ex = srv.cluster.get_index("small")._executor(srv.cluster.get_index("small").shards[0])
+        check(isinstance(ex, TorchExecutor) and ex.device.type == device.type,
+              "/small is not served by a TorchExecutor on the card")
+
+        # ---- profiles: 8 requests served over HTTP per route (the
+        # card's activity; the server's threads are not traced on the
+        # host side), then one batcher group of 8 per route run on this
+        # thread, whose host ranges (topk_desc's share) are traced ----
+        profile, syncs = {}, {}
+        if device.type == "cuda":
+            def group(bodies):
+                return lambda: clients_proc.drive("/bench/_search", bodies[:CLIENTS], CLIENTS)
+
+            bench = srv.cluster.get_index("bench")
+            bex = bench._executor(bench.shards[0])
+            gb = QueryBatcher(workers=1)
+            gb._ensure_thread = lambda: None  # groups run on this thread
+            mplans = [extract_match_plan(dsl.parse_query(b["query"]), bench.mappings,
+                                         bench.analysis) for b in match_bodies[:CLIENTS]]
+            kplans = [extract_knn_plan([dsl.parse_knn(b["knn"])], bench.mappings)
+                      for b in knn_bodies[:CLIENTS]]
+
+            def batcher_match():
+                jobs = [gb.submit_nowait(bex, p, K) for p in mplans]
+                gb._run_group(jobs, "body", 16, rows=CLIENTS)
+
+            def batcher_knn():
+                jobs = [gb.submit_nowait(bex, p, K, kind="knn") for p in kplans]
+                gb._collect_knn_group(jobs, gb._dispatch_knn_group(jobs, rows=CLIENTS))
+
+            profile = profile_routes({"served_match_http_8": group(match_bodies),
+                                      "served_knn_http_8": group(knn_bodies),
+                                      "batcher_match_group_8": batcher_match,
+                                      "batcher_knn_group_8": batcher_knn}, device)
+            syncs = {"batcher_match_group_8": count_syncs(batcher_match),
+                     "batcher_knn_group_8": count_syncs(batcher_knn)}
+            log(f"synchronising calls per batcher group: {syncs}")
+            gb.close()
+
+        # ---- why 8 clients form few groups (measured, not checked) ----
+        t = time.perf_counter()
+        diagnosis = diagnose_concurrency(srv, http, clients_proc, match_bodies, knn_bodies)
+        times["diagnosis_s"] = time.perf_counter() - t
+        return {"card": card, "latency": rows, "times": times, "bench_batcher": bench_search,
+                "bench_launches_by_bucket": by_bucket, "small_chunked_jobs": chunked,
+                "pipeline": stats_small["pipeline"], "profile": profile,
+                "syncs_per_group": syncs, "concurrency_diagnosis": diagnosis,
+                "float32_matmul_precision": torch.get_float32_matmul_precision()}
+    finally:
+        if clients_proc is not None:
+            clients_proc.close()
+        srv.close()
 
 
 def gpu_line() -> str:
@@ -483,9 +1092,6 @@ def run(device, seed: int, n_docs: int, vocab: int, dims: int, card: str) -> dic
     from elasticsearch_tpu_torch.ops.int8_knn import QuantizedVectors
     from elasticsearch_tpu_torch.search.executor import NumpyExecutor
 
-    # full float32 products for the f32 paths (PyTorch's default, stated)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     phases = {}
     t = time.perf_counter()
     build_s = phase_build() if device.type == "cuda" else {}
@@ -509,12 +1115,18 @@ def run(device, seed: int, n_docs: int, vocab: int, dims: int, card: str) -> dic
     phases["3_main_path_s"] = time.perf_counter() - t
     for k in kernels:
         k["launches"] = main["launches"][k["name"]]
+    del oracle, qv
+
+    t = time.perf_counter()
+    serve = phase_serve(reader, vecs.shape[1], seed, device, card)
+    phases["4_serve_s"] = time.perf_counter() - t
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
     return {
         "card": card,
         "build_s": build_s,
         "phases": phases,
         "main_path": main,
+        "serve": serve,
         "peak_device_bytes": peak,
         "kernels": kernels,
     }
@@ -544,6 +1156,8 @@ def main(argv=None) -> int:
     result = run(device, args.seed, args.docs, args.vocab, args.dims, card)
     print(json.dumps({"card": card, "phases": result["phases"], "build_s": result["build_s"],
                       "main_path": result["main_path"], "peak_device_bytes": result["peak_device_bytes"]}))
+    print(card, flush=True)
+    print(json.dumps({"card": card, "serve": result["serve"]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": result["kernels"]}), flush=True)
     print(json.dumps({

@@ -1,4 +1,4 @@
-"""elasticsearch_tpu_torch — the shard query phase in PyTorch for NVIDIA GPUs.
+"""elasticsearch_tpu_torch — Elasticsearch-shaped serving in PyTorch for NVIDIA GPUs.
 
 The counterpart of `elasticsearch_tpu` (the JAX package, which stays the
 reference): the same tiled columnar segments and the same query
@@ -9,11 +9,19 @@ and the one hand-written kernel (`ops/int8_knn.py`, source in
 Layout mirrors the reference package module for module, so a reader
 finds each counterpart under the same relative path:
 
-  utils/, analysis/, index/, models/, common/, search/dsl.py,
-  search/executor.py   host-side copies (numpy / pure Python)
-  ops/scoring.py       BM25 tile scoring, fused query phase, merge, kNN
+  utils/, analysis/, index/, models/, common/, tasks/, ingest/,
+  plugins.py, search/{dsl,executor,admission,aggs,coordinator,
+  failures,query_cache,ann}.py, rest/router.py
+                       host-side copies (numpy / pure Python)
+  ops/scoring.py       BM25 tile scoring, fused and chunked scorers,
+                       cross-segment merges, kNN
+  ops/wand.py          block-max tiling and bounds (host numpy, device
+                       tiles)
   ops/int8_knn.py      int8 kNN scoring: CUDA kernel + plain version
   search/executor_torch.py   TorchExecutor (counterpart of JaxExecutor)
+  search/batcher.py    QueryBatcher: the match and knn families
+  cluster/, rest/      IndexService, ClusterService, the REST server
+  cuts.py              what is not ported yet, and which slice brings it
   convert.py           carries segments / quantized corpora across
 
 Nothing here imports `jax` or `elasticsearch_tpu`. Entry points run on

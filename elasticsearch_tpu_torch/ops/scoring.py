@@ -1,7 +1,9 @@
 """Device scoring over tiled postings, in PyTorch.
 
 Counterpart of `elasticsearch_tpu/ops/scoring.py` (the JAX package),
-reduced to what the shard query phase for `match` and exact kNN runs:
+reduced to what serving `match` and exact kNN runs (the fused scorer for
+large segments, the chunked scorer for small ones, the cross-segment
+merges):
 
   gather tile rows ([n_tiles, 128] int32 tensors on the device)
   → elementwise BM25
@@ -152,6 +154,172 @@ def knn_flops(n_queries: int, n_docs: int, dims: int) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Chunked batched scorer — the path for small segments (every segment a
+# `_bulk` + refresh makes) and for fused-slot overflow. Tile lists of any
+# length stream through launches of TCHUNK tiles per query row into a
+# dense [rows, n_docs + 1] accumulator (the extra column takes padding);
+# the accumulator is updated in place, as the reference donates it.
+# ---------------------------------------------------------------------------
+
+TCHUNK = 512  # tiles per query row per launch
+
+
+def _chunk_scores(doc_ids, tfs, inv_norm, ti, tw, tv):
+    """(scatter targets [B, TC, 128], BM25 contributions, valid mask)
+    for one [B, TC] chunk of tile ids `ti` with weights `tw`; invalid
+    slots score exactly 0 and target the overflow column n_docs."""
+    n_docs = inv_norm.shape[0]
+    rows_d = doc_ids[ti]  # [B, TC, 128]
+    rows_t = tfs[ti]
+    valid = (rows_d >= 0) & tv[:, :, None]
+    tgt = torch.where(valid, rows_d, n_docs).long()
+    inv = inv_norm[rows_d.clamp(0, max(n_docs - 1, 0)).long()]
+    w = tw[:, :, None]
+    s = w - w / (1.0 + rows_t.to(torch.float32) * inv)
+    return tgt, torch.where(valid, s, 0.0), valid
+
+
+def _chunk_add(doc_ids, tfs, inv_norm, acc, ti, tw, tv):
+    """acc[B, n+1] += BM25 contributions of one [B, TCHUNK] tile chunk."""
+    tgt, s, _ = _chunk_scores(doc_ids, tfs, inv_norm, ti, tw, tv)
+    b = acc.shape[0]
+    acc.scatter_add_(1, tgt.reshape(b, -1), s.reshape(b, -1))
+    return acc
+
+
+def _chunk_add_cnt(doc_ids, tfs, inv_norm, acc, cnt, ti, tw, tv):
+    """Like _chunk_add but also counts matching terms per doc (for
+    minimum_should_match / operator=and semantics)."""
+    tgt, s, valid = _chunk_scores(doc_ids, tfs, inv_norm, ti, tw, tv)
+    b = acc.shape[0]
+    tgt = tgt.reshape(b, -1)
+    acc.scatter_add_(1, tgt, s.reshape(b, -1))
+    cnt.scatter_add_(1, tgt, valid.reshape(b, -1).to(torch.int32))
+    return acc, cnt
+
+
+def _threshold(acc, live, k: int, block_size: int):
+    """(theta[B], accmax[B, n_blocks]) after the essential-terms pass.
+
+    theta = kth best accumulated score over matching LIVE docs (the
+    top-k floor the pruning bound must beat); accmax keeps deleted docs
+    in — an overestimate is a sound upper bound."""
+    a = acc[:, :-1]
+    n = a.shape[1]
+    masked = torch.where(a > 0, a, -torch.inf)
+    if live is not None:
+        masked = torch.where(live[None, :], masked, -torch.inf)
+    # the k-th VALUE does not depend on how ties are ordered
+    theta = torch.topk(masked, min(k, n), dim=1).values[:, -1]
+    n_blocks = -(-n // block_size)
+    pad = n_blocks * block_size - n
+    ap = torch.nn.functional.pad(a, (0, pad))
+    accmax = ap.reshape(a.shape[0], n_blocks, block_size).amax(dim=2)
+    return theta, accmax
+
+
+def _finalize(acc, cnt, live, msm, k: int):
+    """(scores[B,k], docs[B,k], totals[B]); score desc / doc asc."""
+    a = acc[:, :-1]
+    n = a.shape[1]
+    if cnt is None:
+        mask = a > 0
+    else:
+        mask = cnt[:, :-1] >= torch.clamp(msm, min=1)[:, None]
+    if live is not None:
+        mask = mask & live[None, :]
+    masked = torch.where(mask, a, -torch.inf)
+    s, d = topk_desc(masked, min(k, n))
+    return s, d.to(torch.int32), mask.sum(dim=1, dtype=torch.int32)
+
+
+class ChunkedScorer:
+    """Batched BM25 scoring over one segment's tiled postings with fixed
+    launch shapes (see the section comment above).
+
+    Reference analog: the per-leaf BM25 scoring loop
+    (BM25Similarity.score inside Weight.scorer iteration); the dense
+    [rows, n_docs] accumulator replaces the doc-at-a-time heap, and the
+    threshold/finalize split is the WAND phase boundary. All tensors
+    live on the device of `doc_ids`."""
+
+    def __init__(self, doc_ids, tfs, inv_norm, live=None, block_size: int = 4096):
+        self.device = doc_ids.device
+        self.doc_ids = doc_ids
+        self.tfs = tfs
+        self.inv_norm = _as_device(inv_norm, self.device, torch.float32)
+        self.live = _as_device(live, self.device, torch.bool)
+        self.n_docs = int(self.inv_norm.shape[0])
+        self.block_size = block_size
+
+    def new_acc(self, with_cnt: bool, rows: int = BPAD):
+        """Zeroed accumulators for one launch of `rows` query rows (the
+        group's ladder bucket)."""
+        acc = torch.zeros(rows, self.n_docs + 1, dtype=torch.float32, device=self.device)
+        cnt = (
+            torch.zeros(rows, self.n_docs + 1, dtype=torch.int32, device=self.device)
+            if with_cnt
+            else None
+        )
+        return acc, cnt
+
+    def score_into(self, acc, cnt, tile_lists, weight_lists):
+        """Streams per-row tile/weight lists (<= acc rows, any length)
+        through TCHUNK-wide launches into the accumulators, in place.
+        Each chunk is one packed int32 upload (tile ids, weights bitcast,
+        validity) that does not wait for the device."""
+        rows = int(acc.shape[0])
+        t_max = max((len(t) for t in tile_lists), default=0)
+        for c0 in range(0, t_max, TCHUNK):
+            plan = np.zeros((3, rows, TCHUNK), np.int32)
+            ti, tw, tv = plan[0], plan[1].view(np.float32), plan[2]
+            for j, (tl, wl) in enumerate(zip(tile_lists, weight_lists)):
+                sl = tl[c0 : c0 + TCHUNK]
+                m = len(sl)
+                if m:
+                    ti[j, :m] = sl
+                    tw[j, :m] = wl[c0 : c0 + TCHUNK]
+                    tv[j, :m] = 1
+            dev = upload(plan, self.device)
+            args = (dev[0].long(), dev[1].view(torch.float32), dev[2] != 0)
+            if cnt is None:
+                acc = _chunk_add(self.doc_ids, self.tfs, self.inv_norm, acc, *args)
+            else:
+                acc, cnt = _chunk_add_cnt(
+                    self.doc_ids, self.tfs, self.inv_norm, acc, cnt, *args
+                )
+        return acc, cnt
+
+    def threshold(self, acc, k: int, live=None):
+        """Host (theta[B], accmax[B, n_blocks]) — the one host-dependent
+        round of block-max pruning. `live` optionally overrides the
+        constructor's live-docs mask."""
+        theta, accmax = _threshold(
+            acc,
+            live if live is not None else self.live,
+            k=min(k, self.n_docs),
+            block_size=self.block_size,
+        )
+        return theta.cpu().numpy(), accmax.cpu().numpy()
+
+    def finalize(self, acc, cnt, msm: np.ndarray, k: int, live=None):
+        s, d, tot = self.finalize_device(acc, cnt, msm, k, live=live)
+        return s.cpu().numpy(), d.cpu().numpy(), tot.cpu().numpy()
+
+    def finalize_device(self, acc, cnt, msm: np.ndarray, k: int, live=None):
+        """Like finalize() but the (scores, docs, totals) triple STAYS on
+        the device, so the cross-segment merge consumes it with no
+        per-segment host sync."""
+        return _finalize(
+            acc,
+            cnt,
+            live if live is not None else self.live,
+            upload(np.asarray(msm, np.int32), self.device),
+            k=min(k, self.n_docs),
+        )
+
+
+# ---------------------------------------------------------------------------
 # Fused single-round-trip scorer: the whole query phase of one large
 # segment for up to BPAD queries, fed by ONE packed int32 plan upload and
 # returning ONE packed int32 download. Rare terms go through the tile
@@ -189,6 +357,18 @@ def _as_device(x, device, dtype=None):
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype)
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+
+def upload(host: np.ndarray, device) -> torch.Tensor:
+    """A host array as a tensor on `device` WITHOUT waiting for the
+    device: on a card the array goes through pinned memory and an
+    asynchronous copy on the current stream (a pageable copy would wait
+    for every kernel queued before it, which collapses the batcher's
+    dispatch/collect pipeline). On the CPU it is the array itself."""
+    t = torch.from_numpy(np.ascontiguousarray(host))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
 
 
 class FusedScorer:
@@ -265,7 +445,7 @@ class FusedScorer:
             self.inv_norm,
             _as_device(live, self.device, torch.bool) if live is not None else self.live,
             self.dense,
-            torch.from_numpy(packed).to(self.device),
+            upload(packed, self.device),
             t_rare=self.t_rare,
             n_hot=self.n_hot_slots,
             k=k,
@@ -391,9 +571,9 @@ def merge_segment_topk(items, k: int):
     widths = [int(s.shape[1]) for _, s, _, _ in items]
     k = min(k, sum(widths))
     device = items[0][1].device
-    seg_of_slot = torch.from_numpy(
-        np.repeat(np.asarray([si for si, *_ in items], np.int32), widths)
-    ).to(device)
+    seg_of_slot = upload(
+        np.repeat(np.asarray([si for si, *_ in items], np.int32), widths), device
+    )
     out = _merge_segments(
         tuple(s for _, s, _, _ in items),
         tuple(d for _, _, d, _ in items),
@@ -406,6 +586,55 @@ def merge_segment_topk(items, k: int):
     docs = out[:, 2 * k : 3 * k]
     totals = out[:, 3 * k :].astype(np.int64)
     return scores, segs, docs, totals
+
+
+def _knn_merge_segments(s_list, d_list, seg_of_slot, nc_cat, k):
+    scores = torch.cat(s_list, dim=1)  # [B, total_slots]
+    docs = torch.cat(d_list, dim=1)
+    # per-(job, segment) num_candidates rank cut, applied on the device:
+    # a slot survives when its within-segment rank is below the job's
+    # candidate budget for that segment AND it scored a real candidate
+    valid = torch.isfinite(scores) & nc_cat
+    masked = torch.where(valid, scores, -torch.inf)
+    s, idx = topk_desc(masked, k)
+    seg = seg_of_slot[idx]
+    doc = torch.gather(docs.to(torch.int32), 1, idx)
+    counts = valid.sum(dim=1, dtype=torch.int32)
+    return torch.cat([s.view(torch.int32), seg, doc, counts[:, None]], dim=1)
+
+
+def knn_merge_segment_topk(items, nc_rows: np.ndarray, k: int):
+    """kNN variant of merge_segment_topk. items: [(si, scores f32[B,ki],
+    docs i32[B,ki])] device pairs (segment asc); nc_rows: host int32
+    [B, n_segments] per-(job, segment) num_candidates cut (the
+    coordinator's per-segment candidate budget). Returns (scores,
+    segments, docs, counts i64[B]) — counts is the number of surviving
+    candidates across segments (before the final k cut), in ONE
+    device→host transfer."""
+    widths = [int(s.shape[1]) for _, s, _ in items]
+    k = min(k, sum(widths))
+    device = items[0][1].device
+    seg_of_slot = upload(
+        np.repeat(np.asarray([si for si, *_ in items], np.int32), widths), device
+    )
+    rank_of_slot = np.concatenate([np.arange(w, dtype=np.int32) for w in widths])
+    # bool [B, total_slots]: slot rank < that (job, segment)'s budget
+    nc_cat = upload(
+        rank_of_slot[None, :] < np.repeat(nc_rows.astype(np.int32), widths, axis=1),
+        device,
+    )
+    out = _knn_merge_segments(
+        tuple(s for _, s, _ in items),
+        tuple(d for _, _, d in items),
+        seg_of_slot,
+        nc_cat,
+        k=k,
+    ).cpu().numpy()
+    scores = out[:, :k].copy().view(np.float32)
+    segs = out[:, k : 2 * k]
+    docs = out[:, 2 * k : 3 * k]
+    counts = out[:, 3 * k].astype(np.int64)
+    return scores, segs, docs, counts
 
 
 # ---------------- kNN ----------------

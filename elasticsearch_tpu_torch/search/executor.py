@@ -65,12 +65,11 @@ from .dsl import (
 
 
 def _later_slice(what: str):
-    """The host modules behind these nodes are not copied into the port
+    """The script service behind these nodes is not copied into the port
     yet; the node raises instead of reaching into the JAX package."""
-    raise NotImplementedError(
-        f"{what} is not part of the PyTorch port yet: it comes with a later "
-        "slice (see ROADMAP.md)"
-    )
+    from ..cuts import FETCH, not_ported
+
+    raise not_ported(what, FETCH)
 
 
 @dataclass
@@ -187,7 +186,7 @@ class NumpyExecutor:
         ctx = self.cache_ctx
         if ctx is None or not dsl.is_cacheable_filter(q):
             return self._exec(q, seg)[0]
-        filter_cache = _later_slice("the filter-bitset cache (search/query_cache.py)")
+        from .query_cache import filter_cache
 
         si = self._seg_index.get(id(seg))
         if si is None:
@@ -951,7 +950,8 @@ class NumpyExecutor:
         mask = np.zeros(n, bool)
         doc_ex = getattr(q, "_doc_executor", None)
         if doc_ex is None:
-            ShardEngine = _later_slice("percolate (index/engine.py)")
+            from ..index.engine import ShardEngine
+            from ..index.mapping import Mappings
 
             # a COPY of the mappings: dynamic-mapping the candidate
             # doc's fields must never mutate the live index mapping

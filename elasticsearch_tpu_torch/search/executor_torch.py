@@ -6,13 +6,15 @@ device tensors: postings tiles live in device memory, leaves score via
 the gather→BM25→scatter functions in ops/scoring.py, and collection is a
 top-k that breaks ties by the lowest doc.
 
-This slice of the port covers the shard query phase of `match` (BM25),
+The port covers the shard query phase of `match` (BM25),
 `match_all`/`match_none` and exact brute-force kNN (top-level `knn`
-sections and the `knn` query node), plus the batched match route a
-serving batcher drives for a large segment: `fused_scorer` →
-`fused_plan` → `FusedScorer.search_async` → `merge_segment_topk`. Every
-other query node raises NotImplementedError naming the slice that
-brings it.
+sections and the `knn` query node), plus the surface the serving
+batcher drives: the fused route for large segments (`fused_scorer` →
+`fused_plan` → `FusedScorer.search_async`), the chunked block-max route
+for small ones (`block_index`, `chunked_scorer`), `segment_topk`, and
+device-resident live and live ∧ exists masks built once per executor
+(= reader generation). Every other query node raises
+NotImplementedError naming the slice that brings it (cuts.py).
 
 Per-segment tensors are uploaded once, lazily per field, and charged to
 the device-memory ledger (common/memory.py) — the analog of Lucene's
@@ -27,6 +29,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import cuts
+from ..cuts import not_ported
 from ..index.mapping import TEXT
 from ..index.segment import Segment
 from ..models import bm25
@@ -42,33 +46,26 @@ from .dsl import (
 )
 from .executor import Hit, NumpyExecutor, ShardReader, TopDocs
 
-# segments below this size take the generic per-query path; above it the
-# per-segment fused launch with dense hot rows pays off
+# segments below this size take the batcher's chunked block-max path (or
+# the per-query path); above it the per-segment fused launch with dense
+# hot rows pays off
 FUSED_MIN_DOCS = 100_000
 # device-memory budget for dense hot-term tf rows, bytes (uint8 per doc per term)
 DENSE_ROWS_HBM_BUDGET = 512 * 1024 * 1024
 
 # the slice of the port that brings each query node not ported yet
 _LATER_SLICES = {
-    "TermQuery": "term/terms/range/exists filters",
-    "TermsQuery": "term/terms/range/exists filters",
-    "RangeQuery": "term/terms/range/exists filters",
-    "ExistsQuery": "term/terms/range/exists filters",
-    "IdsQuery": "term/terms/range/exists filters",
-    "BoolQuery": "bool and multi_match (the multi-field fused scorer)",
-    "MultiMatchQuery": "bool and multi_match (the multi-field fused scorer)",
-    "DisMaxQuery": "bool and multi_match (the multi-field fused scorer)",
-    "ConstantScoreQuery": "filters and the filter-bitset cache",
-    "MatchPhraseQuery": "phrase queries",
-    "SparseVectorQuery": "learned sparse retrieval",
+    "TermQuery": cuts.FILTERS,
+    "TermsQuery": cuts.FILTERS,
+    "RangeQuery": cuts.FILTERS,
+    "ExistsQuery": cuts.FILTERS,
+    "IdsQuery": cuts.FILTERS,
+    "ConstantScoreQuery": cuts.FILTERS,
+    "BoolQuery": cuts.BOOL,
+    "MultiMatchQuery": cuts.BOOL,
+    "DisMaxQuery": cuts.BOOL,
+    "SparseVectorQuery": cuts.SPARSE,
 }
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not part of the PyTorch port yet: it comes with a later "
-        "slice (see ROADMAP.md)"
-    )
 
 
 class DevicePostings:
@@ -201,6 +198,11 @@ class TorchExecutor:
         self._seg_weights: Dict[Tuple[int, str], np.ndarray] = {}
         self._df_maps: Dict[str, Dict[str, int]] = {}
         self._shard_dfs: Dict[Tuple[str, str], int] = {}
+        self._block_indexes: Dict[Tuple[int, str], object] = {}
+        self._chunked_scorers: Dict[Tuple[int, str], object] = {}
+        self._live_masks: Dict[int, Optional[torch.Tensor]] = {}
+        self._knn_masks: Dict[Tuple[int, str], torch.Tensor] = {}
+        self._deleted_count: Optional[int] = None
         # cache-miss builds are guarded so concurrent callers can't
         # duplicate a dense hot-row build; RLock because fused_scorer →
         # _inv_norm/_segment_weights nest
@@ -321,9 +323,9 @@ class TorchExecutor:
                 kmask, kscores = ks[si]
                 scores = torch.where(kmask, scores + kscores, scores)
                 mask = mask | kmask
-            live = self.reader.live_docs[si]
+            live = self.live_mask(si)
             if live is not None:
-                mask = mask & self._to_device(live)
+                mask = mask & live
             if min_score is not None:
                 mask = mask & (scores >= np.float32(min_score))
             device_pairs.append((mask, scores))
@@ -393,8 +395,8 @@ class TorchExecutor:
         if isinstance(q, KnnQueryWrapper):
             return self._exec_knn_query(q.knn, si)
         name = type(q).__name__
-        raise _not_ported(
-            f"the [{name}] query node ({_LATER_SLICES.get(name, 'a later slice')})"
+        raise not_ported(
+            f"the [{name}] query node", _LATER_SLICES.get(name, cuts.NODES)
         )
 
     # ---- text leaves via the tile scorer ----
@@ -455,9 +457,7 @@ class TorchExecutor:
             return self._empty(n)
         if mf.type != TEXT:
             # match on keyword/numeric is a term query (ES behavior)
-            raise _not_ported(
-                "[match] on a non-text field (term/terms/range/exists filters)"
-            )
+            raise not_ported("[match] on a non-text field", cuts.FILTERS)
         analyzer_name = q.analyzer or mf.search_analyzer or mf.analyzer
         terms = self.reader.analysis.get(analyzer_name).terms(q.query)
         if not terms:
@@ -474,12 +474,40 @@ class TorchExecutor:
 
     def _knn_candidates(self, sec: KnnSection, si: int) -> torch.Tensor:
         if sec.filter is not None:
-            raise _not_ported("a kNN [filter] (filters and the filter-bitset cache)")
-        vf = self.reader.segments[si].vectors[sec.field]
-        mask = self._to_device(vf.exists)
-        live = self.reader.live_docs[si]
-        if live is not None:
-            mask = mask & self._to_device(live)
+            raise not_ported("a kNN [filter]", cuts.FILTERS)
+        return self.knn_candidates(si, sec.field)
+
+    def live_mask(self, si: int) -> Optional[torch.Tensor]:
+        """Device bool[n] live-docs mask of one segment (None = no
+        deletes), uploaded once per executor (= reader generation)."""
+        if si not in self._live_masks:
+            with self._build_lock:
+                if si not in self._live_masks:
+                    live = self.reader.live_docs[si]
+                    t = None if live is None else self._to_device(live)
+                    if t is not None:
+                        self._charge("masks", _tree_nbytes(t), False)
+                    self._live_masks[si] = t
+        return self._live_masks[si]
+
+    def knn_candidates(self, si: int, field: str) -> torch.Tensor:
+        """Device bool[n] exists ∧ live mask of one (segment, vector
+        field), uploaded once per executor (= reader generation), so a
+        kNN group uploads no per-doc mask."""
+        key = (si, field)
+        mask = self._knn_masks.get(key)
+        if mask is None:
+            with self._build_lock:
+                mask = self._knn_masks.get(key)
+                if mask is None:
+                    vf = self.reader.segments[si].vectors[field]
+                    host = np.asarray(vf.exists, bool)
+                    live = self.reader.live_docs[si]
+                    if live is not None:
+                        host = host & np.asarray(live, bool)
+                    mask = self._to_device(host)
+                    self._charge("masks", _tree_nbytes(mask), False)
+                    self._knn_masks[key] = mask
         return mask
 
     def _query_vector(self, sec: KnnSection) -> torch.Tensor:
@@ -512,7 +540,7 @@ class TorchExecutor:
         the shard-wide k cut (score desc, (segment, doc) asc). The IVF
         ANN branch of the reference comes with a later slice."""
         if getattr(sec, "ann", None) is not None:
-            raise _not_ported("IVF approximate kNN (ops/ivf.py)")
+            raise not_ported("IVF approximate kNN (ops/ivf.py)", cuts.IVF)
         per_seg = []
         for si, seg in enumerate(self.reader.segments):
             if seg.vectors.get(sec.field) is None:
@@ -599,6 +627,79 @@ class TorchExecutor:
             self._shard_dfs[key] = df
         return df
 
+    @property
+    def deleted_count(self) -> int:
+        if self._deleted_count is None:
+            self._deleted_count = int(
+                sum(int((~l).sum()) for l in self.reader.live_docs if l is not None)
+            )
+        return self._deleted_count
+
+    def block_index(self, si: int, field: str):
+        """Cached BlockMaxIndex (shard-level stats over the segment's
+        block-aligned tiling, on this executor's device) — None when the
+        field has no postings."""
+        key = (si, field)
+        if key in self._block_indexes:
+            return self._block_indexes[key]
+        with self._build_lock:
+            if key in self._block_indexes:
+                return self._block_indexes[key]
+            from ..ops.wand import BlockMaxIndex, get_tiling
+
+            seg = self.reader.segments[si]
+            pf = seg.postings.get(field)
+            if pf is None:
+                bmx = None  # cache the miss: no re-lock per batch
+            else:
+                tiling = get_tiling(pf, seg.num_docs, device=self.device)
+                bmx = BlockMaxIndex(
+                    tiling,
+                    self._segment_weights(si, field),
+                    self._oracle._field_cache(field),
+                )
+            self._block_indexes[key] = bmx
+            return bmx
+
+    def chunked_scorer(self, si: int, field: str):
+        """Cached ChunkedScorer over the block-aligned tiling of one
+        segment (the batcher's engine for small segments)."""
+        key = (si, field)
+        if key in self._chunked_scorers:
+            return self._chunked_scorers[key]
+        with self._build_lock:
+            if key in self._chunked_scorers:
+                return self._chunked_scorers[key]
+            bmx = self.block_index(si, field)
+            if bmx is None:
+                cs = None  # cache the miss: no re-lock per batch
+            else:
+                seg = self.reader.segments[si]
+                cs = scoring.ChunkedScorer(
+                    bmx.tiling.doc_ids,
+                    bmx.tiling.tfs,
+                    self._inv_norm(si, field, seg.num_docs),
+                    self.live_mask(si),
+                    block_size=bmx.tiling.block_size,
+                )
+            self._chunked_scorers[key] = cs
+            return cs
+
+    def segment_topk(self, query: Query, si: int, k: int):
+        """(scores[k], docs[k], total) host arrays for one parsed query
+        on one segment — the per-segment fallback of a batcher group."""
+        seg = self.reader.segments[si]
+        n = seg.num_docs
+        if n == 0:
+            return np.zeros(0, np.float32), np.zeros(0, np.int32), 0
+        mask, scores = self._exec(query, si)
+        live = self.live_mask(si)
+        if live is not None:
+            mask = mask & live
+        s, d = scoring.topk_hits(scores, mask, min(k, n))
+        total = int(mask.sum())
+        return s.cpu().numpy(), d.to(torch.int32).cpu().numpy(), total
+
     def fused_scorer(self, si: int, field: str):
         """Cached single-round-trip FusedScorer for one large segment.
         None for segments below `fused_min_docs` or fields without
@@ -616,7 +717,7 @@ class TorchExecutor:
                     parts["doc_ids"],
                     parts["tfs"],
                     parts["inv_norm"],
-                    self.reader.live_docs[si],
+                    self.live_mask(si),
                     parts["dense"],
                 )
                 fs.hot_rank = parts["hot_rank"]

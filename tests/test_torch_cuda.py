@@ -118,3 +118,75 @@ def test_quantized_search_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(gs.cpu().numpy(), cs.numpy(), rtol=1e-5)
     diff = gd.cpu().numpy() != cd.numpy()
     assert np.allclose(gs.cpu().numpy()[diff], cs.numpy()[diff], rtol=1e-5)
+
+
+# ---- serving on the card: the port's IndexService, torch vs numpy ----
+
+
+def _served_pair(monkeypatch, cuda):
+    """Two port IndexServices over the same docs (2 shards, two
+    refreshes, a delete): `search.backend: torch` on the card and the
+    numpy oracle."""
+    from elasticsearch_tpu_torch.cluster.indices import IndexService
+
+    monkeypatch.setenv("ES_TPU_BG_REFRESH", "off")
+    monkeypatch.setenv("ES_TPU_DEVICE_BUILD", "off")
+    mapping = {"properties": {"body": {"type": "text"},
+                              "vec": {"type": "dense_vector", "dims": 16, "similarity": "cosine"}}}
+    words = ["ant", "bee", "cat", "dog", "eel", "fox", "gnu", "hen"]
+    p = 1.0 / np.arange(1, len(words) + 1)
+    rng = np.random.default_rng(5)
+    docs = [(f"c{i}", {"body": " ".join(rng.choice(words, int(rng.integers(2, 12)), p=p / p.sum())),
+                       "vec": [float(x) for x in rng.normal(size=16)]}) for i in range(300)]
+    pair = []
+    for backend in ("torch", "numpy"):
+        svc = IndexService(f"card-{backend}", settings={"number_of_shards": 2, "search.backend": backend},
+                           mappings_json=mapping, device=cuda)
+        for i, (doc_id, src) in enumerate(docs):
+            svc.index_doc(doc_id, src)
+            if i == 150:
+                svc.refresh()
+        svc.delete_doc("c7")
+        svc.refresh()
+        pair.append(svc)
+    return pair
+
+
+def _same_served(ref, got):
+    assert got["hits"]["total"] == ref["hits"]["total"]
+    rh, gh = ref["hits"]["hits"], got["hits"]["hits"]
+    assert len(gh) == len(rh)
+    rs = np.array([h["_score"] for h in rh])
+    np.testing.assert_allclose([h["_score"] for h in gh], rs, rtol=1e-5, atol=1e-6)
+    # ids position by position; a run of scores tied within 1e-5 as a set
+    i = 0
+    while i < len(rh):
+        j = i + 1
+        while j < len(rh) and np.isclose(rs[j], rs[j - 1], rtol=1e-5, atol=0):
+            j += 1
+        assert {h["_id"] for h in gh[i:j]} == {h["_id"] for h in rh[i:j]}, (rh, gh)
+        i = j
+
+
+@pytest.mark.parametrize("route", ["match", "knn"])
+def test_served_route_on_card_matches_numpy(cuda, monkeypatch, route):
+    from elasticsearch_tpu_torch.search.executor_torch import TorchExecutor
+
+    svc, oracle = _served_pair(monkeypatch, cuda)
+    try:
+        rng = np.random.default_rng(9)
+        if route == "match":
+            bodies = [{"query": {"match": {"body": q}}} for q in ("ant bee", "cat", "dog eel fox")]
+            bodies.append({"query": {"match": {"body": {"query": "ant bee cat", "operator": "and"}}}})
+        else:
+            bodies = [{"knn": {"field": "vec", "query_vector": [float(x) for x in rng.normal(size=16)],
+                               "k": 5, "num_candidates": 25}} for _ in range(4)]
+        for body in bodies:
+            _same_served(oracle.search(body), svc.search(body))
+        ex = svc._executor(svc.shards[0])
+        assert isinstance(ex, TorchExecutor) and ex.device.type == "cuda"
+        assert svc._batcher.stats["launches"] > 0
+        assert torch.get_float32_matmul_precision() == "highest"
+    finally:
+        svc.close()
+        oracle.close()

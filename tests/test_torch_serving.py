@@ -1,0 +1,610 @@
+"""The port's serving path against the JAX package's, on the CPU.
+
+The same documents (made with numpy from a seed) are indexed into the
+JAX package's `IndexService` (`search.backend: jax`) and the port's
+(`search.backend: torch`, `device="cpu"`), and the same requests go
+through both: the block-max tiling and bounds (`ops/wand.py`), the
+chunked scorer and the kNN merge (`ops/scoring.py`), `QueryBatcher` at
+every bucket of the ladder and at pipeline depths 1 and 2, and
+`IndexService.search`. Hits must agree: the same totals and ids, scores
+within rtol 1e-5 (float32 sums taken in another order; the reference's
+own kNN scores move in the last ulp with the batch's row count). The
+paths the port does not have yet must raise, naming their slice.
+"""
+
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+from elasticsearch_tpu.cluster.indices import IndexService as JIndexService
+from elasticsearch_tpu.ops import scoring as jscoring
+from elasticsearch_tpu.ops import wand as jwand
+from elasticsearch_tpu.search import dsl as jdsl
+from elasticsearch_tpu.search import executor_jax
+from elasticsearch_tpu.search.batcher import QueryBatcher as JBatcher
+from elasticsearch_tpu.search.batcher import extract_knn_plan as j_knn_plan
+from elasticsearch_tpu.search.batcher import extract_match_plan as j_match_plan
+
+from elasticsearch_tpu_torch.cluster.indices import IndexService
+from elasticsearch_tpu_torch.common.settings import batch_buckets
+from elasticsearch_tpu_torch.ops import scoring, wand
+from elasticsearch_tpu_torch.search import dsl, executor_torch
+from elasticsearch_tpu_torch.search.batcher import (
+    QueryBatcher,
+    extract_knn_plan,
+    extract_match_plan,
+    live_batchers,
+)
+from elasticsearch_tpu_torch.search.executor_torch import TorchExecutor
+
+torch.set_num_threads(1)
+
+RTOL = 1e-5
+WORDS = [
+    "alpha", "bravo", "charlie", "delta", "echo", "foxtrot", "golf",
+    "hotel", "india", "juliet", "kilo", "lima", "mike", "november",
+]
+DIMS = 8
+MAPPING = {
+    "properties": {
+        "title": {"type": "text"},
+        "body": {"type": "text"},
+        "vec": {"type": "dense_vector", "dims": DIMS, "similarity": "cosine"},
+    }
+}
+
+
+@pytest.fixture(autouse=True)
+def _reset_port_singletons():
+    """The port keeps its own process-wide admission controller and
+    fault registry; tests/conftest.py resets only the JAX package's."""
+    yield
+    from elasticsearch_tpu_torch.common.faults import faults
+    from elasticsearch_tpu_torch.search.admission import admission
+
+    admission.reset()
+    if faults.active:
+        faults.clear()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_leaked_port_batcher_threads():
+    """Every closed port QueryBatcher must have let its workers exit."""
+    yield
+    leaked = []
+    for b in list(live_batchers):
+        if not getattr(b, "_closed", False):
+            continue
+        for t in list(b._threads):
+            t.join(timeout=10.0)
+            if t.is_alive():
+                leaked.append(t.name)
+    assert not leaked, f"closed port QueryBatcher left live worker threads: {leaked}"
+
+
+def _zipf(n):
+    w = 1.0 / np.arange(1, n + 1)
+    return w / w.sum()
+
+
+def make_docs(n, seed):
+    rng = np.random.default_rng(seed)
+    docs = []
+    for i in range(n):
+        docs.append((
+            f"d{i}",
+            {
+                "title": " ".join(rng.choice(WORDS, int(rng.integers(1, 4)), p=_zipf(len(WORDS)))),
+                "body": " ".join(rng.choice(WORDS, int(rng.integers(3, 14)), p=_zipf(len(WORDS)))),
+                "vec": [float(x) for x in rng.normal(size=DIMS)],
+            },
+        ))
+    return docs
+
+
+def build_pair(docs, shards=1, waves=3, deletes=(), name="sv"):
+    """(JAX IndexService, port IndexService) over the same docs, indexed
+    by index_doc and refreshed in `waves` (one segment per wave per
+    shard), then the `deletes` removed and refreshed."""
+    pair = (
+        JIndexService(name, settings={"number_of_shards": shards, "search.backend": "jax"},
+                      mappings_json=MAPPING),
+        IndexService(name, settings={"number_of_shards": shards, "search.backend": "torch"},
+                     mappings_json=MAPPING, device="cpu"),
+    )
+    per_wave = max(1, len(docs) // waves)
+    for svc in pair:
+        for i, (doc_id, src) in enumerate(docs):
+            svc.index_doc(doc_id, src)
+            if (i + 1) % per_wave == 0:
+                svc.refresh()
+        svc.refresh()
+        for doc_id in deletes:
+            svc.delete_doc(doc_id)
+        svc.refresh()
+    return pair
+
+
+def close_pair(pair):
+    for svc in pair:
+        svc.close()
+
+
+def same_ids(ref_ids, ref_scores, got_ids, what=""):
+    """Ids agree position by position. Within a run of reference scores
+    that tie within RTOL the run's ids must agree as a set: both sides
+    order exact ties lowest index first, and only ulp-level differences
+    in the sums may reorder a run."""
+    ref_ids, got_ids = list(ref_ids), list(got_ids)
+    assert len(got_ids) == len(ref_ids), (what, ref_ids, got_ids)
+    i = 0
+    while i < len(ref_ids):
+        j = i + 1
+        while j < len(ref_ids) and np.isclose(ref_scores[j], ref_scores[j - 1], rtol=RTOL, atol=0):
+            j += 1
+        assert set(got_ids[i:j]) == set(ref_ids[i:j]), (what, i, ref_ids, got_ids)
+        i = j
+
+
+def same_td(ref, got, what=""):
+    """TopDocs agree: total, relation, ids, scores within RTOL."""
+    assert got.total == ref.total, what
+    assert got.relation == ref.relation, what
+    assert len(got.hits) == len(ref.hits), what
+    rs = np.array([h.score for h in ref.hits])
+    gs = np.array([h.score for h in got.hits])
+    np.testing.assert_allclose(gs, rs, rtol=RTOL, atol=1e-6, err_msg=what)
+    same_ids([h.doc_id for h in ref.hits], rs, [h.doc_id for h in got.hits], what)
+
+
+def same_response(ref, got, what=""):
+    """Search responses agree: total, ids, scores within RTOL."""
+    assert got["hits"]["total"] == ref["hits"]["total"], what
+    rh, gh = ref["hits"]["hits"], got["hits"]["hits"]
+    rs = np.array([h["_score"] for h in rh])
+    assert len(gh) == len(rh), what
+    np.testing.assert_allclose([h["_score"] for h in gh], rs, rtol=RTOL, atol=1e-6, err_msg=what)
+    same_ids([h["_id"] for h in rh], rs, [h["_id"] for h in gh], what)
+
+
+def match_body(i, msm=None):
+    w = [WORDS[(i * 3 + j) % len(WORDS)] for j in range(3)]
+    if msm is None:
+        return {"match": {"body": " ".join(w[:2])}}
+    return {"match": {"body": {"query": " ".join(w), "minimum_should_match": msm}}}
+
+
+def knn_body(i, nc=30, k=6):
+    rng = np.random.default_rng(100 + i)
+    return {"field": "vec", "query_vector": [float(x) for x in rng.normal(size=DIMS)],
+            "k": k, "num_candidates": nc}
+
+
+# ---------------------------------------------------------------------
+# ops/wand.py: block-aligned tiling and bounds
+# ---------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def segment_pair():
+    """One (JAX segment, port segment) pair built by the two packages'
+    own write paths from the same docs, with 30 deletes."""
+    docs = make_docs(400, seed=5)
+    pair = build_pair(docs, waves=1, deletes=[f"d{i}" for i in range(0, 300, 10)], name="seg")
+    jr = pair[0].shards[0].reader()
+    tr = pair[1].shards[0].reader()
+    yield jr, tr
+    close_pair(pair)
+
+
+@pytest.mark.parametrize("block_size,hot_min", [(4096, 32), (64, 4), (16, 2)])
+def test_block_max_index_matches_reference(segment_pair, block_size, hot_min):
+    jr, tr = segment_pair
+    jpf, tpf = jr.segments[0].postings["body"], tr.segments[0].postings["body"]
+    n = jr.segments[0].num_docs
+    jt = jwand.get_tiling(jpf, n, block_size, hot_min)
+    tt = wand.get_tiling(tpf, n, block_size, hot_min, device="cpu")
+    np.testing.assert_array_equal(np.asarray(jt.doc_ids), tt.doc_ids.numpy())
+    np.testing.assert_array_equal(np.asarray(jt.tfs), tt.tfs.numpy())
+    for f in ("tile_term", "tile_block", "tile_max_tf", "tile_min_norm",
+              "term_tile_start", "term_tile_count", "term_hot"):
+        np.testing.assert_array_equal(getattr(jt, f), getattr(tt, f), err_msg=f)
+    assert tt.n_blocks == jt.n_blocks
+    jx = executor_jax.JaxExecutor(jr)
+    tx = TorchExecutor(tr, device="cpu")
+    weights = jx._segment_weights(0, "body")
+    np.testing.assert_array_equal(weights, tx._segment_weights(0, "body"))
+    cache = jx._oracle._field_cache("body")
+    jb = jwand.BlockMaxIndex(jt, weights, cache)
+    tb = wand.BlockMaxIndex(tt, weights, cache)
+    np.testing.assert_array_equal(jb.tile_bounds, tb.tile_bounds)
+    np.testing.assert_array_equal(jb.term_block_bounds, tb.term_block_bounds)
+    rng = np.random.default_rng(block_size)
+    for boost in (1.0, 2.5):
+        jp, tp = jb.plan(WORDS + ["zulu"], boost), tb.plan(WORDS + ["zulu"], boost)
+        assert [vars(p) for p in jp] == [vars(p) for p in tp]
+        for p in tp:
+            if not p.hot:
+                continue
+            np.testing.assert_array_equal(jb.block_bounds(p), tb.block_bounds(p))
+            potential = rng.uniform(0, 3, jt.n_blocks).astype(np.float32)
+            theta = float(rng.uniform(0.5, 2.5))
+            live = rng.random(jt.n_blocks) < 0.7
+            np.testing.assert_array_equal(
+                jb.surviving_tiles(p, potential, theta),
+                tb.surviving_tiles(p, potential, theta),
+            )
+            np.testing.assert_array_equal(
+                jb.surviving_tiles(p, potential, theta, block_live=live),
+                tb.surviving_tiles(p, potential, theta, block_live=live),
+            )
+
+
+def test_tiling_cache_is_the_ports_own(segment_pair):
+    """A field tiled by both packages keeps a jax tiling and a torch
+    tiling side by side: neither hands the other its arrays."""
+    jr, tr = segment_pair
+    pf = jr.segments[0].postings["body"]
+    n = jr.segments[0].num_docs
+    jt = jwand.get_tiling(pf, n)
+    tt = wand.get_tiling(pf, n, device="cpu")
+    assert isinstance(tt.doc_ids, torch.Tensor)
+    assert not isinstance(jt.doc_ids, torch.Tensor)
+    assert jwand.get_tiling(pf, n) is jt
+    assert wand.get_tiling(pf, n, device="cpu") is tt
+
+
+# ---------------------------------------------------------------------
+# ops/scoring.py: chunked scorer and the kNN merge
+# ---------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("with_cnt", [False, True])
+def test_chunked_scorer_matches_reference(segment_pair, with_cnt):
+    jr, tr = segment_pair
+    n = jr.segments[0].num_docs
+    jt = jwand.get_tiling(jr.segments[0].postings["body"], n, 64, 4)
+    tt = wand.get_tiling(tr.segments[0].postings["body"], n, 64, 4, device="cpu")
+    inv = executor_jax.JaxExecutor(jr)._inv_norm(0, "body", n)
+    live = jr.live_docs[0]
+    assert live is not None and not live.all()
+    js = jscoring.ChunkedScorer(jt.doc_ids, jt.tfs, inv, live, block_size=64)
+    ts = scoring.ChunkedScorer(
+        tt.doc_ids, tt.tfs, torch.from_numpy(np.array(inv)), torch.from_numpy(live),
+        block_size=64,
+    )
+    rows = 4
+    rng = np.random.default_rng(1)
+    # rows of different lengths, one longer than a TCHUNK launch
+    lengths = [3, 0, scoring.TCHUNK + 40, 17]
+    n_tiles = tt.doc_ids.shape[0]
+    tiles = [rng.integers(0, n_tiles, size=m).astype(np.int64) for m in lengths]
+    weights = [rng.uniform(0.2, 2.0, size=m).astype(np.float32) for m in lengths]
+    ja, jc = js.new_acc(with_cnt, rows=rows)
+    ta, tc = ts.new_acc(with_cnt, rows=rows)
+    ja, jc = js.score_into(ja, jc, tiles, weights)
+    ta, tc = ts.score_into(ta, tc, tiles, weights)
+    np.testing.assert_allclose(ta.numpy(), np.asarray(ja), rtol=RTOL, atol=1e-6)
+    if with_cnt:
+        np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    jth, jmax = js.threshold(ja, 16)
+    tth, tmax = ts.threshold(ta, 16)
+    np.testing.assert_allclose(tth, jth, rtol=RTOL)
+    np.testing.assert_allclose(tmax, jmax, rtol=RTOL, atol=1e-6)
+    msm = np.array([1, 1, 2, 3], np.int32)
+    js_, jd, jtot = js.finalize(ja, jc, msm, 16)
+    ts_, td, ttot = ts.finalize(ta, tc, msm, 16)
+    np.testing.assert_array_equal(ttot, jtot)
+    np.testing.assert_allclose(ts_, js_, rtol=RTOL, atol=1e-6)
+    for r in range(rows):
+        fin = np.isfinite(js_[r])
+        np.testing.assert_array_equal(np.isfinite(ts_[r]), fin)
+        same_ids(jd[r][fin], js_[r][fin], td[r][fin], f"row {r}")
+
+
+def test_knn_merge_matches_reference_with_ties_and_cut():
+    rng = np.random.default_rng(4)
+    rows, k = 5, 7
+    items_j, items_t = [], []
+    for si, width in ((0, 16), (2, 16), (3, 32)):
+        # few distinct values → many ties across and within segments
+        s = np.sort(rng.choice([0.9, 0.7, 0.7, 0.5, 0.3], size=(rows, width)), axis=1)[:, ::-1]
+        s = np.ascontiguousarray(s, dtype=np.float32)
+        s[:, width - 3:] = -np.inf  # segments with fewer real candidates
+        d = np.tile(np.arange(width, dtype=np.int32), (rows, 1))
+        items_j.append((si, jscoring.jnp.asarray(s), jscoring.jnp.asarray(d)))
+        items_t.append((si, torch.from_numpy(s), torch.from_numpy(d)))
+    nc = rng.integers(0, 20, size=(rows, 3)).astype(np.int32)
+    nc[0] = 100  # no cut
+    nc[1, 1] = 0  # one segment cut out entirely
+    ref = jscoring.knn_merge_segment_topk(items_j, nc, k)
+    got = scoring.knn_merge_segment_topk(items_t, nc, k)
+    for r, g in zip(ref, got):
+        np.testing.assert_array_equal(g, r)
+
+
+# ---------------------------------------------------------------------
+# QueryBatcher: every bucket, both pipeline depths
+# ---------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def serving_pair():
+    docs = make_docs(360, seed=2)
+    pair = build_pair(docs, shards=1, waves=3, deletes=["d5", "d77", "d200"], name="bt")
+    yield pair
+    close_pair(pair)
+
+
+def _plans(jsvc, tsvc, kind, n, tth=10_000):
+    out = []
+    for i in range(n):
+        if kind == "match":
+            body = match_body(i, msm=2 if i % 3 == 2 and tth == 10_000 else None)
+            jq, tq = jdsl.parse_query(body), dsl.parse_query(body)
+            jp = j_match_plan(jq, jsvc.mappings, jsvc.analysis, tth)
+            tp = extract_match_plan(tq, tsvc.mappings, tsvc.analysis, tth)
+            assert vars(tp) == vars(jp)
+            out.append(((jp, jq), (tp, tq)))
+        else:
+            body = knn_body(i)
+            jp = j_knn_plan([jdsl.parse_knn(body)], jsvc.mappings)
+            tp = extract_knn_plan([dsl.parse_knn(body)], tsvc.mappings)
+            out.append(((jp, None), (tp, None)))
+    return out
+
+
+def _run_group(b, ex, plans, kind, rows):
+    """One group of len(plans) jobs at launch width `rows` through the
+    batcher's real group path (no worker threads)."""
+    k = 10 if kind == "match" else 6
+    jobs = [b.submit_nowait(ex, p, k, kind=kind, query=q) for p, q in plans]
+    if kind == "match":
+        b._run_group(jobs, plans[0][0].field, 16, rows=rows)
+    else:
+        b._collect_knn_group(jobs, b._dispatch_knn_group(jobs, rows=rows))
+    return [b.wait(j, timeout=30) for j in jobs]
+
+
+def _workerless(cls, monkeypatch):
+    b = cls(workers=1)
+    monkeypatch.setattr(b, "_ensure_thread", lambda: None)
+    return b
+
+
+@pytest.mark.parametrize("kind", ["match", "knn"])
+@pytest.mark.parametrize("rows", batch_buckets(scoring.BPAD))
+def test_batcher_bucket_matches_reference(serving_pair, monkeypatch, kind, rows):
+    jsvc, tsvc = serving_pair
+    jex, tex = jsvc._executor(jsvc.shards[0]), tsvc._executor(tsvc.shards[0])
+    assert isinstance(tex, TorchExecutor)
+    jb, tb = _workerless(JBatcher, monkeypatch), _workerless(QueryBatcher, monkeypatch)
+    try:
+        for n in sorted({rows, rows // 2 + 1}):  # full and partial occupancy
+            plans = _plans(jsvc, tsvc, kind, n)
+            ref = _run_group(jb, jex, [p[0] for p in plans], kind, rows)
+            got = _run_group(tb, tex, [p[1] for p in plans], kind, rows)
+            for i, (r, g) in enumerate(zip(ref, got)):
+                same_td(r, g, f"{kind} rows={rows} job {i}")
+    finally:
+        jb.close()
+        tb.close()
+    if kind == "match":
+        assert tb.stats["chunked_jobs"] > 0
+
+
+@pytest.mark.parametrize("rows", [1, 8])
+def test_batcher_block_max_round_matches_reference(serving_pair, monkeypatch, rows):
+    """With totals capped below the shard's doc freqs, hot terms defer
+    to the threshold round (θ, block bounds, surviving tiles): hits and
+    totals (relation included) still match the reference."""
+    jsvc, tsvc = serving_pair
+    jex, tex = jsvc._executor(jsvc.shards[0]), tsvc._executor(tsvc.shards[0])
+    jb, tb = _workerless(JBatcher, monkeypatch), _workerless(QueryBatcher, monkeypatch)
+    try:
+        plans = _plans(jsvc, tsvc, "match", rows, tth=5)
+        assert all(p[1][0].wand_ok for p in plans)
+        ref = _run_group(jb, jex, [p[0] for p in plans], "match", rows)
+        got = _run_group(tb, tex, [p[1] for p in plans], "match", rows)
+        for i, (r, g) in enumerate(zip(ref, got)):
+            same_td(r, g, f"pruned rows={rows} job {i}")
+        assert tb.stats["pruned_jobs"] == jb.stats["pruned_jobs"]
+    finally:
+        jb.close()
+        tb.close()
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_batcher_pipeline_depth_matches_reference(serving_pair, depth):
+    """Concurrent mixed match + knn load through real workers at each
+    pipeline depth gives the reference's hits."""
+    jsvc, tsvc = serving_pair
+    jex, tex = jsvc._executor(jsvc.shards[0]), tsvc._executor(tsvc.shards[0])
+    plans = [("match", p) for p in _plans(jsvc, tsvc, "match", 24)]
+    plans += [("knn", p) for p in _plans(jsvc, tsvc, "knn", 12)]
+    jb = JBatcher(workers=1)
+    ref = [jb.execute(jex, p[0][0], 10, kind=kind, query=p[0][1]) for kind, p in plans]
+    jb.close()
+    tb = QueryBatcher(workers=2, pipeline_depth=depth)
+    got = [None] * len(plans)
+
+    def client(lo):
+        for i in range(lo, len(plans), 4):
+            kind, p = plans[i]
+            got[i] = tb.execute(tex, p[1][0], 10, kind=kind, query=p[1][1])
+
+    threads = [threading.Thread(target=client, args=(lo,)) for lo in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads)
+    tb.close()
+    for i, (r, g) in enumerate(zip(ref, got)):
+        same_td(r, g, f"depth={depth} job {i} ({plans[i][0]})")
+    assert tb.pipeline_depth == depth and tb.stats["jobs"] == len(plans)
+
+
+def test_batcher_refuses_families_it_does_not_have(serving_pair):
+    b = QueryBatcher(workers=1)
+    try:
+        with pytest.raises(ValueError, match="serve"):
+            b.submit_nowait(None, None, 10, kind="serve")
+    finally:
+        b.close()
+
+
+# ---------------------------------------------------------------------
+# IndexService: multi-segment, deletes, 2 shards, fused-size segments
+# ---------------------------------------------------------------------
+
+
+BODIES = (
+    [{"query": match_body(i), "size": 7} for i in range(5)]
+    + [{"query": match_body(i, msm=2)} for i in range(3)]
+    + [{"query": {"match": {"title": {"query": "alpha bravo", "operator": "and"}}}}]
+    + [{"query": {"match": {"body": "echo"}}, "track_total_hits": True, "size": 30}]
+    + [{"knn": knn_body(i), "size": 6} for i in range(4)]
+    + [{"knn": knn_body(9, nc=6, k=6)}, {"query": {"match_all": {}}, "size": 3}]
+)
+
+
+@pytest.mark.parametrize("shards,fused", [(1, False), (2, False), (1, True), (2, True)])
+def test_index_service_matches_reference(monkeypatch, shards, fused):
+    if fused:
+        # every segment takes the fused route, as large ones do
+        monkeypatch.setattr(executor_jax, "FUSED_MIN_DOCS", 10)
+        monkeypatch.setattr(executor_torch, "FUSED_MIN_DOCS", 10)
+    docs = make_docs(300, seed=11 + shards)
+    pair = build_pair(docs, shards=shards, waves=3,
+                      deletes=["d1", "d42", "d150", "d299"], name=f"is{shards}")
+    try:
+        jsvc, tsvc = pair
+        for i, body in enumerate(BODIES):
+            same_response(jsvc.search(body), tsvc.search(body), f"body {i}: {body}")
+        for body in ({"query": match_body(2)}, {}):
+            assert tsvc.count(body)["count"] == jsvc.count(body)["count"]
+        ex = tsvc._executor(tsvc.shards[0])
+        assert isinstance(ex, TorchExecutor) and ex.device.type == "cpu"
+        if fused:
+            assert ex.fused_scorer(0, "body") is not None
+        stats = tsvc._batcher.stats
+        assert stats["launches"] > 0
+        assert (stats["fused_jobs"] > 0) if fused else (stats["chunked_jobs"] > 0)
+    finally:
+        close_pair(pair)
+
+
+# ---------------------------------------------------------------------
+# settings, the device default, and the cuts
+# ---------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("backend", ["jax", "foo"])
+def test_other_backends_are_refused(backend):
+    from elasticsearch_tpu_torch.cluster import ClusterError, ClusterService
+
+    cs = ClusterService(device="cpu")
+    try:
+        with pytest.raises(ClusterError) as e:
+            cs.create_index("x", {"settings": {"search.backend": backend}})
+        assert e.value.status == 400 and "search.backend" in e.value.reason
+        cs.create_index("y", {"settings": {"search.backend": "numpy"}})
+        assert cs.create_index("z")["acknowledged"]
+        assert cs.get_index("z").settings["search.backend"] == "torch"
+    finally:
+        cs.close()
+
+
+@pytest.mark.parametrize("entry", ["cluster", "index", "server"])
+def test_default_device_is_cuda_without_fallback(entry):
+    from elasticsearch_tpu_torch.cluster import ClusterService
+    from elasticsearch_tpu_torch.rest.server import ElasticsearchTpuServer
+
+    make = {
+        "cluster": lambda: ClusterService(),
+        "index": lambda: IndexService("x"),
+        "server": lambda: ElasticsearchTpuServer(port=0),
+    }[entry]
+    if torch.cuda.is_available():
+        obj = make()
+        dev = obj.cluster.device if entry == "server" else obj.device
+        assert dev.type == "cuda"
+        obj.close()
+    else:
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
+
+
+CUT_BODIES = {
+    "bool": ({"query": {"bool": {"must": [{"match": {"body": "alpha"}}]}}}, "item 4"),
+    "multi_match": ({"query": {"multi_match": {"query": "alpha", "fields": ["title", "body"]}}}, "item 4"),
+    "rank_rrf": ({"query": {"match": {"body": "alpha"}}, "knn": knn_body(0),
+                  "rank": {"rrf": {}}}, "item 5"),
+    "retriever": ({"retriever": {"standard": {"query": {"match": {"body": "alpha"}}}}}, "item 5"),
+    "rescore": ({"query": {"match": {"body": "alpha"}},
+                 "rescore": {"window_size": 5, "query": {"rescore_query": {"match_all": {}}}}}, "item 7"),
+    "aggs": ({"size": 0, "aggs": {"n": {"value_count": {"field": "title"}}}}, "item 10"),
+    "highlight": ({"query": {"match": {"body": "alpha"}}, "highlight": {"fields": {"body": {}}}}, "item 14"),
+    "sort": ({"query": {"match": {"body": "alpha"}}, "sort": [{"_id": "asc"}]}, "item 15"),
+}
+
+
+@pytest.fixture(scope="module")
+def small_torch_index():
+    docs = make_docs(60, seed=3)
+    svc = IndexService("cuts", settings={"number_of_shards": 2}, mappings_json=MAPPING, device="cpu")
+    for doc_id, src in docs:
+        svc.index_doc(doc_id, src)
+    svc.refresh()
+    yield svc
+    svc.close()
+
+
+@pytest.mark.parametrize("name", sorted(CUT_BODIES))
+def test_cut_request_raises_naming_its_slice(small_torch_index, name):
+    body, item = CUT_BODIES[name]
+    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
+        small_torch_index.search(body)
+
+
+def test_ivf_index_raises_and_exact_escape_serves(small_torch_index):
+    svc = IndexService("ivf", settings={"knn.type": "ivf"}, mappings_json=MAPPING, device="cpu")
+    try:
+        for doc_id, src in make_docs(20, seed=1):
+            svc.index_doc(doc_id, src)
+        svc.refresh()
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
+            svc.search({"knn": knn_body(0)})
+        assert svc.search({"knn": knn_body(0), "exact": True})["hits"]["hits"]
+    finally:
+        svc.close()
+
+
+def test_mesh_force_raises(small_torch_index, monkeypatch):
+    monkeypatch.setenv("ES_TPU_MESH", "force")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
+        small_torch_index.search({"query": {"match": {"body": "alpha"}}})
+
+
+def test_device_build_force_raises(monkeypatch):
+    monkeypatch.setenv("ES_TPU_DEVICE_BUILD", "force")
+    svc = IndexService("db", mappings_json=MAPPING, device="cpu")
+    try:
+        svc.index_doc("a", {"body": "alpha"})
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
+            svc.refresh()
+    finally:
+        monkeypatch.setenv("ES_TPU_DEVICE_BUILD", "off")
+        svc.close()
+
+
+def test_data_path_raises(tmp_path):
+    from elasticsearch_tpu_torch.cluster import ClusterService
+
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
+        ClusterService(data_path=str(tmp_path), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
+        IndexService("p", base_path=str(tmp_path / "p"), device="cpu")
