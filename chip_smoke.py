@@ -3,11 +3,15 @@
     python3 chip_smoke.py [--seed 42] [--docs 1000000] [--vocab 50000] [--dims 768]
 
 Drives the port's shard query phase (`elasticsearch_tpu_torch`) at the
-scale of BASELINE configs 1 (BM25 `match`) and 4 (768-d cosine kNN): one
-segment of 1,000,000 documents with a `body` text field over a
-50,000-term Zipf vocabulary (15-34 tokens each) and a 768-d unit-vector
-`vec` field, all made from `--seed`. Phases, each of which stops the run
-with a non-zero exit on any failure:
+scale of BASELINE configs 1 (BM25 `match`), 2 (`bool`), 3
+(`multi_match`), 4 (768-d cosine kNN) and 5 (hybrid BM25 + kNN with RRF):
+one segment of 1,000,000 documents with a `body` text field over a
+50,000-term Zipf vocabulary (15-34 tokens each), a `title` text field
+over a 20,000-term Zipf vocabulary (3-8 tokens), a 768-d unit-vector
+`vec` field and bench.py's filter columns (`popularity` integer 0-99,
+`day` date over 30 days, `cat` keyword with 16 values), all made from
+`--seed`. Phases, each of which stops the run with a non-zero exit on
+any failure:
 
   1. the card's name and power limit, torch/CUDA versions; build the
      hand-written kernels from the checkout (csrc/*.cu, nvcc, sm_90a);
@@ -19,25 +23,36 @@ with a non-zero exit on any failure:
      (b) the same queries as 2 batches of 32 through fused_plan →
          FusedScorer.search_async → merge_segment_topk,
      (c) 32 exact kNN sections (k=10, num_candidates=100),
-     (d) QuantizedVectors.search over the same vectors, B=32, k=10;
-     (a)-(c) are held to the port's NumPy oracle on 8 queries each
-     (same totals and hits, scores within rtol 1e-5), (d) to recall@10
-     >= 0.9 against exact f32 cosine; every kernel must have launched;
+     (d) QuantizedVectors.search over the same vectors, B=32, k=10,
+     (e) 32 `multi_match` (title^2, body, tie_breaker 0.3) as one group
+         through fused_plan_field → MultiFusedScorer.search_async →
+         merge_segment_topk;
+     (a)-(c) and (e) are held to the port's NumPy oracle on 8 queries
+     each (same totals and hits, scores within rtol 1e-5), (d) to
+     recall@10 >= 0.9 against exact f32 cosine; every kernel must have
+     launched; route (c)'s profile must show no pageable host→device
+     copy;
   4. serving on the card over HTTP: the port's ElasticsearchTpuServer
      (REST → ClusterService → IndexService → QueryBatcher →
      TorchExecutor) with `/bench` (torch) and `/bench_oracle` (numpy)
      over the same 1M-doc segment, and `/small` / `/small_oracle` (2
      shards, built by two `_bulk?refresh=true` calls and a few deletes,
      so every shard has two small segments and the chunked path runs).
-     64 `match` and 32 `knn` bodies go to `/bench` from 8 client
-     threads, then from 1, in a client process of their own; `/small`
-     gets its own bodies. Served hits
-     are held to the numpy indices (same totals and ids, scores within
-     rtol 1e-5); `_nodes/stats` must show batched launches, a bucket
-     wider than 1 and the chunked path; matmuls must run at float32
-     precision "highest". QPS, p50/p99 per route and client count, one
-     profiled match group and one knn group (with the host-device
-     synchronisations each makes) are printed, and the
+     64 `match`, 32 `knn`, 32 `bool`, 32 `multi_match`, 36 filtered
+     `bool` (8 rotating filter terms, 4 `day` ranges at odd-millisecond
+     boundaries) and 32 hybrid RRF bodies (`multi_match` + `knn`
+     retriever, 8 of them as `rank: {rrf}`) go to `/bench` from 8
+     client threads, then from 1, in a client process of their own;
+     `/small` gets the same shapes. Served hits are held to the numpy
+     indices (same totals and ids, scores within rtol 1e-5; a hybrid
+     leg by leg, then its fusion against `rrf_fuse_host` over the
+     oracle's legs); `_nodes/stats` must show batched launches, a
+     bucket wider than 1, the chunked path, serve launches and filter
+     cache hits; every `/bench` hybrid must be fused on the card with
+     both legs on the batcher; matmuls must run at float32 precision
+     "highest". QPS, p50/p99 per route and client count, one profiled
+     batcher group per route (with the host-device synchronisations
+     each makes) are printed, and the
      8-client drive is repeated with 1, 2 and 6 batcher workers, at two
      interpreter switch intervals, and once under a host stack sampler
      (measured, not checked);
@@ -71,8 +86,14 @@ PEAK_BF16_TENSOR_FLOPS = 989e12  # bf16 tensor cores, dense
 MATCH_QUERIES = 64
 BATCH = 32
 KNN_QUERIES = 32
+SERVE_QUERIES = 32  # bool, multi_match, filtered bool, hybrid bodies per route
 ORACLE_QUERIES = 8
 K = 10
+TITLE_VOCAB = 20_000  # bench.py's title field
+TITLE_LEN = (3, 9)
+DAY0 = 1_700_000_000_000  # epoch ms of bench.py's 30-day `day` column
+DAY_MS = 86_400_000
+RRF_RANK_CONSTANT = 60
 CLIENTS = 8  # concurrent HTTP clients in phase 4
 SMALL_DOCS = 2000  # docs of the small 2-shard index, in 2 _bulk calls
 SMALL_DELETES = 5
@@ -162,7 +183,7 @@ def build_postings(rng, vocab: int, lengths: np.ndarray):
 def build_corpus(seed: int, n_docs: int, vocab: int, dims: int):
     from elasticsearch_tpu_torch.analysis import AnalysisRegistry
     from elasticsearch_tpu_torch.index.mapping import Mappings
-    from elasticsearch_tpu_torch.index.segment import Segment, VectorField
+    from elasticsearch_tpu_torch.index.segment import NumericField, OrdinalField, Segment, VectorField
     from elasticsearch_tpu_torch.search.executor import ShardReader
 
     rng = np.random.default_rng(seed)
@@ -170,39 +191,144 @@ def build_corpus(seed: int, n_docs: int, vocab: int, dims: int):
     body = build_postings(rng, vocab, lengths)
     vecs = rng.standard_normal((n_docs, dims), dtype=np.float32)
     vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+    # bench.py's other columns, drawn after the body and the vectors so
+    # those stay as earlier runs had them
+    title = build_postings(rng, min(TITLE_VOCAB, vocab), rng.integers(*TITLE_LEN, size=n_docs))
+    exists = np.ones(n_docs, bool)
+    popularity = rng.integers(0, 100, size=n_docs).astype(np.float64)
+    day = (DAY0 + rng.integers(0, 30, size=n_docs).astype(np.int64) * DAY_MS).astype(np.float64)
+    cat_ords = rng.integers(0, 16, size=n_docs).astype(np.int32)
     seg = Segment(
         num_docs=n_docs,
         doc_ids=[str(i) for i in range(n_docs)],
         sources=[None] * n_docs,
-        postings={"body": body},
-        numerics={},
-        ordinals={},
+        postings={"body": body, "title": title},
+        numerics={
+            "popularity": NumericField(values=popularity, exists=exists.copy()),
+            "day": NumericField(values=day, exists=exists.copy()),
+        },
+        ordinals={
+            "cat": OrdinalField(
+                ord_terms=[f"cat{j:02d}" for j in range(16)], ords=cat_ords,
+                mv_ords=cat_ords.copy(), mv_offsets=np.arange(n_docs + 1, dtype=np.int32),
+            )
+        },
         vectors={
             "vec": VectorField(
-                vectors=vecs, exists=np.ones(n_docs, bool), similarity="cosine",
+                vectors=vecs, exists=exists, similarity="cosine",
                 unit_vectors=vecs,
             )
         },
     )
-    mappings = Mappings({
-        "properties": {
-            "body": {"type": "text"},
-            "vec": {"type": "dense_vector", "dims": dims, "similarity": "cosine"},
-        }
-    })
+    mappings = Mappings(corpus_mapping(dims))
     return ShardReader([seg], mappings, AnalysisRegistry()), vecs
 
 
-def match_texts(term_df: np.ndarray, n: int, seed: int) -> list:
+def corpus_mapping(dims: int) -> dict:
+    """bench.py's mapping, without its `sparse_vector` field (ROADMAP
+    queue 1 item 8)."""
+    return {
+        "properties": {
+            "title": {"type": "text"},
+            "body": {"type": "text"},
+            "popularity": {"type": "integer"},
+            "day": {"type": "date"},
+            "cat": {"type": "keyword"},
+            "vec": {"type": "dense_vector", "dims": dims, "similarity": "cosine"},
+        }
+    }
+
+
+def match_texts(term_df: np.ndarray, n: int, seed: int, lo: int = 50, hi: int = 8000) -> list:
     """2-4 mid-frequency terms per query (bench.py's make_query_texts)."""
     rng = np.random.default_rng(seed + 7)
-    cands = np.argsort(-term_df)[50:8000]
+    cands = np.argsort(-term_df)[lo:hi]
     out = []
     for _ in range(n):
         k = int(rng.integers(2, 5))
         picked = rng.choice(len(cands), size=k, replace=False)
         out.append(" ".join(f"w{cands[int(i)]:05d}" for i in picked))
     return out
+
+
+def text_hybrid_bodies(body_df: np.ndarray, title_df: np.ndarray, dims: int, seed: int) -> dict:
+    """bench.py's `bool`, `multi_match`, `filtered_bool` and `hybrid_rrf`
+    bodies (its build_bodies), SERVE_QUERIES of each, from `seed`. The
+    hybrid is the multi_match + knn (k 20, num_candidates 100,
+    rank_constant 60) retriever without bench.py's sparse_vector leg,
+    every fourth body in the `rank: {rrf}` form; filtered bool gets
+    `day_ranges` besides: 4 bodies whose `day` range bounds sit at odd
+    milliseconds next to a day boundary (exact only in float64)."""
+    rng = np.random.default_rng(seed + 29)
+    order = np.argsort(-body_df)
+    cands, filt_cands = order[50:8000], order[200:4000]
+
+    def pick(k, pool=cands):
+        return [f"w{pool[int(i)]:05d}" for i in rng.choice(len(pool), size=k, replace=False)]
+
+    out = {"bool": []}
+    for _ in range(SERVE_QUERIES):
+        t = pick(4)
+        out["bool"].append({"query": {"bool": {
+            "must": [{"term": {"body": t[0]}}],
+            "should": [{"match": {"body": f"{t[1]} {t[2]}"}}, {"match": {"body": t[3]}}],
+        }}, "size": K})
+    t_texts = match_texts(title_df, SERVE_QUERIES, seed + 13, hi=6000)
+    out["multi_match"] = [
+        {"query": {"multi_match": {"query": t, "fields": ["title^2", "body"], "tie_breaker": 0.3}},
+         "size": K}
+        for t in t_texts
+    ]
+    warm = pick(8, filt_cands)
+    out["filtered_bool"] = []
+    for i in range(SERVE_QUERIES):
+        t = pick(3)
+        out["filtered_bool"].append({"query": {"bool": {
+            "must": [{"term": {"body": t[0]}}],
+            "should": [{"match": {"body": f"{t[1]} {t[2]}"}}],
+            "filter": [{"term": {"body": warm[i % len(warm)]}}, {"range": {"popularity": {"gte": 20}}}],
+        }}, "size": K})
+    out["day_ranges"] = []
+    for j in range(4):
+        d = DAY0 + (3 + 7 * j) * DAY_MS
+        t = pick(3, filt_cands)
+        day = ({"gte": d + 1, "lt": d + 4 * DAY_MS + 1} if j % 2 == 0
+               else {"gt": d - 1, "lte": d + 2 * DAY_MS - 1})
+        filters = [{"range": {"day": day}}]
+        if j >= 2:
+            filters.append({"range": {"cat": {"gte": "cat03", "lt": "cat11"}}})
+        scoring = ({"must": [{"match": {"body": f"{t[0]} {t[1]}"}}]} if j % 2 == 0 else
+                   {"must": [{"term": {"body": t[0]}}], "should": [{"match": {"body": t[2]}}]})
+        out["day_ranges"].append({"query": {"bool": {**scoring, "filter": filters}}, "size": K})
+    qv = rng.standard_normal((SERVE_QUERIES, dims)).astype(np.float32)
+    qv /= np.linalg.norm(qv, axis=1, keepdims=True)
+    out["hybrid_rrf"] = []
+    for i, (t, v) in enumerate(zip(t_texts, qv)):
+        mm = {"multi_match": {"query": t, "fields": ["title", "body"]}}
+        knn = {"field": "vec", "query_vector": [float(x) for x in v], "k": 20, "num_candidates": 100}
+        if i % 4 == 3:
+            out["hybrid_rrf"].append({"query": mm, "knn": knn, "rank": {"rrf": {"rank_constant": RRF_RANK_CONSTANT}},
+                                      "size": K, "_source": False})
+        else:
+            out["hybrid_rrf"].append({"retriever": {"rrf": {
+                "retrievers": [{"standard": {"query": mm}}, {"knn": knn}],
+                "rank_constant": RRF_RANK_CONSTANT}}, "size": K, "_source": False})
+    return out
+
+
+def hybrid_legs(body: dict):
+    """(BM25 leg body, kNN leg body, rank_window_size) of one hybrid
+    body, as IndexService._run_rrf sends them."""
+    if "retriever" in body:
+        rrf = body["retriever"]["rrf"]
+        mm = rrf["retrievers"][0]["standard"]["query"]
+        knn = rrf["retrievers"][1]["knn"]
+    else:
+        rrf, mm, knn = body["rank"]["rrf"], body["query"], body["knn"]
+    size = int(body.get("size", 10))
+    window = int(rrf.get("rank_window_size", max(max(size, 10), size)))
+    return ({"query": mm, "size": window, "_source": False},
+            {"knn": knn, "size": window, "_source": False}, window)
 
 
 # ---------------------------------------------------------------------------
@@ -370,16 +496,46 @@ def phase_main(reader, oracle, vecs, qv, seed: int, device) -> dict:
     rng = np.random.default_rng(seed + 11)
     knn_q = rng.standard_normal((KNN_QUERIES, vecs.shape[1])).astype(np.float32)
 
+    # (e)'s queries: multi_match over title^2 and body, as ServePlans
+    from elasticsearch_tpu_torch.search.batcher import extract_serve_plan
+
+    mm_texts = match_texts(reader.segments[0].postings["title"].term_df, BATCH, seed + 13, hi=6000)
+    mm_queries = [
+        dsl.parse_query({"multi_match": {"query": t, "fields": ["title^2", "body"], "tie_breaker": 0.3}})
+        for t in mm_texts
+    ]
+    splans = [extract_serve_plan(q, reader.mappings, reader.analysis) for q in mm_queries]
+    check(all(p is not None and p.fields == ("title", "body") for p in splans),
+          "a multi_match query did not reduce to a (title, body) ServePlan")
+
     t = time.perf_counter()
     tex = TorchExecutor(reader, device=device)
     fs = tex.fused_scorer(0, "body")
     check(fs is not None, "fused scorer was not built for the segment")
+    fs_mf = tex.fused_scorer_mf(0, ("title", "body"))
+    check(fs_mf is not None, "multi-field fused scorer was not built for the segment")
+
+    def mm_plans():
+        out = []
+        for p in splans:
+            secs = [tex.fused_plan_field(0, g.field, tex.fused_parts(0, g.field), g.terms, p.boost)
+                    for g in p.groups]
+            check(all(x is not None for x in secs), "a multi_match query overflowed the fused slot budget")
+            out.append((secs, p.msm))
+        return out
+
+    def route_e(plans):
+        pend = fs_mf.search_async(plans, K, "max_tie", 0.3, rows=len(plans))
+        return scoring.merge_segment_topk([(0, *fs_mf.device_result(pend))], K)
+
     tex.search(dsl.parse_query({"match": {"body": texts[0]}}), size=K)
     tex.search(None, knn=[dsl.parse_knn({"field": "vec", "query_vector": knn_q[0].tolist(), "k": K})], size=K)
+    route_e(mm_plans())
     sync(device)
     times["setup_uploads_s"] = time.perf_counter() - t
-    log(f"executor set-up (uploads, dense rows: {fs.dense.shape[0] if fs.dense is not None else 0}) "
-        f"{times['setup_uploads_s']:.2f}s")
+    dense_rows = {f: (tex.fused_parts(0, f)["dense"].shape[0] if tex.fused_parts(0, f)["dense"] is not None else 0)
+                  for f in ("body", "title")}
+    log(f"executor set-up (uploads, dense rows: {dense_rows}) {times['setup_uploads_s']:.2f}s")
 
     # ---- the main path, with every kernel's count at 0 ----
     int8_knn.int8_dot_scores.launches = 0
@@ -419,6 +575,13 @@ def phase_main(reader, oracle, vecs, qv, seed: int, device) -> dict:
     qd = qd.cpu().numpy()
     times["d_knn_int8_s"] = time.perf_counter() - t
 
+    # (e) multi_match as one multi-field fused group of 32
+    t = time.perf_counter()
+    plans_e = mm_plans()
+    res_e = route_e(plans_e)
+    sync(device)
+    times["e_multi_match_fused_batch_s"] = time.perf_counter() - t
+
     launches = {"int8_dot_scores": int8_knn.int8_dot_scores.launches}
     log(f"main path done; launches {launches}")
     check(all(n > 0 for n in launches.values()), f"a kernel never launched on the main path: {launches}")
@@ -439,6 +602,15 @@ def phase_main(reader, oracle, vecs, qv, seed: int, device) -> dict:
         same_ids([h.doc_id for h in ref.hits], rs, [gd for _, gd in got], f"(b) match [{texts[i]}]")
         ref = oracle.search(None, knn=[secs[i]], size=K)
         same_hits(ref, res_c[i], f"(c) knn query {i}")
+        ref = oracle.search(mm_queries[i], size=K)
+        scores, _, docs, totals = res_e
+        check(int(totals[i].sum()) == ref.total, f"(e) total {int(totals[i].sum())} != oracle {ref.total}")
+        got = [(float(s), str(int(d))) for s, d in zip(scores[i], docs[i]) if np.isfinite(s)][:K]
+        check(len(got) == len(ref.hits), f"(e) {len(got)} hits != oracle {len(ref.hits)}")
+        for (gs, _), h in zip(got, ref.hits):
+            check(np.isclose(gs, h.score, rtol=RTOL, atol=1e-6), f"(e) score {gs} != oracle {h.score}")
+        same_ids([h.doc_id for h in ref.hits], np.array([h.score for h in ref.hits]),
+                 [gd for _, gd in got], f"(e) multi_match [{mm_texts[i]}]")
     # (d) recall@10 against exact f32 cosine, computed on the card
     vt = tex.device_segments[0].vectors["vec"][0]
     qt = torch.from_numpy(knn_q).to(device)
@@ -459,9 +631,18 @@ def phase_main(reader, oracle, vecs, qv, seed: int, device) -> dict:
         ),
         "c_knn_one_query": lambda: tex.search(None, knn=[secs[0]], size=K),
         "d_knn_int8_batch32": lambda: qv.search(knn_q, K)[1].cpu(),
+        "e_multi_match_fused_batch32": lambda: route_e(plans_e),
     }, device) if device.type == "cuda" else {}
+    if profile:
+        # the query vector and the global cut's (doc, score) pairs go up
+        # through pinned memory: a pageable copy would wait for the device
+        pageable = profile["c_knn_one_query"]["pageable_htod"]
+        log(f"(c) pageable host-to-device copies: {pageable}, device time "
+            f"{profile['c_knn_one_query']['device_us']:.0f}us")
+        check(pageable == 0, f"(c) made {pageable} pageable host-to-device copies")
     return {"times": times, "launches": launches, "int8_recall_at_10": recall,
-            "totals_a": [r.total for r in res_a[:ORACLE_QUERIES]], "profile": profile}
+            "totals_a": [r.total for r in res_a[:ORACLE_QUERIES]],
+            "totals_e": [int(t.sum()) for t in res_e[3][:ORACLE_QUERIES]], "profile": profile}
 
 
 def _device_us(evt, names=("self_device_time_total", "self_cuda_time_total")) -> float:
@@ -548,15 +729,20 @@ def profile_routes(routes: dict, device) -> dict:
         # ops/scoring.topk_desc's kernels (traced only for calls made on
         # this thread)
         topk = _range_kernel_us(prof, "topk_desc")
+        # "Memcpy HtoD (Pageable -> Device)": a copy that waits for the
+        # device (ops/scoring.upload's pinned copies are "Pinned")
+        pageable = sum(e.count for e in dev if "Pageable" in e.key and "HtoD" in e.key)
         out[name] = {
             "wall_us": wall_us,
             "device_us": busy,
             "device_idle_share": max(0.0, 1.0 - busy / wall_us) if wall_us else None,
             "topk_desc_device_us": topk,
             "topk_desc_share_of_device": topk / busy if busy else None,
+            "pageable_htod": pageable,
             "top_kernels_us": [[e.key[:80], _device_us(e), e.count] for e in top],
         }
-        log(f"profile {name}: wall {wall_us:.0f}us device {busy:.0f}us topk_desc {topk:.0f}us")
+        log(f"profile {name}: wall {wall_us:.0f}us device {busy:.0f}us topk_desc {topk:.0f}us "
+            f"pageable HtoD {pageable}")
     return out
 
 
@@ -609,16 +795,56 @@ def install_segment(svc, seg) -> None:
 
 
 def small_docs(seed: int, vocab: int, dims: int):
-    """SMALL_DOCS documents over the same Zipf vocabulary as the corpus."""
+    """SMALL_DOCS documents over the same Zipf vocabularies as the
+    corpus, with its filter columns (`day` a few milliseconds past its
+    day boundary, so odd-millisecond bounds split days)."""
     rng = np.random.default_rng(seed + 17)
     probs = 1.0 / np.arange(1, vocab + 1)
     probs /= probs.sum()
+    tvocab = min(TITLE_VOCAB, vocab)
+    tprobs = 1.0 / np.arange(1, tvocab + 1)
+    tprobs /= tprobs.sum()
     out = []
     for i in range(SMALL_DOCS):
         words = rng.choice(vocab, size=int(rng.integers(15, 35)), p=probs)
         v = rng.standard_normal(dims).astype(np.float32)
         out.append((f"s{i}", {"body": " ".join(f"w{w:05d}" for w in words),
                               "vec": [round(float(x), 6) for x in v]}))
+    for _, src in out:
+        src["title"] = " ".join(f"w{w:05d}" for w in rng.choice(tvocab, size=int(rng.integers(*TITLE_LEN)), p=tprobs))
+        src["popularity"] = int(rng.integers(0, 100))
+        src["day"] = DAY0 + int(rng.integers(0, 30)) * DAY_MS + int(rng.integers(0, 4))
+        src["cat"] = f"cat{int(rng.integers(0, 16)):02d}"
+    return out
+
+
+def small_text_hybrid_bodies(docs: list, dims: int, seed: int) -> dict:
+    """The shapes of text_hybrid_bodies over the small index's own words."""
+    rng = np.random.default_rng(seed + 31)
+    bw = [w for _, src in docs[:200] for w in src["body"].split()]
+    tw = [w for _, src in docs[:200] for w in src["title"].split()]
+    out = {"bool": [], "multi_match": [], "filtered_bool": [], "hybrid_rrf": []}
+    for i in range(4):
+        b, t = rng.choice(bw, 4), rng.choice(tw, 2)
+        out["bool"].append({"query": {"bool": {
+            "must": [{"term": {"body": b[0]}}],
+            "should": [{"match": {"body": f"{b[1]} {b[2]}"}}, {"match": {"title": t[0]}}]}}, "size": K})
+        out["multi_match"].append({"query": {"multi_match": {
+            "query": f"{t[0]} {t[1]} {b[3]}", "fields": ["title^2", "body"], "tie_breaker": 0.3}}, "size": K})
+        d = DAY0 + (2 + 5 * i) * DAY_MS
+        filters = [{"range": {"popularity": {"gte": 20}}}, {"range": {"day": {"gte": d + 1 + i % 2}}}]
+        scoring = ({"must": [{"match": {"body": f"{b[1]} {b[3]}"}}]} if i % 2 == 0 else
+                   {"must": [{"term": {"body": b[0]}}], "should": [{"match": {"body": b[2]}}]})
+        out["filtered_bool"].append({"query": {"bool": {**scoring, "filter": filters}}, "size": K})
+        mm = {"multi_match": {"query": f"{t[0]} {b[1]}", "fields": ["title", "body"]}}
+        v = rng.standard_normal(dims)
+        knn = {"field": "vec", "query_vector": [float(x) for x in v / np.linalg.norm(v)],
+               "k": 20, "num_candidates": 100}
+        out["hybrid_rrf"].append(
+            {"query": mm, "knn": knn, "rank": {"rrf": {"rank_constant": RRF_RANK_CONSTANT}}, "size": K}
+            if i % 2 else
+            {"retriever": {"rrf": {"retrievers": [{"standard": {"query": mm}}, {"knn": knn}],
+                                   "rank_constant": RRF_RANK_CONSTANT}}, "size": K})
     return out
 
 
@@ -635,6 +861,79 @@ def same_served(ref: dict, got: dict, what: str) -> None:
     for (_, rs), (_, gs) in zip(rh, gh):
         check(np.isclose(gs, rs, rtol=RTOL, atol=1e-6), f"{what}: score {gs} != oracle {rs}")
     same_ids([i for i, _ in rh], [s for _, s in rh], [i for i, _ in gh], what)
+
+
+def tie_runs(scores) -> list:
+    """[(i, j)]: the runs of `scores` tied within RTOL."""
+    runs, i = [], 0
+    while i < len(scores):
+        j = i + 1
+        while j < len(scores) and np.isclose(scores[j], scores[j - 1], rtol=RTOL, atol=0):
+            j += 1
+        runs.append((i, j))
+        i = j
+    return runs
+
+
+def same_fused(legs: list, got: dict, window: int, what: str, by_global_doc: bool) -> str:
+    """A served hybrid page against RRF over the oracle's legs (their
+    responses, already held to the served legs). `by_global_doc`: the
+    card's fuse (float32 sums, ties on ascending global doc = int(_id),
+    the port's rrf_fuse_host); else the host fuse (ties on the _id
+    string). Where no oracle leg holds scores tied within RTOL, ids go
+    position by position (a tie run of fused scores as a set, the run
+    that reaches the page end as a subset of the oracle's run); where
+    one does, ranks inside that run may permute, so each served score
+    must lie between the least and the most RRF the leg ranks allow.
+    Returns the mode used."""
+    from elasticsearch_tpu_torch.ops.fusion import rrf_fuse_host
+
+    leg_hits = [hits_of(r) for r in legs]
+    gh = hits_of(got)
+    union = {i for hits in leg_hits for i, _ in hits}
+    check(got["hits"]["total"]["value"] == min(window, len(union)),
+          f"{what}: total {got['hits']['total']} for {len(union)} candidates in a window of {window}")
+    check(len(gh) == min(len(union), K), f"{what}: {len(gh)} hits for {len(union)} candidates")
+    check(all(gh[i][1] >= gh[i + 1][1] for i in range(len(gh) - 1)), f"{what}: scores not descending")
+    c = RRF_RANK_CONSTANT
+    if all(j - i == 1 for hits in leg_hits for i, j in tie_runs([s for _, s in hits])):
+        if by_global_doc:
+            es, ed = rrf_fuse_host([np.asarray([[int(i) for i, _ in hits]], np.int64) for hits in leg_hits],
+                                   len(union), c)
+            exp = [(str(int(d)), float(s)) for s, d in zip(es[0], ed[0]) if d >= 0]
+        else:
+            acc: dict = {}
+            for hits in leg_hits:
+                for r, (i, _) in enumerate(hits, 1):
+                    acc[i] = acc.get(i, 0.0) + 1.0 / (c + r)
+            exp = sorted(acc.items(), key=lambda kv: (-kv[1], kv[0]))
+        for (_, es_), (_, gs) in zip(exp, gh):
+            check(np.isclose(gs, es_, rtol=RTOL, atol=0), f"{what}: fused score {gs} != {es_}")
+        for i, j in tie_runs([s for _, s in exp]):
+            if i >= len(gh):
+                break
+            want = {d for d, _ in exp[i:j]}
+            have = {d for d, _ in gh[i:min(j, len(gh))]}
+            ok = have == want if j <= len(gh) else have <= want
+            check(ok, f"{what}: fused ids {have} at ranks {i}-{j - 1} != oracle {want}")
+        return "exact"
+    lo = {i: 0.0 for i in union}
+    hi = {i: 0.0 for i in union}
+    for hits in leg_hits:
+        for a, b in tie_runs([s for _, s in hits]):
+            for i, _ in hits[a:b]:
+                lo[i] += 1.0 / (c + b)
+                hi[i] += 1.0 / (c + a + 1)
+    for i, s in gh:
+        check(i in union and lo[i] * (1 - RTOL) <= s <= hi[i] * (1 + RTOL),
+              f"{what}: fused score {s} of {i} outside [{lo.get(i)}, {hi.get(i)}]")
+    if len(gh) == K:
+        # a candidate whose least RRF beats the page's last score belongs
+        # on the page
+        floor = gh[-1][1] * (1 + RTOL)
+        missing = [i for i in union - {i for i, _ in gh} if lo[i] > floor]
+        check(not missing, f"{what}: {missing} must be on the page (least RRF above {floor})")
+    return "interval"
 
 
 def drive(http: Http, path: str, bodies: list, clients: int):
@@ -914,10 +1213,7 @@ def phase_serve(reader, dims: int, seed: int, device, card: str) -> dict:
     seg = reader.segments[0]
     pf = seg.postings["body"]
     vocab = len(pf.terms)
-    mapping = {"properties": {
-        "body": {"type": "text"},
-        "vec": {"type": "dense_vector", "dims": dims, "similarity": "cosine"},
-    }}
+    mapping = corpus_mapping(dims)
     times = {}
     t = time.perf_counter()
     srv = ElasticsearchTpuServer(port=0, device=device)
@@ -1028,6 +1324,11 @@ def phase_serve(reader, dims: int, seed: int, device, card: str) -> dict:
         check(isinstance(ex, TorchExecutor) and ex.device.type == device.type,
               "/small is not served by a TorchExecutor on the card")
 
+        # ---- bool, multi_match, filtered bool and hybrid RRF ----
+        t = time.perf_counter()
+        text_hybrid = serve_text_hybrid(srv, http, clients_proc, seg, docs, dims, seed, device, rows)
+        times["text_hybrid_s"] = time.perf_counter() - t
+
         # ---- profiles: 8 requests served over HTTP per route (the
         # card's activity; the server's threads are not traced on the
         # host side), then one batcher group of 8 per route run on this
@@ -1067,7 +1368,7 @@ def phase_serve(reader, dims: int, seed: int, device, card: str) -> dict:
         t = time.perf_counter()
         diagnosis = diagnose_concurrency(srv, http, clients_proc, match_bodies, knn_bodies)
         times["diagnosis_s"] = time.perf_counter() - t
-        return {"card": card, "latency": rows, "times": times, "bench_batcher": bench_search,
+        return {"card": card, "latency": rows, "times": times, "bench_batcher": bench_search, "text_hybrid": text_hybrid,
                 "bench_launches_by_bucket": by_bucket, "small_chunked_jobs": chunked,
                 "pipeline": stats_small["pipeline"], "profile": profile,
                 "syncs_per_group": syncs, "concurrency_diagnosis": diagnosis,
@@ -1076,6 +1377,167 @@ def phase_serve(reader, dims: int, seed: int, device, card: str) -> dict:
         if clients_proc is not None:
             clients_proc.close()
         srv.close()
+
+
+TEXT_HYBRID_ROUTES = ("bool", "multi_match", "filtered_bool", "hybrid_rrf")
+
+
+def serve_text_hybrid(srv, http: Http, clients_proc: ClientProcess, seg, docs, dims: int, seed: int,
+                 device, rows: dict) -> dict:
+    """`bool`, `multi_match`, filtered `bool` and hybrid RRF served on
+    the card: `/bench` from 8 clients then 1 (latency rows go into
+    `rows`), 8 bodies per route held to `/bench_oracle` (a hybrid leg by
+    leg, then its fusion), the counters that show the batched route was
+    taken, the same shapes on `/small`, and one profiled batcher group
+    of 8 per route."""
+    from elasticsearch_tpu_torch.search import dsl
+    from elasticsearch_tpu_torch.search.batcher import (
+        QueryBatcher, extract_knn_plan, extract_serve_plan, split_filtered_bool,
+    )
+
+    bench = srv.cluster.get_index("bench")
+    b5 = text_hybrid_bodies(seg.postings["body"].term_df, seg.postings["title"].term_df, dims, seed)
+    bodies = {r: b5[r] + (b5["day_ranges"] if r == "filtered_bool" else []) for r in TEXT_HYBRID_ROUTES}
+    # one of each first: the title field's uploads and dense rows are
+    # set-up, not serving
+    for r in TEXT_HYBRID_ROUTES:
+        http.ok("POST", "/bench/_search", bodies[r][0])
+    with bench._rrf_lock:
+        for key in bench.rrf_stats:
+            bench.rrf_stats[key] = 0
+    served, per_route = {}, {}
+    for clients in (CLIENTS, 1):
+        for r in TEXT_HYBRID_ROUTES:
+            st0, qc0 = node_stats(http), node_query_cache(http)
+            out, rows[f"{r}_{clients}_clients"] = drive_measured(clients_proc, "/bench/_search", bodies[r], clients)
+            st1, qc1 = node_stats(http), node_query_cache(http)
+            served[(r, clients)] = out
+            d = {k: st1["search"][k] - st0["search"][k] for k in ("launches", "fused_jobs", "fused_overflow_jobs")}
+            d["query_cache_hits"] = qc1["hit_count"] - qc0["hit_count"]
+            d["query_cache_misses"] = qc1["miss_count"] - qc0["miss_count"]
+            per_route[f"{r}_{clients}_clients"] = d
+            log(f"/bench {r} x{len(bodies[r])} from {clients} clients: {rows[f'{r}_{clients}_clients']} {d}")
+            if r in ("bool", "multi_match"):
+                # every body rode the serve family's fused launch
+                check(d["fused_jobs"] == len(bodies[r]) and d["fused_overflow_jobs"] == 0,
+                      f"/bench {r}: {d} for {len(bodies[r])} bodies: not all on the serve family's fused route")
+            if r == "filtered_bool":
+                check(d["query_cache_hits"] > 0, f"/bench filtered_bool: no filter-cache hit ({d})")
+    rrf = dict(bench.rrf_stats)
+    n_hybrid = 2 * len(bodies["hybrid_rrf"])
+    log(f"/bench rrf_stats: {rrf}")
+    check(rrf["searches"] == n_hybrid and rrf["device_fused"] == n_hybrid and rrf["host_fused"] == 0,
+          f"/bench: {n_hybrid} hybrid requests, rrf_stats {rrf}: not all fused on the card")
+    check(rrf["batcher_legs"] == 2 * n_hybrid and rrf["pool_legs"] == 0 and rrf["inline_legs"] == 0,
+          f"/bench: hybrid legs left the batcher: {rrf}")
+
+    # ---- held to the numpy oracle ----
+    t = time.perf_counter()
+    checked = {"fused_check_modes": []}
+    for r in ("bool", "multi_match", "filtered_bool"):
+        picks = list(range(ORACLE_QUERIES))
+        if r == "filtered_bool":
+            picks += list(range(len(b5[r]), len(bodies[r])))  # the day ranges
+        for i in picks:
+            ref = http.ok("POST", "/bench_oracle/_search", bodies[r][i])
+            for clients in (CLIENTS, 1):
+                same_served(ref, served[(r, clients)][i], f"/bench {r} body {i} ({clients} clients)")
+        checked[r] = len(picks)
+    for i in range(ORACLE_QUERIES):
+        body = bodies["hybrid_rrf"][i]
+        bm25, knn, window = hybrid_legs(body)
+        legs = []
+        for leg in (bm25, knn):
+            ref = http.ok("POST", "/bench_oracle/_search", leg)
+            same_served(ref, http.ok("POST", "/bench/_search", leg), f"/bench hybrid {i} leg")
+            legs.append(ref)
+        for clients in (CLIENTS, 1):
+            checked["fused_check_modes"].append(same_fused(
+                legs, served[("hybrid_rrf", clients)][i], window,
+                f"/bench hybrid {i} ({clients} clients)", by_global_doc=True))
+    checked["hybrid_rrf"] = ORACLE_QUERIES
+    checked["oracle_s"] = time.perf_counter() - t
+
+    # ---- /small: the tree-walk fallback, the 2-shard host fuse ----
+    sb = small_text_hybrid_bodies(docs, dims, seed)
+    small = []
+    for r in TEXT_HYBRID_ROUTES:
+        small += [(r, b) for b in sb[r]]
+    qc0 = node_query_cache(http)
+    out, rows["small_text_hybrid_8_clients"] = drive_measured(clients_proc, "/small/_search", [b for _, b in small], CLIENTS)
+    for i, (r, body) in enumerate(small):
+        if r != "hybrid_rrf":
+            same_served(http.ok("POST", "/small_oracle/_search", body), out[i], f"/small {r} body {i}")
+            continue
+        bm25, knn, window = hybrid_legs(body)
+        legs = []
+        for leg in (bm25, knn):
+            ref = http.ok("POST", "/small_oracle/_search", leg)
+            same_served(ref, http.ok("POST", "/small/_search", leg), f"/small hybrid {i} leg")
+            legs.append(ref)
+        checked["fused_check_modes"].append(
+            same_fused(legs, out[i], window, f"/small hybrid {i}", by_global_doc=False))
+    small_rrf = dict(srv.cluster.get_index("small").rrf_stats)
+    check(small_rrf["host_fused"] == len(sb["hybrid_rrf"]) and small_rrf["pool_legs"] == 2 * len(sb["hybrid_rrf"]),
+          f"/small: 2-shard hybrids must fuse on the host from pool legs: {small_rrf}")
+    qc1 = node_query_cache(http)
+    log(f"/small bool, multi_match, filtered bool, hybrid: {len(small)} bodies held to /small_oracle; rrf {small_rrf}; "
+        f"query cache hits {qc1['hit_count'] - qc0['hit_count']}; fused checks {checked['fused_check_modes']}")
+
+    # ---- one profiled batcher group of 8 per route (this thread) ----
+    profile, syncs = {}, {}
+    if device.type == "cuda":
+        bex = bench._executor(bench.shards[0])
+        gb = QueryBatcher(workers=1)
+        gb._ensure_thread = lambda: None  # groups run on this thread
+
+        def serve_jobs(route):
+            qs = [dsl.parse_query(b["query"]) for b in bodies[route][:CLIENTS]]
+            return [(extract_serve_plan(q, bench.mappings, bench.analysis), q) for q in qs]
+
+        groups = {r: serve_jobs(r) for r in ("bool", "multi_match")}
+        hyb = [hybrid_legs(b) for b in bodies["hybrid_rrf"][:CLIENTS]]
+        hyb_serve = [(extract_serve_plan(q, bench.mappings, bench.analysis), q)
+                     for q in (dsl.parse_query(h[0]["query"]) for h in hyb)]
+        hyb_knn = [extract_knn_plan([dsl.parse_knn(h[1]["knn"])], bench.mappings) for h in hyb]
+        fq = dsl.parse_query(bodies["filtered_bool"][0]["query"])
+        stripped, fclauses = split_filtered_bool(fq)
+
+        def serve_group(route):
+            def run():
+                jobs = [gb.submit_nowait(bex, p, K, kind="serve", query=q) for p, q in groups[route]]
+                gb._collect_serve_group(jobs, 16, gb._dispatch_serve_group(jobs, 16, rows=CLIENTS))
+            return run
+
+        def filtered_one():
+            bex.search_plan_filtered(stripped, fclauses, K, 10_000, bench.mappings, bench.analysis)
+
+        def hybrid_group():
+            sj = [gb.submit_nowait(bex, p, K, kind="serve", query=q) for p, q in hyb_serve]
+            kj = [gb.submit_nowait(bex, p, K, kind="knn") for p in hyb_knn]
+            sp = gb._dispatch_serve_group(sj, 16, rows=CLIENTS)
+            kp = gb._dispatch_knn_group(kj, rows=CLIENTS)
+            gb._collect_serve_group(sj, 16, sp)
+            gb._collect_knn_group(kj, kp)
+            for a, b in zip(sj, kj):
+                bench._fuse_legs_device([{"td": a.result, "ex": bex}, {"td": b.result, "ex": bex}],
+                                        hyb[0][2], RRF_RANK_CONSTANT)
+
+        fns = {"batcher_bool_group_8": serve_group("bool"),
+               "batcher_multi_match_group_8": serve_group("multi_match"),
+               "filtered_bool_one_request": filtered_one,
+               "batcher_hybrid_legs_and_fuse_8": hybrid_group}
+        profile = profile_routes(fns, device)
+        syncs = {name: count_syncs(fn) for name, fn in fns.items()}
+        log(f"synchronising calls, serve, filtered and hybrid groups: {syncs}")
+        gb.close()
+    return {"served_routes": {r: len(bodies[r]) for r in TEXT_HYBRID_ROUTES}, "counters": per_route,
+            "rrf_stats_bench": rrf, "rrf_stats_small": small_rrf, "checked": checked,
+            "small_bodies": len(small), "profile": profile, "syncs_per_group": syncs}
+
+
+def node_query_cache(http: Http) -> dict:
+    return http.ok("GET", "/_nodes/stats")["nodes"]["node-0"]["indices"]["query_cache"]
 
 
 def gpu_line() -> str:
@@ -1117,10 +1579,16 @@ def run(device, seed: int, n_docs: int, vocab: int, dims: int, card: str) -> dic
         k["launches"] = main["launches"][k["name"]]
     del oracle, qv
 
+    # the peak so far (phases 1-3), then phase 4's own from a reset
+    peaks = {"phases_1_3": torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None}
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     t = time.perf_counter()
     serve = phase_serve(reader, vecs.shape[1], seed, device, card)
     phases["4_serve_s"] = time.perf_counter() - t
-    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+    peaks["phase_4"] = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+    peak = max(peaks.values()) if device.type == "cuda" else None
+    log(f"peak device bytes {peaks}")
     return {
         "card": card,
         "build_s": build_s,
@@ -1128,6 +1596,7 @@ def run(device, seed: int, n_docs: int, vocab: int, dims: int, card: str) -> dic
         "main_path": main,
         "serve": serve,
         "peak_device_bytes": peak,
+        "peak_device_bytes_by_phase": peaks,
         "kernels": kernels,
     }
 
@@ -1155,7 +1624,8 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}", flush=True)
     result = run(device, args.seed, args.docs, args.vocab, args.dims, card)
     print(json.dumps({"card": card, "phases": result["phases"], "build_s": result["build_s"],
-                      "main_path": result["main_path"], "peak_device_bytes": result["peak_device_bytes"]}))
+                      "main_path": result["main_path"], "peak_device_bytes": result["peak_device_bytes"],
+                      "peak_device_bytes_by_phase": result["peak_device_bytes_by_phase"]}))
     print(card, flush=True)
     print(json.dumps({"card": card, "serve": result["serve"]}), flush=True)
     print(card, flush=True)

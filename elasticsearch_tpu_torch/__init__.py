@@ -13,13 +13,14 @@ finds each counterpart under the same relative path:
   plugins.py, search/{dsl,executor,admission,aggs,coordinator,
   failures,query_cache,ann}.py, rest/router.py
                        host-side copies (numpy / pure Python)
-  ops/scoring.py       BM25 tile scoring, fused and chunked scorers,
-                       cross-segment merges, kNN
+  ops/scoring.py       BM25 tile scoring, single- and multi-field fused
+                       scorers, chunked scorer, cross-segment merges, kNN
+  ops/fusion.py        reciprocal-rank fusion of hybrid legs
   ops/wand.py          block-max tiling and bounds (host numpy, device
                        tiles)
   ops/int8_knn.py      int8 kNN scoring: CUDA kernel + plain version
   search/executor_torch.py   TorchExecutor (counterpart of JaxExecutor)
-  search/batcher.py    QueryBatcher: the match and knn families
+  search/batcher.py    QueryBatcher: the match, serve and knn families
   cluster/, rest/      IndexService, ClusterService, the REST server
   cuts.py              what is not ported yet, and which slice brings it
   convert.py           carries segments / quantized corpora across

@@ -25,8 +25,10 @@ PyTorch port: local mode only (the transport and cluster/node.py are
 not ported, so ``routing`` raises). An index with ``search.backend:
 torch`` (the default) serves through `TorchExecutor` on the service's
 ``device`` — "cuda" unless the caller passes another — and the port's
-QueryBatcher; ``numpy`` selects the NumpyExecutor oracle. Paths whose
-modules are not ported yet (retrievers/RRF, rescore, highlight, scripts,
+QueryBatcher; ``numpy`` selects the NumpyExecutor oracle. Retrievers
+and ``rank: {rrf}`` run their legs concurrently and fuse on the card
+(ops/fusion.py) when every leg rode the batcher. Paths whose modules are
+not ported yet (rescore, `sparse_vector` legs, highlight, scripts,
 device aggregations, sorted collection on the card, the mesh, on-disk
 shards) raise, naming the slice that brings them (see cuts.py).
 """
@@ -38,13 +40,13 @@ import os
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from ..analysis import AnalysisRegistry
 from ..common.faults import faults
 from ..common.slowlog import FETCH_ACC, SearchSlowLog
 from ..common.tracing import OPAQUE_ID_CTX, TRACE_CTX
-from ..cuts import AGGS, FETCH, MESH, RERANK, RRF, SORT, not_ported
+from ..cuts import AGGS, FETCH, MESH, RERANK, SORT, SPARSE, not_ported
 from ..index.engine import OpResult, ShardEngine, VersionConflictError
 from ..index.mapping import Mappings
 from ..search import dsl
@@ -77,6 +79,14 @@ RELOCATED_MARKER = "shard_not_in_primary_mode"
 # shared shard fan-out pool (coordinator scatter; leaf tasks only, so a
 # saturated pool queues requests rather than deadlocking)
 _FANOUT_POOL = ThreadPoolExecutor(max_workers=32, thread_name_prefix="search-fanout")
+
+# hybrid retriever legs get their OWN pool: a leg task is NOT a leaf (a
+# standard leg runs a whole coordinator search, which submits shard
+# tasks to _FANOUT_POOL and blocks) — sharing one pool would let
+# saturated leg tasks starve the shard tasks they wait on. Legs nested
+# inside a leg thread run inline instead (same cycle, one pool deeper).
+_LEG_POOL_PREFIX = "rrf-leg"
+_LEG_POOL = ThreadPoolExecutor(max_workers=32, thread_name_prefix=_LEG_POOL_PREFIX)
 
 ACTION_SHARD_SEARCH = "indices:data/read/search_shard"
 ACTION_SHARD_COUNT = "indices:data/read/count_shard"
@@ -339,6 +349,24 @@ def norm_shard_routing(entry) -> dict:
     return out
 
 
+def _reader_locations(ex) -> Dict[str, Tuple[int, int]]:
+    """{doc_id → (segment, local_doc)} for one executor's PINNED reader
+    snapshot — the generation-consistent replacement for the live
+    engine's `_locations` map in multi-phase requests. Only live copies
+    enter the map. Built once per executor (= one reader generation) and
+    cached on it."""
+    locs = getattr(ex, "_reader_locations_cache", None)
+    if locs is None:
+        locs = {}
+        reader = ex.reader
+        for si, seg in enumerate(reader.segments):
+            live = reader.live_docs[si]
+            for local, doc_id in enumerate(seg.doc_ids):
+                if live is None or live[local]:
+                    locs[doc_id] = (si, local)
+        ex._reader_locations_cache = locs
+    return locs
+
 
 class IndexService:
     """The shard set of one index (see module docstring for the two
@@ -452,6 +480,34 @@ class IndexService:
         # from the dynamic search.slowlog.threshold.* index settings
         self._slowlog = SearchSlowLog(self.name)
         self._slowlog.configure(self.settings)
+        # hybrid (RRF) execution breakdown: cumulative per-leg wall
+        # times measured from leg fan-out start, so overlapped legs sum
+        # to MORE than the request wall time; `device_fused` /
+        # `host_fused` count fusions and `{batcher,pool,inline}_legs`
+        # count how each leg ran (the port's addition: a leg that
+        # quietly left the batcher shows here)
+        self._rrf_lock = threading.Lock()
+        self.rrf_stats = {
+            "searches": 0,
+            "bm25_leg_ms": 0.0,
+            "knn_leg_ms": 0.0,
+            "sparse_leg_ms": 0.0,
+            "fuse_ms": 0.0,
+            "device_fused": 0,
+            "host_fused": 0,
+            "batcher_legs": 0,
+            "pool_legs": 0,
+            "inline_legs": 0,
+        }
+        # bounded per-leg latency reservoirs (newest-wins), kept OUTSIDE
+        # rrf_stats, whose values are reset-to-zero numbers
+        from collections import deque as _deque
+
+        self.rrf_leg_samples = {
+            "bm25": _deque(maxlen=4096),
+            "knn": _deque(maxlen=4096),
+            "sparse": _deque(maxlen=4096),
+        }
         # ---- background refresher (index.refresh_interval): the NRT
         # loop that turns buffered writes into searchable generations on
         # a cadence, with the heavy segment build double-buffered
@@ -1261,9 +1317,9 @@ class IndexService:
             # carry it as j.prof and the dispatcher fills "families"
             prof_phases = {"families": {}}
             prof_token = PROFILE_CTX.set(prof_phases)
-        # ---- batched fast path: flat match plans and bare knn sections
-        # on the torch backend go through the cross-request micro-
-        # batching dispatcher (shared launches across concurrent
+        # ---- batched fast path: flat match / serve plans and bare knn
+        # sections on the torch backend go through the cross-request
+        # micro-batching dispatcher (shared launches across concurrent
         # requests). DFS requests skip it: their weights are request-
         # specific, not cacheable ----
         if (
@@ -1279,6 +1335,7 @@ class IndexService:
                 extract_knn_plan,
                 extract_match_plan,
                 extract_serve_plan,
+                split_filtered_bool,
             )
             from ..search.executor_torch import TorchExecutor
 
@@ -1290,11 +1347,10 @@ class IndexService:
                         query, self.mappings, self.analysis, tth
                     )
                     if plan is None:
-                        # None in the port: bool / multi_match take the
-                        # executor path, which raises naming its slice
                         plan = extract_serve_plan(
                             query, self.mappings, self.analysis
                         )
+                        kind = "serve"
                 elif query is None and knn is not None:
                     plan = extract_knn_plan(knn, self.mappings)
                     kind = "knn"
@@ -1316,6 +1372,18 @@ class IndexService:
                         # batcher closed mid-request → the executor's
                         # per-query path, still on the same device
                         td = None
+                if td is None and plan is None and query is not None and knn is None:
+                    # bool with filter clauses: peel the filters into a
+                    # cached device bitset and run the scoring part as a
+                    # fused plan with the bitset masking the scorers
+                    split = split_filtered_bool(query)
+                    if split is not None and all(
+                        dsl.is_cacheable_filter(c) for c in split[1]
+                    ):
+                        td = ex.search_plan_filtered(
+                            split[0], split[1], k, tth,
+                            self.mappings, self.analysis,
+                        )
         agg_partial = None
         try:
             if td is None:
@@ -2120,15 +2188,26 @@ class IndexService:
         if "retriever" in body:
             _validate_sparse_fields(body.get("retriever"), self.mappings)
         if "rescore" in body:
+            # also inside a retriever: the second stage over the fused
+            # candidates is the same rescorer
             raise not_ported("rescore (search/rescorer.py)", RERANK)
+        if "retriever" in body:
+            return self._retriever_search(body, extra_filter), None, []
         rank = body.get("rank")
-        if "retriever" in body or (
+        if (
             isinstance(rank, dict)
             and "rrf" in rank
             and "query" in body
             and "knn" in body
         ):
-            raise not_ported("retrievers and rank:rrf (hybrid RRF)", RRF)
+            # top-level query + knn + rank.rrf (the 8.8 hybrid search
+            # API) rides the SAME concurrent-leg + device-fusion path
+            # as the rrf retriever tree
+            return (
+                self._retriever_search(_rank_to_retriever(body), extra_filter),
+                None,
+                [],
+            )
         if extra_filter is not None:
             inner = body.get("query", {"match_all": {}})
             body = {
@@ -2320,6 +2399,436 @@ class IndexService:
             r["aggs"] for r in shard_results if r.get("aggs") is not None
         ]
         return resp, agg_nodes, agg_partials
+
+    # ---- hybrid retrieval: the retriever tree, concurrent legs, RRF ----
+
+    def _retriever_search(
+        self, body: dict, extra_filter: Optional[dict] = None
+    ) -> dict:
+        """`retriever` tree: standard / knn / rrf (x-pack rank-rrf:
+        RRFRetrieverBuilder — score = Σ 1/(rank_constant + rank) over
+        child retrievers, exact-doc dedup, rank_window_size candidates).
+
+        All children of an `rrf` node run CONCURRENTLY — plannable legs
+        (flat match / multi_match / bool text plans and bare knn
+        sections on a single-shard torch index) are submitted through
+        the QueryBatcher's future API so the BM25 and kNN device work
+        overlaps; everything else fans out on the leg pool. When every
+        leg came back with (segment, doc) identity from one executor
+        the fusion runs on the card (ops/fusion.rrf_fuse_device), else
+        on the host.
+
+        Generation pinning: the per-shard executors are resolved ONCE,
+        up front, and every phase (legs, fetch) reads that snapshot, so
+        a refresh landing mid-request can't mix two generations."""
+        t0 = time.perf_counter()
+        tns = time.perf_counter_ns()
+        size = int(body.get("size", 10))
+        from_ = int(body.get("from", 0))
+        source_spec = body.get("_source", True)
+        profile = bool(body.get("profile"))
+        # retriever-path profile sink: per-leg breakdowns land in
+        # "legs", batcher families in "families" — the body is never
+        # mutated, so the profiled request rides the identical path
+        prof: Optional[dict] = {"legs": []} if profile else None
+        pins = None
+        if self.routing is None:
+            try:
+                pins = self.pin_executors()
+            except KeyError:
+                pins = None
+        window = max(from_ + size, 10)
+        ranked = self._run_retriever(
+            body["retriever"], window, size, extra_filter, pins, prof_out=prof
+        )
+        m_retr = time.perf_counter_ns()
+        page = ranked[from_ : from_ + size]
+        from ..search.executor import filter_source
+
+        out_hits = []
+        for doc_id, score in page:
+            src = self._fetch_source_pinned(doc_id, pins)
+            entry = {"_index": self.name, "_id": doc_id, "_score": float(score)}
+            if src is not None and source_spec is not False:
+                filtered = filter_source(src, source_spec)
+                if filtered is not None:
+                    entry["_source"] = filtered
+            out_hits.append(entry)
+        m_fetch = time.perf_counter_ns()
+        acc = FETCH_ACC.get()
+        if acc is not None:
+            acc["fetch_ns"] += m_fetch - m_retr
+        took = int((time.perf_counter() - t0) * 1000)
+        tr = TRACE_CTX.get()
+        if tr is not None:
+            root = tr.add_span(
+                "retriever_search", tns, m_fetch, index=self.name, took_ms=took,
+            )
+            tr.add_span("retriever", tns, m_retr, parent_id=root)
+            tr.add_span("fetch", m_retr, m_fetch, parent_id=root)
+        n = self.num_shards
+        resp = {
+            "took": took,
+            "timed_out": False,
+            "_shards": {"total": n, "successful": n, "skipped": 0, "failed": 0},
+            "hits": {
+                "total": {"value": len(ranked), "relation": "eq"},
+                "max_score": max((s for _, s in page), default=None),
+                "hits": out_hits,
+            },
+        }
+        if prof is not None:
+            resp["profile"] = {
+                "coordinator": {
+                    "phases": {
+                        "retriever_ns": m_retr - tns,
+                        "rescore_ns": 0,
+                        "fetch_ns": m_fetch - m_retr,
+                    },
+                    "took_ns": m_fetch - tns,
+                },
+                "legs": prof.get("legs", []),
+                "families": dict(prof.get("families", {})),
+                "fuse_ns": int(prof.get("fuse_ns", 0)),
+                "shards": [],
+            }
+        return resp
+
+    def _fetch_source_pinned(self, doc_id: str, pins):
+        """Fetch-phase source read from the PINNED reader generation
+        (the snapshot the candidates were scored against); realtime get
+        is the fallback for unpinned requests."""
+        if pins:
+            sid = route_shard_id(doc_id, self.num_shards)
+            pin = pins[sid] if sid < len(pins) else None
+            if pin is not None and not isinstance(pin, dict):
+                loc = _reader_locations(pin).get(doc_id)
+                if loc is not None:
+                    return pin.reader.segments[loc[0]].sources[loc[1]]
+                return None  # not in the pinned generation
+        doc = self.get_doc(doc_id)
+        return None if doc is None else doc["_source"]
+
+    def _run_retriever(
+        self, ret: dict, window: int, size: int,
+        extra_filter: Optional[dict], pins=None, prof_out=None,
+    ) -> List[tuple]:
+        """ranked [(doc_id, score)] for one retriever node (sync)."""
+        if not isinstance(ret, dict) or len(ret) != 1:
+            raise dsl.QueryParseError("[retriever] malformed")
+        kind, params = next(iter(ret.items()))
+        if kind == "standard":
+            sub = {"size": window, "_source": False}
+            if prof_out is not None:
+                sub["profile"] = True
+            if "query" in params:
+                sub["query"] = params["query"]
+            filters = [f for f in (params.get("filter"), extra_filter) if f is not None]
+            if filters:
+                sub["query"] = {
+                    "bool": {
+                        "must": [sub.get("query", {"match_all": {}})],
+                        "filter": filters,
+                    }
+                }
+            # _search_reduced, not search(): legs run INSIDE the parent
+            # request's admission grant (re-admitting each leg would
+            # double-charge the limit and can self-deadlock); pins ride
+            # along so every leg scores against the request's snapshot
+            resp = self._search_reduced(sub, pins)
+            if prof_out is not None and resp.get("profile"):
+                prof_out.setdefault("legs", []).append(
+                    {"label": "bm25", "profile": resp["profile"]}
+                )
+            return [(h["_id"], h["_score"]) for h in resp["hits"]["hits"]]
+        if kind == "knn":
+            knn_params = dict(params)
+            if extra_filter is not None:
+                # alias filter constrains the knn candidate set too
+                existing = knn_params.get("filter")
+                knn_params["filter"] = (
+                    {"bool": {"filter": [existing, extra_filter]}}
+                    if existing is not None
+                    else extra_filter
+                )
+            knn_sub = {"knn": knn_params, "size": window, "_source": False}
+            if prof_out is not None:
+                knn_sub["profile"] = True
+            resp = self._search_reduced(knn_sub, pins)
+            if prof_out is not None and resp.get("profile"):
+                prof_out.setdefault("legs", []).append(
+                    {"label": "knn", "profile": resp["profile"]}
+                )
+            return [(h["_id"], h["_score"]) for h in resp["hits"]["hits"]]
+        if kind == "rrf":
+            return self._run_rrf(params, window, size, extra_filter, pins, prof_out=prof_out)
+        raise dsl.QueryParseError(f"unknown retriever [{kind}]")
+
+    def _run_rrf(
+        self, params: dict, window: int, size: int,
+        extra_filter: Optional[dict], pins=None, prof_out=None,
+    ) -> List[tuple]:
+        """Concurrent child legs + fusion. All legs share ONE
+        rank_window_size candidate budget."""
+        rank_constant = int(params.get("rank_constant", 60))
+        window2 = int(params.get("rank_window_size", max(window, size)))
+        children = params.get("retrievers", [])
+        t_start = time.perf_counter()
+        t_start_ns = time.perf_counter_ns()
+        # submit every leg before collecting any: plannable legs enter
+        # the batcher (device overlap), the rest ride the leg pool
+        handles = [
+            self._submit_leg(child, window2, extra_filter, pins, profiled=prof_out is not None)
+            for child in children
+        ]
+        legs = [self._wait_leg(h, window2, extra_filter, t_start, pins) for h in handles]
+        t_fuse = time.perf_counter()
+        fused: Optional[List[tuple]] = None
+        device = False
+        executors = {id(l["ex"]) for l in legs if l["ex"] is not None}
+        if (
+            len(legs) >= 2
+            and all(l["td"] is not None for l in legs)
+            and len(executors) == 1
+        ):
+            fused = self._fuse_legs_device(legs, window2, rank_constant)
+            device = True
+        if fused is None:
+            # host fuse: dict accumulation, tie-break on ascending doc
+            # id string
+            acc: Dict[str, float] = {}
+            for leg in legs:
+                for rank, (doc_id, _) in enumerate(leg["ranked"], 1):
+                    acc[doc_id] = acc.get(doc_id, 0.0) + 1.0 / (rank_constant + rank)
+            fused = sorted(acc.items(), key=lambda kv: (-kv[1], kv[0]))[:window2]
+        t_end = time.perf_counter()
+        with self._rrf_lock:
+            st = self.rrf_stats
+            st["searches"] += 1
+            st["fuse_ms"] += (t_end - t_fuse) * 1000.0
+            st["device_fused" if device else "host_fused"] += 1
+            for leg in legs:
+                mode = {"batcher": "batcher_legs", "pool": "pool_legs"}.get(
+                    leg["mode"], "inline_legs"
+                )
+                st[mode] += 1
+                if leg["label"] in ("bm25", "knn", "sparse"):
+                    st[f"{leg['label']}_leg_ms"] += leg["ms"]
+                    self.rrf_leg_samples[leg["label"]].append(leg["ms"])
+        if prof_out is not None:
+            out_legs = prof_out.setdefault("legs", [])
+            for leg in legs:
+                entry = {"label": leg["label"], "mode": leg.get("mode", "?"), "ms": leg["ms"]}
+                lp = leg.get("prof")
+                if lp:
+                    entry["families"] = dict(lp.get("families", {}))
+                if leg.get("sub_profile"):
+                    entry["profile"] = leg["sub_profile"]
+                out_legs.append(entry)
+            prof_out["fuse_ns"] = prof_out.get("fuse_ns", 0) + int((t_end - t_fuse) * 1e9)
+            prof_out["fused_on_device"] = device
+        tr = TRACE_CTX.get()
+        if tr is not None:
+            t_end_ns = time.perf_counter_ns()
+            root = tr.add_span(
+                "rrf", t_start_ns, t_end_ns,
+                index=self.name, legs=len(legs), device_fused=device,
+            )
+            for leg in legs:
+                tr.add_span(
+                    f"leg:{leg['label']}", t_start_ns,
+                    t_start_ns + int(leg["ms"] * 1e6), parent_id=root,
+                    mode=leg.get("mode", "?"),
+                )
+        return fused
+
+    def _submit_leg(
+        self, child: dict, window: int, extra_filter: Optional[dict],
+        pins=None, profiled=False,
+    ) -> dict:
+        """Async leg submission: a batcher future when the child reduces
+        to a device plan, else a leg-pool future running the sync path.
+        EsRejectedExecutionError propagates (HTTP 429)."""
+        if not isinstance(child, dict) or len(child) != 1:
+            raise dsl.QueryParseError("[retriever] malformed")
+        kind, params = next(iter(child.items()))
+        label = {"standard": "bm25", "knn": "knn"}.get(kind, "other")
+        if (
+            kind == "standard"
+            and isinstance(params, dict)
+            and isinstance(params.get("query"), dict)
+            and "sparse_vector" in params["query"]
+        ):
+            raise not_ported("a [sparse_vector] retriever leg", SPARSE)
+        planned = self._plan_leg(kind, params, window, extra_filter, pins)
+        if planned is not None:
+            ex, plan, pkind, query = planned
+            leg_prof = {"families": {}} if profiled else None
+            try:
+                job = self._batcher.submit_nowait(
+                    ex, plan, window, kind=pkind, query=query, prof=leg_prof,
+                )
+                return {
+                    "mode": "batcher", "job": job, "ex": ex,
+                    "label": label, "child": child, "prof": leg_prof,
+                }
+            except RuntimeError:
+                pass  # batcher closed → the sync path below
+        sink = {"legs": []} if profiled else None
+        if threading.current_thread().name.startswith(_LEG_POOL_PREFIX):
+            # nested rrf: already on a leg thread — run inline rather
+            # than wait on a pool slot a sibling may be starving
+            return {
+                "mode": "done",
+                "ranked": self._run_retriever(
+                    child, window, window, extra_filter, pins, prof_out=sink,
+                ),
+                "label": label, "child": child, "prof_sink": sink,
+            }
+        # copied context per leg: the fetch accumulator, trace and opaque
+        # id stay visible inside pool threads
+        cctx = contextvars.copy_context()
+        fut = _LEG_POOL.submit(
+            cctx.copy().run,
+            self._run_retriever, child, window, window, extra_filter, pins, sink,
+        )
+        return {
+            "mode": "pool", "fut": fut, "label": label, "child": child,
+            "prof_sink": sink,
+        }
+
+    def _plan_leg(
+        self, kind: str, params: dict, window: int,
+        extra_filter: Optional[dict], pins=None,
+    ):
+        """(executor, plan, plan_kind, query) when this child can ride
+        the batcher directly: single locally-held shard, torch backend,
+        no filters. None → leg-pool path."""
+        if (
+            self.routing is not None
+            or self.num_shards != 1
+            or extra_filter is not None
+            or str(self.settings.get("search.backend")) != "torch"
+        ):
+            return None
+        from ..search.batcher import (
+            extract_knn_plan,
+            extract_match_plan,
+            extract_serve_plan,
+        )
+        from ..search.executor_torch import TorchExecutor
+
+        if pins:
+            ex = pins[0]  # the request's snapshot generation
+        else:
+            try:
+                ex = self._executor(self.local_shard(0))
+            except KeyError:
+                return None
+        if not isinstance(ex, TorchExecutor):
+            return None
+        if kind == "standard":
+            if params.get("filter") is not None or "query" not in params:
+                return None
+            query = dsl.parse_query(params["query"])
+            plan = extract_match_plan(query, self.mappings, self.analysis, 10_000)
+            if plan is not None:
+                return ex, plan, "match", query
+            plan = extract_serve_plan(query, self.mappings, self.analysis)
+            if plan is not None:
+                return ex, plan, "serve", query
+            return None
+        if kind == "knn":
+            try:
+                sec = dsl.parse_knn(params)
+            except (dsl.QueryParseError, KeyError, TypeError, ValueError):
+                return None  # malformed → the sync path raises the real error
+            from ..search import ann as ann_mod
+
+            ann_mod.annotate([sec], self.settings, None)
+            plan = extract_knn_plan([sec], self.mappings)
+            if plan is None:
+                return None
+            return ex, plan, "knn", None
+        return None
+
+    def _wait_leg(
+        self, handle: dict, window: int, extra_filter: Optional[dict],
+        t_start: float, pins=None,
+    ) -> dict:
+        """Collects one leg: {"ranked", "td", "ex", "label", "ms"}."""
+        td = None
+        ex = None
+        mode = handle["mode"]
+        if mode == "batcher":
+            from ..search.batcher import QueryBatcher
+
+            try:
+                td = QueryBatcher.wait(handle["job"])
+                ex = handle["ex"]
+                ranked = [(h.doc_id, h.score) for h in td.hits]
+            except RuntimeError:
+                # batcher closed mid-flight → the sync path, still on
+                # the same device
+                mode = "inline"
+                ranked = self._run_retriever(handle["child"], window, window, extra_filter, pins)
+        elif mode == "done":
+            ranked = handle["ranked"]
+        else:
+            ranked = handle["fut"].result()
+        sink = handle.get("prof_sink")
+        sub_profile = None
+        if sink and sink.get("legs"):
+            sub_profile = sink["legs"][0].get("profile")
+        return {
+            "ranked": ranked,
+            "td": td,
+            "ex": ex,
+            "label": handle["label"],
+            "mode": mode,
+            "prof": handle.get("prof"),
+            "sub_profile": sub_profile,
+            "ms": (time.perf_counter() - t_start) * 1000.0,
+        }
+
+    def _fuse_legs_device(self, legs: List[dict], k: int, rank_constant: int) -> List[tuple]:
+        """RRF on the card over the legs' top-window (segment, doc)
+        lists: global int doc ids (segment base + local doc) keep
+        exact-doc identity, fusion + dedup + top-k run on the executor's
+        device (ops/fusion), and winners map back to _id strings on the
+        host. Tie-break is ascending global doc — the (segment, doc) asc
+        order every other merge uses."""
+        import numpy as np
+        import torch
+
+        from ..ops.fusion import rrf_fuse_device
+
+        ex = next(l["ex"] for l in legs if l["ex"] is not None)
+        reader = ex.reader
+        bases = np.zeros(len(reader.segments) + 1, np.int64)
+        np.cumsum([seg.num_docs for seg in reader.segments], out=bases[1:])
+        id_map: Dict[int, str] = {}
+        arrays = []
+        width = max(int(k), 1)
+        for leg in legs:
+            arr = np.full((1, width), -1, np.int32)
+            for r, h in enumerate(leg["td"].hits[:width]):
+                g = int(bases[h.segment] + h.local_doc)
+                arr[0, r] = g
+                id_map[g] = h.doc_id
+            arrays.append(arr)
+        s, d = rrf_fuse_device(arrays, k, rank_constant, device=ex.device)
+        # one packed download (scores bitcast beside the docs)
+        packed = torch.cat([s.view(torch.int32), d], dim=1)[0].cpu().numpy()
+        width = int(s.shape[1])
+        s = packed[:width].copy().view(np.float32)
+        d = packed[width:]
+        out: List[tuple] = []
+        for sc, doc in zip(s, d):
+            if doc < 0 or not np.isfinite(sc):
+                break  # padding sorts last
+            out.append((id_map[int(doc)], float(sc)))
+        return out
 
     def count(
         self, body: Optional[dict] = None, extra_filter: Optional[dict] = None
@@ -2536,6 +3045,21 @@ class IndexService:
             "settings": {"index": index_settings},
             "mappings": self.mappings.to_json(),
         }
+
+
+def _rank_to_retriever(body: dict) -> dict:
+    """Rewrites a top-level {query, knn, rank: {rrf}} hybrid search to
+    the equivalent rrf retriever tree so both APIs share one execution
+    path (the reference's RRFRankBuilder does the same collapse)."""
+    rrf = dict(body["rank"].get("rrf") or {})
+    knn_body = body["knn"]
+    knn_list = knn_body if isinstance(knn_body, list) else [knn_body]
+    rrf["retrievers"] = [{"standard": {"query": body["query"]}}] + [
+        {"knn": kb} for kb in knn_list
+    ]
+    out = {k: v for k, v in body.items() if k not in ("rank", "knn", "query")}
+    out["retriever"] = {"rrf": rrf}
+    return out
 
 
 def _validate_sparse_fields(node, mappings: Mappings) -> None:

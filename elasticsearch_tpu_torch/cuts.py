@@ -6,10 +6,8 @@ that brings it, so a caller learns what is missing instead of meeting a
 quiet fallback or an ImportError.
 """
 
-# ROADMAP.md queue 1 items the cuts below point at
-BOOL = "ROADMAP queue 1 item 4 (bool and multi_match)"
-RRF = "ROADMAP queue 1 item 5 (hybrid RRF retrievers)"
-FILTERS = "ROADMAP queue 1 item 6 (filters and the filter-bitset cache)"
+# ROADMAP.md queue 1 items the cuts below point at (items 1-6 are
+# ported)
 RERANK = "ROADMAP queue 1 item 7 (second-stage rerank)"
 SPARSE = "ROADMAP queue 1 item 8 (learned sparse retrieval)"
 IVF = "ROADMAP queue 1 item 9 (IVF ANN)"

@@ -1,9 +1,9 @@
 """Device scoring over tiled postings, in PyTorch.
 
 Counterpart of `elasticsearch_tpu/ops/scoring.py` (the JAX package),
-reduced to what serving `match` and exact kNN runs (the fused scorer for
-large segments, the chunked scorer for small ones, the cross-segment
-merges):
+reduced to what serving `match`, `bool`, `multi_match` and exact kNN
+runs (the single- and multi-field fused scorers for large segments, the
+chunked scorer for small ones, the cross-segment merges):
 
   gather tile rows ([n_tiles, 128] int32 tensors on the device)
   → elementwise BM25
@@ -530,6 +530,175 @@ def _fused_query(doc_ids, tfs, inv_norm, live, dense, plan, t_rare, n_hot, k, wi
     if live is not None:
         mask = mask & live[None, :]
     masked = torch.where(mask, acc, -torch.inf)
+    top_s, top_d = topk_desc(masked, k)
+    totals = mask.sum(dim=1, dtype=torch.int32)
+    return torch.cat(
+        [top_s.view(torch.int32), top_d.to(torch.int32), totals[:, None]],
+        dim=1,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Multi-field fused scorer: the single-launch design above extended to
+# bool must/should and multi_match:
+#
+#   * per-slot COUNTED flags ride the SIGN of the packed weight: w > 0
+#     scores |w| and counts toward minimum_should_match (bool MUST terms,
+#     or every term of a should-only bool), w < 0 scores |w| only (SHOULD
+#     next to a must) — BooleanQuery's required vs optional scorers;
+#   * F fields (each with its own postings, norms and dense rows) score
+#     into per-field accumulators combined as "sum" (most_fields, bool)
+#     or "max_tie" = max + tie·(sum − max) (best_fields, dis_max).
+#
+# One packed int32 plan upload, the whole query phase on the device, one
+# packed result (FusedScorer's layout).
+# ---------------------------------------------------------------------------
+
+
+class MultiFusedScorer:
+    """One-call batched BM25 query phase over one segment and F fields.
+
+    Per-field plan section (int32[2*T + 2*H]): rare tile ids + signed
+    float32 weights (bitcast) + dense hot row ids + signed hot weights.
+    Trailing int32: msm (count threshold over POSITIVE-weight slots).
+    """
+
+    def __init__(self, fields, parts, live, t_rare: int = FUSED_T_RARE,
+                 n_hot_slots: int = FUSED_H):
+        # parts: per field dict(doc_ids, tfs, inv_norm, dense, hot_rank)
+        self.fields = tuple(fields)
+        self.parts = parts
+        self.device = parts[0]["doc_ids"].device
+        self.live = _as_device(live, self.device, torch.bool)
+        self.n_docs = int(parts[0]["inv_norm"].shape[0])
+        self.t_rare = t_rare
+        self.n_hot_slots = n_hot_slots
+
+    def plan_shape(self, rows: int = BPAD):
+        """Plan shape at one query-row bucket."""
+        sec = 2 * self.t_rare + 2 * self.n_hot_slots
+        return (rows, len(self.fields) * sec + 1)
+
+    def pack_plans(self, plans, rows: int = BPAD) -> np.ndarray:
+        """plans: per job ([F per-field (rare_tiles i64[], rare_w_signed
+        f32[], hot_ranks i64[], hot_w_signed f32[])], msm int)."""
+        T, H = self.t_rare, self.n_hot_slots
+        F = len(self.fields)
+        sec = 2 * T + 2 * H
+        out = np.empty(self.plan_shape(rows), np.int32)
+        out[:] = -1
+        for f in range(F):
+            base = f * sec
+            out[:, base + T : base + 2 * T] = 0
+            out[:, base + 2 * T + H : base + sec] = 0
+        out[:, F * sec] = 0
+        fout = out.view(np.float32)
+        for j, (field_plans, msm) in enumerate(plans):
+            for f, (rt, rw, hr, hw) in enumerate(field_plans):
+                base = f * sec
+                nt, nh = len(rt), len(hr)
+                out[j, base : base + nt] = rt
+                fout[j, base + T : base + T + nt] = rw
+                out[j, base + 2 * T : base + 2 * T + nh] = hr
+                fout[j, base + 2 * T + H : base + 2 * T + H + nh] = hw
+            out[j, F * sec] = msm
+        return out
+
+    def search_async(self, plans, k: int, combine: str, tie: float,
+                     live=None, rows: int = BPAD):
+        """Launches the query phase WITHOUT waiting (see
+        FusedScorer.search_async): returns (device_out, k). `live`
+        optionally overrides the live-docs mask (cached filter bitsets
+        ride here); `rows` is the launch's query-row bucket."""
+        k = min(k, self.n_docs)
+        packed = self.pack_plans(plans, rows=rows)
+        out = _fused_query_mf(
+            tuple(p["doc_ids"] for p in self.parts),
+            tuple(p["tfs"] for p in self.parts),
+            tuple(p["inv_norm"] for p in self.parts),
+            tuple(p["dense"] for p in self.parts),
+            _as_device(live, self.device, torch.bool) if live is not None else self.live,
+            upload(packed, self.device),
+            float(np.float32(tie)),
+            t_rare=self.t_rare,
+            n_hot=self.n_hot_slots,
+            k=k,
+            combine=combine,
+        )
+        return out, k
+
+    decode_result = staticmethod(FusedScorer.decode_result)
+    device_result = staticmethod(FusedScorer.device_result)
+
+    def search(self, plans, k: int, combine: str, tie: float, live=None,
+               rows: int = BPAD):
+        return self.decode_result(
+            self.search_async(plans, k, combine, tie, live=live, rows=rows)
+        )
+
+
+def _fused_query_mf(doc_ids_f, tfs_f, inv_norm_f, dense_f, live, plan, tie,
+                    t_rare, n_hot, k, combine):
+    F = len(doc_ids_f)
+    n = inv_norm_f[0].shape[0]
+    T, H = t_rare, n_hot
+    sec = 2 * T + 2 * H
+    B = plan.shape[0]
+    dev = plan.device
+    msm = plan[:, F * sec]
+    cnt = torch.zeros(B, n + 1, dtype=torch.int32, device=dev)
+    accs = []
+    for f in range(F):
+        base = f * sec
+        rare_ti = plan[:, base : base + T]
+        rare_tw = plan[:, base + T : base + 2 * T].view(torch.float32)
+        hot_ids = plan[:, base + 2 * T : base + 2 * T + H]
+        hot_w = plan[:, base + 2 * T + H : base + sec].view(torch.float32)
+        doc_ids, tfs, inv_norm, dense = doc_ids_f[f], tfs_f[f], inv_norm_f[f], dense_f[f]
+        # rare terms: tile gather + scatter-add; |w| scores, w > 0 counts
+        tile_ok = rare_ti >= 0
+        ti = rare_ti.clamp(0, doc_ids.shape[0] - 1).long()
+        rows_d = doc_ids[ti]  # [B,T,128]
+        rows_t = tfs[ti]
+        valid = (rows_d >= 0) & tile_ok[:, :, None]
+        tgt = torch.where(valid, rows_d, n).long().reshape(B, -1)
+        inv = inv_norm[rows_d.clamp(0, n - 1).long()]
+        w = rare_tw.abs()[:, :, None]
+        s = w - w / (1.0 + rows_t.to(torch.float32) * inv)
+        s = torch.where(valid, s, 0.0)
+        acc = torch.zeros(B, n + 1, dtype=torch.float32, device=dev)
+        acc.scatter_add_(1, tgt, s.reshape(B, -1))
+        counted = valid & (rare_tw > 0)[:, :, None]
+        cnt.scatter_add_(1, tgt, counted.reshape(B, -1).to(torch.int32))
+        acc = acc[:, :n]
+        # hot terms: dense rows
+        if dense is not None and dense.shape[0] > 0:
+            for h in range(H):
+                hid = hot_ids[:, h]
+                ok = hid >= 0
+                row_tf = dense[hid.clamp(0, dense.shape[0] - 1).long()].to(torch.float32)
+                wa = torch.where(ok, hot_w[:, h].abs(), 0.0)[:, None]
+                contrib = wa - wa / (1.0 + row_tf * inv_norm[None, :])
+                match = (row_tf > 0) & ok[:, None]
+                acc = acc + torch.where(match, contrib, 0.0)
+                counted_h = match & (hot_w[:, h] > 0)[:, None]
+                cnt[:, :n] += counted_h.to(torch.int32)
+        accs.append(acc)
+    cnt = cnt[:, :n]
+    if F == 1:
+        combined = accs[0]
+    elif combine == "sum":
+        combined = accs[0]
+        for a in accs[1:]:
+            combined = combined + a
+    else:  # max_tie (DisjunctionMaxQuery)
+        stack = torch.stack(accs)
+        best = stack.amax(dim=0)
+        combined = best + tie * (stack.sum(dim=0) - best)
+    mask = cnt >= torch.clamp(msm, min=1)[:, None]
+    if live is not None:
+        mask = mask & live[None, :]
+    masked = torch.where(mask, combined, -torch.inf)
     top_s, top_d = topk_desc(masked, k)
     totals = mask.sum(dim=1, dtype=torch.int32)
     return torch.cat(

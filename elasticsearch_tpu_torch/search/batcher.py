@@ -38,13 +38,16 @@ PyTorch port: the queue, workers, dispatch/collect ring, bucket ladder,
 express lane, deadline shedding and cancellation are the reference's.
 The job families are `match` (fused route for large segments, chunked
 block-max route for small ones, one device-side merge and one packed
-download per group) and exact `knn` (one matmul per segment, the
-device-side num_candidates merge, one packed download). Group inputs
-reach the card through asynchronous pinned uploads (ops/scoring.upload),
-and per-doc masks are the executor's device-resident live ∧ exists
-tensors, so a dispatch never waits for the device. The reference's
-`serve`, `agg`, `rerank`, `sparse` and `mesh_*` families are not ported
-yet: their plan extractors return None here, so such bodies reach
+download per group), `serve` (bool / multi_match ServePlans: the
+multi-field fused route for large segments, one device-side merge and
+one packed download; segments below the fused size and slot overflows
+take `TorchExecutor.segment_topk` per job at collect time) and exact
+`knn` (one matmul per segment, the device-side num_candidates merge,
+one packed download). Group inputs reach the card through asynchronous
+pinned uploads (ops/scoring.upload), and per-doc masks are the
+executor's device-resident live ∧ exists tensors, so a dispatch never
+waits for the device. The reference's `agg`, `rerank`, `sparse` and
+`mesh_*` families are not ported yet: their bodies reach
 `TorchExecutor.search`, which raises naming the slice that brings them.
 """
 
@@ -151,6 +154,32 @@ def extract_match_plan(
 
 
 @dataclass(frozen=True)
+class FieldGroup:
+    """One field's flat term list: (term, boost_multiplier, counted).
+    `counted` terms contribute to the match-count threshold (bool MUST
+    clauses); uncounted terms only score (bool SHOULD next to a must)."""
+
+    field: str
+    terms: Tuple[Tuple[str, float, bool], ...]
+
+
+@dataclass(frozen=True)
+class ServePlan:
+    """A bool / multi_match query reduced to per-field weighted-term
+    groups for the multi-field fused scorer (BASELINE configs 2 and 3)."""
+
+    groups: Tuple[FieldGroup, ...]
+    msm: int  # threshold over counted terms
+    combine: str  # "sum" (bool, most_fields) | "max_tie" (best_fields)
+    tie: float
+    boost: float
+
+    @property
+    def fields(self) -> Tuple[str, ...]:
+        return tuple(g.field for g in self.groups)
+
+
+@dataclass(frozen=True)
 class KnnPlan:
     """A bare top-level knn section (no filter/threshold): batched
     brute-force matmul per segment (BASELINE config 4). The reference's
@@ -163,11 +192,172 @@ class KnnPlan:
     boost: float
 
 
-def extract_serve_plan(query, mappings, analysis) -> None:
-    """The reference reduces bool / multi_match to a multi-field fused
-    plan here; that family comes with ROADMAP queue 1 item 4, so the
-    port returns None and such queries take the executor path."""
+def _clause_terms(q, mappings, analysis) -> Optional[Tuple[str, List[str], float]]:
+    """(field, analyzed terms, boost) for a match/term clause on a text
+    field, or None when the clause can't ride the fused plan."""
+    if isinstance(q, dsl.MatchQuery):
+        mf = mappings.get(q.field)
+        if mf is None or mf.type != TEXT:
+            return None
+        if q.minimum_should_match is not None:
+            return None
+        analyzer_name = q.analyzer or mf.search_analyzer or mf.analyzer
+        try:
+            terms = analysis.get(analyzer_name).terms(q.query)
+        except ValueError:
+            return None
+        if not terms or (q.operator == "and" and len(terms) > 1):
+            # a multi-term AND clause needs clause-local counting the
+            # flat plan can't express
+            return None
+        return q.field, terms, q.boost
+    if isinstance(q, dsl.TermQuery):
+        mf = mappings.get(q.field)
+        if mf is None or mf.type != TEXT:
+            return None
+        return q.field, [dsl.term_token(q.value)], q.boost
     return None
+
+
+def extract_serve_plan(query, mappings, analysis) -> Optional[ServePlan]:
+    """Reduces a bool (must/should of single-field text clauses), a
+    multi_match (best_fields/most_fields, operator=or) or a bare term on
+    a text field to a ServePlan for the multi-field fused scorer. None →
+    normal executor path.
+
+    Count semantics (the flat-plan subset of BooleanQuery):
+      * must clauses must be single-term → each term counted, msm = #must
+      * should clauses score only (uncounted) when musts exist; with no
+        must, all terms counted and msm = minimum_should_match (default
+        1), rejecting multi-term clauses when msm > 1 (clause-level vs
+        term-level counting diverges there).
+    """
+    if isinstance(query, dsl.TermQuery):
+        got = _clause_terms(query, mappings, analysis)
+        if got is None:
+            return None
+        field, terms, _ = got
+        return ServePlan(
+            groups=(FieldGroup(field=field, terms=((terms[0], 1.0, True),)),),
+            msm=1,
+            combine="sum",
+            tie=0.0,
+            boost=query.boost,
+        )
+    if isinstance(query, dsl.BoolQuery):
+        if query.must_not or query.filter:
+            return None
+        if query.must and query.minimum_should_match is not None:
+            return None  # msm-on-should next to must: clause-level count
+        groups: Dict[str, List[Tuple[str, float, bool]]] = {}
+        n_counted = 0
+        if query.must:
+            for c in query.must:
+                got = _clause_terms(c, mappings, analysis)
+                if got is None or len(got[1]) != 1:
+                    return None  # multi-term must → clause-local OR
+                field, terms, cb = got
+                groups.setdefault(field, []).append((terms[0], cb, True))
+                n_counted += 1
+            for c in query.should:
+                got = _clause_terms(c, mappings, analysis)
+                if got is None:
+                    return None
+                field, terms, cb = got
+                for t in terms:
+                    groups.setdefault(field, []).append((t, cb, False))
+            msm = n_counted
+        else:
+            if not query.should:
+                return None
+            msm_req = dsl.parse_minimum_should_match(
+                query.minimum_should_match, len(query.should)
+            )
+            if query.minimum_should_match is not None and msm_req <= 0:
+                # an explicit msm of 0 means every doc matches (the
+                # oracle applies no count mask) — not expressible here
+                return None
+            multi_ok = msm_req <= 1
+            for c in query.should:
+                got = _clause_terms(c, mappings, analysis)
+                if got is None:
+                    return None
+                field, terms, cb = got
+                if len(terms) > 1 and not multi_ok:
+                    return None
+                for t in terms:
+                    groups.setdefault(field, []).append((t, cb, True))
+            msm = max(1, msm_req)
+        if not groups:
+            return None
+        return ServePlan(
+            groups=tuple(FieldGroup(field=f, terms=tuple(ts)) for f, ts in groups.items()),
+            msm=msm,
+            combine="sum",
+            tie=0.0,
+            boost=query.boost,
+        )
+    if isinstance(query, dsl.MultiMatchQuery):
+        if query.type not in ("best_fields", "most_fields"):
+            return None
+        if query.operator == "and":
+            return None
+        from .executor import expand_match_fields
+
+        groups_l: List[FieldGroup] = []
+        for field, fboost in expand_match_fields(mappings, query.fields):
+            mf = mappings.get(field)
+            if mf is None or mf.type != TEXT:
+                return None
+            analyzer_name = mf.search_analyzer or mf.analyzer
+            try:
+                terms = analysis.get(analyzer_name).terms(query.query)
+            except ValueError:
+                return None
+            if not terms:
+                continue
+            groups_l.append(
+                FieldGroup(field=field, terms=tuple((t, fboost, True) for t in terms))
+            )
+        if not groups_l:
+            return None
+        return ServePlan(
+            groups=tuple(groups_l),
+            msm=1,
+            combine="sum" if query.type == "most_fields" else "max_tie",
+            tie=float(query.tie_breaker or 0.0),
+            boost=query.boost,
+        )
+    return None
+
+
+def split_filtered_bool(query):
+    """(scoring-only bool, filter clauses) when `query` is a bool whose
+    filter clauses can be peeled off into a cached bitset while the
+    scoring part keeps its exact semantics; None otherwise.
+
+    The split is semantics-preserving only when the effective
+    minimum_should_match does not depend on the filters' presence:
+    with must clauses (or an explicit msm) the default is identical
+    either way; a should-only bool with filters defaults to msm 0,
+    which the stripped bool would flip to 1 — not splittable."""
+    if not isinstance(query, dsl.BoolQuery) or not query.filter:
+        return None
+    if query.must_not:
+        return None
+    if not (query.must or query.should):
+        return None  # pure filter: constant-score, the tree walk covers it
+    if not query.must and query.minimum_should_match is None:
+        return None
+    stripped = dsl.BoolQuery(
+        boost=query.boost,
+        must=list(query.must),
+        should=list(query.should),
+        filter=[],
+        must_not=[],
+        minimum_should_match=query.minimum_should_match,
+    )
+    return stripped, list(query.filter)
 
 
 def extract_knn_plan(knn_sections, mappings) -> Optional[KnnPlan]:
@@ -208,7 +398,7 @@ class _Job:
         deadline: Optional[float] = None, prof=None,
     ):
         self.executor = executor
-        self.kind = kind  # "match" | "knn"
+        self.kind = kind  # "match" | "serve" | "knn"
         self.plan = plan
         self.k = k
         self.query = query  # parsed Query node for per-segment fallback
@@ -230,7 +420,7 @@ class _Job:
 
 class _BatchCtx:
     """One dispatched batch in the worker's in-flight ring: the jobs it
-    carries plus the async knn groups awaiting collect."""
+    carries plus the async serve/knn groups awaiting collect."""
 
     __slots__ = ("batch", "pending")
 
@@ -410,7 +600,7 @@ class QueryBatcher:
         at dequeue instead of dispatched dead."""
         if self._closed:
             raise RuntimeError("query batcher closed")
-        if kind not in ("match", "knn"):
+        if kind not in ("match", "serve", "knn"):
             # the reference's other families are not ported (see the
             # module docstring); their plans never reach a port batcher
             raise ValueError(f"unknown batcher job kind [{kind}]")
@@ -619,6 +809,11 @@ class QueryBatcher:
                 kb = 16 if j.k <= 16 else scoring.next_bucket(j.k, 16)
                 if j.kind == "match":
                     key = (id(j.executor), "m", j.plan.field, kb)
+                elif j.kind == "serve":
+                    key = (
+                        id(j.executor), "s", j.plan.fields,
+                        j.plan.combine, j.plan.tie, kb,
+                    )
                 else:  # knn (kb stays LAST — dispatch reads it as key[-1])
                     key = (id(j.executor), "k", j.plan.field, kb)
                 groups.setdefault(key, []).append(j)
@@ -668,6 +863,18 @@ class QueryBatcher:
                         self._run_group(jobs, key[2], kb, rows=rows,
                                         prof_cb=cb)
                         self._maybe_warm(key, jobs, kb, rows)
+                    elif kind == "s":
+                        self._record_bucket(rows, len(jobs))
+                        ctx.pending.append(
+                            (key, jobs, fam,
+                             self._dispatch_serve_group(jobs, kb, rows=rows),
+                             dev_ids)
+                        )
+                        dispatched = True
+                        if prof_on:
+                            self._prof_mark(jobs, rows, t_prof, now,
+                                            express)
+                        self._maybe_warm(key, jobs, kb, rows)
                     else:  # "k"
                         self._record_bucket(rows, len(jobs))
                         ctx.pending.append(
@@ -708,7 +915,7 @@ class QueryBatcher:
         """Host side of one dispatched batch: transfer the merged device
         results and finish the waiters. Never raises."""
         try:
-            for _key, jobs, fam, pend, dev_ids in ctx.pending:
+            for key, jobs, fam, pend, dev_ids in ctx.pending:
                 prof_on = any(j.prof is not None for j in jobs)
                 tc0 = time.perf_counter_ns() if prof_on else 0
                 try:
@@ -717,7 +924,10 @@ class QueryBatcher:
                     faults.check(
                         "batcher.collect", family=fam, jobs=len(jobs), mesh=0,
                     )
-                    self._collect_knn_group(jobs, pend)
+                    if key[1] == "s":
+                        self._collect_serve_group(jobs, key[-1], pend)
+                    else:
+                        self._collect_knn_group(jobs, pend)
                     if prof_on:
                         self._prof_collect(jobs, tc0)
                 except BaseException as e:
@@ -901,6 +1111,12 @@ class QueryBatcher:
                     if kind == "m":
                         self._run_group(dummy, key[2], kb, rows=b,
                                         record=False)
+                    elif kind == "s":
+                        pend = self._dispatch_serve_group(
+                            dummy, kb, rows=b, record=False
+                        )
+                        self._collect_serve_group(dummy, kb, pend,
+                                                  record=False)
                     else:
                         pend = self._dispatch_knn_group(
                             dummy, rows=b, record=False
@@ -1215,6 +1431,112 @@ class QueryBatcher:
     def _exit_kind(self, fam: str):
         with self._lock:
             self._inflight[fam] -= 1
+
+    def _dispatch_serve_group(self, jobs: List[_Job], kb: int,
+                              rows: Optional[int] = None,
+                              record: bool = True) -> List[Tuple]:
+        """Launches the multi-field fused scorer for ServePlan jobs
+        (bool / multi_match) on every eligible segment without waiting
+        for the device. Segments without a multi-field scorer (below the
+        fused size) and groups with a job over a slot budget are marked
+        for the per-job fallback, which runs at collect time. `rows`
+        pads the launch to one ladder bucket; `record=False` (warmup)
+        mutes stats."""
+        ex = jobs[0].executor
+        nj = len(jobs)
+        rows = rows or BPAD
+        plan0 = jobs[0].plan
+        items: List[Tuple] = []
+        for si in range(len(ex.reader.segments)):
+            fs = ex.fused_scorer_mf(si, plan0.fields)
+            fplans = None
+            if fs is not None:
+                fplans = []
+                for j in jobs:
+                    sections = []
+                    for g in j.plan.groups:
+                        parts = ex.fused_parts(si, g.field)
+                        sec = (
+                            ex.fused_plan_field(si, g.field, parts, g.terms, j.plan.boost)
+                            if parts is not None
+                            else None
+                        )
+                        if sec is None:
+                            sections = None
+                            break
+                        sections.append(sec)
+                    fplans.append((sections, j.plan.msm) if sections is not None else None)
+            if fs is not None and all(p is not None for p in fplans):
+                pend = fs.search_async(fplans, kb, plan0.combine, plan0.tie, rows=rows)
+                if record:
+                    with self._lock:
+                        self.stats["launches"] += 1
+                        self.stats["fused_jobs"] += nj
+                    n_docs = ex.reader.segments[si].num_docs
+                    self._add_flops(sum(
+                        scoring.text_plan_flops(len(sec[0]), len(sec[2]), n_docs)
+                        for sections, _ in fplans
+                        for sec in sections
+                    ))
+                items.append(("fused", si, fs, pend))
+            else:
+                if record and fs is not None:
+                    with self._lock:
+                        self.stats["fused_overflow_jobs"] += sum(
+                            1 for p in fplans if p is None
+                        )
+                items.append(("fallback", si, None, None))
+        return items
+
+    def _collect_serve_group(self, jobs: List[_Job], kb: int, items,
+                             record: bool = True):
+        """Host side of the serve group: one device-side merge and one
+        packed download cover every fused segment; fallback segments
+        (below the fused size / slot overflow) run per job through
+        `segment_topk` and join the final merge. Totals are exact (the
+        fused scorer prunes nothing)."""
+        ex = jobs[0].executor
+        reader = ex.reader
+        per_job_cands: List[List[Tuple[float, int, int]]] = [[] for _ in jobs]
+        totals = np.zeros(len(jobs), np.int64)
+        fused_items = [
+            (si, *fs.device_result(pend))
+            for tag, si, fs, pend in items
+            if tag == "fused"
+        ]
+        if fused_items:
+            t0 = time.perf_counter()
+            ms, mseg, mdoc, mtot = scoring.merge_segment_topk(fused_items, kb)
+            if record:
+                self._add_stall(time.perf_counter() - t0)
+            for ji in range(len(jobs)):
+                finite = np.isfinite(ms[ji])
+                for s, si, d in zip(ms[ji][finite], mseg[ji][finite], mdoc[ji][finite]):
+                    per_job_cands[ji].append((float(s), int(si), int(d)))
+                totals[ji] += int(mtot[ji].sum())
+        for tag, si, _fs, _pend in items:
+            if tag != "fallback":
+                continue
+            for ji, j in enumerate(jobs):
+                s1, d1, t1 = ex.segment_topk(j.query, si, kb)
+                if record:
+                    with self._lock:
+                        self.stats["launches"] += 1
+                self._collect(
+                    [j], [per_job_cands[ji]], totals[ji : ji + 1],
+                    si, s1[None, :], d1[None, :], np.array([t1]),
+                )
+        self._finish_jobs(jobs, per_job_cands, totals, reader)
+
+    @staticmethod
+    def _collect(jobs, per_job_cands, totals, si, s, d, t):
+        for ji in range(len(jobs)):
+            srow = s[ji]
+            drow = d[ji]
+            finite = np.isfinite(srow)
+            for sc, doc in zip(srow[finite], drow[finite]):
+                per_job_cands[ji].append((float(sc), si, int(doc)))
+            totals[ji] += int(t[ji])
 
     def _dispatch_knn_group(self, jobs: List[_Job],
                             rows: Optional[int] = None,

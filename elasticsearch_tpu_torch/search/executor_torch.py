@@ -7,14 +7,25 @@ the gather→BM25→scatter functions in ops/scoring.py, and collection is a
 top-k that breaks ties by the lowest doc.
 
 The port covers the shard query phase of `match` (BM25),
-`match_all`/`match_none` and exact brute-force kNN (top-level `knn`
-sections and the `knn` query node), plus the surface the serving
-batcher drives: the fused route for large segments (`fused_scorer` →
-`fused_plan` → `FusedScorer.search_async`), the chunked block-max route
-for small ones (`block_index`, `chunked_scorer`), `segment_topk`, and
-device-resident live and live ∧ exists masks built once per executor
-(= reader generation). Every other query node raises
-NotImplementedError naming the slice that brings it (cuts.py).
+`match_all`/`match_none`, `bool`, `multi_match` (best_fields /
+most_fields), `dis_max`, the filter-context leaves (`term`, `terms`,
+`range`, `exists`, `ids`, `constant_score`) and exact brute-force kNN
+(top-level `knn` sections, with or without a `filter`, and the `knn`
+query node), plus the surface the serving batcher drives: the fused
+routes for large segments (`fused_scorer` → `fused_plan` →
+`FusedScorer.search_async`; `fused_scorer_mf` → `fused_plan_field` →
+`MultiFusedScorer.search_async`), the chunked block-max route for small
+ones (`block_index`, `chunked_scorer`), `segment_topk`, the filtered-bool
+route (`search_plan_filtered`), and device-resident live and
+live ∧ exists masks built once per executor (= reader generation).
+Filter-context clauses go through the node-level bitset cache
+(search/query_cache.py) as device `torch.bool` tensors. Every other
+query node raises NotImplementedError naming the slice that brings it
+(cuts.py).
+
+Numeric doc values stay float64 on the device, so a `date` range at
+epoch-millisecond precision compares exactly (float32 spacing near
+1.7e12 ms is 131,072 ms).
 
 Per-segment tensors are uploaded once, lazily per field, and charged to
 the device-memory ledger (common/memory.py) — the analog of Lucene's
@@ -31,20 +42,36 @@ import torch
 
 from .. import cuts
 from ..cuts import not_ported
-from ..index.mapping import TEXT
+from ..index.mapping import DATE, KEYWORD, TEXT, parse_date_millis
 from ..index.segment import Segment
 from ..models import bm25
 from ..ops import scoring
 from . import dsl
 from .dsl import (
+    BoolQuery,
+    ConstantScoreQuery,
+    DisMaxQuery,
+    ExistsQuery,
+    IdsQuery,
     KnnQueryWrapper,
     KnnSection,
     MatchAllQuery,
     MatchNoneQuery,
     MatchQuery,
+    MultiMatchQuery,
     Query,
+    RangeQuery,
+    TermQuery,
+    TermsQuery,
 )
-from .executor import Hit, NumpyExecutor, ShardReader, TopDocs
+from .executor import (
+    Hit,
+    NumpyExecutor,
+    ShardReader,
+    TopDocs,
+    _coerce_numeric,
+    expand_match_fields,
+)
 
 # segments below this size take the batcher's chunked block-max path (or
 # the per-query path); above it the per-segment fused launch with dense
@@ -54,16 +81,8 @@ FUSED_MIN_DOCS = 100_000
 DENSE_ROWS_HBM_BUDGET = 512 * 1024 * 1024
 
 # the slice of the port that brings each query node not ported yet
+# (nodes not named here come with cuts.NODES)
 _LATER_SLICES = {
-    "TermQuery": cuts.FILTERS,
-    "TermsQuery": cuts.FILTERS,
-    "RangeQuery": cuts.FILTERS,
-    "ExistsQuery": cuts.FILTERS,
-    "IdsQuery": cuts.FILTERS,
-    "ConstantScoreQuery": cuts.FILTERS,
-    "BoolQuery": cuts.BOOL,
-    "MultiMatchQuery": cuts.BOOL,
-    "DisMaxQuery": cuts.BOOL,
     "SparseVectorQuery": cuts.SPARSE,
 }
 
@@ -154,6 +173,34 @@ class DeviceSegment:
             return out
 
         self.vectors = _LazyDeviceMap(seg.vectors, _vec)
+        # numeric doc values keep float64 (dates are epoch millis, exact
+        # only in float64), exists is bool
+        self.numerics = _LazyDeviceMap(
+            seg.numerics,
+            lambda f: (
+                _host_to(seg.numerics[f].values, device, np.float64),
+                _host_to(seg.numerics[f].exists, device, bool),
+            ),
+            charge=charge, category="doc_values",
+        )
+        # multi-value ordinal CSR for device range masks on keywords
+        self.ordinals = _LazyDeviceMap(
+            seg.ordinals,
+            lambda f: (
+                _host_to(seg.ordinals[f].mv_ords, device, np.int32),
+                _host_to(seg.ordinals[f].mv_offsets, device, np.int32),
+            ),
+            charge=charge, category="doc_values",
+        )
+
+
+def _host_to(host, device, dtype) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(host, dtype=dtype)).to(device)
+
+
+def _const_scores(mask: torch.Tensor, boost: float) -> torch.Tensor:
+    """float32 `boost` where `mask`, else 0 (a constant-score leaf)."""
+    return torch.where(mask, float(np.float32(boost)), 0.0).to(torch.float32)
 
 
 class TorchExecutor:
@@ -186,6 +233,9 @@ class TorchExecutor:
         self._charges: List[Tuple[str, int]] = []
         self._charges_lock = threading.Lock()
         self._closed = False
+        # filter-bitset cache identity (set by IndexService._executor);
+        # None disables the node-level cache (bare executors)
+        self.cache_ctx = None
         self.device_segments = [
             DeviceSegment(s, self.device, charge=self._charge)
             for s in reader.segments
@@ -195,6 +245,8 @@ class TorchExecutor:
         self._inv_norm_cache: Dict[Tuple[int, str], torch.Tensor] = {}
         self._fused_scorers: Dict[Tuple[int, str], object] = {}
         self._fused_parts: Dict[Tuple[int, str], object] = {}
+        self._fused_mf: Dict[Tuple[int, tuple], object] = {}
+        self._id_maps: Dict[int, Dict[str, int]] = {}
         self._seg_weights: Dict[Tuple[int, str], np.ndarray] = {}
         self._df_maps: Dict[str, Dict[str, int]] = {}
         self._shard_dfs: Dict[Tuple[str, str], int] = {}
@@ -245,6 +297,207 @@ class TorchExecutor:
             charges, self._charges = self._charges, []
         for category, nbytes in charges:
             hbm_ledger.release(category, nbytes)
+
+    # ---- filter-context evaluation via the device bitset cache ----
+
+    def filter_mask(self, q: Query, si: int) -> torch.Tensor:
+        """Match mask of one filter-context clause on one segment. Cached
+        bitsets are device `torch.bool` tensors (`query_cache` ledger
+        category, one byte per doc) that the scoring functions consume
+        directly — a hit skips the whole filter sub-tree."""
+        ctx = self.cache_ctx
+        if ctx is None or not dsl.is_cacheable_filter(q):
+            return self._exec(q, si)[0]
+        from .query_cache import filter_cache
+
+        fkey = dsl.canonical_key(q)
+        cached = filter_cache.get(ctx, si, fkey)
+        if cached is not None:
+            return cached
+        mask = self._exec(q, si)[0].to(torch.bool)
+        filter_cache.put(ctx, si, fkey, mask, int(mask.numel()))
+        return mask
+
+    def combined_filter_mask(self, fclauses, si: int) -> torch.Tensor:
+        """AND of the (cached) filter bitsets and the resident live-docs
+        mask — the live operand the fused and chunked scorers take."""
+        mask = None
+        for c in fclauses:
+            m = self.filter_mask(c, si)
+            mask = m if mask is None else (mask & m)
+        live = self.live_mask(si)
+        if live is not None:
+            mask = live if mask is None else (mask & live)
+        if mask is None:
+            mask = torch.ones(
+                self.reader.segments[si].num_docs, dtype=torch.bool, device=self.device
+            )
+        return mask
+
+    # ---- bitset-masked plan serving (the filtered-bool route) ----
+
+    def search_plan_filtered(
+        self, stripped, fclauses, k: int, tth, mappings, analysis
+    ) -> Optional[TopDocs]:
+        """Serving path for a bool query whose filter clauses resolve to
+        cached bitsets: the scoring part reduces to a flat Match/Serve
+        plan and the combined bitset rides the scorers' live operand, so
+        a warm cache skips filter evaluation entirely. None when the
+        scoring part can't be planned (the caller takes the tree walk,
+        which also consumes the cached bitsets)."""
+        from .batcher import extract_match_plan, extract_serve_plan
+
+        mplan = None
+        splan = None
+        if (
+            isinstance(stripped, BoolQuery)
+            and len(stripped.must) == 1
+            and not stripped.should
+            and stripped.boost == 1.0
+            and isinstance(stripped.must[0], MatchQuery)
+        ):
+            # single-must match: the single-field fused/chunked engine
+            # (with block-max pruning when totals are untracked)
+            mplan = extract_match_plan(stripped.must[0], mappings, analysis, tth)
+        if mplan is None:
+            splan = extract_serve_plan(stripped, mappings, analysis)
+            if splan is None:
+                return None
+        kb = 16 if k <= 16 else scoring.next_bucket(k, 16)
+        cands: List[Tuple[float, int, int]] = []
+        total = 0
+        pruned = False
+        for si, seg in enumerate(self.reader.segments):
+            n = seg.num_docs
+            if n == 0:
+                continue
+            base = self.combined_filter_mask(fclauses, si)
+            if mplan is not None:
+                got = self._match_segment_filtered(mplan, si, base, kb)
+            else:
+                got = self._serve_segment_filtered(splan, si, base, kb)
+            if got is None:
+                # small segment / slot overflow: dense scoring with the
+                # bitset masked straight into the top-k
+                mask, sc = self._exec(stripped, si)
+                mask = mask & base
+                s, d = scoring.topk_hits(sc, mask, min(kb, n))
+                got = (s.cpu().numpy(), d.cpu().numpy(), int(mask.sum()), False)
+            s, d, tot, seg_pruned = got
+            pruned = pruned or seg_pruned
+            total += tot
+            finite = np.isfinite(s)
+            for sc_, doc in zip(s[finite], d[finite]):
+                cands.append((float(sc_), si, int(doc)))
+        cands.sort(key=lambda c: (-c[0], c[1], c[2]))
+        hits = [
+            Hit(score=s, segment=si, local_doc=d, doc_id=self.reader.segments[si].doc_ids[d])
+            for s, si, d in cands[:k]
+        ]
+        return TopDocs(
+            total=total,
+            hits=hits,
+            max_score=hits[0].score if hits else None,
+            # pruned tiles make the collected count a lower bound
+            relation="gte" if pruned else "eq",
+        )
+
+    def _match_segment_filtered(self, plan, si: int, base, kb: int):
+        """(scores[k], docs[k], total, pruned) for one MatchPlan on one
+        segment, the filter bitset masking the scorers; None → dense
+        fallback."""
+        field = plan.field
+        n = self.reader.segments[si].num_docs
+        kk = min(kb, n)
+        fs = self.fused_scorer(si, field)
+        if fs is not None:
+            fplan = self.fused_plan(fs, si, field, plan.terms, plan.boost, plan.msm)
+            if fplan is not None:
+                # single-request path: a 1-row launch
+                s, d, tot = fs.search([fplan], kk, plan.msm > 1, live=base, rows=1)
+                return s[0], d[0], int(tot[0]), False
+        bmx = self.block_index(si, field)
+        cs = self.chunked_scorer(si, field)
+        if bmx is None or cs is None:
+            return None
+        # pruning only when totals are untracked: a term's doc_freq
+        # can't prove >= cap FILTERED matches, so the unfiltered path's
+        # capped-total shortcut is unsound here
+        prune_ok = plan.wand_ok and plan.tth_cap == 0
+        acc, cnt = cs.new_acc(plan.msm > 1, rows=1)
+        empty_i = np.empty(0, np.int64)
+        empty_w = np.empty(0, np.float32)
+        ess, hots = [], []
+        for p in bmx.plan(list(plan.terms), plan.boost):
+            (hots if (prune_ok and p.hot) else ess).append(p)
+        if not ess and hots:
+            # the essential set must be non-empty or θ is -inf
+            hots.sort(key=lambda p: p.tile_count)
+            ess.append(hots.pop(0))
+
+        def tiles_of(ps):
+            tl = [np.arange(p.tile_start, p.tile_start + p.tile_count, dtype=np.int64) for p in ps]
+            wl = [np.full(p.tile_count, p.weight, np.float32) for p in ps]
+            return (
+                np.concatenate(tl) if tl else empty_i,
+                np.concatenate(wl) if wl else empty_w,
+            )
+
+        t_ess, w_ess = tiles_of(ess)
+        acc, cnt = cs.score_into(acc, cnt, [t_ess], [w_ess])
+        pruned = False
+        if hots:
+            theta, accmax = cs.threshold(acc, kk, live=base)
+            # blocks with zero filter-passing docs can never contribute
+            # a candidate — mask them out of the survival test
+            bs = bmx.tiling.block_size
+            nb = bmx.tiling.n_blocks
+            padded = np.zeros(nb * bs, bool)
+            padded[:n] = base.cpu().numpy()
+            block_live = padded.reshape(nb, bs).any(axis=1)
+            sum_bounds = np.zeros(nb, np.float32)
+            for p in hots:
+                sum_bounds += bmx.block_bounds(p)
+            potential = accmax[0] + sum_bounds
+            tl2, wl2 = [], []
+            for p in hots:
+                kept = bmx.surviving_tiles(p, potential, theta[0], block_live=block_live)
+                if len(kept) < p.tile_count:
+                    pruned = True
+                if len(kept):
+                    tl2.append(kept)
+                    wl2.append(np.full(len(kept), p.weight, np.float32))
+            acc, cnt = cs.score_into(
+                acc,
+                cnt,
+                [np.concatenate(tl2) if tl2 else empty_i],
+                [np.concatenate(wl2) if wl2 else empty_w],
+            )
+        msm_arr = np.asarray([plan.msm], np.int32)
+        s, d, tot = cs.finalize(acc, cnt, msm_arr, kk, live=base)
+        return s[0], d[0], int(tot[0]), pruned
+
+    def _serve_segment_filtered(self, plan, si: int, base, kb: int):
+        """(scores[k], docs[k], total, pruned) for one ServePlan on one
+        segment through the multi-field fused scorer with the bitset as
+        its live operand; None → dense fallback."""
+        n = self.reader.segments[si].num_docs
+        fs = self.fused_scorer_mf(si, plan.fields)
+        if fs is None:
+            return None
+        sections = []
+        for g in plan.groups:
+            parts = self.fused_parts(si, g.field)
+            if parts is None:
+                return None
+            sec = self.fused_plan_field(si, g.field, parts, g.terms, plan.boost)
+            if sec is None:
+                return None
+            sections.append(sec)
+        s, d, tot = fs.search(
+            [(sections, plan.msm)], min(kb, n), plan.combine, plan.tie, live=base, rows=1
+        )
+        return s[0], d[0], int(tot[0]), False
 
     # ---- per-(segment, field) dense inverse-norm array ----
 
@@ -392,8 +645,29 @@ class TorchExecutor:
             return self._empty(n)
         if isinstance(q, MatchQuery):
             return self._exec_match(q, si)
+        if isinstance(q, TermQuery):
+            return self._exec_term(q, si)
+        if isinstance(q, TermsQuery):
+            return self._exec_terms(q, si)
+        if isinstance(q, RangeQuery):
+            return self._exec_range(q, si)
+        if isinstance(q, ExistsQuery):
+            # the oracle's host mask and scores (cheap, static), uploaded
+            hm, hs = self._oracle._exec(q, self.reader.segments[si])
+            return scoring.upload(hm, self.device), scoring.upload(hs, self.device)
+        if isinstance(q, BoolQuery):
+            return self._exec_bool(q, si)
+        if isinstance(q, ConstantScoreQuery):
+            m = self.filter_mask(q.filter_query, si)
+            return m, _const_scores(m, q.boost)
+        if isinstance(q, MultiMatchQuery):
+            return self._exec_multi_match(q, si)
         if isinstance(q, KnnQueryWrapper):
             return self._exec_knn_query(q.knn, si)
+        if isinstance(q, IdsQuery):
+            return self._exec_ids(q, si)
+        if isinstance(q, DisMaxQuery):
+            return self._exec_dis_max(q, si)
         name = type(q).__name__
         raise not_ported(
             f"the [{name}] query node", _LATER_SLICES.get(name, cuts.NODES)
@@ -440,12 +714,12 @@ class TorchExecutor:
         idx, w, v = scoring.pad_tiles(
             np.asarray(tile_idx, np.int32), np.asarray(tile_w, np.float32)
         )
-        idx_t = self._to_device(idx).long()
+        idx_t = scoring.upload(idx, self.device).long()
         return scoring.score_tiles(
             dp.doc_ids[idx_t],
             dp.tfs[idx_t],
-            self._to_device(w),
-            self._to_device(v),
+            scoring.upload(w, self.device),
+            scoring.upload(v, self.device),
             self._inv_norm(si, field, n),
             n,
         )
@@ -457,7 +731,7 @@ class TorchExecutor:
             return self._empty(n)
         if mf.type != TEXT:
             # match on keyword/numeric is a term query (ES behavior)
-            raise not_ported("[match] on a non-text field", cuts.FILTERS)
+            return self._exec_term(TermQuery(field=q.field, value=q.query, boost=q.boost), si)
         analyzer_name = q.analyzer or mf.search_analyzer or mf.analyzer
         terms = self.reader.analysis.get(analyzer_name).terms(q.query)
         if not terms:
@@ -470,12 +744,210 @@ class TorchExecutor:
             mask = cnt >= msm
         return mask, torch.where(mask, scores, 0.0)
 
+    # ---- filter-context leaves ----
+
+    def _id_map(self, si: int) -> Dict[str, int]:
+        """_id → local doc map per segment (built once; the analog of
+        Lucene's per-segment terms dict on the _id field)."""
+        m = self._id_maps.get(si)
+        if m is None:
+            m = {d: i for i, d in enumerate(self.reader.segments[si].doc_ids)}
+            self._id_maps[si] = m
+        return m
+
+    def _ids_mask(self, si: int, values) -> torch.Tensor:
+        mask = np.zeros(self.reader.segments[si].num_docs, bool)
+        idmap = self._id_map(si)
+        for v in values:
+            loc = idmap.get(str(v))
+            if loc is not None:
+                mask[loc] = True
+        return scoring.upload(mask, self.device)
+
+    def _exec_ids(self, q, si: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        m = self._ids_mask(si, q.values)
+        return m, _const_scores(m, q.boost)
+
+    def _exec_term(self, q: TermQuery, si: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        n = self.reader.segments[si].num_docs
+        mf = self.reader.mappings.get(q.field)
+        if q.field == "_id":
+            m = self._ids_mask(si, [q.value])
+            return m, _const_scores(m, q.boost)
+        if mf is None:
+            return self._empty(n)
+        if mf.type in (TEXT, KEYWORD):
+            value = q.value
+            if isinstance(value, bool):
+                value = "true" if value else "false"
+            scores, cnt = self._field_terms_scored(si, q.field, [str(value)], q.boost)
+            mask = cnt >= 1
+            return mask, torch.where(mask, scores, 0.0)
+        dn = self.device_segments[si].numerics.get(q.field)
+        if dn is None:
+            return self._empty(n)
+        values, exists = dn
+        mask = exists & (values == _coerce_numeric(mf.type, q.value))
+        return mask, _const_scores(mask, q.boost)
+
+    def _exec_terms(self, q: TermsQuery, si: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        n = self.reader.segments[si].num_docs
+        mf = self.reader.mappings.get(q.field)
+        if q.field != "_id" and mf is not None and mf.type in (TEXT, KEYWORD):
+            # one combined scoring call for all values (constant-score,
+            # so only the match counts matter)
+            vals = [
+                ("true" if v else "false") if isinstance(v, bool) else str(v)
+                for v in q.values
+            ]
+            _, cnt = self._field_terms_scored(si, q.field, vals, 1.0)
+            mask = cnt >= 1
+            return mask, _const_scores(mask, q.boost)
+        if q.field != "_id" and mf is not None:
+            dn = self.device_segments[si].numerics.get(q.field)
+            if dn is None:
+                return self._empty(n)
+            values, exists = dn
+            targets = np.array([_coerce_numeric(mf.type, v) for v in q.values], np.float64)
+            mask = exists & torch.isin(values, scoring.upload(targets, self.device))
+            return mask, _const_scores(mask, q.boost)
+        m = torch.zeros(n, dtype=torch.bool, device=self.device)
+        for v in q.values:
+            m = m | self._exec_term(TermQuery(field=q.field, value=v), si)[0]
+        return m, _const_scores(m, q.boost)
+
+    def _exec_range(self, q: RangeQuery, si: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        seg = self.reader.segments[si]
+        n = seg.num_docs
+        mf = self.reader.mappings.get(q.field)
+        if mf is None:
+            return self._empty(n)
+        if mf.type in (TEXT, KEYWORD):
+            # host bisect on the sorted ord dictionary picks [lo, hi);
+            # the multi-value CSR membership count runs on the device
+            of = seg.ordinals.get(q.field)
+            dof = self.device_segments[si].ordinals.get(q.field)
+            if of is None or dof is None:
+                return self._empty(n)
+            import bisect
+
+            terms = of.ord_terms
+            lo, hi = 0, len(terms)
+            if q.gte is not None:
+                lo = bisect.bisect_left(terms, str(q.gte))
+            if q.gt is not None:
+                lo = max(lo, bisect.bisect_right(terms, str(q.gt)))
+            if q.lte is not None:
+                hi = min(hi, bisect.bisect_right(terms, str(q.lte)))
+            if q.lt is not None:
+                hi = min(hi, bisect.bisect_left(terms, str(q.lt)))
+            mv_ords, mv_offsets = dof
+            in_range = ((mv_ords >= lo) & (mv_ords < hi)).to(torch.int32)
+            csum = torch.cat([
+                torch.zeros(1, dtype=torch.int32, device=self.device),
+                torch.cumsum(in_range, dim=0, dtype=torch.int32),
+            ])
+            offs = mv_offsets.long()
+            mask = (csum[offs[1:]] - csum[offs[:-1]]) > 0
+            return mask, _const_scores(mask, q.boost)
+        dn = self.device_segments[si].numerics.get(q.field)
+        if dn is None:
+            return self._empty(n)
+        values, exists = dn
+        mask = exists
+        # float64 bounds against float64 values: exact at millisecond
+        # precision for dates
+        conv = parse_date_millis if mf.type == DATE else float
+        if q.gte is not None:
+            mask = mask & (values >= float(conv(q.gte)))
+        if q.gt is not None:
+            mask = mask & (values > float(conv(q.gt)))
+        if q.lte is not None:
+            mask = mask & (values <= float(conv(q.lte)))
+        if q.lt is not None:
+            mask = mask & (values < float(conv(q.lt)))
+        return mask, _const_scores(mask, q.boost)
+
+    # ---- compound nodes ----
+
+    def _exec_bool(self, q: BoolQuery, si: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        n = self.reader.segments[si].num_docs
+        mask = torch.ones(n, dtype=torch.bool, device=self.device)
+        scores = torch.zeros(n, dtype=torch.float32, device=self.device)
+        for c in q.must:
+            m, s = self._exec(c, si)
+            mask = mask & m
+            scores = scores + s
+        for c in q.filter:
+            mask = mask & self.filter_mask(c, si)
+        if q.should:
+            sscores = torch.zeros(n, dtype=torch.float32, device=self.device)
+            match_count = torch.zeros(n, dtype=torch.int32, device=self.device)
+            for c in q.should:
+                m, s = self._exec(c, si)
+                sscores = sscores + torch.where(m, s, 0.0)
+                match_count = match_count + m.to(torch.int32)
+            default_msm = 0 if (q.must or q.filter) else 1
+            msm = (
+                dsl.parse_minimum_should_match(q.minimum_should_match, len(q.should))
+                if q.minimum_should_match is not None
+                else default_msm
+            )
+            if msm > 0:
+                mask = mask & (match_count >= msm)
+            scores = scores + torch.where(match_count > 0, sscores, 0.0)
+        for c in q.must_not:
+            mask = mask & ~self._exec(c, si)[0]
+        if q.boost != 1.0:
+            scores = scores * float(np.float32(q.boost))
+        return mask, torch.where(mask, scores, 0.0)
+
+    def _exec_multi_match(self, q: MultiMatchQuery, si: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        n = self.reader.segments[si].num_docs
+        if q.type == "phrase":
+            raise not_ported("[multi_match] of type [phrase]", cuts.NODES)
+        fields = expand_match_fields(self.reader.mappings, q.fields)
+        if not fields:
+            return self._empty(n)
+        per_field = [
+            self._exec_match(
+                MatchQuery(field=fn, query=q.query, operator=q.operator, boost=q.boost * fb), si
+            )
+            for fn, fb in fields
+        ]
+        mask = torch.stack([m for m, _ in per_field]).any(dim=0)
+        score_mat = torch.stack([s for _, s in per_field])
+        if q.type == "best_fields":
+            best = score_mat.amax(dim=0)
+            if q.tie_breaker:
+                rest = score_mat.sum(dim=0) - best
+                total = best + float(np.float32(q.tie_breaker)) * rest
+            else:
+                total = best
+        else:
+            total = score_mat.sum(dim=0)
+        return mask, torch.where(mask, total, 0.0)
+
+    def _exec_dis_max(self, q, si: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        masks, scores = [], []
+        for sub in q.queries:
+            m, s = self._exec(sub, si)
+            masks.append(m)
+            scores.append(torch.where(m, s, 0.0))
+        mask = torch.stack(masks).any(dim=0)
+        mat = torch.stack(scores)
+        best = mat.amax(dim=0)
+        total = best + float(np.float32(q.tie_breaker)) * (mat.sum(dim=0) - best)
+        return mask, torch.where(mask, total * float(np.float32(q.boost)), 0.0)
+
     # ---- knn (device matmul + global top-k cut) ----
 
     def _knn_candidates(self, sec: KnnSection, si: int) -> torch.Tensor:
+        """exists ∧ live (resident) ∧ the section's filter bitset."""
+        mask = self.knn_candidates(si, sec.field)
         if sec.filter is not None:
-            raise not_ported("a kNN [filter]", cuts.FILTERS)
-        return self.knn_candidates(si, sec.field)
+            mask = mask & self.filter_mask(sec.filter, si)
+        return mask
 
     def live_mask(self, si: int) -> Optional[torch.Tensor]:
         """Device bool[n] live-docs mask of one segment (None = no
@@ -511,7 +983,9 @@ class TorchExecutor:
         return mask
 
     def _query_vector(self, sec: KnnSection) -> torch.Tensor:
-        return self._to_device(np.asarray(sec.query_vector, np.float32))[None, :]
+        """The section's query row, [1, d], through a pinned upload that
+        does not wait for the device."""
+        return scoring.upload(np.asarray(sec.query_vector, np.float32)[None, :], self.device)
 
     def _exec_knn_query(self, sec: KnnSection, si: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """knn-as-a-query-node: per-segment num_candidates cut (mirrors
@@ -542,17 +1016,18 @@ class TorchExecutor:
         if getattr(sec, "ann", None) is not None:
             raise not_ported("IVF approximate kNN (ops/ivf.py)", cuts.IVF)
         per_seg = []
+        q = None
         for si, seg in enumerate(self.reader.segments):
             if seg.vectors.get(sec.field) is None:
                 per_seg.append(None)
                 continue
+            if q is None:
+                q = self._query_vector(sec)
             vf = seg.vectors[sec.field]
             cand_mask = self._knn_candidates(sec, si)
             k = min(sec.num_candidates, seg.num_docs)
             vectors, _exists = self.device_segments[si].vectors[sec.field]
-            top_s, top_d = scoring.knn_topk(
-                self._query_vector(sec), vectors, cand_mask, vf.similarity, k
-            )
+            top_s, top_d = scoring.knn_topk(q, vectors, cand_mask, vf.similarity, k)
             per_seg.append((top_s[0].cpu().numpy(), top_d[0].cpu().numpy()))
         # global k cut across segments
         entries = []
@@ -565,17 +1040,27 @@ class TorchExecutor:
                 ):
                     entries.append((-float(s), si, int(d)))
         entries.sort()
-        keep = entries[: sec.k]
+        keep = sorted(entries[: sec.k], key=lambda e: e[1])  # by segment
+        # the kept (doc, score) pairs of every segment go up in ONE pinned
+        # upload (int32 docs, float32 scores bitcast) and are scattered
+        # into zeros on the device; scores are the host's float32 values
+        packed = np.empty((2, len(keep)), np.int32)
+        packed[0] = [d for _, _, d in keep]
+        packed[1].view(np.float32)[:] = [-negs * sec.boost for negs, _, _ in keep]
+        dev = scoring.upload(packed, self.device) if keep else None
+        seg_of = np.asarray([ksi for _, ksi, _ in keep], np.int64)
         out = []
         for si, seg in enumerate(self.reader.segments):
-            n = seg.num_docs
-            mask = np.zeros(n, bool)
-            scores = np.zeros(n, np.float32)
-            for negs, ksi, d in keep:
-                if ksi == si:
-                    mask[d] = True
-                    scores[d] = -negs * sec.boost
-            out.append((self._to_device(mask), self._to_device(scores)))
+            mask, scores = self._empty(seg.num_docs)
+            lo, hi = np.searchsorted(seg_of, [si, si + 1])
+            if hi > lo:
+                # index_fill_/index_copy_ take the fill value as a kernel
+                # argument: `mask[docs] = True` would copy the scalar up
+                # from pageable memory
+                docs = dev[0, lo:hi].long()
+                mask.index_fill_(0, docs, True)
+                scores.index_copy_(0, docs, dev[1, lo:hi].view(torch.float32))
+            out.append((mask, scores))
         return out
 
     # ---- serving-path scorer plumbing (batched match route) ----
@@ -737,6 +1222,76 @@ class TorchExecutor:
             parts = self._fused_parts_build(si, field)
             self._fused_parts[key] = parts
             return parts
+
+    def fused_scorer_mf(self, si: int, fields: tuple):
+        """Cached MultiFusedScorer over one segment and a field tuple
+        (the bool / multi_match serving engine), sharing each field's
+        fused parts (dense rows are built once per field); None when any
+        field lacks parts."""
+        key = (si, tuple(fields))
+        if key in self._fused_mf:
+            return self._fused_mf[key]
+        with self._build_lock:
+            if key in self._fused_mf:
+                return self._fused_mf[key]
+            parts = [self.fused_parts(si, f) for f in fields]
+            fs = None
+            if all(p is not None for p in parts):
+                fs = scoring.MultiFusedScorer(fields, parts, self.live_mask(si))
+            self._fused_mf[key] = fs
+            return fs
+
+    def fused_plan_field(self, si: int, field: str, parts, terms_flagged, boost: float):
+        """One field's section of a MultiFusedScorer plan: (rare_tiles,
+        rare_w_signed, hot_ranks, hot_w_signed). The weight's sign says
+        whether a term counts toward the match threshold (positive =
+        counted). terms_flagged: [(term, term_boost, counted)]. None on
+        a slot-budget overflow or a negative weight (the tree walk
+        serves those)."""
+        pf = self.reader.segments[si].postings.get(field)
+        if pf is None:
+            return (
+                np.empty(0, np.int64), np.empty(0, np.float32),
+                np.empty(0, np.int64), np.empty(0, np.float32),
+            )
+        weights = self._segment_weights(si, field)
+        rt: list = []
+        rw: list = []
+        hr: list = []
+        hw: list = []
+        for t, tb, counted in terms_flagged:
+            tid = pf.term_id(t)
+            if tid < 0:
+                continue
+            w = float(weights[tid]) * boost * tb
+            if w < 0.0:
+                # a negative weight would corrupt the sign-encoded count
+                # flag — the exact path handles it
+                return None
+            if w == 0.0:
+                # a zero weight can't carry the flag in its sign; nudge
+                # it to a tiny normal float32 so counted terms still
+                # count (the score contribution is ~0 either way)
+                w = 1e-30
+            if not counted:
+                w = -w
+            r = parts["hot_rank"].get(tid)
+            if r is not None:
+                hr.append(r)
+                hw.append(w)
+            else:
+                s0 = int(pf.term_tile_start[tid])
+                c = int(pf.term_tile_count[tid])
+                rt.extend(range(s0, s0 + c))
+                rw.extend([w] * c)
+        if len(rt) > scoring.FUSED_T_RARE or len(hr) > scoring.FUSED_H:
+            return None
+        return (
+            np.asarray(rt, np.int64),
+            np.asarray(rw, np.float32),
+            np.asarray(hr, np.int64),
+            np.asarray(hw, np.float32),
+        )
 
     def _fused_parts_build(self, si: int, field: str):
         seg = self.reader.segments[si]

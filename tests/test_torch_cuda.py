@@ -1,5 +1,6 @@
-"""The port's hand-written CUDA kernel against its plain version, on the
-card. Every test here carries the `cuda` marker, needs an NVIDIA GPU and
+"""The port's hand-written CUDA kernel against its plain version, and
+the served routes (match, knn, bool, multi_match, filtered bool, hybrid
+RRF) against the numpy backend, on the card. Every test here carries the `cuda` marker, needs an NVIDIA GPU and
 nvcc, decides so inside its fixture and skips without them. The module
 imports neither jax nor the JAX package, so on a machine with the card
 it also runs where only PyTorch is installed:
@@ -131,13 +132,17 @@ def _served_pair(monkeypatch, cuda):
 
     monkeypatch.setenv("ES_TPU_BG_REFRESH", "off")
     monkeypatch.setenv("ES_TPU_DEVICE_BUILD", "off")
-    mapping = {"properties": {"body": {"type": "text"},
+    mapping = {"properties": {"body": {"type": "text"}, "title": {"type": "text"},
+                              "n": {"type": "integer"}, "day": {"type": "date"},
                               "vec": {"type": "dense_vector", "dims": 16, "similarity": "cosine"}}}
     words = ["ant", "bee", "cat", "dog", "eel", "fox", "gnu", "hen"]
     p = 1.0 / np.arange(1, len(words) + 1)
     rng = np.random.default_rng(5)
     docs = [(f"c{i}", {"body": " ".join(rng.choice(words, int(rng.integers(2, 12)), p=p / p.sum())),
-                       "vec": [float(x) for x in rng.normal(size=16)]}) for i in range(300)]
+                       "vec": [float(x) for x in rng.normal(size=16)],
+                       "title": f"{words[i % 8]} {words[(i * 3) % 8]}",
+                       "n": i % 50, "day": 1700000000000 + (i % 7) * 86400000 + i % 3})
+            for i in range(300)]
     pair = []
     for backend in ("torch", "numpy"):
         svc = IndexService(f"card-{backend}", settings={"number_of_shards": 2, "search.backend": backend},
@@ -168,7 +173,60 @@ def _same_served(ref, got):
         i = j
 
 
-@pytest.mark.parametrize("route", ["match", "knn"])
+TEXT_BODIES = {
+    "bool": [{"query": {"bool": {"must": [{"term": {"body": "ant"}}],
+                                 "should": [{"match": {"body": "cat dog"}}, {"match": {"title": "bee"}}]}}},
+             {"query": {"bool": {"should": [{"match": {"body": "eel"}}, {"match": {"body": "fox"}},
+                                            {"match": {"title": "gnu"}}], "minimum_should_match": 2}}}],
+    "multi_match": [{"query": {"multi_match": {"query": "ant hen", "fields": ["title^2", "body"],
+                                               "tie_breaker": 0.3}}},
+                    {"query": {"multi_match": {"query": "bee cat", "fields": ["title", "body"],
+                                               "type": "most_fields"}}}],
+    "filtered_bool": [{"query": {"bool": {"must": [{"term": {"body": "bee"}}],
+                                          "should": [{"match": {"body": "cat"}}],
+                                          "filter": [{"term": {"body": "dog"}}, {"range": {"n": {"gte": 20}}}]}}},
+                      # a date range at an odd-millisecond boundary
+                      {"query": {"bool": {"must": [{"match": {"body": "ant"}}],
+                                          "filter": [{"range": {"day": {"gt": 1700086400001}}}]}}},
+                      {"query": {"bool": {"must": [{"match": {"body": "ant"}}],
+                                          "filter": [{"range": {"day": {"gt": 1700086400000}}}]}}}],
+}
+
+
+def _same_fused(oracle, body, got, c=60):
+    """A hybrid page against RRF over the oracle's two legs: each served
+    score lies between the least and the most RRF that the legs' ranks
+    allow (ranks inside a run of leg scores tied within 1e-5 may
+    permute), and no candidate whose least RRF beats the page's last
+    score is missing."""
+    rrf = body["retriever"]["rrf"] if "retriever" in body else body["rank"]["rrf"]
+    if "retriever" in body:
+        std, knn = (r for r in rrf["retrievers"])
+        legs = [{"query": std["standard"]["query"]}, {"knn": knn["knn"]}]
+    else:
+        legs = [{"query": body["query"]}, {"knn": body["knn"]}]
+    lo, hi = {}, {}
+    for leg in legs:
+        hits = oracle.search({**leg, "size": 10, "_source": False})["hits"]["hits"]
+        s = [h["_score"] for h in hits]
+        i = 0
+        while i < len(s):
+            j = i + 1
+            while j < len(s) and np.isclose(s[j], s[j - 1], rtol=1e-5, atol=0):
+                j += 1
+            for h in hits[i:j]:
+                lo[h["_id"]] = lo.get(h["_id"], 0.0) + 1.0 / (c + j)
+                hi[h["_id"]] = hi.get(h["_id"], 0.0) + 1.0 / (c + i + 1)
+            i = j
+    gh = got["hits"]["hits"]
+    assert len(gh) == min(10, len(lo))
+    for h in gh:
+        assert lo[h["_id"]] * (1 - 1e-5) <= h["_score"] <= hi[h["_id"]] * (1 + 1e-5), (h, lo, hi)
+    floor = gh[-1]["_score"] * (1 + 1e-5)
+    assert not [d for d in set(lo) - {h["_id"] for h in gh} if lo[d] > floor]
+
+
+@pytest.mark.parametrize("route", ["match", "knn", "bool", "multi_match", "filtered_bool", "hybrid"])
 def test_served_route_on_card_matches_numpy(cuda, monkeypatch, route):
     from elasticsearch_tpu_torch.search.executor_torch import TorchExecutor
 
@@ -178,14 +236,39 @@ def test_served_route_on_card_matches_numpy(cuda, monkeypatch, route):
         if route == "match":
             bodies = [{"query": {"match": {"body": q}}} for q in ("ant bee", "cat", "dog eel fox")]
             bodies.append({"query": {"match": {"body": {"query": "ant bee cat", "operator": "and"}}}})
-        else:
+        elif route == "knn":
             bodies = [{"knn": {"field": "vec", "query_vector": [float(x) for x in rng.normal(size=16)],
                                "k": 5, "num_candidates": 25}} for _ in range(4)]
+        elif route == "hybrid":
+            bodies = [
+                {"retriever": {"rrf": {"retrievers": [
+                    {"standard": {"query": {"multi_match": {"query": q, "fields": ["title", "body"]}}}},
+                    {"knn": {"field": "vec", "query_vector": [float(x) for x in rng.normal(size=16)],
+                             "k": 8, "num_candidates": 30}}], "rank_constant": 60}}}
+                for q in ("ant bee", "cat", "dog eel")
+            ]
+            bodies.append({"query": {"match": {"body": "fox"}}, "rank": {"rrf": {}},
+                           "knn": {"field": "vec", "query_vector": [float(x) for x in rng.normal(size=16)],
+                                   "k": 5, "num_candidates": 20}})
+        else:
+            bodies = TEXT_BODIES[route]
         for body in bodies:
-            _same_served(oracle.search(body), svc.search(body))
+            if route == "hybrid":
+                _same_fused(oracle, body, svc.search(body))
+            else:
+                _same_served(oracle.search(body), svc.search(body))
         ex = svc._executor(svc.shards[0])
         assert isinstance(ex, TorchExecutor) and ex.device.type == "cuda"
-        assert svc._batcher.stats["launches"] > 0
+        if route == "hybrid":
+            # two shards: the legs run on the leg pool, the fuse on the host
+            assert svc.rrf_stats["host_fused"] == len(bodies)
+        elif route == "filtered_bool":
+            # the filtered route scores per request, its bitsets cached
+            from elasticsearch_tpu_torch.search.query_cache import filter_cache
+
+            assert filter_cache.stats_for_index(svc.uuid)["cache_count"] > 0
+        else:
+            assert svc._batcher.stats["launches"] > 0
         assert torch.get_float32_matmul_precision() == "highest"
     finally:
         svc.close()

@@ -1,8 +1,10 @@
 """The port's REST server against the JAX package's, over HTTP on the
 CPU: both serve on `port=0` on the loopback, take the same `PUT`,
 `_bulk?refresh=true`, deletes and searches, and must answer with the
-same JSON hits (same totals and ids, scores within rtol 1e-5). The
-port's server runs with `device="cpu"`, as tests must."""
+same JSON hits (same totals and ids, scores within rtol 1e-5) for
+`match`, `knn`, `bool`, `multi_match`, filtered `bool`, `retriever.rrf`
+and `rank: {rrf}`. The port's server runs with `device="cpu"`, as tests
+must."""
 
 import json
 import urllib.error
@@ -23,6 +25,7 @@ WORDS = ["red", "green", "blue", "cyan", "magenta", "yellow", "black", "white", 
 MAPPING = {
     "properties": {
         "body": {"type": "text"},
+        "n": {"type": "integer"},
         "vec": {"type": "dense_vector", "dims": DIMS, "similarity": "cosine"},
     }
 }
@@ -86,7 +89,8 @@ def make_docs(n, seed):
     w /= w.sum()
     return [
         (f"r{i}", {"body": " ".join(rng.choice(WORDS, int(rng.integers(2, 12)), p=w)),
-                   "vec": [float(x) for x in rng.normal(size=DIMS)]})
+                   "vec": [float(x) for x in rng.normal(size=DIMS)],
+                   "n": (i * 13) % 50})
         for i in range(n)
     ]
 
@@ -128,6 +132,19 @@ SEARCHES = [
     {"query": {"match": {"body": "grey magenta"}}, "track_total_hits": True, "_source": False},
     {"knn": knn(0)},
     {"knn": knn(1, k=8, nc=8), "size": 4},
+    {"query": {"bool": {"must": [{"term": {"body": "red"}}],
+                        "should": [{"match": {"body": "blue cyan"}}]}}},
+    {"query": {"bool": {"should": [{"match": {"body": "black"}}, {"match": {"body": "white"}},
+                                   {"match": {"body": "grey"}}], "minimum_should_match": 2}}},
+    {"query": {"multi_match": {"query": "green yellow", "fields": ["body^2"], "tie_breaker": 0.3}}},
+    {"query": {"bool": {"must": [{"match": {"body": "magenta"}}],
+                        "filter": [{"range": {"n": {"gte": 10, "lt": 40}}}]}}, "size": 15},
+    {"query": {"bool": {"must": [{"term": {"body": "green"}}], "should": [{"match": {"body": "red"}}],
+                        "filter": [{"term": {"body": "blue"}}, {"range": {"n": {"lte": 30}}}]}}},
+    {"retriever": {"rrf": {"retrievers": [{"standard": {"query": {"match": {"body": "cyan red"}}}},
+                                          {"knn": knn(2, k=10, nc=30)}]}}, "size": 6},
+    {"query": {"match": {"body": "yellow"}}, "knn": knn(3), "rank": {"rrf": {"rank_window_size": 15}}},
+    {"knn": {**knn(4), "filter": {"range": {"n": {"gte": 25}}}}},
 ]
 
 
@@ -186,8 +203,9 @@ def test_unknown_backend_is_a_400(servers, backend):
 
 
 @pytest.mark.parametrize("body,item", [
-    ({"query": {"bool": {"should": [{"match": {"body": "red"}}]}}}, "item 4"),
-    ({"query": {"match": {"body": "red"}}, "knn": knn(0), "rank": {"rrf": {}}}, "item 5"),
+    ({"query": {"multi_match": {"query": "red green", "fields": ["body"], "type": "phrase"}}}, "item 16"),
+    ({"query": {"match": {"body": "red"}}, "knn": knn(0), "rank": {"rrf": {}},
+      "rescore": {"window_size": 5, "query": {"rescore_query": {"match_all": {}}}}}, "item 7"),
 ])
 def test_cut_is_a_501_naming_its_slice(servers, body, item):
     _, tsrv = servers

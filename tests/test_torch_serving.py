@@ -6,11 +6,15 @@ JAX package's `IndexService` (`search.backend: jax`) and the port's
 through both: the block-max tiling and bounds (`ops/wand.py`), the
 chunked scorer and the kNN merge (`ops/scoring.py`), `QueryBatcher` at
 every bucket of the ladder and at pipeline depths 1 and 2, and
-`IndexService.search`. Hits must agree: the same totals and ids, scores
-within rtol 1e-5 (float32 sums taken in another order; the reference's
-own kNN scores move in the last ulp with the batch's row count). The
-paths the port does not have yet must raise, naming their slice.
+`IndexService.search`, for `match`, `knn`, `bool`, `multi_match`,
+filtered `bool` (the cached-bitset route), `retriever.rrf` and
+`rank: {rrf}`. Hits must agree: the same totals and ids, scores within
+rtol 1e-5 (float32 sums taken in another order; the reference's own kNN
+scores move in the last ulp with the batch's row count). The paths the
+port does not have yet must raise, naming their slice.
 """
+
+import dataclasses
 
 import threading
 
@@ -26,6 +30,8 @@ from elasticsearch_tpu.search import executor_jax
 from elasticsearch_tpu.search.batcher import QueryBatcher as JBatcher
 from elasticsearch_tpu.search.batcher import extract_knn_plan as j_knn_plan
 from elasticsearch_tpu.search.batcher import extract_match_plan as j_match_plan
+from elasticsearch_tpu.search.batcher import extract_serve_plan as j_serve_plan
+from elasticsearch_tpu.search.batcher import split_filtered_bool as j_split
 
 from elasticsearch_tpu_torch.cluster.indices import IndexService
 from elasticsearch_tpu_torch.common.settings import batch_buckets
@@ -35,7 +41,9 @@ from elasticsearch_tpu_torch.search.batcher import (
     QueryBatcher,
     extract_knn_plan,
     extract_match_plan,
+    extract_serve_plan,
     live_batchers,
+    split_filtered_bool,
 )
 from elasticsearch_tpu_torch.search.executor_torch import TorchExecutor
 
@@ -51,6 +59,8 @@ MAPPING = {
     "properties": {
         "title": {"type": "text"},
         "body": {"type": "text"},
+        "tag": {"type": "keyword"},
+        "n": {"type": "integer"},
         "vec": {"type": "dense_vector", "dims": DIMS, "similarity": "cosine"},
     }
 }
@@ -99,6 +109,10 @@ def make_docs(n, seed):
                 "title": " ".join(rng.choice(WORDS, int(rng.integers(1, 4)), p=_zipf(len(WORDS)))),
                 "body": " ".join(rng.choice(WORDS, int(rng.integers(3, 14)), p=_zipf(len(WORDS)))),
                 "vec": [float(x) for x in rng.normal(size=DIMS)],
+                # filter columns, drawn from the doc number (the random
+                # stream of the text and vectors stays as it was)
+                "tag": f"t{i % 4}",
+                "n": (i * 37) % 100,
             },
         ))
     return docs
@@ -180,6 +194,25 @@ def knn_body(i, nc=30, k=6):
     rng = np.random.default_rng(100 + i)
     return {"field": "vec", "query_vector": [float(x) for x in rng.normal(size=DIMS)],
             "k": k, "num_candidates": nc}
+
+
+def bool_body(i):
+    """A bool over body and title (the ServePlan's fields in that
+    order, combine "sum"): must term + should matches, or should-only
+    with minimum_should_match 2."""
+    w = [WORDS[(i * 5 + j) % len(WORDS)] for j in range(4)]
+    if i % 2 == 0:
+        return {"bool": {"must": [{"term": {"body": w[0]}}],
+                         "should": [{"match": {"body": f"{w[1]} {w[2]}"}}, {"match": {"title": w[3]}}]}}
+    return {"bool": {"should": [{"match": {"body": w[0]}}, {"match": {"title": w[1]}},
+                                {"match": {"body": w[2]}}], "minimum_should_match": 2}}
+
+
+def mm_body(i, **extra):
+    """multi_match over title^2 and body, best_fields with tie 0.3."""
+    w = [WORDS[(i * 3 + j) % len(WORDS)] for j in range(3)]
+    return {"multi_match": {"query": " ".join(w[: 2 + i % 2]), "fields": ["title^2", "body"],
+                            "tie_breaker": 0.3, **extra}}
 
 
 # ---------------------------------------------------------------------
@@ -341,7 +374,14 @@ def serving_pair():
 def _plans(jsvc, tsvc, kind, n, tth=10_000):
     out = []
     for i in range(n):
-        if kind == "match":
+        if kind in ("serve_bool", "serve_mm"):
+            body = bool_body(i) if kind == "serve_bool" else mm_body(i)
+            jq, tq = jdsl.parse_query(body), dsl.parse_query(body)
+            jp = j_serve_plan(jq, jsvc.mappings, jsvc.analysis)
+            tp = extract_serve_plan(tq, tsvc.mappings, tsvc.analysis)
+            assert jp is not None and dataclasses.asdict(tp) == dataclasses.asdict(jp)
+            out.append(((jp, jq), (tp, tq)))
+        elif kind == "match":
             body = match_body(i, msm=2 if i % 3 == 2 and tth == 10_000 else None)
             jq, tq = jdsl.parse_query(body), dsl.parse_query(body)
             jp = j_match_plan(jq, jsvc.mappings, jsvc.analysis, tth)
@@ -359,10 +399,13 @@ def _plans(jsvc, tsvc, kind, n, tth=10_000):
 def _run_group(b, ex, plans, kind, rows):
     """One group of len(plans) jobs at launch width `rows` through the
     batcher's real group path (no worker threads)."""
-    k = 10 if kind == "match" else 6
-    jobs = [b.submit_nowait(ex, p, k, kind=kind, query=q) for p, q in plans]
+    k = 6 if kind == "knn" else 10
+    job_kind = "serve" if kind.startswith("serve") else kind
+    jobs = [b.submit_nowait(ex, p, k, kind=job_kind, query=q) for p, q in plans]
     if kind == "match":
         b._run_group(jobs, plans[0][0].field, 16, rows=rows)
+    elif job_kind == "serve":
+        b._collect_serve_group(jobs, 16, b._dispatch_serve_group(jobs, 16, rows=rows))
     else:
         b._collect_knn_group(jobs, b._dispatch_knn_group(jobs, rows=rows))
     return [b.wait(j, timeout=30) for j in jobs]
@@ -374,7 +417,7 @@ def _workerless(cls, monkeypatch):
     return b
 
 
-@pytest.mark.parametrize("kind", ["match", "knn"])
+@pytest.mark.parametrize("kind", ["match", "knn", "serve_bool", "serve_mm"])
 @pytest.mark.parametrize("rows", batch_buckets(scoring.BPAD))
 def test_batcher_bucket_matches_reference(serving_pair, monkeypatch, kind, rows):
     jsvc, tsvc = serving_pair
@@ -393,6 +436,32 @@ def test_batcher_bucket_matches_reference(serving_pair, monkeypatch, kind, rows)
         tb.close()
     if kind == "match":
         assert tb.stats["chunked_jobs"] > 0
+    if kind.startswith("serve"):
+        # small segments: every (job, segment) takes segment_topk
+        assert tb.stats["launches"] > 0 and tb.stats["fused_jobs"] == 0
+
+
+@pytest.mark.parametrize("kind", ["serve_bool", "serve_mm"])
+@pytest.mark.parametrize("rows", batch_buckets(scoring.BPAD))
+def test_batcher_serve_fused_bucket_matches_reference(serving_pair, monkeypatch, kind, rows):
+    """The serve family on the multi-field fused route (the fused size
+    lowered so every segment takes it), deletes in the live operand."""
+    jsvc, tsvc = serving_pair
+    monkeypatch.setattr(executor_jax, "FUSED_MIN_DOCS", 10)
+    jex = executor_jax.JaxExecutor(jsvc.shards[0].reader())
+    tex = TorchExecutor(tsvc.shards[0].reader(), device="cpu", fused_min_docs=10)
+    jb, tb = _workerless(JBatcher, monkeypatch), _workerless(QueryBatcher, monkeypatch)
+    try:
+        for n in sorted({rows, rows // 2 + 1}):
+            plans = _plans(jsvc, tsvc, kind, n)
+            ref = _run_group(jb, jex, [p[0] for p in plans], kind, rows)
+            got = _run_group(tb, tex, [p[1] for p in plans], kind, rows)
+            for i, (r, g) in enumerate(zip(ref, got)):
+                same_td(r, g, f"{kind} fused rows={rows} job {i}")
+    finally:
+        jb.close()
+        tb.close()
+    assert tb.stats["fused_jobs"] > 0 and tb.stats["fused_jobs"] == jb.stats["fused_jobs"]
 
 
 @pytest.mark.parametrize("rows", [1, 8])
@@ -424,6 +493,8 @@ def test_batcher_pipeline_depth_matches_reference(serving_pair, depth):
     jex, tex = jsvc._executor(jsvc.shards[0]), tsvc._executor(tsvc.shards[0])
     plans = [("match", p) for p in _plans(jsvc, tsvc, "match", 24)]
     plans += [("knn", p) for p in _plans(jsvc, tsvc, "knn", 12)]
+    plans += [("serve", p) for p in _plans(jsvc, tsvc, "serve_bool", 10)]
+    plans += [("serve", p) for p in _plans(jsvc, tsvc, "serve_mm", 10)]
     jb = JBatcher(workers=1)
     ref = [jb.execute(jex, p[0][0], 10, kind=kind, query=p[0][1]) for kind, p in plans]
     jb.close()
@@ -450,16 +521,94 @@ def test_batcher_pipeline_depth_matches_reference(serving_pair, depth):
 def test_batcher_refuses_families_it_does_not_have(serving_pair):
     b = QueryBatcher(workers=1)
     try:
-        with pytest.raises(ValueError, match="serve"):
-            b.submit_nowait(None, None, 10, kind="serve")
+        for kind in ("sparse", "agg", "rerank", "mesh_serve"):
+            with pytest.raises(ValueError, match=kind):
+                b.submit_nowait(None, None, 10, kind=kind)
     finally:
         b.close()
+
+
+# the shapes of tests/test_serve_plans.py (plans and rejections)
+SERVE_PLAN_QUERIES = [
+    {"bool": {"must": [{"match": {"body": "alpha"}}, {"term": {"body": "bravo"}}],
+              "should": [{"match": {"title": "charlie delta"}}]}},
+    {"bool": {"should": [{"match": {"body": "alpha"}}, {"match": {"body": "bravo"}},
+                         {"match": {"body": "charlie"}}], "minimum_should_match": 2}},
+    {"bool": {"must_not": [{"match": {"body": "alpha"}}], "should": [{"match": {"body": "bravo"}}]}},
+    {"bool": {"filter": [{"term": {"body": "alpha"}}], "must": [{"match": {"body": "bravo"}}]}},
+    {"bool": {"must": [{"match": {"body": "alpha bravo"}}]}},
+    {"multi_match": {"query": "alpha", "fields": ["title", "body"], "operator": "and"}},
+    {"multi_match": {"query": "alpha", "fields": ["title", "body"], "type": "cross_fields"}},
+    {"term": {"body": "alpha"}},
+    {"term": {"tag": "t1"}},
+    {"multi_match": {"query": "alpha bravo", "fields": ["title^2", "body"], "type": "best_fields",
+                     "tie_breaker": 0.3}},
+    {"multi_match": {"query": "alpha charlie", "fields": ["title", "body"]}},
+    {"multi_match": {"query": "bravo echo", "fields": ["title", "body"], "type": "most_fields"}},
+    {"bool": {"must": [{"term": {"body": "alpha"}}, {"term": {"body": "bravo"}}]}},
+    {"bool": {"should": [{"match": {"body": "alpha"}}, {"match": {"body": "echo"}},
+                         {"match": {"title": "charlie"}}], "minimum_should_match": 2}},
+    {"bool": {"should": [{"match": {"body": "alpha bravo"}}], "minimum_should_match": 0}},
+    {"bool": {"must": [{"match": {"body": "alpha"}}], "should": [{"match": {"body": "x"}}],
+              "minimum_should_match": 1}},
+    {"bool": {"must": [{"match": {"body": {"query": "alpha", "minimum_should_match": 1}}}]}},
+    {"bool": {"should": [{"match": {"body": "alpha bravo"}}, {"match": {"title": "echo"}}],
+              "minimum_should_match": 2}},
+]
+
+
+@pytest.mark.parametrize("qi", range(len(SERVE_PLAN_QUERIES)))
+def test_extract_serve_plan_matches_reference(serving_pair, qi):
+    jsvc, tsvc = serving_pair
+    body = SERVE_PLAN_QUERIES[qi]
+    jp = j_serve_plan(jdsl.parse_query(body), jsvc.mappings, jsvc.analysis)
+    tp = extract_serve_plan(dsl.parse_query(body), tsvc.mappings, tsvc.analysis)
+    if jp is None:
+        assert tp is None
+    else:
+        assert dataclasses.asdict(tp) == dataclasses.asdict(jp)
+        assert tp.fields == jp.fields
+    js, ts = j_split(jdsl.parse_query(body)), split_filtered_bool(dsl.parse_query(body))
+    assert (js is None) == (ts is None)
+    if ts is not None:
+        assert len(ts[1]) == len(js[1])
+        assert dsl.canonical_key(ts[0]) == jdsl.canonical_key(js[0])
 
 
 # ---------------------------------------------------------------------
 # IndexService: multi-segment, deletes, 2 shards, fused-size segments
 # ---------------------------------------------------------------------
 
+
+# one body per served shape of bool, multi_match, the
+# filtered-bool route, the tree walk, kNN with a filter, the rrf
+# retriever with 2 and 3 legs, rank: {rrf})
+SERVED = {
+    "bool_must_should": {"query": bool_body(0), "size": 8},
+    "bool_should_msm": {"query": bool_body(1)},
+    "multi_match_best_fields": {"query": mm_body(0)},
+    "multi_match_most_fields": {"query": mm_body(1, type="most_fields"), "size": 12},
+    "filtered_bool_match": {"query": {"bool": {"must": [{"match": {"body": "alpha bravo"}}],
+                                               "filter": [{"term": {"tag": "t1"}}]}}},
+    "filtered_bool_serve": {"query": {"bool": {"must": [{"term": {"body": "charlie"}}],
+                                               "should": [{"match": {"title": "alpha"}}],
+                                               "filter": [{"range": {"n": {"gte": 30}}},
+                                                          {"term": {"tag": "t2"}}]}}},
+    "bool_tree_walk": {"query": {"bool": {"must": [{"match": {"body": "delta echo"}}],
+                                          "must_not": [{"term": {"tag": "t0"}}],
+                                          "filter": [{"range": {"n": {"lt": 70}}}]}}},
+    "dis_max": {"query": {"dis_max": {"queries": [{"match": {"title": "alpha"}},
+                                                  {"match": {"body": "alpha golf"}}],
+                                      "tie_breaker": 0.2}}},
+    "knn_filter": {"knn": {**knn_body(6, k=7), "filter": {"terms": {"tag": ["t1", "t3"]}}}},
+    "retriever_rrf": {"retriever": {"rrf": {"retrievers": [
+        {"standard": {"query": mm_body(2)}}, {"knn": knn_body(3, k=8, nc=40)}],
+        "rank_constant": 60}}, "size": 7},
+    "retriever_rrf_3_legs": {"retriever": {"rrf": {"retrievers": [
+        {"standard": {"query": bool_body(2)}}, {"knn": knn_body(5)},
+        {"standard": {"query": match_body(4)}}], "rank_window_size": 20}}, "size": 5},
+    "rank_rrf": {"query": match_body(3), "knn": knn_body(4), "rank": {"rrf": {"rank_constant": 20}}},
+}
 
 BODIES = (
     [{"query": match_body(i), "size": 7} for i in range(5)]
@@ -468,6 +617,7 @@ BODIES = (
     + [{"query": {"match": {"body": "echo"}}, "track_total_hits": True, "size": 30}]
     + [{"knn": knn_body(i), "size": 6} for i in range(4)]
     + [{"knn": knn_body(9, nc=6, k=6)}, {"query": {"match_all": {}}, "size": 3}]
+    + list(SERVED.values())
 )
 
 
@@ -490,11 +640,42 @@ def test_index_service_matches_reference(monkeypatch, shards, fused):
         assert isinstance(ex, TorchExecutor) and ex.device.type == "cpu"
         if fused:
             assert ex.fused_scorer(0, "body") is not None
+            assert ex.fused_scorer_mf(0, ("title", "body")) is not None
         stats = tsvc._batcher.stats
         assert stats["launches"] > 0
         assert (stats["fused_jobs"] > 0) if fused else (stats["chunked_jobs"] > 0)
+        # one shard: every rrf request fused on the device, every leg
+        # rode the batcher; two shards: legs on the pool, host fuse
+        rrf = tsvc.rrf_stats
+        assert rrf["searches"] == jsvc.rrf_stats["searches"] == 3
+        if shards == 1:
+            assert rrf["device_fused"] == 3 and rrf["batcher_legs"] == 7 and rrf["pool_legs"] == 0
+        else:
+            assert rrf["host_fused"] == 3 and rrf["pool_legs"] == 7
     finally:
         close_pair(pair)
+
+
+@pytest.fixture(scope="module")
+def served_pairs():
+    """{shards: (JAX IndexService, port IndexService)} over the same 240
+    docs, three refreshes and two deletes, for 1 and 2 shards."""
+    docs = make_docs(240, seed=29)
+    pairs = {n: build_pair(docs, shards=n, waves=3, deletes=["d4", "d100"], name=f"sv{n}")
+             for n in (1, 2)}
+    yield pairs
+    for pair in pairs.values():
+        close_pair(pair)
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+@pytest.mark.parametrize("name", sorted(SERVED))
+def test_served_body_matches_reference(served_pairs, name, shards):
+    """Each shape of the SERVED table, through IndexService.search on
+    both packages: same totals, ids and scores."""
+    jsvc, tsvc = served_pairs[shards]
+    body = SERVED[name]
+    same_response(jsvc.search(body), tsvc.search(body), f"{name} ({shards} shards)")
 
 
 # ---------------------------------------------------------------------
@@ -539,11 +720,15 @@ def test_default_device_is_cuda_without_fallback(entry):
 
 
 CUT_BODIES = {
-    "bool": ({"query": {"bool": {"must": [{"match": {"body": "alpha"}}]}}}, "item 4"),
-    "multi_match": ({"query": {"multi_match": {"query": "alpha", "fields": ["title", "body"]}}}, "item 4"),
-    "rank_rrf": ({"query": {"match": {"body": "alpha"}}, "knn": knn_body(0),
-                  "rank": {"rrf": {}}}, "item 5"),
-    "retriever": ({"retriever": {"standard": {"query": {"match": {"body": "alpha"}}}}}, "item 5"),
+    "sparse_vector_leg": ({"retriever": {"rrf": {"retrievers": [
+        {"standard": {"query": {"match": {"body": "alpha"}}}},
+        {"standard": {"query": {"sparse_vector": {"field": "ml", "query_vector": {"alpha": 1.0}}}}}]}}},
+        "item 8"),
+    "rescore_in_retriever": ({"retriever": {"rrf": {"retrievers": [
+        {"standard": {"query": {"match": {"body": "alpha"}}}}, {"knn": knn_body(0)}]}},
+        "rescore": {"window_size": 5, "query": {"rescore_query": {"match_all": {}}}}}, "item 7"),
+    "multi_match_phrase": ({"query": {"multi_match": {"query": "alpha bravo", "fields": ["title", "body"],
+                                                      "type": "phrase"}}}, "item 16"),
     "rescore": ({"query": {"match": {"body": "alpha"}},
                  "rescore": {"window_size": 5, "query": {"rescore_query": {"match_all": {}}}}}, "item 7"),
     "aggs": ({"size": 0, "aggs": {"n": {"value_count": {"field": "title"}}}}, "item 10"),
@@ -555,7 +740,8 @@ CUT_BODIES = {
 @pytest.fixture(scope="module")
 def small_torch_index():
     docs = make_docs(60, seed=3)
-    svc = IndexService("cuts", settings={"number_of_shards": 2}, mappings_json=MAPPING, device="cpu")
+    mapping = {"properties": {**MAPPING["properties"], "ml": {"type": "sparse_vector"}}}
+    svc = IndexService("cuts", settings={"number_of_shards": 2}, mappings_json=mapping, device="cpu")
     for doc_id, src in docs:
         svc.index_doc(doc_id, src)
     svc.refresh()
