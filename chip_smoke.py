@@ -4,13 +4,16 @@
 
 Drives the port's shard query phase (`elasticsearch_tpu_torch`) at the
 scale of BASELINE configs 1 (BM25 `match`), 2 (`bool`), 3
-(`multi_match`), 4 (768-d cosine kNN) and 5 (hybrid BM25 + kNN with RRF):
-one segment of 1,000,000 documents with a `body` text field over a
-50,000-term Zipf vocabulary (15-34 tokens each), a `title` text field
-over a 20,000-term Zipf vocabulary (3-8 tokens), a 768-d unit-vector
-`vec` field and bench.py's filter columns (`popularity` integer 0-99,
-`day` date over 30 days, `cat` keyword with 16 values), all made from
-`--seed`. Phases, each of which stops the run with a non-zero exit on
+(`multi_match`), 4 (768-d cosine kNN) and 5 (hybrid BM25 + kNN +
+sparse_vector with RRF) and bench.py's `sparse_retrieval`,
+`repeated_agg` and `cold_agg`: one segment of 1,000,000 documents with a
+`body` text field over a 50,000-term Zipf vocabulary (15-34 tokens
+each), a `title` text field over a 20,000-term Zipf vocabulary (3-8
+tokens), a 768-d unit-vector `vec` field, bench.py's filter columns
+(`popularity` integer 0-99, `day` date over 30 days, `cat` keyword with
+16 values) and its learned-sparse `ml` column (3-9 terms per doc over a
+300-token Zipf-0.7 vocabulary, weights in [0.05, 3.05), impact-ordered
+int8 and fp32 planes), all made from `--seed`. Phases, each of which stops the run with a non-zero exit on
 any failure:
 
   1. the card's name and power limit, torch/CUDA versions; build the
@@ -27,6 +30,17 @@ any failure:
      (e) 32 `multi_match` (title^2, body, tie_breaker 0.3) as one group
          through fused_plan_field → MultiFusedScorer.search_async →
          merge_segment_topk;
+     (f) 32 `sparse_vector` queries as one batcher sparse group, int8
+         then fp32 (phase A, one theta download, the kept tiles, one
+         merge), held to the oracle: fp32 pages by ids, int8 by
+         recall@10 >= 0.95;
+     (g) one `cold_agg` body and one dashboard body with metric subs and
+         percentiles through DeviceAggPlan dispatch + collect, equal to
+         the host AggCollector; each plain PyTorch op these routes run
+         (`_impact_chunk_add`, `sorted_bucket_counts`/`_metrics`,
+         `masked_sorted`, ...) timed alone beside its byte bound, and
+         `topk_desc` beside its earlier two-scan version on the same
+         input;
      (a)-(c) and (e) are held to the port's NumPy oracle on 8 queries
      each (same totals and hits, scores within rtol 1e-5), (d) to
      recall@10 >= 0.9 against exact f32 cosine; every kernel must have
@@ -40,17 +54,22 @@ any failure:
      so every shard has two small segments and the chunked path runs).
      64 `match`, 32 `knn`, 32 `bool`, 32 `multi_match`, 36 filtered
      `bool` (8 rotating filter terms, 4 `day` ranges at odd-millisecond
-     boundaries) and 32 hybrid RRF bodies (`multi_match` + `knn`
-     retriever, 8 of them as `rank: {rrf}`) go to `/bench` from 8
-     client threads, then from 1, in a client process of their own;
-     `/small` gets the same shapes. Served hits are held to the numpy
-     indices (same totals and ids, scores within rtol 1e-5; a hybrid
-     leg by leg, then its fusion against `rrf_fuse_host` over the
-     oracle's legs); `_nodes/stats` must show batched launches, a
-     bucket wider than 1, the chunked path, serve launches and filter
-     cache hits; every `/bench` hybrid must be fused on the card with
-     both legs on the batcher; matmuls must run at float32 precision
-     "highest". QPS, p50/p99 per route and client count, one profiled
+     boundaries), 32 hybrid RRF bodies (bench.py's 3-leg retriever:
+     `multi_match` + `knn` + `sparse_vector`), 32 `sparse_retrieval`
+     (int8, then `"exact": true`), 64 `repeated_agg` and 32 `cold_agg`
+     bodies go to `/bench` from 8 client threads, then from 1, in a
+     client process of their own; `/small` gets the text and 2-leg
+     hybrid shapes and one host-routed agg tree. Served hits are held to
+     the numpy indices (same totals and ids, scores within rtol 1e-5; a
+     hybrid leg by leg — its int8 sparse leg by recall — then its fusion
+     against RRF over the legs; `sparse_retrieval` by recall@10 >= 0.95
+     in int8 and by ids with `exact`; aggregations equal, `avg` within
+     1e-12); `_nodes/stats` must show batched launches, a bucket wider
+     than 1, the chunked path, serve launches, filter cache hits, every
+     sparse body on the batcher's sparse family, every `cold_agg` body
+     on the device plan, request-cache hits on repeated aggs; every
+     `/bench` hybrid must be fused on the card with its 3 legs on the
+     batcher; matmuls must run at float32 precision "highest". QPS, p50/p99 per route and client count, one profiled
      batcher group per route (with the host-device synchronisations
      each makes) are printed, and the
      8-client drive is repeated with 1, 2 and 6 batcher workers, at two
@@ -91,6 +110,8 @@ ORACLE_QUERIES = 8
 K = 10
 TITLE_VOCAB = 20_000  # bench.py's title field
 TITLE_LEN = (3, 9)
+SPARSE_VOCAB = 300  # bench.py's `ml` sparse_vector column: Zipf 0.7 popularity
+SPARSE_TERMS_PER_DOC = (3, 10)  # 3-9 terms per doc
 DAY0 = 1_700_000_000_000  # epoch ms of bench.py's 30-day `day` column
 DAY_MS = 86_400_000
 RRF_RANK_CONSTANT = 60
@@ -198,6 +219,8 @@ def build_corpus(seed: int, n_docs: int, vocab: int, dims: int):
     popularity = rng.integers(0, 100, size=n_docs).astype(np.float64)
     day = (DAY0 + rng.integers(0, 30, size=n_docs).astype(np.int64) * DAY_MS).astype(np.float64)
     cat_ords = rng.integers(0, 16, size=n_docs).astype(np.int32)
+    # drawn last, so every earlier column stays as earlier runs had it
+    ml = build_sparse_column(rng, n_docs)
     seg = Segment(
         num_docs=n_docs,
         doc_ids=[str(i) for i in range(n_docs)],
@@ -219,14 +242,56 @@ def build_corpus(seed: int, n_docs: int, vocab: int, dims: int):
                 unit_vectors=vecs,
             )
         },
+        sparse={"ml": ml},
     )
     mappings = Mappings(corpus_mapping(dims))
     return ShardReader([seg], mappings, AnalysisRegistry()), vecs
 
 
+def sparse_popularity() -> np.ndarray:
+    pop = 1.0 / np.arange(1, SPARSE_VOCAB + 1) ** 0.7
+    return pop / pop.sum()
+
+
+def build_sparse_column(rng, n_docs: int):
+    """bench.py's learned-sparse `ml` column (its build_sparse_column):
+    3-9 terms per doc over a 300-token Zipf-0.7 vocabulary, weights in
+    [0.05, 3.05), laid out by the port's own planner
+    (index/segment.sparse_plan / sparse_from_plan, pruning_ratio 0)."""
+    from elasticsearch_tpu_torch.index.segment import sparse_from_plan, sparse_plan
+
+    nt = rng.integers(*SPARSE_TERMS_PER_DOC, size=n_docs)
+    total = int(nt.sum())
+    t_flat = rng.choice(SPARSE_VOCAB, size=total, p=sparse_popularity()).astype(np.int64)
+    d_flat = np.repeat(np.arange(n_docs, dtype=np.int64), nt)
+    w_flat = (rng.random(total) * 3 + 0.05).astype(np.float32)
+    # a doc activates each expansion term once
+    _, first = np.unique(t_flat * n_docs + d_flat, return_index=True)
+    t_u, d_u, w_u = t_flat[first], d_flat[first], w_flat[first]
+    order = np.argsort(t_u, kind="stable")
+    t_u, d_u, w_u = t_u[order], d_u[order], w_u[order]
+    bounds = np.searchsorted(t_u, np.arange(SPARSE_VOCAB + 1))
+    inv = {}
+    for tid in range(SPARSE_VOCAB):
+        lo, hi = int(bounds[tid]), int(bounds[tid + 1])
+        if hi > lo:
+            inv[f"tok{tid:04d}"] = dict(zip(d_u[lo:hi].tolist(), w_u[lo:hi].tolist()))
+    return sparse_from_plan(sparse_plan(inv, pruning_ratio=0.0), n_docs, np.ones(n_docs, bool))
+
+
+def sparse_vectors(n: int, seed: int) -> list:
+    """bench.py's make_sparse_vectors: 2-5 terms drawn by popularity,
+    weights in [0.1, 2.1) rounded to 4 places."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        picked = rng.choice(SPARSE_VOCAB, size=int(rng.integers(2, 6)), replace=False, p=sparse_popularity())
+        out.append({f"tok{int(t):04d}": float(np.round(rng.random() * 2 + 0.1, 4)) for t in picked})
+    return out
+
+
 def corpus_mapping(dims: int) -> dict:
-    """bench.py's mapping, without its `sparse_vector` field (ROADMAP
-    queue 1 item 8)."""
+    """bench.py's mapping, its `ml: sparse_vector` field included."""
     return {
         "properties": {
             "title": {"type": "text"},
@@ -235,6 +300,7 @@ def corpus_mapping(dims: int) -> dict:
             "day": {"type": "date"},
             "cat": {"type": "keyword"},
             "vec": {"type": "dense_vector", "dims": dims, "similarity": "cosine"},
+            "ml": {"type": "sparse_vector"},
         }
     }
 
@@ -254,11 +320,10 @@ def match_texts(term_df: np.ndarray, n: int, seed: int, lo: int = 50, hi: int = 
 def text_hybrid_bodies(body_df: np.ndarray, title_df: np.ndarray, dims: int, seed: int) -> dict:
     """bench.py's `bool`, `multi_match`, `filtered_bool` and `hybrid_rrf`
     bodies (its build_bodies), SERVE_QUERIES of each, from `seed`. The
-    hybrid is the multi_match + knn (k 20, num_candidates 100,
-    rank_constant 60) retriever without bench.py's sparse_vector leg,
-    every fourth body in the `rank: {rrf}` form; filtered bool gets
-    `day_ranges` besides: 4 bodies whose `day` range bounds sit at odd
-    milliseconds next to a day boundary (exact only in float64)."""
+    hybrid is bench.py's 3-leg retriever: multi_match + knn (k 20,
+    num_candidates 100) + sparse_vector, rank_constant 60; filtered bool
+    gets `day_ranges` besides: 4 bodies whose `day` range bounds sit at
+    odd milliseconds next to a day boundary (exact only in float64)."""
     rng = np.random.default_rng(seed + 29)
     order = np.argsort(-body_df)
     cands, filt_cands = order[50:8000], order[200:4000]
@@ -303,32 +368,53 @@ def text_hybrid_bodies(body_df: np.ndarray, title_df: np.ndarray, dims: int, see
     qv = rng.standard_normal((SERVE_QUERIES, dims)).astype(np.float32)
     qv /= np.linalg.norm(qv, axis=1, keepdims=True)
     out["hybrid_rrf"] = []
-    for i, (t, v) in enumerate(zip(t_texts, qv)):
-        mm = {"multi_match": {"query": t, "fields": ["title", "body"]}}
-        knn = {"field": "vec", "query_vector": [float(x) for x in v], "k": 20, "num_candidates": 100}
-        if i % 4 == 3:
-            out["hybrid_rrf"].append({"query": mm, "knn": knn, "rank": {"rrf": {"rank_constant": RRF_RANK_CONSTANT}},
-                                      "size": K, "_source": False})
-        else:
-            out["hybrid_rrf"].append({"retriever": {"rrf": {
-                "retrievers": [{"standard": {"query": mm}}, {"knn": knn}],
-                "rank_constant": RRF_RANK_CONSTANT}}, "size": K, "_source": False})
+    for t, v, sv in zip(t_texts, qv, sparse_vectors(SERVE_QUERIES, seed + 37)):
+        out["hybrid_rrf"].append({"retriever": {"rrf": {
+            "retrievers": [
+                {"standard": {"query": {"multi_match": {"query": t, "fields": ["title", "body"]}}}},
+                {"knn": {"field": "vec", "query_vector": [float(x) for x in v], "k": 20, "num_candidates": 100}},
+                {"standard": {"query": {"sparse_vector": {"field": "ml", "query_vector": sv}}}},
+            ],
+            "rank_constant": RRF_RANK_CONSTANT}}, "size": K, "_source": False})
     return out
 
 
+def sparse_agg_bodies(body_df: np.ndarray, seed: int) -> dict:
+    """bench.py's `sparse_retrieval`, `repeated_agg` and `cold_agg`
+    bodies (its configs 5b, 7 and 8), from `seed`: SERVE_QUERIES
+    sparse_vector queries (and the same with `"exact": true`), 64
+    size-0 `avg(popularity)` bodies under a `match`, and SERVE_QUERIES
+    unique date_histogram + terms + stats bodies with the request cache
+    opted out."""
+    sv = sparse_vectors(SERVE_QUERIES, seed + 41)
+    sparse = [{"query": {"sparse_vector": {"field": "ml", "query_vector": v}}, "size": K, "_source": False}
+              for v in sv]
+    return {
+        "sparse_retrieval": sparse,
+        "sparse_retrieval_exact": [{**b, "exact": True} for b in sparse],
+        "repeated_agg": [{"size": 0, "query": {"match": {"body": t}},
+                          "aggs": {"pop_avg": {"avg": {"field": "popularity"}}}}
+                         for t in match_texts(body_df, 64, seed + 17)],
+        "cold_agg": [{"size": 0, "request_cache": False, "query": {"match": {"body": t}},
+                      "aggs": {"by_day": {"date_histogram": {"field": "day", "fixed_interval": "1d"}},
+                               "cats": {"terms": {"field": "cat"}},
+                               "pop": {"stats": {"field": "popularity"}}}}
+                     for t in match_texts(body_df, SERVE_QUERIES, seed + 19)],
+    }
+
+
 def hybrid_legs(body: dict):
-    """(BM25 leg body, kNN leg body, rank_window_size) of one hybrid
-    body, as IndexService._run_rrf sends them."""
+    """([leg body per retriever], rank_window_size) of one hybrid body,
+    as IndexService._run_rrf sends its legs."""
     if "retriever" in body:
         rrf = body["retriever"]["rrf"]
-        mm = rrf["retrievers"][0]["standard"]["query"]
-        knn = rrf["retrievers"][1]["knn"]
+        legs = [r["standard"] if "standard" in r else {"knn": r["knn"]} for r in rrf["retrievers"]]
     else:
-        rrf, mm, knn = body["rank"]["rrf"], body["query"], body["knn"]
+        rrf = body["rank"]["rrf"]
+        legs = [{"query": body["query"]}, {"knn": body["knn"]}]
     size = int(body.get("size", 10))
     window = int(rrf.get("rank_window_size", max(max(size, 10), size)))
-    return ({"query": mm, "size": window, "_source": False},
-            {"knn": knn, "size": window, "_source": False}, window)
+    return [{**leg, "size": window, "_source": False} for leg in legs], window
 
 
 # ---------------------------------------------------------------------------
@@ -388,6 +474,52 @@ def same_hits(ref, got, what: str) -> None:
     gs = np.array([h.score for h in got.hits])
     check(np.allclose(gs, rs, rtol=RTOL, atol=1e-6), f"{what}: scores {gs} != oracle {rs}")
     same_ids([h.doc_id for h in ref.hits], rs, [h.doc_id for h in got.hits], what)
+
+
+def recall_at(ref: dict, got: dict, k: int = K) -> float:
+    """recall@k of a served page against the oracle's page."""
+    want = [h["_id"] for h in ref["hits"]["hits"][:k]]
+    have = {h["_id"] for h in got["hits"]["hits"][:k]}
+    return len(have & set(want)) / len(want) if want else 1.0
+
+
+def same_page(ref: dict, got: dict, what: str) -> str:
+    """A pruned page against the oracle's unpruned one, `ref` fetched
+    deeper than the page: ids position by position (a tie run within
+    RTOL as a set; the run the page end cuts as a subset of the oracle's
+    whole run), scores within RTOL. The total is the oracle's, or a lower
+    bound under relation "gte". Returns "tie at k" where the page end
+    cut a tie run, else "exact"."""
+    rt, gt = ref["hits"]["total"], got["hits"]["total"]
+    check(gt == rt or (gt["relation"] == "gte" and gt["value"] <= rt["value"]),
+          f"{what}: total {gt} against oracle {rt}")
+    rh, gh = hits_of(ref), hits_of(got)
+    check(len(gh) == min(K, len(rh)), f"{what}: {len(gh)} hits != oracle {min(K, len(rh))}")
+    for (_, rs), (_, gs) in zip(rh, gh):
+        check(np.isclose(gs, rs, rtol=RTOL, atol=1e-6), f"{what}: score {gs} != oracle {rs}")
+    mode = "exact"
+    for i, j in tie_runs([sc for _, sc in rh]):
+        if i >= len(gh):
+            break
+        want = {d for d, _ in rh[i:j]}
+        have = {d for d, _ in gh[i:min(j, len(gh))]}
+        if j > len(gh):
+            mode = "tie at k"
+        check(have == want if j <= len(gh) else have <= want,
+              f"{what}: ids {have} at ranks {i}-{j - 1} != oracle {want}")
+    return mode
+
+
+def sparse_job(query, mappings, quantized: bool):
+    """(SparsePlan, query) of one parsed sparse_vector query, the storage
+    column resolved as IndexService resolves it."""
+    from elasticsearch_tpu_torch.search.batcher import extract_sparse_plan
+    from elasticsearch_tpu_torch.search.sparse import SparseSpec
+
+    query.sparse = SparseSpec(quantized=quantized)
+    plan = extract_sparse_plan(query, mappings)
+    check(plan is not None, "a sparse_vector query did not reduce to a SparsePlan")
+    return plan, query
 
 
 # ---------------------------------------------------------------------------
@@ -582,6 +714,11 @@ def phase_main(reader, oracle, vecs, qv, seed: int, device) -> dict:
     sync(device)
     times["e_multi_match_fused_batch_s"] = time.perf_counter() - t
 
+    # (f) sparse_vector groups, (g) device aggregation plans
+    t = time.perf_counter()
+    fg = routes_sparse_aggs(tex, reader, oracle, seed, device)
+    times["f_g_sparse_aggs_s"] = time.perf_counter() - t
+
     launches = {"int8_dot_scores": int8_knn.int8_dot_scores.launches}
     log(f"main path done; launches {launches}")
     check(all(n > 0 for n in launches.values()), f"a kernel never launched on the main path: {launches}")
@@ -632,7 +769,9 @@ def phase_main(reader, oracle, vecs, qv, seed: int, device) -> dict:
         "c_knn_one_query": lambda: tex.search(None, knn=[secs[0]], size=K),
         "d_knn_int8_batch32": lambda: qv.search(knn_q, K)[1].cpu(),
         "e_multi_match_fused_batch32": lambda: route_e(plans_e),
+        **fg["fns"],
     }, device) if device.type == "cuda" else {}
+    fg["batcher"].close()
     if profile:
         # the query vector and the global cut's (doc, score) pairs go up
         # through pinned memory: a pageable copy would wait for the device
@@ -640,9 +779,254 @@ def phase_main(reader, oracle, vecs, qv, seed: int, device) -> dict:
         log(f"(c) pageable host-to-device copies: {pageable}, device time "
             f"{profile['c_knn_one_query']['device_us']:.0f}us")
         check(pageable == 0, f"(c) made {pageable} pageable host-to-device copies")
+    topk = topk_before_after(device, seed) if device.type == "cuda" else {}
     return {"times": times, "launches": launches, "int8_recall_at_10": recall,
+            "sparse_f": fg["f"], "aggs_g": fg["g"], "plain_ops": fg["plain_ops"], "topk_desc_ms": topk,
             "totals_a": [r.total for r in res_a[:ORACLE_QUERIES]],
             "totals_e": [int(t.sum()) for t in res_e[3][:ORACLE_QUERIES]], "profile": profile}
+
+
+def topk_desc_scans(x, k: int):
+    """The earlier tie-exact `ops/scoring.topk_desc` (torch.topk for the
+    k-th value, two int32 cumsum scans, a scatter and a stable sort),
+    kept here only to time it beside the one-key version on the same
+    input."""
+    import torch
+
+    n = x.shape[-1]
+    rows = x.reshape(-1, n)
+    kth = torch.topk(rows, k, dim=-1, sorted=True).values[:, -1:]
+    above = rows > kth
+    equal = rows == kth
+    need = k - above.sum(dim=-1, keepdim=True, dtype=torch.int32)
+    sel = above | (equal & (torch.cumsum(equal, dim=-1, dtype=torch.int32) <= need))
+    slot = torch.where(sel, torch.cumsum(sel, dim=-1, dtype=torch.int32) - 1, k)
+    idx = torch.zeros(rows.shape[0], k + 1, dtype=torch.int64, device=x.device)
+    idx.scatter_(1, slot.long(), torch.arange(n, device=x.device).expand_as(rows))
+    idx = idx[:, :k]
+    vals = rows.gather(1, idx)
+    vals, order = torch.sort(vals, dim=-1, descending=True, stable=True)
+    return vals, idx.gather(1, order)
+
+
+def topk_before_after(device, seed: int) -> dict:
+    """topk_desc's two-scan and one-key versions on route (b)'s shape ([32, N]
+    f32 scores, 0.9 of them -inf as a masked accumulator has) and a
+    group of 8, in one process: the same docs, and the times."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops import scoring
+
+    out = {}
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    for rows, n in ((BATCH, 1_000_000), (CLIENTS, 1_000_000)):
+        x = torch.rand(rows, n, generator=g).to(device)
+        x = torch.where(torch.rand(rows, n, generator=g).to(device) < 0.9, -torch.inf, x)
+        new_v, new_i = scoring.topk_desc(x, K)
+        old_v, old_i = topk_desc_scans(x, K)
+        check(bool(torch.equal(new_i, old_i)) and bool(torch.equal(new_v, old_v)),
+              "topk_desc: the one-key selection differs from the two-scan one on finite scores")
+        ms = {"two_scans": [], "one_key": []}
+        for name, fn in (("two_scans", topk_desc_scans), ("one_key", scoring.topk_desc),
+                         ("one_key", scoring.topk_desc), ("two_scans", topk_desc_scans)):
+            ms[name].append(device_ms(lambda: fn(x, K), device))
+        out[f"{rows}x{n}"] = ms
+        log(f"topk_desc [{rows}, {n}] k={K}: two scans {ms['two_scans']} ms, one key {ms['one_key']} ms")
+    return out
+
+
+class OpCounter:
+    """Counts the calls of module-level functions while a route runs and
+    keeps the widest call's arguments (to time the op alone afterwards)."""
+
+    def __init__(self, targets):
+        self.targets = targets  # [(module, name)]
+        self.calls = {}
+        self.args = {}
+        self._saved = []
+
+    def __enter__(self):
+        for mod, name in self.targets:
+            fn = getattr(mod, name)
+            self._saved.append((mod, name, fn))
+
+            def wrapped(*a, _fn=fn, _name=name):
+                self.calls[_name] = self.calls.get(_name, 0) + 1
+                # keep the widest call (the impact scatter's chunks carry
+                # different tile counts; the agg ops' calls are alike)
+                if _name not in self.args or _width(_name, a) > _width(_name, self.args[_name]):
+                    self.args[_name] = a
+                return _fn(*a)
+
+            setattr(mod, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def _width(name: str, a) -> int:
+    return int(a[6].sum()) if name == "_impact_chunk_add" else 0
+
+
+def op_bytes(name: str, a) -> int:
+    """Bytes the op must move for these inputs (each input read once,
+    each output written once); for the impact scatter, what this chunk's
+    valid tiles and slots need."""
+    def nb(t):
+        return t.numel() * t.element_size()
+
+    if name == "_impact_chunk_add":
+        doc_ids, values, _acc, _cnt, ti, tw, tv = a
+        tiles = ti[tv]
+        slots = int((doc_ids[tiles] >= 0).sum())
+        per_tile = doc_ids.shape[1] * (doc_ids.element_size() + values.element_size())
+        # the gathered tiles, a read-modify-write of acc and cnt per
+        # valid slot (4 + 4 bytes each way), the packed plan
+        return int(tiles.numel()) * per_tile + slots * 16 + nb(ti) + nb(tw) + nb(tv)
+    if name == "sorted_bucket_counts":
+        mask, mp, gate, bounds = a
+        return nb(mask) + nb(mp) + nb(gate) + nb(bounds) + 4 * (bounds.numel() - 1)
+    if name == "sorted_bucket_metrics":
+        mask, mp, gate, v, iv, bounds = a
+        return nb(mask) + nb(mp) + nb(gate) + nb(v) + nb(iv) + nb(bounds) + 16 * (bounds.numel() - 1)
+    if name == "masked_sorted":
+        sel, values = a
+        return nb(sel) + nb(values) + 4 * values.numel() + 4
+    if name == "masked_metric":
+        sel, values, ivalues = a
+        return nb(sel) + nb(values) + nb(ivalues) + 16
+    sel, scores = a  # masked_total_and_max
+    return nb(sel) + nb(scores) + 8
+
+
+def plain_op_rows(counter: OpCounter, jobs: int, route: str, device) -> list:
+    """One row per plain PyTorch op a route ran: calls per request, its
+    time alone on the widest call's inputs, and its byte bound."""
+    from elasticsearch_tpu_torch.ops import agg_kernels, impact
+
+    rows = []
+    for name, calls in sorted(counter.calls.items()):
+        a = counter.args[name]
+        fn = getattr(impact if name == "_impact_chunk_add" else agg_kernels, name)
+        if name == "_impact_chunk_add":
+            # time on copies: the op adds into its accumulators in place
+            acc, cnt = a[2].clone(), a[3].clone()
+            ms = device_ms(lambda: fn(a[0], a[1], acc, cnt, *a[4:]), device)
+        else:
+            ms = device_ms(lambda: fn(*a), device)
+        nbytes = op_bytes(name, a)
+        bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        rows.append({"op": name, "route": route, "calls_per_request": calls / jobs, "ms": ms,
+                     "bytes": nbytes, "bound_ms": bound_ms, "bound_by": "bytes",
+                     "bound_share": bound_ms / ms if ms else None})
+        log(f"plain op {name} ({route}): {calls / jobs:.3g} calls/request, {ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({nbytes} B)")
+    return rows
+
+
+def routes_sparse_aggs(tex, reader, oracle, seed: int, device) -> dict:
+    """Routes (f) and (g) of phase 3. (f): BATCH `sparse_vector` queries
+    as one batcher sparse group, int8 then fp32 (`exact`), held to the
+    oracle (fp32 pages by ids, int8 by recall@10 >= 0.95). (g): one
+    `cold_agg` body, and one dashboard body with metric subs and
+    percentiles, through DeviceAggPlan dispatch + collect, their reduced
+    aggregations equal to AggCollector's over the oracle's masks."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops import agg_kernels, impact
+    from elasticsearch_tpu_torch.search import aggs_device, dsl
+    from elasticsearch_tpu_torch.search import sparse as sparse_mod
+    from elasticsearch_tpu_torch.search.aggs import AggCollector, parse_aggs, reduce_aggs
+    from elasticsearch_tpu_torch.search.batcher import QueryBatcher
+
+    out = {"f": {}, "g": {}, "plain_ops": []}
+    fns = {}
+    gb = QueryBatcher(workers=1)
+    gb._ensure_thread = lambda: None  # groups run on this thread
+    qvs = sparse_vectors(BATCH, seed + 43)
+    queries = [{"sparse_vector": {"field": "ml", "query_vector": v}} for v in qvs]
+    for name, quantized in (("int8", True), ("fp32", False)):
+        specs = [sparse_job(dsl.parse_query(q), reader.mappings, quantized) for q in queries]
+
+        def run(specs=specs):
+            jobs = [gb.submit_nowait(tex, p, K, kind="sparse", query=q) for p, q in specs]
+            gb._collect_sparse_group(jobs, 16, gb._dispatch_sparse_group(jobs, 16, rows=BATCH))
+            return [gb.wait(j) for j in jobs]
+
+        run()  # the column's upload is set-up
+        sync(device)
+        st0 = dict(sparse_mod.SPARSE_STATS)
+        with OpCounter([(impact, "_impact_chunk_add")]) as ops:
+            t = time.perf_counter()
+            res = run()
+            sync(device)
+            wall = time.perf_counter() - t
+        st1 = dict(sparse_mod.SPARSE_STATS)
+        fns[f"f_sparse_{name}_group32"] = run
+        out["f"][name] = {"wall_s": wall, "tiles_scored": st1["tiles_scored"] - st0["tiles_scored"],
+                          "tiles_pruned": st1["tiles_pruned"] - st0["tiles_pruned"],
+                          "pruned_jobs": sum(r.relation == "gte" for r in res),
+                          "chunk_launches": ops.calls.get("_impact_chunk_add", 0)}
+        if name == "int8":
+            out["plain_ops"] += plain_op_rows(ops, BATCH, "(f) sparse group of 32, int8", device)
+        page = lambda td: {"hits": {"total": {"value": td.total, "relation": td.relation},
+                                    "hits": [{"_id": h.doc_id, "_score": h.score} for h in td.hits]}}
+        recalls, modes = [], []
+        for i, q in enumerate(queries):
+            if name == "fp32" and i >= ORACLE_QUERIES:
+                break
+            ref = page(oracle.search(dsl.parse_query(q), size=K + 20))
+            if name == "int8":
+                recalls.append(recall_at(ref, page(res[i])))
+            else:
+                modes.append(same_page(ref, page(res[i]), f"(f) fp32 sparse query {i}"))
+        if recalls:
+            out["f"][name]["recall_at_10"] = float(np.mean(recalls))
+            check(np.mean(recalls) >= 0.95, f"(f) int8 recall@{K} {np.mean(recalls):.4f} < 0.95")
+        else:
+            out["f"][name]["page_checks"] = modes
+        log(f"(f) sparse group of {BATCH}, {name}: {out['f'][name]}")
+
+    bodies = sparse_agg_bodies(reader.segments[0].postings["body"].term_df, seed)
+    dash = {"size": 0, "query": bodies["cold_agg"][1]["query"],
+            "aggs": {"cats": {"terms": {"field": "cat"},
+                              "aggs": {"pop": {"avg": {"field": "popularity"}}}},
+                     "p": {"percentiles": {"field": "popularity", "percents": [50, 95]}}}}
+    for name, body in (("cold_agg", bodies["cold_agg"][0]), ("dashboard_subs", dash)):
+        nodes = parse_aggs(body["aggs"])
+        q = dsl.parse_query(body["query"])
+        plan = aggs_device.try_compile(tex, nodes, reader.mappings, "bench", 0, q, 0)
+        check(plan is not None, f"(g) {name}: the device compiler did not take the body")
+
+        def run(plan=plan):
+            return plan.collect(plan.dispatch())
+
+        run()  # the agg columns' upload is set-up
+        sync(device)
+        targets = [(agg_kernels, n) for n in ("sorted_bucket_counts", "sorted_bucket_metrics",
+                                              "masked_sorted", "masked_metric", "masked_total_and_max")]
+        with OpCounter(targets) as ops:
+            t = time.perf_counter()
+            td, parts = run()
+            sync(device)
+            wall = time.perf_counter() - t
+        _, masks = oracle.execute(q, size=0)
+        ref = AggCollector(oracle).collect(nodes, masks)
+        # reduced as the coordinator reduces them (a percentiles partial
+        # holds its values in collection order)
+        check(reduce_aggs(nodes, [parts]) == reduce_aggs(nodes, [ref]),
+              f"(g) {name}: aggregations differ from AggCollector's")
+        check(td.total == int(sum(m.sum() for m in masks)), f"(g) {name}: total {td.total}")
+        fns[f"g_{name}"] = run
+        out["g"][name] = {"wall_s": wall, "total": td.total,
+                          "syncs": count_syncs(run) if device.type == "cuda" else None}
+        out["plain_ops"] += plain_op_rows(ops, 1, f"(g) {name}", device)
+        log(f"(g) {name}: {out['g'][name]}")
+    out["fns"] = fns
+    out["batcher"] = gb  # closed by the caller once the routes are profiled
+    return out
 
 
 def _device_us(evt, names=("self_device_time_total", "self_cuda_time_total")) -> float:
@@ -1329,6 +1713,11 @@ def phase_serve(reader, dims: int, seed: int, device, card: str) -> dict:
         text_hybrid = serve_text_hybrid(srv, http, clients_proc, seg, docs, dims, seed, device, rows)
         times["text_hybrid_s"] = time.perf_counter() - t
 
+        # ---- sparse_vector and aggregations ----
+        t = time.perf_counter()
+        sparse_aggs = serve_sparse_aggs(srv, http, clients_proc, seg, docs, seed, rows)
+        times["sparse_aggs_s"] = time.perf_counter() - t
+
         # ---- profiles: 8 requests served over HTTP per route (the
         # card's activity; the server's threads are not traced on the
         # host side), then one batcher group of 8 per route run on this
@@ -1369,6 +1758,7 @@ def phase_serve(reader, dims: int, seed: int, device, card: str) -> dict:
         diagnosis = diagnose_concurrency(srv, http, clients_proc, match_bodies, knn_bodies)
         times["diagnosis_s"] = time.perf_counter() - t
         return {"card": card, "latency": rows, "times": times, "bench_batcher": bench_search, "text_hybrid": text_hybrid,
+                "sparse_aggs": sparse_aggs,
                 "bench_launches_by_bucket": by_bucket, "small_chunked_jobs": chunked,
                 "pipeline": stats_small["pipeline"], "profile": profile,
                 "syncs_per_group": syncs, "concurrency_diagnosis": diagnosis,
@@ -1428,12 +1818,13 @@ def serve_text_hybrid(srv, http: Http, clients_proc: ClientProcess, seg, docs, d
     log(f"/bench rrf_stats: {rrf}")
     check(rrf["searches"] == n_hybrid and rrf["device_fused"] == n_hybrid and rrf["host_fused"] == 0,
           f"/bench: {n_hybrid} hybrid requests, rrf_stats {rrf}: not all fused on the card")
-    check(rrf["batcher_legs"] == 2 * n_hybrid and rrf["pool_legs"] == 0 and rrf["inline_legs"] == 0,
+    # bench.py's 3 legs (multi_match, knn, sparse_vector), all on the batcher
+    check(rrf["batcher_legs"] == 3 * n_hybrid and rrf["pool_legs"] == 0 and rrf["inline_legs"] == 0,
           f"/bench: hybrid legs left the batcher: {rrf}")
 
     # ---- held to the numpy oracle ----
     t = time.perf_counter()
-    checked = {"fused_check_modes": []}
+    checked = {"fused_check_modes": [], "sparse_leg_recall": []}
     for r in ("bool", "multi_match", "filtered_bool"):
         picks = list(range(ORACLE_QUERIES))
         if r == "filtered_bool":
@@ -1445,17 +1836,28 @@ def serve_text_hybrid(srv, http: Http, clients_proc: ClientProcess, seg, docs, d
         checked[r] = len(picks)
     for i in range(ORACLE_QUERIES):
         body = bodies["hybrid_rrf"][i]
-        bm25, knn, window = hybrid_legs(body)
+        leg_bodies, window = hybrid_legs(body)
         legs = []
-        for leg in (bm25, knn):
+        for leg in leg_bodies:
             ref = http.ok("POST", "/bench_oracle/_search", leg)
-            same_served(ref, http.ok("POST", "/bench/_search", leg), f"/bench hybrid {i} leg")
+            got = http.ok("POST", "/bench/_search", leg)
+            if "sparse_vector" in leg.get("query", {}):
+                # the leg serves the index's int8 column: held to the
+                # oracle's f32 page by recall, and the fusion to the
+                # served leg
+                checked["sparse_leg_recall"].append(recall_at(ref, got))
+                legs.append(got)
+                continue
+            same_served(ref, got, f"/bench hybrid {i} leg")
             legs.append(ref)
         for clients in (CLIENTS, 1):
             checked["fused_check_modes"].append(same_fused(
                 legs, served[("hybrid_rrf", clients)][i], window,
                 f"/bench hybrid {i} ({clients} clients)", by_global_doc=True))
     checked["hybrid_rrf"] = ORACLE_QUERIES
+    rec = float(np.mean(checked["sparse_leg_recall"]))
+    log(f"/bench hybrid sparse legs (int8): recall@{K} {rec:.4f} against the oracle's f32 pages")
+    check(rec >= 0.95, f"/bench hybrid sparse legs: recall@{K} {rec:.4f} < 0.95")
     checked["oracle_s"] = time.perf_counter() - t
 
     # ---- /small: the tree-walk fallback, the 2-shard host fuse ----
@@ -1469,9 +1871,9 @@ def serve_text_hybrid(srv, http: Http, clients_proc: ClientProcess, seg, docs, d
         if r != "hybrid_rrf":
             same_served(http.ok("POST", "/small_oracle/_search", body), out[i], f"/small {r} body {i}")
             continue
-        bm25, knn, window = hybrid_legs(body)
+        leg_bodies, window = hybrid_legs(body)
         legs = []
-        for leg in (bm25, knn):
+        for leg in leg_bodies:
             ref = http.ok("POST", "/small_oracle/_search", leg)
             same_served(ref, http.ok("POST", "/small/_search", leg), f"/small hybrid {i} leg")
             legs.append(ref)
@@ -1498,8 +1900,9 @@ def serve_text_hybrid(srv, http: Http, clients_proc: ClientProcess, seg, docs, d
         groups = {r: serve_jobs(r) for r in ("bool", "multi_match")}
         hyb = [hybrid_legs(b) for b in bodies["hybrid_rrf"][:CLIENTS]]
         hyb_serve = [(extract_serve_plan(q, bench.mappings, bench.analysis), q)
-                     for q in (dsl.parse_query(h[0]["query"]) for h in hyb)]
-        hyb_knn = [extract_knn_plan([dsl.parse_knn(h[1]["knn"])], bench.mappings) for h in hyb]
+                     for q in (dsl.parse_query(h[0][0]["query"]) for h in hyb)]
+        hyb_knn = [extract_knn_plan([dsl.parse_knn(h[0][1]["knn"])], bench.mappings) for h in hyb]
+        hyb_sparse = [sparse_job(dsl.parse_query(h[0][2]["query"]), bench.mappings, True) for h in hyb]
         fq = dsl.parse_query(bodies["filtered_bool"][0]["query"])
         stripped, fclauses = split_filtered_bool(fq)
 
@@ -1515,13 +1918,16 @@ def serve_text_hybrid(srv, http: Http, clients_proc: ClientProcess, seg, docs, d
         def hybrid_group():
             sj = [gb.submit_nowait(bex, p, K, kind="serve", query=q) for p, q in hyb_serve]
             kj = [gb.submit_nowait(bex, p, K, kind="knn") for p in hyb_knn]
+            vj = [gb.submit_nowait(bex, p, K, kind="sparse", query=q) for p, q in hyb_sparse]
             sp = gb._dispatch_serve_group(sj, 16, rows=CLIENTS)
             kp = gb._dispatch_knn_group(kj, rows=CLIENTS)
+            vp = gb._dispatch_sparse_group(vj, 16, rows=CLIENTS)
             gb._collect_serve_group(sj, 16, sp)
             gb._collect_knn_group(kj, kp)
-            for a, b in zip(sj, kj):
-                bench._fuse_legs_device([{"td": a.result, "ex": bex}, {"td": b.result, "ex": bex}],
-                                        hyb[0][2], RRF_RANK_CONSTANT)
+            gb._collect_sparse_group(vj, 16, vp)
+            for a, b, c in zip(sj, kj, vj):
+                bench._fuse_legs_device([{"td": j.result, "ex": bex} for j in (a, b, c)],
+                                        hyb[0][1], RRF_RANK_CONSTANT)
 
         fns = {"batcher_bool_group_8": serve_group("bool"),
                "batcher_multi_match_group_8": serve_group("multi_match"),
@@ -1534,6 +1940,101 @@ def serve_text_hybrid(srv, http: Http, clients_proc: ClientProcess, seg, docs, d
     return {"served_routes": {r: len(bodies[r]) for r in TEXT_HYBRID_ROUTES}, "counters": per_route,
             "rrf_stats_bench": rrf, "rrf_stats_small": small_rrf, "checked": checked,
             "small_bodies": len(small), "profile": profile, "syncs_per_group": syncs}
+
+
+SPARSE_AGG_ROUTES = ("sparse_retrieval", "sparse_retrieval_exact", "repeated_agg", "cold_agg")
+
+
+def node_blocks(http: Http) -> dict:
+    node = http.ok("GET", "/_nodes/stats")["nodes"]["node-0"]
+    return {"sparse": node["sparse"], "aggs": node["aggs"],
+            "request_cache": node["indices"]["request_cache"]}
+
+
+def serve_sparse_aggs(srv, http: Http, clients_proc: ClientProcess, seg, docs, seed: int, rows: dict) -> dict:
+    """bench.py's `sparse_retrieval` (int8, and `"exact": true`),
+    `repeated_agg` and `cold_agg` served on the card: `/bench` from 8
+    clients then 1 (latency rows go into `rows`), held to `/bench_oracle`
+    (int8 by recall@10 >= 0.95 against the oracle's f32 pages, exact by
+    ids, `avg` within 1e-12 relative, cold aggregations equal), the
+    counters that show the batcher's sparse family and the device agg
+    plans served them; then a host-routed tree on `/small`."""
+    b = sparse_agg_bodies(seg.postings["body"].term_df, seed)
+    # one of each first: the sparse column's and agg columns' uploads
+    # are set-up, not serving
+    for r in SPARSE_AGG_ROUTES:
+        http.ok("POST", "/bench/_search", b[r][0])
+    served, counters = {}, {}
+    for clients in (CLIENTS, 1):
+        for r in SPARSE_AGG_ROUTES:
+            st0 = node_blocks(http)
+            out, rows[f"{r}_{clients}_clients"] = drive_measured(clients_proc, "/bench/_search", b[r], clients)
+            st1 = node_blocks(http)
+            served[(r, clients)] = out
+            d = {f"sparse_{k}": st1["sparse"][k] - st0["sparse"][k]
+                 for k in ("batched_jobs", "tiles_scored", "tiles_pruned", "pruned_searches", "fallbacks")}
+            d.update({f"aggs_{k}": st1["aggs"][k] - st0["aggs"][k]
+                      for k in ("device_routed", "host_routed", "fallbacks", "batched_jobs")})
+            d["request_cache_hits"] = st1["request_cache"]["hit_count"] - st0["request_cache"]["hit_count"]
+            counters[f"{r}_{clients}_clients"] = d
+            log(f"/bench {r} x{len(b[r])} from {clients} clients: {rows[f'{r}_{clients}_clients']} {d}")
+            if r.startswith("sparse"):
+                check(d["sparse_batched_jobs"] == len(b[r]) and d["sparse_fallbacks"] == 0,
+                      f"/bench {r}: {d}: not every body rode the batcher's sparse family")
+            if r == "cold_agg":
+                check(d["aggs_device_routed"] == len(b[r]) and d["aggs_host_routed"] == 0,
+                      f"/bench cold_agg: {d} for {len(b[r])} bodies: not all on the device plan")
+            if r == "repeated_agg" and clients == 1:
+                check(d["request_cache_hits"] > 0, f"/bench repeated_agg: no request-cache hit on the second pass ({d})")
+
+    # ---- held to the numpy oracle ----
+    t = time.perf_counter()
+    checked = {"sparse_exact_modes": []}
+    recalls = []
+    for i, body in enumerate(b["sparse_retrieval"]):
+        ref = http.ok("POST", "/bench_oracle/_search", {**body, "size": K + 20})
+        for clients in (CLIENTS, 1):
+            recalls.append(recall_at(ref, served[("sparse_retrieval", clients)][i]))
+            checked["sparse_exact_modes"].append(same_page(
+                ref, served[("sparse_retrieval_exact", clients)][i], f"/bench sparse exact {i} ({clients} clients)"))
+    checked["sparse_int8_recall_at_10"] = float(np.mean(recalls))
+    check(np.mean(recalls) >= 0.95, f"/bench sparse_retrieval int8: recall@{K} {np.mean(recalls):.4f} < 0.95")
+    worst = 0.0
+    for i, body in enumerate(b["repeated_agg"]):
+        want = http.ok("POST", "/bench_oracle/_search", body)["aggregations"]["pop_avg"]["value"]
+        for clients in (CLIENTS, 1):
+            got = served[("repeated_agg", clients)][i]["aggregations"]["pop_avg"]["value"]
+            if want is None:
+                check(got is None, f"/bench repeated_agg {i}: avg {got} != oracle None")
+                continue
+            rel = abs(got - want) / abs(want) if want else abs(got)
+            worst = max(worst, rel)
+            check(rel <= 1e-12, f"/bench repeated_agg {i}: avg {got} != oracle {want}")
+    checked["repeated_agg_max_rel_err"] = worst
+    for i, body in enumerate(b["cold_agg"]):
+        ref = http.ok("POST", "/bench_oracle/_search", body)
+        for clients in (CLIENTS, 1):
+            got = served[("cold_agg", clients)][i]
+            check(got["aggregations"] == ref["aggregations"], f"/bench cold_agg {i} ({clients} clients): "
+                  f"aggregations differ from the oracle's")
+            check(got["hits"]["total"] == ref["hits"]["total"], f"/bench cold_agg {i}: total differs")
+    checked["oracle_s"] = time.perf_counter() - t
+    log(f"/bench sparse + aggs held to the oracle: {checked}")
+
+    # ---- /small: a tree the device compiler does not take ----
+    small_body = {"size": 3, "request_cache": False, "query": {"match": {"body": docs[0][1]["body"].split()[0]}},
+                  "aggs": {"cats": {"terms": {"field": "cat"},
+                                    "aggs": {"p": {"percentiles": {"field": "popularity", "percents": [50, 90]}}}}}}
+    st0 = node_blocks(http)
+    got = http.ok("POST", "/small/_search", small_body)
+    st1 = node_blocks(http)
+    ref = http.ok("POST", "/small_oracle/_search", small_body)
+    check(got["aggregations"] == ref["aggregations"], "/small: host-routed aggregations differ from the oracle's")
+    same_served(ref, got, "/small host-routed agg body")
+    host = st1["aggs"]["host_routed"] - st0["aggs"]["host_routed"]
+    check(host == 2, f"/small: {host} host-routed shard collections for 2 shards")
+    return {"served_routes": {r: len(b[r]) for r in SPARSE_AGG_ROUTES}, "counters": counters,
+            "checked": checked, "small_host_routed": host}
 
 
 def node_query_cache(http: Http) -> dict:

@@ -28,9 +28,9 @@ torch`` (the default) serves through `TorchExecutor` on the service's
 QueryBatcher; ``numpy`` selects the NumpyExecutor oracle. Retrievers
 and ``rank: {rrf}`` run their legs concurrently and fuse on the card
 (ops/fusion.py) when every leg rode the batcher. Paths whose modules are
-not ported yet (rescore, `sparse_vector` legs, highlight, scripts,
-device aggregations, sorted collection on the card, the mesh, on-disk
-shards) raise, naming the slice that brings them (see cuts.py).
+not ported yet (rescore, highlight, scripts, sorted collection on the
+card, the mesh, on-disk shards) raise, naming the slice that brings them
+(see cuts.py).
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ from ..analysis import AnalysisRegistry
 from ..common.faults import faults
 from ..common.slowlog import FETCH_ACC, SearchSlowLog
 from ..common.tracing import OPAQUE_ID_CTX, TRACE_CTX
-from ..cuts import AGGS, FETCH, MESH, RERANK, SORT, SPARSE, not_ported
+from ..cuts import FETCH, MESH, RERANK, SORT, not_ported
 from ..index.engine import OpResult, ShardEngine, VersionConflictError
 from ..index.mapping import Mappings
 from ..search import dsl
@@ -1104,6 +1104,9 @@ class IndexService:
                 )
                 ex.cache_ctx = CacheCtx(shard_key, gen, "torch")
                 ex._oracle.cache_ctx = CacheCtx(shard_key, gen, "np")
+                # the sparse columns go up with the generation, not with
+                # its first sparse_vector request
+                ex.warm_impacts(self.settings)
             elif backend == "numpy":
                 ex = NumpyExecutor(reader)
                 ex.cache_ctx = CacheCtx(shard_key, gen, "np")
@@ -1281,11 +1284,6 @@ class IndexService:
             from ..search.aggs import parse_aggs
 
             agg_nodes = parse_aggs(aggs_body)
-            if str(self.settings.get("search.backend")) == "torch":
-                raise not_ported(
-                    "aggregations on the torch backend (search/aggs_device.py)",
-                    AGGS,
-                )
         profile = bool(body.get("profile"))
         # ES default: totals tracked accurately up to 10_000, pruning
         # allowed past it (SearchSourceBuilder.TRACK_TOTAL_HITS_ACCURATE
@@ -1335,6 +1333,7 @@ class IndexService:
                 extract_knn_plan,
                 extract_match_plan,
                 extract_serve_plan,
+                extract_sparse_plan,
                 split_filtered_bool,
             )
             from ..search.executor_torch import TorchExecutor
@@ -1342,7 +1341,18 @@ class IndexService:
             if isinstance(ex, TorchExecutor):
                 plan = None
                 kind = "match"
-                if query is not None and knn is None:
+                if isinstance(query, dsl.SparseVectorQuery):
+                    # learned-sparse leg: resolve the storage column
+                    # (int8 default / fp32 via `"exact": true`) and ride
+                    # the batcher's `sparse` job family
+                    from ..search import sparse as sparse_mod
+
+                    query.sparse = sparse_mod.resolve(
+                        self.settings, bool(body.get("exact"))
+                    )
+                    plan = extract_sparse_plan(query, self.mappings)
+                    kind = "sparse"
+                elif query is not None and knn is None:
                     plan = extract_match_plan(
                         query, self.mappings, self.analysis, tth
                     )
@@ -1370,7 +1380,10 @@ class IndexService:
                         td = self._wait_batched(job, sid, shard_deadline, task)
                     except RuntimeError:
                         # batcher closed mid-request → the executor's
-                        # per-query path, still on the same device
+                        # per-query path, still on the same device; any
+                        # other failure (a launch) reaches the caller
+                        if not self._batcher._closed:
+                            raise
                         td = None
                 if td is None and plan is None and query is not None and knn is None:
                     # bool with filter clauses: peel the filters into a
@@ -1386,6 +1399,62 @@ class IndexService:
                         )
         agg_partial = None
         try:
+            agg_deviceable = (
+                td is None
+                and agg_nodes is not None
+                and sort_specs is None
+                and search_after is None
+                and knn is None
+                and min_score is None
+                and pinned_executor is None
+                and dfs_stats is None
+                and not isinstance(ex, NumpyExecutor)
+            )
+            if agg_deviceable:
+                # ---- device aggregations: the whole agg tree compiles
+                # to segment-sum passes and rides the batcher's `agg`
+                # job family. An injected `aggs.collect` fault or the
+                # device-memory budget (the breaker, or an agg column
+                # that would not fit: DeviceAggUnsupported, which a
+                # dispatch raises only from that check) sends the body
+                # to the host collector below, as in the reference; any
+                # other failure reaches the caller. Trees the compiler
+                # does not take (search/aggs_device.try_compile) never
+                # run on the card, so a device answer is exact ----
+                from ..common.faults import InjectedFault
+                from ..common.memory import CircuitBreakingException
+                from ..search import aggs_device
+
+                dplan = aggs_device.try_compile(
+                    ex, agg_nodes, self.mappings, self.name, sid, query, k
+                )
+                if dplan is not None:
+                    got = None
+                    try:
+                        job = self._batcher.submit_nowait(
+                            ex, dplan, k, kind="agg",
+                            deadline=shard_deadline, prof=prof_phases,
+                        )
+                        got = self._wait_batched(job, sid, shard_deadline, task)
+                    except (
+                        InjectedFault,
+                        CircuitBreakingException,
+                        aggs_device.DeviceAggUnsupported,
+                    ):
+                        aggs_device.note_fallback()
+                    except RuntimeError:
+                        if not self._batcher._closed:
+                            raise
+                        aggs_device.note_fallback()
+                    if got is not None:
+                        td, agg_partial = got
+                        aggs_device.note_device_routed()
+            if td is None and agg_deviceable:
+                # keyword terms aggs bucket on the card in the query
+                # pass: an index_add_ per segment, compact downloads
+                got = ex.execute_with_terms_aggs(query, agg_nodes, k, tth)
+                if got is not None:
+                    td, agg_partial = got
             if td is None:
                 if sort_specs is not None:
                     if not isinstance(ex, NumpyExecutor):
@@ -1409,10 +1478,15 @@ class IndexService:
                         query, size=k, from_=0, knn=knn, min_score=min_score
                     )
             if agg_nodes is not None and agg_partial is None:
+                # trees the device compiler does not take (and the
+                # numpy backend): the host collector over the query's
+                # masks — the reference's routing, not a fallback
+                from ..search import aggs_device
                 from ..search.aggs import AggCollector
 
-                # numpy backend only: the torch backend raised above
-                agg_partial = AggCollector(ex).collect(agg_nodes, masks)
+                oracle = ex if isinstance(ex, NumpyExecutor) else ex._oracle
+                agg_partial = AggCollector(oracle).collect(agg_nodes, masks)
+                aggs_device.note_host_routed()
         finally:
             if dfs_token is not None:
                 from ..search.executor import DFS_NORM_CACHE, DFS_STATS
@@ -2659,7 +2733,9 @@ class IndexService:
             and isinstance(params.get("query"), dict)
             and "sparse_vector" in params["query"]
         ):
-            raise not_ported("a [sparse_vector] retriever leg", SPARSE)
+            # the third hybrid leg: a standard retriever whose query is
+            # a learned-sparse clause gets its own per-leg timing bucket
+            label = "sparse"
         planned = self._plan_leg(kind, params, window, extra_filter, pins)
         if planned is not None:
             ex, plan, pkind, query = planned
@@ -2731,6 +2807,15 @@ class IndexService:
             if params.get("filter") is not None or "query" not in params:
                 return None
             query = dsl.parse_query(params["query"])
+            if isinstance(query, dsl.SparseVectorQuery):
+                from ..search import sparse as sparse_mod
+                from ..search.batcher import extract_sparse_plan
+
+                query.sparse = sparse_mod.resolve(self.settings, False)
+                plan = extract_sparse_plan(query, self.mappings)
+                if plan is None:
+                    return None
+                return ex, plan, "sparse", query
             plan = extract_match_plan(query, self.mappings, self.analysis, 10_000)
             if plan is not None:
                 return ex, plan, "match", query
@@ -2769,7 +2854,9 @@ class IndexService:
                 ranked = [(h.doc_id, h.score) for h in td.hits]
             except RuntimeError:
                 # batcher closed mid-flight → the sync path, still on
-                # the same device
+                # the same device; any other failure reaches the caller
+                if not self._batcher._closed:
+                    raise
                 mode = "inline"
                 ranked = self._run_retriever(handle["child"], window, window, extra_filter, pins)
         elif mode == "done":

@@ -6,12 +6,10 @@ that brings it, so a caller learns what is missing instead of meeting a
 quiet fallback or an ImportError.
 """
 
-# ROADMAP.md queue 1 items the cuts below point at (items 1-6 are
-# ported)
+# ROADMAP.md queue 1 items the cuts below point at (items 1-6, 8 and
+# 10 are ported)
 RERANK = "ROADMAP queue 1 item 7 (second-stage rerank)"
-SPARSE = "ROADMAP queue 1 item 8 (learned sparse retrieval)"
 IVF = "ROADMAP queue 1 item 9 (IVF ANN)"
-AGGS = "ROADMAP queue 1 item 10 (device aggregations)"
 DEVICE_BUILD = "ROADMAP queue 1 item 11 (device segment builds)"
 MESH = "ROADMAP queue 1 item 12 (mesh and multi-node cluster)"
 DISK = "ROADMAP queue 1 item 13 (on-disk segments and snapshots)"

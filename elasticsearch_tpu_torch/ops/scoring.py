@@ -57,32 +57,28 @@ def pad_tiles(
 
 
 def topk_desc(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(values, indices) of the k largest entries along the last axis,
-    score desc, LOWEST index first among equal scores — the order
-    `lax.top_k` gives and the reference's doc-asc tie-break relies on.
+    """(values, indices) of the k largest float32 entries along the last
+    axis in `lax.top_k`'s order: the IEEE total order (a NaN without its
+    sign bit above +inf, one with it below -inf, +0.0 above -0.0), the
+    LOWEST index first among equal bits — the doc-asc tie-break the
+    reference relies on.
 
-    `torch.topk` promises no order among ties, so it only finds the k-th
-    value; the selection is then exact: every entry above it, plus the
-    lowest-indexed entries equal to it until k are taken, finally sorted
-    stably by score. No host synchronisation happens here."""
+    One `torch.topk` over one int64 key per entry: the high word maps
+    the float's bits onto int32 in that order, the low word is the
+    inverted index. Every key is distinct, so the selection and its
+    order are exact whatever order `torch.topk` keeps among ties. No
+    host synchronisation happens here."""
     n = x.shape[-1]
     if k <= 0:
         shape = x.shape[:-1] + (0,)
         return x.new_empty(shape), torch.empty(shape, dtype=torch.int64, device=x.device)
     rows = x.reshape(-1, n)
-    kth = torch.topk(rows, k, dim=-1, sorted=True).values[:, -1:]
-    above = rows > kth
-    equal = rows == kth
-    need = k - above.sum(dim=-1, keepdim=True, dtype=torch.int32)
-    sel = above | (equal & (torch.cumsum(equal, dim=-1, dtype=torch.int32) <= need))
-    # slot of each selected entry among its row's selection, in index order
-    slot = torch.where(sel, torch.cumsum(sel, dim=-1, dtype=torch.int32) - 1, k)
-    idx = torch.zeros(rows.shape[0], k + 1, dtype=torch.int64, device=x.device)
-    idx.scatter_(1, slot.long(), torch.arange(n, device=x.device).expand_as(rows))
-    idx = idx[:, :k]
+    b = rows.contiguous().view(torch.int32)
+    key32 = b ^ ((b >> 31) & 0x7FFFFFFF)
+    low = 0xFFFFFFFF - torch.arange(n, dtype=torch.int64, device=x.device)
+    key = (key32.to(torch.int64) << 32) | low
+    idx = 0xFFFFFFFF - (torch.topk(key, k, dim=-1, sorted=True).values & 0xFFFFFFFF)
     vals = rows.gather(1, idx)
-    vals, order = torch.sort(vals, dim=-1, descending=True, stable=True)
-    idx = idx.gather(1, order)
     shape = x.shape[:-1] + (k,)
     return vals.reshape(shape), idx.reshape(shape)
 

@@ -667,6 +667,26 @@ class RestActions:
         # per-category child breakers next to the "hbm" parent (per-
         # category bytes were accounted but invisible before)
         category_breakers = hbm_ledger.child_breakers()
+        batchers = [
+            idx._batcher for idx in self.cluster.indices.values()
+            if getattr(idx, "_batcher", None) is not None
+        ]
+        # device-aggregations engine counters (search/aggs_device.py):
+        # device_routed vs host_routed shard collections, injected-fault
+        # / breaker fallbacks, dispatch+download wall time, and the
+        # `aggs` ledger bytes (int offset / value-ordinal columns)
+        from ..search.aggs_device import stats_snapshot as agg_stats
+
+        aggs_block = agg_stats()
+        aggs_block["batched_jobs"] = sum(b.stats.get("agg_jobs", 0) for b in batchers)
+        # learned-sparse retrieval counters (search/sparse.py):
+        # quantized/exact/fallback routings, impact tiles scored vs
+        # pruned by the block-max pass, the `impacts` ledger bytes, and
+        # the int8-vs-fp32-equivalent upload sizes
+        from ..search.sparse import stats_snapshot as sparse_stats
+
+        sparse_block = sparse_stats()
+        sparse_block["batched_jobs"] = sum(b.stats.get("sparse_jobs", 0) for b in batchers)
         # IVF ANN tier counters (search/ann.py): probe counts, clusters
         # scanned vs total, exact-fallback/escape-hatch routings, index
         # build wall time, and the `ann` HBM ledger bytes
@@ -767,7 +787,9 @@ class RestActions:
                         **category_breakers,
                     },
                     "pipeline": pipeline,
+                    "aggs": aggs_block,
                     "knn": knn_block,
+                    "sparse": sparse_block,
                     "translog": translog_block,
                     "ingest": ingest_block,
                     "recovery": recovery_block,

@@ -43,12 +43,16 @@ multi-field fused route for large segments, one device-side merge and
 one packed download; segments below the fused size and slot overflows
 take `TorchExecutor.segment_topk` per job at collect time) and exact
 `knn` (one matmul per segment, the device-side num_candidates merge,
-one packed download). Group inputs reach the card through asynchronous
-pinned uploads (ops/scoring.upload), and per-doc masks are the
-executor's device-resident live ∧ exists tensors, so a dispatch never
-waits for the device. The reference's `agg`, `rerank`, `sparse` and
-`mesh_*` families are not ported yet: their bodies reach
-`TorchExecutor.search`, which raises naming the slice that brings them.
+one packed download), `sparse` (bare `sparse_vector` bodies: per
+segment phase A on each term's first impact tile, one theta download,
+the kept tiles into a fresh accumulator, one device-side merge and one
+packed download; ops/impact.py) and `agg` (compiled device aggregation
+plans, search/aggs_device.py). Group inputs reach the card through
+asynchronous pinned uploads (ops/scoring.upload), and per-doc masks are
+the executor's device-resident live ∧ exists tensors, so a dispatch
+never waits for the device. The reference's `rerank` and `mesh_*`
+families are not ported yet: their bodies reach `TorchExecutor.search`,
+which raises naming the slice that brings them.
 """
 
 from __future__ import annotations
@@ -63,9 +67,10 @@ from typing import Deque, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
-from ..common.faults import faults
+from ..common.faults import InjectedFault, faults
+from ..common.memory import CircuitBreakingException
 from ..common.settings import batch_buckets, bucket_for, bucket_warmup
-from ..index.mapping import TEXT
+from ..index.mapping import SPARSE_VECTOR, TEXT
 from ..ops import scoring
 from ..ops.scoring import BPAD
 from . import dsl
@@ -190,6 +195,43 @@ class KnnPlan:
     k: int
     num_candidates: int
     boost: float
+
+
+@dataclass(frozen=True)
+class SparsePlan:
+    """A bare `sparse_vector` query: batched impact-tile launches per
+    segment (ops/impact.py) with impact-ordered block-max pruning.
+    Query weights arrive boost-folded (float32, exactly as the host
+    oracle folds them) and term-sorted — the canonical accumulation
+    order both paths share. `spec` (search/sparse.SparseSpec) rides the
+    group key, so int8 and fp32 servings never share a launch."""
+
+    field: str
+    terms: Tuple[str, ...]
+    weights: Tuple[float, ...]
+    spec: object
+
+
+def extract_sparse_plan(query, mappings) -> Optional[SparsePlan]:
+    """Returns a SparsePlan when `query` is a bare sparse_vector query
+    over a sparse_vector field with a resolved SparseSpec (the hot REST
+    shape), else None → normal executor path (host oracle)."""
+    if not isinstance(query, dsl.SparseVectorQuery):
+        return None
+    mf = mappings.get(query.field)
+    if mf is None or mf.type != SPARSE_VECTOR:
+        return None
+    spec = getattr(query, "sparse", None)
+    if spec is None:
+        return None
+    boost = np.float32(query.boost)
+    items = sorted(query.query_vector.items())
+    return SparsePlan(
+        field=query.field,
+        terms=tuple(t for t, _ in items),
+        weights=tuple(float(np.float32(boost * np.float32(w))) for _, w in items),
+        spec=spec,
+    )
 
 
 def _clause_terms(q, mappings, analysis) -> Optional[Tuple[str, List[str], float]]:
@@ -515,6 +557,13 @@ class QueryBatcher:
             # path (segments below the fused size, every segment a
             # `_bulk` + refresh makes, or fused-slot overflow)
             "chunked_jobs": 0,
+            # device-aggregations job family (size:0/agg bodies riding
+            # the dispatch/collect pipeline as segment-sum launches)
+            "agg_jobs": 0,
+            # learned-sparse job family (bare sparse_vector bodies
+            # riding the dispatch/collect pipeline as impact-tile
+            # launches with block-max pruning)
+            "sparse_jobs": 0,
         }
         # per-bucket launch histogram + occupancy sums (guarded by
         # self._lock; surfaced via batching_stats() → _nodes/stats):
@@ -531,7 +580,7 @@ class QueryBatcher:
         self._warm_inflight = 0
         # family → groups currently dispatched-but-not-collected,
         # across ALL workers (guarded by self._lock)
-        self._inflight = {"text": 0, "knn": 0}
+        self._inflight = {"text": 0, "knn": 0, "agg": 0, "sparse": 0}
         # per-device roofline accounting (straggler visibility): device
         # id → [inflight_groups, busy_t0, busy_s, flops]; every group
         # runs on the executor's one card, device 0 (guarded by
@@ -600,7 +649,7 @@ class QueryBatcher:
         at dequeue instead of dispatched dead."""
         if self._closed:
             raise RuntimeError("query batcher closed")
-        if kind not in ("match", "serve", "knn"):
+        if kind not in ("match", "serve", "knn", "sparse", "agg"):
             # the reference's other families are not ported (see the
             # module docstring); their plans never reach a port batcher
             raise ValueError(f"unknown batcher job kind [{kind}]")
@@ -814,6 +863,16 @@ class QueryBatcher:
                         id(j.executor), "s", j.plan.fields,
                         j.plan.combine, j.plan.tie, kb,
                     )
+                elif j.kind == "agg":
+                    # device-aggregations family: jobs group by the
+                    # compiled plan's structural signature so identical
+                    # dashboard shapes share one dispatch slot
+                    key = (id(j.executor), "a", j.plan.sig, kb)
+                elif j.kind == "sparse":
+                    # learned-sparse family: the frozen SparseSpec rides
+                    # the key so int8 and fp32 servings of one field
+                    # never share a launch
+                    key = (id(j.executor), "v", j.plan.field, j.plan.spec, kb)
                 else:  # knn (kb stays LAST — dispatch reads it as key[-1])
                     key = (id(j.executor), "k", j.plan.field, kb)
                 groups.setdefault(key, []).append(j)
@@ -822,7 +881,7 @@ class QueryBatcher:
             )
             for key, jobs in ordered:
                 kind, kb = key[1], key[-1]
-                fam = "knn" if kind == "k" else "text"
+                fam = {"k": "knn", "a": "agg", "v": "sparse"}.get(kind, "text")
                 # pad-bucket ladder: the group's launch width is the
                 # smallest bucket covering its occupancy
                 rows = bucket_for(len(jobs), self.buckets)
@@ -868,6 +927,27 @@ class QueryBatcher:
                         ctx.pending.append(
                             (key, jobs, fam,
                              self._dispatch_serve_group(jobs, kb, rows=rows),
+                             dev_ids)
+                        )
+                        dispatched = True
+                        if prof_on:
+                            self._prof_mark(jobs, rows, t_prof, now,
+                                            express)
+                        self._maybe_warm(key, jobs, kb, rows)
+                    elif kind == "a":
+                        ctx.pending.append(
+                            (key, jobs, fam,
+                             self._dispatch_agg_group(jobs), dev_ids)
+                        )
+                        dispatched = True
+                        if prof_on:
+                            self._prof_mark(jobs, rows, t_prof, now,
+                                            express)
+                    elif kind == "v":
+                        self._record_bucket(rows, len(jobs))
+                        ctx.pending.append(
+                            (key, jobs, fam,
+                             self._dispatch_sparse_group(jobs, kb, rows=rows),
                              dev_ids)
                         )
                         dispatched = True
@@ -924,8 +1004,13 @@ class QueryBatcher:
                     faults.check(
                         "batcher.collect", family=fam, jobs=len(jobs), mesh=0,
                     )
-                    if key[1] == "s":
+                    kind = key[1]
+                    if kind == "s":
                         self._collect_serve_group(jobs, key[-1], pend)
+                    elif kind == "a":
+                        self._collect_agg_group(jobs, pend)
+                    elif kind == "v":
+                        self._collect_sparse_group(jobs, key[-1], pend)
                     else:
                         self._collect_knn_group(jobs, pend)
                     if prof_on:
@@ -1117,6 +1202,12 @@ class QueryBatcher:
                         )
                         self._collect_serve_group(dummy, kb, pend,
                                                   record=False)
+                    elif kind == "v":
+                        pend = self._dispatch_sparse_group(
+                            dummy, kb, rows=b, record=False
+                        )
+                        self._collect_sparse_group(dummy, kb, pend,
+                                                   record=False)
                     else:
                         pend = self._dispatch_knn_group(
                             dummy, rows=b, record=False
@@ -1537,6 +1628,206 @@ class QueryBatcher:
             for sc, doc in zip(srow[finite], drow[finite]):
                 per_job_cands[ji].append((float(sc), si, int(doc)))
             totals[ji] += int(t[ji])
+
+    def _dispatch_agg_group(self, jobs: List[_Job]) -> List[Tuple]:
+        """Launches the device-aggregation plans (search/aggs_device
+        segment-sum passes) for a group of same-signature agg jobs
+        without waiting for the device; downloads happen at collect.
+        Per-job isolation: one body's error (an injected `aggs.collect`
+        fault, a launch failure) fails only that job's waiter; the shard
+        decides what it means (search_shard_local)."""
+        out: List[Tuple] = []
+        for j in jobs:
+            try:
+                pend = j.plan.dispatch()
+            except BaseException as e:  # surfaced to this job's waiter
+                out.append(("err", e))
+                continue
+            with self._lock:
+                self.stats["launches"] += 1
+                self.stats["agg_jobs"] += 1
+            self._add_flops(j.plan.flops_estimate())
+            out.append(("ok", pend))
+        return out
+
+    def _collect_agg_group(self, jobs: List[_Job], pends: List[Tuple]):
+        for j, (tag, pend) in zip(jobs, pends):
+            if j.event.is_set():
+                continue
+            if tag == "err":
+                j.error = pend
+                j.event.set()
+                continue
+            try:
+                t0 = time.perf_counter()
+                j.result = j.plan.collect(pend)  # (TopDocs, partials)
+                self._add_stall(time.perf_counter() - t0)
+            except BaseException as e:  # surfaced to this job's waiter
+                j.error = e
+            j.event.set()
+
+    def _dispatch_sparse_group(self, jobs: List[_Job], kb: int,
+                               rows: Optional[int] = None,
+                               record: bool = True) -> List[Tuple]:
+        """Launches the impact-tile scoring (ops/impact.py) for a group
+        of same-(field, spec) sparse_vector jobs on every segment
+        carrying the column. Two-phase per segment: phase A scores each
+        query term's FIRST tile (where impact ordering puts the term
+        maxima), one theta download, then the surviving block-max tile
+        list scores into a fresh accumulator whose finalize triple stays
+        on the device until collect. The `sparse.score` fault site fires
+        per segment: an injected fault (like a column over the memory
+        budget, or a segment without it) sends that segment to the host
+        dense oracle at collect time, exact answers included. Any other
+        error reaches the group's waiters."""
+        from ..ops import impact as impact_ops
+        from . import sparse as sparse_mod
+
+        ex = jobs[0].executor
+        reader = ex.reader
+        nj = len(jobs)
+        rows = rows or BPAD
+        plan0 = jobs[0].plan
+        field = plan0.field
+        spec = plan0.spec
+        items: List[Tuple] = []
+        for si, seg in enumerate(reader.segments):
+            sfh = (getattr(seg, "sparse", None) or {}).get(field)
+            if sfh is None or not sfh.n_tiles:
+                continue
+            try:
+                if record:
+                    faults.check("sparse.score", field=field, segment=si)
+                sc = ex.impact_scorer(si, field, spec.quantized)
+            except (InjectedFault, CircuitBreakingException):
+                sc = None
+            if sc is None:
+                if record:
+                    sparse_mod.note("fallbacks", nj)
+                items.append(("fallback", si, None))
+                continue
+            # int8 serving prunes against the DEQUANTIZED tile maxima
+            # (tile_qmax): a dequantized slot can exceed the fp32 tile
+            # max by up to scale/2, so the fp32 bounds alone would be
+            # unsound against quantized scores
+            bound = sfh.tile_qmax if spec.quantized else sfh.tile_max
+            bms = []
+            prunable = []
+            for j in jobs:
+                tids, tws, bws, _, _ = impact_ops.impact_tile_lists(
+                    sfh, j.plan.terms, j.plan.weights, spec.quantized
+                )
+                bms.append(
+                    impact_ops.SparseBlockMax(
+                        sfh.term_tile_start, sfh.term_tile_count, bound, tids, tws, bws,
+                    )
+                )
+                # block-max upper bounds assume non-negative tile
+                # weights; a negative query weight keeps the job exact
+                # but unpruned
+                prunable.append(bool((tws >= 0).all()))
+            thetas = np.full(len(jobs), -np.inf, np.float32)
+            if any(p and bm.n_tail_tiles for p, bm in zip(prunable, bms)):
+                acc, cnt = sc.new_acc(rows)
+                acc, cnt = sc.score_into(
+                    acc, cnt,
+                    [bm.phase_a()[0] for bm in bms],
+                    [bm.phase_a()[1] for bm in bms],
+                )
+                th, _ = sc.threshold(acc, kb)
+                for ji in range(len(jobs)):
+                    if prunable[ji]:
+                        thetas[ji] = th[ji]
+            tile_lists: List[np.ndarray] = []
+            weight_lists: List[np.ndarray] = []
+            pruned_flags = np.zeros(len(jobs), bool)
+            tiles_scored = 0
+            tiles_pruned = 0
+            for ji, bm in enumerate(bms):
+                t, w, dropped = bm.kept(float(thetas[ji]))
+                tile_lists.append(t)
+                weight_lists.append(w)
+                pruned_flags[ji] = dropped > 0
+                tiles_scored += len(t)
+                tiles_pruned += dropped
+            acc, cnt = sc.new_acc(rows)
+            acc, cnt = sc.score_into(acc, cnt, tile_lists, weight_lists)
+            pend = sc.finalize_device(acc, cnt, kb)
+            if record:
+                sparse_mod.note_search(nj, spec.quantized, tiles_scored, tiles_pruned)
+                with self._lock:
+                    self.stats["launches"] += 1
+                    self.stats["sparse_jobs"] += nj
+                self._add_flops(impact_ops.sparse_flops(tiles_scored))
+            items.append(("dev", si, (pend, pruned_flags)))
+        return items
+
+    def _collect_sparse_group(self, jobs: List[_Job], kb: int, items,
+                              record: bool = True):
+        """Host side of the sparse group: one device-side merge and one
+        packed download cover every device segment; segments sent to
+        the host (injected fault / budget) run per job through the
+        executor's per-segment top-k — which scores a SparseVectorQuery
+        with the host dense oracle — and join the final merge. Hits are
+        exact either way; totals turn relation "gte" when block-max
+        pruning dropped tiles (the dropped docs provably score below the
+        kth best, but they are no longer counted)."""
+        ex = jobs[0].executor
+        reader = ex.reader
+        per_job_cands: List[List[Tuple[float, int, int]]] = [[] for _ in jobs]
+        totals = np.zeros(len(jobs), np.int64)
+        pruned_any = np.zeros(len(jobs), bool)
+        dev_items = []
+        for tag, si, payload in items:
+            if tag != "dev":
+                continue
+            pend, pruned_flags = payload
+            dev_items.append((si, *pend))
+            pruned_any |= pruned_flags
+        if dev_items:
+            t0 = time.perf_counter()
+            ms, mseg, mdoc, mtot = scoring.merge_segment_topk(dev_items, kb)
+            if record:
+                self._add_stall(time.perf_counter() - t0)
+            for ji in range(len(jobs)):
+                finite = np.isfinite(ms[ji])
+                for s, si, d in zip(ms[ji][finite], mseg[ji][finite], mdoc[ji][finite]):
+                    per_job_cands[ji].append((float(s), int(si), int(d)))
+                totals[ji] += int(mtot[ji].sum())
+        for tag, si, _payload in items:
+            if tag != "fallback":
+                continue
+            for ji, j in enumerate(jobs):
+                s1, d1, t1 = ex.segment_topk(j.query, si, kb)
+                if record:
+                    with self._lock:
+                        self.stats["launches"] += 1
+                self._collect(
+                    [j], [per_job_cands[ji]], totals[ji : ji + 1],
+                    si, s1[None, :], d1[None, :], np.array([t1]),
+                )
+        for ji, j in enumerate(jobs):
+            cands = per_job_cands[ji]
+            cands.sort(key=lambda c: (-c[0], c[1], c[2]))
+            hits = [
+                Hit(score=s, segment=si, local_doc=d, doc_id=reader.segments[si].doc_ids[d])
+                for s, si, d in cands[: j.k]
+            ]
+            relation = "eq"
+            if pruned_any[ji]:
+                if record:
+                    with self._lock:
+                        self.stats["pruned_jobs"] += 1
+                if record and j.prof is not None:
+                    j.prof["pruned_jobs"] = j.prof.get("pruned_jobs", 0) + 1
+                relation = "gte"
+            j.result = TopDocs(
+                total=int(totals[ji]),
+                hits=hits,
+                max_score=hits[0].score if hits else None,
+                relation=relation,
+            )
+            j.event.set()
 
     def _dispatch_knn_group(self, jobs: List[_Job],
                             rows: Optional[int] = None,

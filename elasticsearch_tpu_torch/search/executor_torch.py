@@ -16,12 +16,16 @@ routes for large segments (`fused_scorer` → `fused_plan` →
 `FusedScorer.search_async`; `fused_scorer_mf` → `fused_plan_field` →
 `MultiFusedScorer.search_async`), the chunked block-max route for small
 ones (`block_index`, `chunked_scorer`), `segment_topk`, the filtered-bool
-route (`search_plan_filtered`), and device-resident live and
-live ∧ exists masks built once per executor (= reader generation).
+route (`search_plan_filtered`), the learned-sparse impact scorers
+(`impact_scorer`, uploaded at build by `warm_impacts`), the keyword
+terms-aggs pass (`execute_with_terms_aggs`) and the state of the device
+aggregations engine (search/aggs_device.py), and device-resident live
+and live ∧ exists masks built once per executor (= reader generation).
 Filter-context clauses go through the node-level bitset cache
-(search/query_cache.py) as device `torch.bool` tensors. Every other
-query node raises NotImplementedError naming the slice that brings it
-(cuts.py).
+(search/query_cache.py) as device `torch.bool` tensors; `exists` and a
+`sparse_vector` node inside a tree are the oracle's host mask and
+scores, uploaded, as in the reference. Every other query node raises
+NotImplementedError naming the slice that brings it (cuts.py).
 
 Numeric doc values stay float64 on the device, so a `date` range at
 epoch-millisecond precision compares exactly (float32 spacing near
@@ -61,6 +65,7 @@ from .dsl import (
     MultiMatchQuery,
     Query,
     RangeQuery,
+    SparseVectorQuery,
     TermQuery,
     TermsQuery,
 )
@@ -79,13 +84,6 @@ from .executor import (
 FUSED_MIN_DOCS = 100_000
 # device-memory budget for dense hot-term tf rows, bytes (uint8 per doc per term)
 DENSE_ROWS_HBM_BUDGET = 512 * 1024 * 1024
-
-# the slice of the port that brings each query node not ported yet
-# (nodes not named here come with cuts.NODES)
-_LATER_SLICES = {
-    "SparseVectorQuery": cuts.SPARSE,
-}
-
 
 class DevicePostings:
     def __init__(self, pf, device):
@@ -255,6 +253,20 @@ class TorchExecutor:
         self._live_masks: Dict[int, Optional[torch.Tensor]] = {}
         self._knn_masks: Dict[Tuple[int, str], torch.Tensor] = {}
         self._deleted_count: Optional[int] = None
+        self._entry_docs_dev_cache: Dict[Tuple[int, str], Optional[torch.Tensor]] = {}
+        # device-aggregations engine caches (search/aggs_device.py):
+        # per-(segment, field) column exactness profiles plus the int32
+        # offset / value-ordinal / permutation agg columns (charged to
+        # the `aggs` ledger category, released with the executor on a
+        # generation bump — exactly the invalidation the agg plans need)
+        self._agg_profiles: Dict[Tuple[int, str], object] = {}
+        self._agg_cols: Dict[tuple, object] = {}
+        # learned-sparse serving (ops/impact.py, search/sparse.py):
+        # per-(segment, field, storage mode) ImpactScorers over the
+        # impact-ordered postings column, charged to the `impacts`
+        # ledger category; a column that would not fit the budget is
+        # served by the host dense oracle (None cached)
+        self._impact_scorers: Dict[tuple, object] = {}
         # cache-miss builds are guarded so concurrent callers can't
         # duplicate a dense hot-row build; RLock because fused_scorer →
         # _inv_norm/_segment_weights nest
@@ -651,8 +663,11 @@ class TorchExecutor:
             return self._exec_terms(q, si)
         if isinstance(q, RangeQuery):
             return self._exec_range(q, si)
-        if isinstance(q, ExistsQuery):
-            # the oracle's host mask and scores (cheap, static), uploaded
+        if isinstance(q, (ExistsQuery, SparseVectorQuery)):
+            # the oracle's host mask and scores, uploaded: `exists` is
+            # cheap and static; a `sparse_vector` node inside a tree is
+            # scored by the dense fp32 oracle, as the reference does (a
+            # bare one rides the batcher's impact-tile family)
             hm, hs = self._oracle._exec(q, self.reader.segments[si])
             return scoring.upload(hm, self.device), scoring.upload(hs, self.device)
         if isinstance(q, BoolQuery):
@@ -668,10 +683,7 @@ class TorchExecutor:
             return self._exec_ids(q, si)
         if isinstance(q, DisMaxQuery):
             return self._exec_dis_max(q, si)
-        name = type(q).__name__
-        raise not_ported(
-            f"the [{name}] query node", _LATER_SLICES.get(name, cuts.NODES)
-        )
+        raise not_ported(f"the [{type(q).__name__}] query node", cuts.NODES)
 
     # ---- text leaves via the tile scorer ----
 
@@ -1390,3 +1402,169 @@ class TorchExecutor:
             np.asarray(hw, np.float32),
             msm,
         )
+
+    # ---- learned-sparse impact columns (ops/impact.py scorers) ----
+
+    def impact_scorer(self, si: int, field: str, quantized: bool):
+        """Cached ops/impact.ImpactScorer over one segment's
+        impact-ordered sparse postings column — the int8 qweights plane
+        or the fp32 weights plane, chosen per SparseSpec — or None when
+        the segment has no such column or the upload would not fit the
+        device-memory budget (the host dense oracle serves it then).
+        Charged to the `impacts` category and cached per executor
+        generation, like the agg tables."""
+        key = ("sparse", si, field, bool(quantized))
+        if key in self._impact_scorers:
+            return self._impact_scorers[key]
+        with self._build_lock:
+            if key in self._impact_scorers:
+                return self._impact_scorers[key]
+            from ..common.memory import hbm_ledger
+            from ..ops import impact as impact_ops
+            from . import sparse as sparse_mod
+
+            seg = self.reader.segments[si]
+            sf = (getattr(seg, "sparse", None) or {}).get(field)
+            sc = None
+            if sf is not None and seg.num_docs and sf.n_tiles:
+                vals = sf.qweights if quantized else sf.weights
+                est = int(sf.doc_ids.nbytes + vals.nbytes)
+                if not hbm_ledger.would_fit(est):
+                    hbm_ledger.note_degraded()
+                else:
+                    sc = impact_ops.ImpactScorer(
+                        sf.doc_ids, vals, seg.num_docs, self.live_mask(si),
+                        device=self.device,
+                    )
+                    self._charge("impacts", est, False)
+                    # the int8 compression headline: the value plane
+                    # uploaded vs the same plane at fp32 (doc-id planes
+                    # are identical either way — see ledger_bytes)
+                    sparse_mod.note("impact_bytes", int(vals.nbytes))
+                    sparse_mod.note("impact_fp32_equivalent_bytes", int(sf.weights.nbytes))
+            self._impact_scorers[key] = sc
+            return sc
+
+    def warm_impacts(self, settings) -> None:
+        """Uploads every segment's sparse columns in the index's storage
+        mode (`sparse.quantization`) when the executor is built, so the
+        first `sparse_vector` request after a refresh pays no upload
+        (the reference does this in its generation prewarm)."""
+        quant = str(settings.get("sparse.quantization", "int8")) == "int8"
+        for si, seg in enumerate(self.reader.segments):
+            if seg.num_docs:
+                for fname in getattr(seg, "sparse", None) or {}:
+                    self.impact_scorer(si, fname, quant)
+
+    # ---- keyword terms aggregations in the query pass ----
+
+    def _entry_docs_dev(self, si: int, field: str) -> Optional[torch.Tensor]:
+        """Device int64 doc index per multi-value ordinal entry (the CSR
+        row expansion), cached per (segment, field)."""
+        key = (si, field)
+        if key in self._entry_docs_dev_cache:
+            return self._entry_docs_dev_cache[key]
+        with self._build_lock:
+            if key in self._entry_docs_dev_cache:
+                return self._entry_docs_dev_cache[key]
+            of = self.reader.segments[si].ordinals.get(field)
+            arr = None
+            if of is not None:
+                host = np.repeat(
+                    np.arange(self.reader.segments[si].num_docs, dtype=np.int64),
+                    np.diff(of.mv_offsets),
+                )
+                arr = scoring.upload(host, self.device)
+                self._charge("doc_values", int(host.nbytes), False)
+            self._entry_docs_dev_cache[key] = arr
+            return arr
+
+    def execute_with_terms_aggs(self, query, agg_nodes, k: int, tth):
+        """Query + keyword `terms` aggregations in one pass: per segment
+        the downloads are k top-hit rows plus one compact count vector
+        per agg (an int32 `index_add_` over the ordinal entries) — never
+        the [n_docs] masks. Returns (TopDocs, partials) in the host
+        collector's wire shape, or None when any agg needs the host
+        collector."""
+        from .aggs import _bkey, _int_param, _norm_order, _order_buckets
+
+        for node in agg_nodes:
+            if node.type != "terms" or node.subs:
+                return None
+            f = node.params.get("field")
+            if f is None:
+                return None
+            mf = self.reader.mappings.get(f)
+            if mf is None or mf.type != KEYWORD:
+                return None
+        per_node_counts: List[Dict[str, int]] = [dict() for _ in agg_nodes]
+        cands: List[Tuple[float, int, int]] = []
+        total = 0
+        for si, seg in enumerate(self.reader.segments):
+            n = seg.num_docs
+            if n == 0:
+                continue
+            if query is not None:
+                mask, scores = self._exec(query, si)
+            else:
+                mask = torch.ones(n, dtype=torch.bool, device=self.device)
+                scores = torch.zeros(n, dtype=torch.float32, device=self.device)
+            live = self.live_mask(si)
+            if live is not None:
+                mask = mask & live
+            count_outs = []
+            for node in agg_nodes:
+                f = node.params["field"]
+                of = seg.ordinals.get(f)
+                entry_docs = self._entry_docs_dev(si, f)
+                if of is None or entry_docs is None:
+                    count_outs.append(None)
+                    continue
+                mv_ords = self.device_segments[si].ordinals[f][0]
+                # int32: segment doc counts are int32-bounded by design
+                sel = mask[entry_docs].to(torch.int32)
+                counts = torch.zeros(len(of.ord_terms), dtype=torch.int32, device=self.device)
+                counts.index_add_(0, mv_ords.long(), sel)
+                count_outs.append(counts)
+            s, d = scoring.topk_hits(scores, mask, min(k, n))
+            host_s = s.cpu().numpy()
+            host_d = d.cpu().numpy()
+            total += int(mask.sum())
+            finite = np.isfinite(host_s)
+            for sc, doc in zip(host_s[finite], host_d[finite]):
+                cands.append((float(sc), si, int(doc)))
+            for ni, counts in enumerate(count_outs):
+                if counts is None:
+                    continue
+                host_counts = counts.cpu().numpy()
+                of = seg.ordinals[agg_nodes[ni].params["field"]]
+                agg = per_node_counts[ni]
+                for o in np.nonzero(host_counts)[0]:
+                    key = of.ord_terms[o]
+                    agg[key] = agg.get(key, 0) + int(host_counts[o])
+        cands.sort(key=lambda c: (-c[0], c[1], c[2]))
+        hits = [
+            Hit(score=s, segment=si, local_doc=d, doc_id=self.reader.segments[si].doc_ids[d])
+            for s, si, d in cands[:k]
+        ]
+        td = TopDocs(total=total, hits=hits, max_score=hits[0].score if hits else None)
+        partials = {}
+        for ni, node in enumerate(agg_nodes):
+            counts = per_node_counts[ni]
+            size = _int_param(node, "size", 10)
+            shard_size = _int_param(node, "shard_size", max(int(size * 1.5) + 10, size))
+            order = _norm_order(node.params.get("order", {"_count": "desc"}))
+            top = _order_buckets(counts, order)[:shard_size]
+            shard_error = top[-1][1] if len(counts) > shard_size and top else 0
+            partials[node.name] = {
+                "t": "terms",
+                "buckets": {
+                    _bkey(key): {"key": key, "doc_count": cnt, "subs": {}}
+                    for key, cnt in top
+                },
+                "sum_docs": sum(counts.values()),
+                "size": size,
+                "order": order,
+                "shard_error": shard_error,
+            }
+        return td, partials

@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernel against its plain version, and
 the served routes (match, knn, bool, multi_match, filtered bool, hybrid
-RRF) against the numpy backend, on the card. Every test here carries the `cuda` marker, needs an NVIDIA GPU and
+RRF, sparse_vector, aggregations) against the numpy backend, on the card. Every test here carries the `cuda` marker, needs an NVIDIA GPU and
 nvcc, decides so inside its fixture and skips without them. The module
 imports neither jax nor the JAX package, so on a machine with the card
 it also runs where only PyTorch is installed:
@@ -270,6 +270,117 @@ def test_served_route_on_card_matches_numpy(cuda, monkeypatch, route):
         else:
             assert svc._batcher.stats["launches"] > 0
         assert torch.get_float32_matmul_precision() == "highest"
+    finally:
+        svc.close()
+        oracle.close()
+
+
+def _sparse_pair(cuda, quant):
+    """(torch IndexService on the card, numpy IndexService) over the same
+    `sparse_vector` docs, 2 shards, two refreshes each."""
+    from elasticsearch_tpu_torch.cluster.indices import IndexService
+
+    mapping = {"properties": {"ml": {"type": "sparse_vector"}, "cat": {"type": "keyword"},
+                              "qty": {"type": "integer"}, "day": {"type": "date"}}}
+    rng = np.random.default_rng(12)
+    vocab = [f"tok{i:02d}" for i in range(12)]
+    docs = []
+    for i in range(900):
+        toks = rng.choice(vocab, size=int(rng.integers(2, 6)), replace=False)
+        docs.append((str(i), {"ml": {str(t): float(np.round(rng.random() * 3 + 0.05, 4)) for t in toks},
+                              "cat": f"c{i % 5}", "qty": int(rng.integers(0, 60)),
+                              "day": 1_700_000_000_000 + int(rng.integers(0, 40)) * 86_400_000}))
+    out = []
+    for backend, device in (("torch", cuda), ("numpy", "cpu")):
+        svc = IndexService(f"sp-{backend}", settings={"number_of_shards": 2, "search.backend": backend,
+                                                      "sparse.quantization": quant},
+                           mappings_json=mapping, device=device)
+        for j, (doc_id, src) in enumerate(docs):
+            svc.index_doc(doc_id, src)
+            if j == len(docs) // 2:
+                svc.refresh()
+        svc.refresh()
+        out.append(svc)
+    return out, vocab, rng
+
+
+@pytest.mark.parametrize("quant", ["int8", "none"])
+def test_served_sparse_on_card_matches_numpy(cuda, quant):
+    """Bare `sparse_vector` bodies on the card: fp32 (`none`, or
+    `"exact": true` on an int8 index) hold the numpy backend's hits by
+    ids (tie runs within rtol 1e-5 as sets) and scores within rtol 1e-5;
+    the int8 column holds recall@10 >= 0.95."""
+    from elasticsearch_tpu_torch.search.executor_torch import TorchExecutor
+
+    (svc, oracle), vocab, rng = _sparse_pair(cuda, quant)
+    try:
+        rec = []
+        for i in range(12):
+            qv = {str(t): float(np.round(rng.random() * 2 + 0.1, 4))
+                  for t in rng.choice(vocab, size=int(rng.integers(2, 5)), replace=False)}
+            body = {"query": {"sparse_vector": {"field": "ml", "query_vector": qv}}, "size": 10}
+            ref = oracle.search(body)
+            exact = {**body, "exact": True}
+            got = svc.search(exact)
+            rel = got["hits"]["total"]["relation"]
+            if rel == "eq":
+                assert got["hits"]["total"] == ref["hits"]["total"]
+            else:  # pruned tiles: the total is a lower bound
+                assert rel == "gte" and got["hits"]["total"]["value"] <= ref["hits"]["total"]["value"]
+            _same_hits_only(ref, got)
+            if quant == "int8":
+                want = {h["_id"] for h in ref["hits"]["hits"]}
+                have = {h["_id"] for h in svc.search(body)["hits"]["hits"]}
+                rec.append(len(want & have) / max(len(want), 1))
+        if rec:
+            assert np.mean(rec) >= 0.95, rec
+        ex = svc._executor(svc.shards[0])
+        assert isinstance(ex, TorchExecutor) and ex.device.type == cuda.type
+        assert svc._batcher.stats["sparse_jobs"] > 0
+    finally:
+        svc.close()
+        oracle.close()
+
+
+def _same_hits_only(ref, got):
+    rh, gh = ref["hits"]["hits"], got["hits"]["hits"]
+    rs = [h["_score"] for h in rh]
+    assert len(gh) == len(rh)
+    np.testing.assert_allclose([h["_score"] for h in gh], rs, rtol=1e-5, atol=1e-6)
+    i = 0
+    while i < len(rh):
+        j = i + 1
+        while j < len(rh) and np.isclose(rs[j], rs[j - 1], rtol=1e-5, atol=0):
+            j += 1
+        assert {h["_id"] for h in gh[i:j]} == {h["_id"] for h in rh[i:j]}
+        i = j
+
+
+def test_served_aggs_on_card_match_numpy(cuda):
+    """bench.py's `cold_agg` and `repeated_agg` shapes and the other
+    device-compiled trees on the card: the aggregations equal the numpy
+    backend's, and they went through the device plan."""
+    from elasticsearch_tpu_torch.search import aggs_device
+
+    (svc, oracle), vocab, _rng = _sparse_pair(cuda, "int8")
+    try:
+        q = {"sparse_vector": {"field": "ml", "query_vector": {vocab[0]: 1.0, vocab[3]: 0.5}}}
+        bodies = [
+            {"size": 0, "request_cache": False, "query": q,
+             "aggs": {"by_day": {"date_histogram": {"field": "day", "fixed_interval": "1d"}},
+                      "cats": {"terms": {"field": "cat"}}, "pop": {"stats": {"field": "qty"}}}},
+            {"size": 0, "aggs": {"a": {"avg": {"field": "qty"}}}},
+            {"size": 0, "aggs": {"r": {"range": {"field": "qty", "ranges": [{"to": 20}, {"from": 20}]},
+                                       "aggs": {"s": {"sum": {"field": "qty"}}}},
+                                 "p": {"percentiles": {"field": "qty", "percents": [10, 90]}},
+                                 "f": {"filter": {"term": {"cat": "c1"}}}}},
+        ]
+        before = aggs_device.stats_snapshot()["device_routed"]
+        for body in bodies:
+            got, ref = svc.search(dict(body)), oracle.search(dict(body))
+            assert got["aggregations"] == ref["aggregations"], body
+            assert got["hits"]["total"] == ref["hits"]["total"]
+        assert aggs_device.stats_snapshot()["device_routed"] >= before + 2 * len(bodies)
     finally:
         svc.close()
         oracle.close()

@@ -3,6 +3,7 @@ the same numpy-seeded inputs: exact on integers (docs, totals, counts,
 dense tf rows), scores within rtol 1e-5 / atol 1e-6 (float32 sums in
 another order), and the same doc-asc order among tied scores."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -92,6 +93,51 @@ def test_topk_tie_order_matches_lax_top_k(k):
     ts, td = tscoring.topk_hits(t(x), torch.ones(x.shape, dtype=torch.bool), k)
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
     np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+
+
+NEG_NAN = np.array([0xFFC00000], np.uint32).view(np.float32)[0]
+
+# rows whose `lax.top_k` order a tie-exact selection on values alone gets
+# wrong: NaN ranks above +inf, a NaN with its sign bit below -inf, +0.0
+# above -0.0 (the IEEE total order), lowest index first among equal bits
+TOTAL_ORDER_ROWS = [
+    ([1, np.nan, 3, 2, 0.5], 5, [1, 2, 3, 0, 4]),
+    ([np.nan, 1, np.nan, 2, 0], 5, [0, 2, 3, 1, 4]),
+    ([0.0, -0.0, 0.0, -0.0], 4, [0, 2, 1, 3]),
+    ([NEG_NAN, -np.inf, 1, np.nan], 4, [3, 2, 1, 0]),
+    ([-np.inf, -np.inf, NEG_NAN], 3, [0, 1, 2]),
+]
+
+
+def assert_topk_desc_bitwise(x, k):
+    """topk_desc gives lax.top_k's indices, and its values bit for bit."""
+    x = np.ascontiguousarray(x, np.float32)
+    jv, ji = (np.asarray(a) for a in jax.lax.top_k(jnp.asarray(x), k))
+    tv, ti = tscoring.topk_desc(t(x), k)
+    np.testing.assert_array_equal(ti.numpy(), ji)
+    np.testing.assert_array_equal(tv.numpy().view(np.uint32), jv.view(np.uint32))
+    return ti.numpy()
+
+
+@pytest.mark.parametrize("row,k,want", TOTAL_ORDER_ROWS)
+def test_topk_desc_total_order_matches_lax_top_k(row, k, want):
+    got = assert_topk_desc_bitwise(np.array(row, np.float32), k)
+    np.testing.assert_array_equal(got, want)
+    for kk in range(1, k):  # every shorter prefix too
+        assert_topk_desc_bitwise(np.array(row, np.float32), kk)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_topk_desc_random_specials_and_batch_shape(seed):
+    """Random rows drawn from {NaN, -NaN, ±0, ±inf, ±1, 2}, many ties, a
+    random k, k = n, and a [2, 3, n] batch shape."""
+    rng = np.random.default_rng(seed)
+    pool = np.array([np.nan, NEG_NAN, 0.0, -0.0, np.inf, -np.inf, 1.0, -1.0, 2.0], np.float32)
+    x = pool[rng.integers(0, len(pool), size=(2, 3, 37))]
+    for k in (int(rng.integers(1, 37)), 37):
+        assert_topk_desc_bitwise(x, k)
+    v, i = tscoring.topk_desc(t(x), 0)
+    assert v.shape == (2, 3, 0) and i.shape == (2, 3, 0) and i.dtype == torch.int64
 
 
 def test_build_dense_rows():

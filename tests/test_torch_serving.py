@@ -521,7 +521,7 @@ def test_batcher_pipeline_depth_matches_reference(serving_pair, depth):
 def test_batcher_refuses_families_it_does_not_have(serving_pair):
     b = QueryBatcher(workers=1)
     try:
-        for kind in ("sparse", "agg", "rerank", "mesh_serve"):
+        for kind in ("rerank", "mesh_serve", "mesh_sparse", "mesh_agg"):
             with pytest.raises(ValueError, match=kind):
                 b.submit_nowait(None, None, 10, kind=kind)
     finally:
@@ -719,11 +719,15 @@ def test_default_device_is_cuda_without_fallback(entry):
             make()
 
 
+# a sparse_vector leg and an aggs body are served; one whose query
+# holds a node still cut raises naming that node's item
 CUT_BODIES = {
     "sparse_vector_leg": ({"retriever": {"rrf": {"retrievers": [
         {"standard": {"query": {"match": {"body": "alpha"}}}},
-        {"standard": {"query": {"sparse_vector": {"field": "ml", "query_vector": {"alpha": 1.0}}}}}]}}},
-        "item 8"),
+        {"standard": {"query": {"bool": {
+            "must": [{"sparse_vector": {"field": "ml", "query_vector": {"alpha": 1.0}}}],
+            "filter": [{"match_phrase": {"body": "alpha bravo"}}]}}}}]}}},
+        "item 16"),
     "rescore_in_retriever": ({"retriever": {"rrf": {"retrievers": [
         {"standard": {"query": {"match": {"body": "alpha"}}}}, {"knn": knn_body(0)}]}},
         "rescore": {"window_size": 5, "query": {"rescore_query": {"match_all": {}}}}}, "item 7"),
@@ -731,7 +735,8 @@ CUT_BODIES = {
                                                       "type": "phrase"}}}, "item 16"),
     "rescore": ({"query": {"match": {"body": "alpha"}},
                  "rescore": {"window_size": 5, "query": {"rescore_query": {"match_all": {}}}}}, "item 7"),
-    "aggs": ({"size": 0, "aggs": {"n": {"value_count": {"field": "title"}}}}, "item 10"),
+    "aggs": ({"size": 0, "query": {"match_phrase": {"body": "alpha bravo"}},
+              "aggs": {"n": {"value_count": {"field": "title"}}}}, "item 16"),
     "highlight": ({"query": {"match": {"body": "alpha"}}, "highlight": {"fields": {"body": {}}}}, "item 14"),
     "sort": ({"query": {"match": {"body": "alpha"}}, "sort": [{"_id": "asc"}]}, "item 15"),
 }
