@@ -41,11 +41,25 @@ any failure:
          `masked_sorted`, ...) timed alone beside its byte bound, and
          `topk_desc` beside its earlier two-scan version on the same
          input;
+     (i) 32 `match` bodies sorted by `popularity` desc and by `day` asc,
+         each with a second page through search_after, through
+         execute_sorted_device, equal to the oracle's execute_sorted
+         (ids, sort values, totals); a multi-key body must take the
+         oracle's route;
+     (h) bench.py's `ann_knn` corpus (1M x 768 unit cosine rows around
+         512 Gaussian centers, noise 0.5, stored f16; nlist 2000): the
+         IVF index built twice on the card from one seed (bit-identical
+         centroids, permutation and counts), one Lloyd step timed alone,
+         one batcher `knn` group of 32 at nprobe 8 in f16 and in int8
+         with recall@10 >= 0.95 against the exact group on the same
+         rows, 8 exact pages held to the oracle, 0 pageable uploads in
+         the profiled groups, and the plain probe timed beside its byte
+         bound;
      (a)-(c) and (e) are held to the port's NumPy oracle on 8 queries
      each (same totals and hits, scores within rtol 1e-5), (d) to
      recall@10 >= 0.9 against exact f32 cosine; every kernel must have
-     launched; route (c)'s profile must show no pageable host→device
-     copy;
+     launched; the profiles of routes (c) and (d) must show no pageable
+     host→device copy;
   4. serving on the card over HTTP: the port's ElasticsearchTpuServer
      (REST → ClusterService → IndexService → QueryBatcher →
      TorchExecutor) with `/bench` (torch) and `/bench_oracle` (numpy)
@@ -64,7 +78,13 @@ any failure:
      hybrid leg by leg — its int8 sparse leg by recall — then its fusion
      against RRF over the legs; `sparse_retrieval` by recall@10 >= 0.95
      in int8 and by ids with `exact`; aggregations equal, `avg` within
-     1e-12); `_nodes/stats` must show batched launches, a bucket wider
+     1e-12); `/ann` and `/ann_int8` (IVF over route (h)'s corpus, f16
+     and int8) serve 32 `ann_knn` bodies at nprobe 4, 8, 16 and 32 and
+     with `"exact": true` from 8 clients then 1 (recall@10 per nprobe
+     against the exact bodies, >= 0.95 at nprobe 8; `knn.ann` shows
+     builds, probes and 0 exact fallbacks), and route (i)'s sort bodies
+     go to `/bench` and an `_id` sort to `/small`, held to the oracle
+     indices; `_nodes/stats` must show batched launches, a bucket wider
      than 1, the chunked path, serve launches, filter cache hits, every
      sparse body on the batcher's sparse family, every `cold_agg` body
      on the device plan, request-cache hits on repeated aggs; every
@@ -101,6 +121,7 @@ import numpy as np
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_TENSOR_FLOPS = 989e12  # bf16 tensor cores, dense
+PEAK_F32_FLOPS = 67e12  # float32 outside the tensor cores
 
 MATCH_QUERIES = 64
 BATCH = 32
@@ -121,6 +142,14 @@ SMALL_DELETES = 5
 SMALL_QUERIES = 16
 RTOL = 1e-5
 KERNEL_RTOL = 1e-5  # of max|dots|: f32 sums in another order
+# bench.py's ann_knn config: a clustered corpus of unit cosine rows
+ANN_CENTERS = 512
+ANN_NOISE = 0.5
+ANN_QUERY_NOISE = 0.05
+ANN_CHUNK = 65536  # rows drawn per float32 chunk
+ANN_CANDIDATES = 100
+ANN_NPROBES = (4, 8, 16, 32)
+ANN_GATE_NPROBE = 8  # recall@10 >= 0.95 here, f16 and int8
 
 T0 = time.perf_counter()
 
@@ -719,6 +748,11 @@ def phase_main(reader, oracle, vecs, qv, seed: int, device) -> dict:
     fg = routes_sparse_aggs(tex, reader, oracle, seed, device)
     times["f_g_sparse_aggs_s"] = time.perf_counter() - t
 
+    # (i) sorted collection on one numeric key
+    t = time.perf_counter()
+    sort_i = route_sort(tex, oracle, reader, seed, device)
+    times["i_sorted_s"] = time.perf_counter() - t
+
     launches = {"int8_dot_scores": int8_knn.int8_dot_scores.launches}
     log(f"main path done; launches {launches}")
     check(all(n > 0 for n in launches.values()), f"a kernel never launched on the main path: {launches}")
@@ -779,9 +813,13 @@ def phase_main(reader, oracle, vecs, qv, seed: int, device) -> dict:
         log(f"(c) pageable host-to-device copies: {pageable}, device time "
             f"{profile['c_knn_one_query']['device_us']:.0f}us")
         check(pageable == 0, f"(c) made {pageable} pageable host-to-device copies")
+        pageable = profile["d_knn_int8_batch32"]["pageable_htod"]
+        log(f"(d) pageable host-to-device copies: {pageable}")
+        check(pageable == 0, f"(d) made {pageable} pageable host-to-device copies")
     topk = topk_before_after(device, seed) if device.type == "cuda" else {}
     return {"times": times, "launches": launches, "int8_recall_at_10": recall,
-            "sparse_f": fg["f"], "aggs_g": fg["g"], "plain_ops": fg["plain_ops"], "topk_desc_ms": topk,
+            "sparse_f": fg["f"], "aggs_g": fg["g"], "sorted_i": sort_i,
+            "plain_ops": fg["plain_ops"] + [sort_i["plain_op"]], "topk_desc_ms": topk,
             "totals_a": [r.total for r in res_a[:ORACLE_QUERIES]],
             "totals_e": [int(t.sum()) for t in res_e[3][:ORACLE_QUERIES]], "profile": profile}
 
@@ -1029,6 +1067,271 @@ def routes_sparse_aggs(tex, reader, oracle, seed: int, device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# routes (h) IVF ANN and (i) sorted collection
+# ---------------------------------------------------------------------------
+
+
+def ann_nlist(n: int) -> int:
+    """bench.py's ann_knn nlist: max(64, 2·floor(sqrt N)), 2000 at 1M."""
+    return max(64, int(np.sqrt(n)) * 2)
+
+
+def build_ann_corpus(seed: int, n_docs: int, dims: int):
+    """bench.py's ann_knn corpus (its build_ann_services): unit cosine
+    rows around ANN_CENTERS Gaussian centers with noise 0.5, stored f16,
+    as one segment; the queries are KNN_QUERIES corpus rows perturbed by
+    0.05. Drawn in float32 chunks (bench.py's float64 draw would take
+    6 GB of host memory at 1M x 768)."""
+    from elasticsearch_tpu_torch.analysis import AnalysisRegistry
+    from elasticsearch_tpu_torch.index.mapping import Mappings
+    from elasticsearch_tpu_torch.index.segment import Segment, VectorField
+    from elasticsearch_tpu_torch.search.executor import ShardReader
+
+    rng = np.random.default_rng(seed + 31)
+    centers = rng.standard_normal((ANN_CENTERS, dims), dtype=np.float32)
+    vecs = np.empty((n_docs, dims), np.float16)
+    for r0 in range(0, n_docs, ANN_CHUNK):
+        m = min(ANN_CHUNK, n_docs - r0)
+        v = centers[rng.integers(0, ANN_CENTERS, size=m)]
+        v += ANN_NOISE * rng.standard_normal((m, dims), dtype=np.float32)
+        v /= np.linalg.norm(v, axis=1, keepdims=True)
+        vecs[r0:r0 + m] = v
+    picks = rng.choice(n_docs, size=KNN_QUERIES, replace=False)
+    q = vecs[picks].astype(np.float32)
+    q += ANN_QUERY_NOISE * rng.standard_normal(q.shape, dtype=np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    seg = Segment(
+        num_docs=n_docs, doc_ids=[str(i) for i in range(n_docs)], sources=[None] * n_docs,
+        postings={}, numerics={}, ordinals={},
+        vectors={"vec": VectorField(vectors=vecs, exists=np.ones(n_docs, bool), similarity="cosine",
+                                    unit_vectors=vecs)},
+    )
+    return ShardReader([seg], Mappings(ann_mapping(dims)), AnalysisRegistry()), q
+
+
+def ann_mapping(dims: int) -> dict:
+    return {"properties": {"vec": {"type": "dense_vector", "dims": dims, "similarity": "cosine"}}}
+
+
+def ann_body(v, nprobe=None, exact=False) -> dict:
+    """bench.py's ann_knn body: k 10, num_candidates 100."""
+    sec = {"field": "vec", "query_vector": [float(x) for x in v], "k": K, "num_candidates": ANN_CANDIDATES}
+    if nprobe is not None:
+        sec["nprobe"] = nprobe
+    body = {"knn": sec, "size": K, "_source": False}
+    if exact:
+        body["exact"] = True
+    return body
+
+
+def probe_bytes(idx, B: int, nprobe: int, k: int, quantized: bool) -> int:
+    """Bytes one probe must move: the queries and centroids, the probed
+    slots' rows (int8 with their f32 scales, or the stored f16/f32), doc
+    ids and candidate flags, and the [B, k'] scores and docs written."""
+    P = min(nprobe, idx.nlist) * idx.cmax
+    row = idx.dims * (1 if quantized else idx.vecs_flat.element_size()) + (4 if quantized else 0)
+    return (B * idx.dims * 4 + idx.nlist * idx.dims * 4 + B * P * (row + 4 + 1)
+            + B * min(k, P) * 8)
+
+
+def route_ivf(reader, queries: np.ndarray, device) -> dict:
+    """Route (h): the IVF index of the ann_knn corpus built twice on the
+    card from one seed (bit-identical), one Lloyd step timed alone, one
+    batcher `knn` group of 32 at nprobe ANN_GATE_NPROBE in f16 and in
+    int8 held to the port's exact group on the same rows (recall@10),
+    8 exact pages held to the numpy oracle, and the plain probe timed
+    alone beside its byte bound."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops import ivf, scoring
+    from elasticsearch_tpu_torch.search import ann as ann_mod
+    from elasticsearch_tpu_torch.search import dsl
+    from elasticsearch_tpu_torch.search.batcher import QueryBatcher, extract_knn_plan
+    from elasticsearch_tpu_torch.search.executor import NumpyExecutor
+    from elasticsearch_tpu_torch.search.executor_torch import TorchExecutor
+
+    out = {"plain_ops": []}
+    seg = reader.segments[0]
+    n, dims = seg.num_docs, seg.vectors["vec"].vectors.shape[1]
+    nlist = ann_nlist(n)
+    spec_i8 = ann_mod.AnnSpec(nlist=nlist, nprobe=ANN_GATE_NPROBE, quantized=True, min_docs=ann_mod.ann_min_docs())
+    spec_f16 = ann_mod.AnnSpec(nlist=nlist, nprobe=ANN_GATE_NPROBE, quantized=False, min_docs=spec_i8.min_docs)
+
+    # ---- the build, twice from the same seed (the executor's formula) ----
+    exes, idxs, build_s = [], [], []
+    for _ in range(2):
+        ex = TorchExecutor(reader, device=device)
+        t = time.perf_counter()
+        idxs.append(ex.ann_index(0, "vec", spec_i8))
+        sync(device)
+        build_s.append(time.perf_counter() - t)
+        exes.append(ex)
+    a, b = idxs
+    check(a is not None, "(h) the IVF index was not built")
+    for name in ("centroids", "perm", "counts", "starts", "vecs_flat", "qvecs_flat", "scales_flat"):
+        check(bool(torch.equal(getattr(a, name), getattr(b, name))),
+              f"(h) two builds from one seed differ in {name}")
+    exes[0].close()
+    del exes[0], idxs, a
+    tex, idx = exes[0], b
+    # the int8 build holds the f16 plane too: the f16 spec probes the same
+    # layout (the ledger holds one charge)
+    tex._ann_indexes[(0, "vec", nlist, False, spec_f16.min_docs)] = idx
+    out["build"] = {"wall_s": build_s, "nlist_requested": nlist, "nlist": idx.nlist, "cmax": idx.cmax,
+                    "nbytes": idx.nbytes, "build_ms_reported": idx.build_ms, "bit_identical": True}
+    log(f"(h) IVF build of {n} x {dims} f16 rows, nlist {nlist} -> {idx.nlist}, cmax {idx.cmax}: "
+        f"{build_s} s; two builds bit-identical")
+
+    # ---- one Lloyd step alone, at the build's shapes ----
+    rng = np.random.default_rng(7)
+    init = np.sort(rng.choice(n, size=nlist, replace=False))
+    v32 = scoring.upload(np.asarray(seg.vectors["vec"].vectors, np.float32), device)
+    c0 = v32[scoring.upload(init, device)]
+    step_ms = device_ms(lambda: ivf._lloyd_step(v32, c0), device, iters=3, warmup=1)
+    flops = 2 * n * nlist * dims
+    bound = flops / PEAK_F32_FLOPS * 1e3
+    del v32, c0
+    out["plain_ops"].append({"op": "_lloyd_step", "route": "(h) k-means build, one step", "calls_per_request": None,
+                             "ms": step_ms, "flops": flops, "bound_ms": bound, "bound_by": "operations",
+                             "bound_share": bound / step_ms})
+    log(f"(h) one Lloyd step [{n}, {dims}] x [{nlist}, {dims}]: {step_ms:.2f} ms, bound {bound:.2f} ms (f32 FLOP)")
+
+    # ---- one batcher knn group of 32, IVF f16 / int8 / exact ----
+    gb = QueryBatcher(workers=1)
+    gb._ensure_thread = lambda: None  # groups run on this thread
+
+    def group(spec):
+        plans = []
+        for v in queries:
+            sec = dsl.parse_knn(ann_body(v)["knn"])
+            sec.ann = spec
+            plans.append(extract_knn_plan([sec], reader.mappings))
+
+        def run():
+            jobs = [gb.submit_nowait(tex, p, K, kind="knn") for p in plans]
+            gb._collect_knn_group(jobs, gb._dispatch_knn_group(jobs, rows=BATCH))
+            return [gb.wait(j) for j in jobs]
+        return run
+
+    fns = {"h_exact_group32": group(None), "h_ivf_f16_group32": group(spec_f16),
+           "h_ivf_int8_group32": group(spec_i8)}
+    res = {}
+    for name, fn in fns.items():
+        fn()  # warm
+        sync(device)
+        st0 = dict(ann_mod.ANN_STATS)
+        t = time.perf_counter()
+        res[name] = fn()
+        sync(device)
+        out[name] = {"wall_s": time.perf_counter() - t,
+                     "ann_searches": ann_mod.ANN_STATS["ann_searches"] - st0["ann_searches"],
+                     "exact_fallbacks": ann_mod.ANN_STATS["exact_fallbacks"] - st0["exact_fallbacks"]}
+    check(out["h_ivf_f16_group32"]["ann_searches"] == BATCH and out["h_ivf_int8_group32"]["ann_searches"] == BATCH,
+          f"(h) the IVF groups did not probe every job: {out}")
+    check(out["h_exact_group32"]["ann_searches"] == 0, "(h) the exact group probed")
+    exact = res["h_exact_group32"]
+    for name in ("h_ivf_f16_group32", "h_ivf_int8_group32"):
+        rec = float(np.mean([len({h.doc_id for h in g.hits} & {h.doc_id for h in e.hits}) / max(1, len(e.hits))
+                             for g, e in zip(res[name], exact)]))
+        out[name]["recall_at_10"] = rec
+        check(out[name]["exact_fallbacks"] == 0, f"{name}: exact fallbacks")
+        check(rec >= 0.95, f"(h) {name}: recall@{K} {rec:.4f} < 0.95 against the exact group")
+        check(all(len(g.hits) == K and np.isfinite(g.hits[0].score) for g in res[name]), f"(h) {name}: short pages")
+    oracle = NumpyExecutor(reader)
+    for i in range(ORACLE_QUERIES):
+        ref = oracle.search(None, knn=[dsl.parse_knn(ann_body(queries[i])["knn"])], size=K)
+        same_hits(ref, exact[i], f"(h) exact knn page {i}")
+    del oracle
+    log(f"(h) groups of {BATCH}: " + ", ".join(f"{k} {v}" for k, v in out.items() if k.startswith("h_")))
+
+    # ---- the plain probe alone, f16 and int8 ----
+    qt = scoring.upload(queries, device)
+    valid = torch.ones(BATCH, dtype=torch.bool, device=device)
+    cand = tex.knn_candidates(0, "vec")
+    kc = scoring.next_bucket(ANN_CANDIDATES, 16)
+    for name, quant in (("f16", False), ("int8", True)):
+        ms = device_ms(lambda: ivf.ann_topk_batch(idx, qt, valid, cand, ANN_GATE_NPROBE, kc, quantized=quant), device)
+        nbytes = probe_bytes(idx, BATCH, ANN_GATE_NPROBE, kc, quant)
+        flops = ivf.ann_flops(BATCH, idx.nlist, ANN_GATE_NPROBE, idx.cmax, dims)
+        bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+        bound = max(bytes_ms, ops_ms)
+        out["plain_ops"].append({
+            "op": "ann_topk_batch", "route": f"(h) IVF probe, B={BATCH}, nprobe {ANN_GATE_NPROBE}, {name}",
+            "calls_per_request": 1 / BATCH, "ms": ms, "bytes": nbytes, "flops": flops, "bound_ms": bound,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "bound_share": bound / ms})
+        log(f"plain op ann_topk_batch ({name}, B={BATCH}, nprobe {ANN_GATE_NPROBE}, P="
+            f"{ANN_GATE_NPROBE * idx.cmax}): {ms:.4f} ms, bound {bound:.4f} ms ({nbytes} B)")
+    out["fns"] = fns
+    out["batcher"], out["executor"] = gb, tex  # closed by the caller once profiled
+    return out
+
+
+def sort_bodies(body_df: np.ndarray, seed: int) -> dict:
+    """Route (i)'s bodies: BATCH `match` bodies sorted by `popularity`
+    desc (ties by doc) and by `day` asc, K each."""
+    texts = match_texts(body_df, BATCH, seed + 47)
+    return {
+        "popularity_desc": [{"query": {"match": {"body": t}}, "sort": [{"popularity": {"order": "desc"}}], "size": K}
+                            for t in texts],
+        "day_asc": [{"query": {"match": {"body": t}}, "sort": [{"day": "asc"}], "size": K} for t in texts],
+    }
+
+
+def route_sort(tex, oracle, reader, seed: int, device) -> dict:
+    """Route (i): each sort body and its second page (search_after the
+    first page's last value) through execute_sorted_device, held to the
+    oracle's execute_sorted: the same ids in the same order, the same
+    sort values, the same totals; a multi-key body must take the
+    oracle's route (None from the device path)."""
+    import torch
+
+    from elasticsearch_tpu_torch.search import dsl
+    from elasticsearch_tpu_torch.search.executor import parse_sort
+
+    out = {}
+    bodies = sort_bodies(reader.segments[0].postings["body"].term_df, seed)
+    for name, bl in bodies.items():
+        specs = parse_sort(bl[0]["sort"])
+        tex.execute_sorted_device(dsl.parse_query(bl[0]["query"]), specs, size=K)  # the rank column is set-up
+        sync(device)
+        walls, pages = [], 0
+        for body in bl:
+            q = dsl.parse_query(body["query"])
+            after = None
+            for _ in range(2):
+                t = time.perf_counter()
+                got = tex.execute_sorted_device(q, specs, size=K, search_after=after)
+                walls.append(time.perf_counter() - t)
+                check(got is not None, f"(i) {name}: the device route refused a single numeric key")
+                td, svals = got
+                ref, _, rvals = oracle.execute_sorted(q, specs, size=K, search_after=after)
+                check(td.total == ref.total, f"(i) {name}: total {td.total} != oracle {ref.total}")
+                check([h.doc_id for h in td.hits] == [h.doc_id for h in ref.hits] and svals == rvals,
+                      f"(i) {name}: page {[h.doc_id for h in td.hits]} {svals} != oracle "
+                      f"{[h.doc_id for h in ref.hits]} {rvals}")
+                pages += 1
+                if not svals:
+                    break
+                after = svals[-1]
+        out[name] = {"pages": pages, "wall_ms_p50": float(np.median(walls) * 1e3),
+                     "wall_ms_max": float(np.max(walls) * 1e3)}
+    multi = parse_sort([{"popularity": "desc"}, {"day": "asc"}])
+    check(tex.execute_sorted_device(dsl.parse_query(bodies["day_asc"][0]["query"]), multi, size=K) is None,
+          "(i) a multi-key sort did not take the oracle route")
+    # the rank top-k alone: one [N] int32 top-k, as each segment runs it
+    ranks = tex._sort_ranks(0, "popularity", True)[0]
+    neg = torch.where(ranks % 3 == 0, -ranks, -(2**31 - 1))
+    ms = device_ms(lambda: torch.topk(neg, K), device)
+    nbytes = neg.numel() * 4 + K * 12
+    out["plain_op"] = {"op": "torch.topk (sort ranks)", "route": "(i) sorted collection, one segment",
+                       "calls_per_request": 1, "ms": ms, "bytes": nbytes,
+                       "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                       "bound_share": nbytes / PEAK_BYTES_PER_S * 1e3 / ms}
+    log(f"(i) sorted collection: {out}")
+    return out
+
+
 def _device_us(evt, names=("self_device_time_total", "self_cuda_time_total")) -> float:
     for name in names:
         v = getattr(evt, name, None)
@@ -1051,7 +1354,7 @@ def named_topk_desc():
     its calls outside a profile carry none."""
     import torch
 
-    from elasticsearch_tpu_torch.ops import int8_knn, scoring
+    from elasticsearch_tpu_torch.ops import int8_knn, ivf, scoring
 
     plain = scoring.topk_desc
 
@@ -1059,11 +1362,11 @@ def named_topk_desc():
         with torch.profiler.record_function("topk_desc"):
             return plain(x, k)
 
-    scoring.topk_desc = int8_knn.topk_desc = named
+    scoring.topk_desc = int8_knn.topk_desc = ivf.topk_desc = named
     try:
         yield
     finally:
-        scoring.topk_desc = int8_knn.topk_desc = plain
+        scoring.topk_desc = int8_knn.topk_desc = ivf.topk_desc = plain
 
 
 def _range_kernel_us(prof, name: str) -> float:
@@ -1579,7 +1882,7 @@ def node_stats(http: Http) -> dict:
             "pipeline": {k: v for k, v in node["pipeline"].items() if k != "batching"}}
 
 
-def phase_serve(reader, dims: int, seed: int, device, card: str) -> dict:
+def phase_serve(reader, dims: int, seed: int, device, card: str, ann_reader, ann_q) -> dict:
     import torch
 
     from elasticsearch_tpu_torch.rest.server import ElasticsearchTpuServer
@@ -1616,6 +1919,13 @@ def phase_serve(reader, dims: int, seed: int, device, card: str) -> dict:
                                         "mappings": mapping})
         for name in ("bench", "bench_oracle"):
             install_segment(srv.cluster.get_index(name), seg)
+        # bench.py's ann_knn indexes over route (h)'s corpus
+        ivf = {"knn.type": "ivf", "knn.nlist": ann_nlist(ann_reader.segments[0].num_docs),
+               "knn.nprobe": ANN_GATE_NPROBE}
+        for name, extra in (("ann", {}), ("ann_int8", {"knn.quantization": "int8"})):
+            http.ok("PUT", f"/{name}", {"settings": {"number_of_shards": 1, "refresh_interval": "-1", **ivf, **extra},
+                                        "mappings": ann_mapping(dims)})
+            install_segment(srv.cluster.get_index(name), ann_reader.segments[0])
         docs = small_docs(seed, vocab, dims)
         half = len(docs) // 2
         for name in ("small", "small_oracle"):
@@ -1718,6 +2028,11 @@ def phase_serve(reader, dims: int, seed: int, device, card: str) -> dict:
         sparse_aggs = serve_sparse_aggs(srv, http, clients_proc, seg, docs, seed, rows)
         times["sparse_aggs_s"] = time.perf_counter() - t
 
+        # ---- IVF ann_knn and sorted collection ----
+        t = time.perf_counter()
+        ann_sort = serve_ann_sort(srv, http, clients_proc, ann_q, seg, docs, seed, rows)
+        times["ann_sort_s"] = time.perf_counter() - t
+
         # ---- profiles: 8 requests served over HTTP per route (the
         # card's activity; the server's threads are not traced on the
         # host side), then one batcher group of 8 per route run on this
@@ -1758,7 +2073,7 @@ def phase_serve(reader, dims: int, seed: int, device, card: str) -> dict:
         diagnosis = diagnose_concurrency(srv, http, clients_proc, match_bodies, knn_bodies)
         times["diagnosis_s"] = time.perf_counter() - t
         return {"card": card, "latency": rows, "times": times, "bench_batcher": bench_search, "text_hybrid": text_hybrid,
-                "sparse_aggs": sparse_aggs,
+                "sparse_aggs": sparse_aggs, "ann_sort": ann_sort,
                 "bench_launches_by_bucket": by_bucket, "small_chunked_jobs": chunked,
                 "pipeline": stats_small["pipeline"], "profile": profile,
                 "syncs_per_group": syncs, "concurrency_diagnosis": diagnosis,
@@ -2037,6 +2352,100 @@ def serve_sparse_aggs(srv, http: Http, clients_proc: ClientProcess, seg, docs, s
             "checked": checked, "small_host_routed": host}
 
 
+def node_ann(http: Http) -> dict:
+    return http.ok("GET", "/_nodes/stats")["nodes"]["node-0"]["knn"]["ann"]
+
+
+def sorted_page(resp: dict):
+    return [(h["_id"], h.get("sort")) for h in resp["hits"]["hits"]], resp["hits"]["total"]
+
+
+def serve_ann_sort(srv, http: Http, clients_proc: ClientProcess, ann_q: np.ndarray, seg, docs, seed: int,
+                   rows: dict) -> dict:
+    """bench.py's `ann_knn` served on the card: `/ann` (IVF over the f16
+    rows) and `/ann_int8` (its int8 twin), 32 bodies at each nprobe of
+    ANN_NPROBES and with `"exact": true`, from 8 clients then 1 (latency
+    rows go into `rows`), recall@10 of each nprobe against the exact
+    bodies (>= 0.95 at ANN_GATE_NPROBE), the `knn.ann` counters; then
+    route (i)'s sort bodies on `/bench` held to `/bench_oracle` (ids,
+    sort values, totals; a second page through search_after) and an
+    `_id`-sorted body on `/small` held to `/small_oracle`."""
+    out = {}
+    bodies = {f"nprobe_{p}": [ann_body(v, p) for v in ann_q] for p in ANN_NPROBES}
+    bodies["exact"] = [ann_body(v, exact=True) for v in ann_q]
+    for name in ("ann", "ann_int8"):
+        path = f"/{name}/_search"
+        b0 = node_ann(http)["builds"]
+        t = time.perf_counter()
+        # the generation's executor builds the IVF index: set-up, not serving
+        http.ok("POST", path, bodies["nprobe_8"][0])
+        first_s = time.perf_counter() - t
+        for bl in bodies.values():
+            http.ok("POST", path, bl[0])
+        st0 = node_ann(http)
+        check(st0["builds"] > b0, f"{path}: no IVF build")
+        served, res = {}, {"first_request_s": first_s}
+        for clients in (CLIENTS, 1):
+            for r, bl in bodies.items():
+                served[(r, clients)], rows[f"{name}_{r}_{clients}_clients"] = drive_measured(
+                    clients_proc, path, bl, clients)
+            for r in bodies:
+                if r == "exact":
+                    continue
+                rec = float(np.mean([recall_at(e, g) for e, g in zip(served[("exact", clients)],
+                                                                      served[(r, clients)])]))
+                res[f"recall_at_10_{r}_{clients}_clients"] = rec
+            log(f"{path} from {clients} clients: " + ", ".join(
+                f"{r} {rows[f'{name}_{r}_{clients}_clients']}" for r in bodies))
+        st1 = node_ann(http)
+        res["counters"] = {k: st1[k] - st0[k] for k in ("ann_searches", "exact_searches", "exact_fallbacks",
+                                                        "builds", "probes", "clusters_scanned")}
+        log(f"{path}: {res}")
+        check(res["counters"]["ann_searches"] > 0 and res["counters"]["exact_fallbacks"] == 0,
+              f"{path}: knn.ann counters {res['counters']}")
+        for clients in (CLIENTS, 1):
+            rec = res[f"recall_at_10_nprobe_{ANN_GATE_NPROBE}_{clients}_clients"]
+            check(rec >= 0.95, f"{path}: recall@{K} {rec:.4f} < 0.95 at nprobe {ANN_GATE_NPROBE}")
+        out[name] = res
+    blk = node_ann(http)
+    charge = 0
+    for name in ("ann", "ann_int8"):
+        idx = srv.cluster.get_index(name)
+        ex = idx._executor(idx.shards[0])
+        charge += sum(i.nbytes for i in ex._ann_indexes.values() if i is not None)
+    out["knn_ann"] = blk
+    out["ann_charge_bytes"] = charge
+    check(blk["builds"] >= 1 and blk["ann_searches"] > 0 and blk["exact_fallbacks"] == 0,
+          f"_nodes/stats knn.ann: {blk}")
+    check(0 < blk["ledger_bytes"] <= charge, f"knn.ann ledger_bytes {blk['ledger_bytes']} against the charge {charge}")
+
+    # ---- route (i)'s sort bodies on /bench, held to /bench_oracle ----
+    sb = sort_bodies(seg.postings["body"].term_df, seed)
+    checked = 0
+    for r, bl in sb.items():
+        http.ok("POST", "/bench/_search", bl[0])  # the rank column is set-up
+        res_s, rows[f"sort_{r}_{CLIENTS}_clients"] = drive_measured(clients_proc, "/bench/_search", bl, CLIENTS)
+        _, rows[f"sort_{r}_1_clients"] = drive_measured(clients_proc, "/bench/_search", bl, 1)
+        for i, body in enumerate(bl):
+            ref = http.ok("POST", "/bench_oracle/_search", body)
+            check(sorted_page(res_s[i]) == sorted_page(ref), f"/bench sort {r} body {i}: page differs from the oracle")
+            checked += 1
+            if i < ORACLE_QUERIES and ref["hits"]["hits"]:
+                nxt = {**body, "search_after": ref["hits"]["hits"][-1]["sort"]}
+                check(sorted_page(http.ok("POST", "/bench/_search", nxt))
+                      == sorted_page(http.ok("POST", "/bench_oracle/_search", nxt)),
+                      f"/bench sort {r} body {i}: the search_after page differs from the oracle")
+                checked += 1
+        log(f"/bench sort {r}: {rows[f'sort_{r}_{CLIENTS}_clients']} / {rows[f'sort_{r}_1_clients']}")
+    word = docs[0][1]["body"].split()[0]
+    id_body = {"query": {"match": {"body": word}}, "sort": [{"_id": "asc"}], "size": K}
+    check(sorted_page(http.ok("POST", "/small/_search", id_body))
+          == sorted_page(http.ok("POST", "/small_oracle/_search", id_body)),
+          "/small _id sort differs from the oracle")
+    out["sort_pages_checked"] = checked + 1
+    return out
+
+
 def node_query_cache(http: Http) -> dict:
     return http.ok("GET", "/_nodes/stats")["nodes"]["node-0"]["indices"]["query_cache"]
 
@@ -2080,12 +2489,29 @@ def run(device, seed: int, n_docs: int, vocab: int, dims: int, card: str) -> dic
         k["launches"] = main["launches"][k["name"]]
     del oracle, qv
 
+    t = time.perf_counter()
+    ann_reader, ann_q = build_ann_corpus(seed, n_docs, dims)
+    phases["ann_corpus_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    ivf_h = route_ivf(ann_reader, ann_q, device)
+    if device.type == "cuda":
+        ivf_h["profile"] = profile_routes(ivf_h["fns"], device)
+        for name in ("h_ivf_f16_group32", "h_ivf_int8_group32"):
+            pageable = ivf_h["profile"][name]["pageable_htod"]
+            check(pageable == 0, f"(h) {name} made {pageable} pageable host-to-device copies")
+    ivf_h.pop("batcher").close()
+    ivf_h.pop("executor").close()
+    del ivf_h["fns"]
+    main["ivf_h"] = ivf_h
+    main["plain_ops"] += ivf_h["plain_ops"]
+    phases["3h_ivf_s"] = time.perf_counter() - t
+
     # the peak so far (phases 1-3), then phase 4's own from a reset
     peaks = {"phases_1_3": torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None}
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     t = time.perf_counter()
-    serve = phase_serve(reader, vecs.shape[1], seed, device, card)
+    serve = phase_serve(reader, vecs.shape[1], seed, device, card, ann_reader, ann_q)
     phases["4_serve_s"] = time.perf_counter() - t
     peaks["phase_4"] = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
     peak = max(peaks.values()) if device.type == "cuda" else None

@@ -19,8 +19,12 @@ finds each counterpart under the same relative path:
   ops/wand.py          block-max tiling and bounds (host numpy, device
                        tiles)
   ops/int8_knn.py      int8 kNN scoring: CUDA kernel + plain version
+  ops/ivf.py           IVF ANN: seeded k-means on the device, probed search
+  ops/impact.py, ops/agg_kernels.py
+                       learned-sparse impact tiles; device aggregations
   search/executor_torch.py   TorchExecutor (counterpart of JaxExecutor)
-  search/batcher.py    QueryBatcher: the match, serve and knn families
+  search/batcher.py    QueryBatcher: the match, serve, knn, sparse and agg
+                       families
   cluster/, rest/      IndexService, ClusterService, the REST server
   cuts.py              what is not ported yet, and which slice brings it
   convert.py           carries segments / quantized corpora across

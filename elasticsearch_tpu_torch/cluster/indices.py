@@ -27,10 +27,11 @@ torch`` (the default) serves through `TorchExecutor` on the service's
 ``device`` — "cuda" unless the caller passes another — and the port's
 QueryBatcher; ``numpy`` selects the NumpyExecutor oracle. Retrievers
 and ``rank: {rrf}`` run their legs concurrently and fuse on the card
-(ops/fusion.py) when every leg rode the batcher. Paths whose modules are
-not ported yet (rescore, highlight, scripts, sorted collection on the
-card, the mesh, on-disk shards) raise, naming the slice that brings them
-(see cuts.py).
+(ops/fusion.py) when every leg rode the batcher. A single numeric sort
+key collects on the card (rank columns); other sorts take the oracle's
+host route, as in the reference. Paths whose modules are not ported yet
+(rescore, highlight, scripts, the mesh, on-disk shards) raise, naming
+the slice that brings them (see cuts.py).
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ from ..analysis import AnalysisRegistry
 from ..common.faults import faults
 from ..common.slowlog import FETCH_ACC, SearchSlowLog
 from ..common.tracing import OPAQUE_ID_CTX, TRACE_CTX
-from ..cuts import FETCH, MESH, RERANK, SORT, not_ported
+from ..cuts import FETCH, MESH, RERANK, not_ported
 from ..index.engine import OpResult, ShardEngine, VersionConflictError
 from ..index.mapping import Mappings
 from ..search import dsl
@@ -1104,9 +1105,10 @@ class IndexService:
                 )
                 ex.cache_ctx = CacheCtx(shard_key, gen, "torch")
                 ex._oracle.cache_ctx = CacheCtx(shard_key, gen, "np")
-                # the sparse columns go up with the generation, not with
-                # its first sparse_vector request
+                # the sparse columns and the IVF indexes are built with
+                # the generation, not inside its first request
                 ex.warm_impacts(self.settings)
+                ex.warm_ann(self.settings)
             elif backend == "numpy":
                 ex = NumpyExecutor(reader)
                 ex.cache_ctx = CacheCtx(shard_key, gen, "np")
@@ -1273,8 +1275,7 @@ class IndexService:
             if str(self.settings.get("search.backend")) == "torch":
                 # IVF ANN routing (index.knn.type, ?exact=true escape
                 # hatch, per-section nprobe): the numpy oracle backend
-                # never routes — it IS the exact reference. The port
-                # raises for an IVF index (search/ann.py)
+                # never routes — it IS the exact reference
                 from ..search import ann as ann_mod
 
                 ann_mod.annotate(knn, self.settings, body)
@@ -1457,22 +1458,38 @@ class IndexService:
                     td, agg_partial = got
             if td is None:
                 if sort_specs is not None:
-                    if not isinstance(ex, NumpyExecutor):
-                        # the reference sorts on the device (rank
-                        # columns) or on its host oracle; neither is the
-                        # port's card path yet
-                        raise not_ported(
-                            "sorted collection on the torch backend", SORT
+                    device_sorted = None
+                    if (
+                        not isinstance(ex, NumpyExecutor)
+                        and agg_nodes is None
+                        and knn is None
+                        and min_score is None
+                    ):
+                        # single numeric-key sorts collect on the card
+                        # (rank columns; one k-row download)
+                        device_sorted = ex.execute_sorted_device(
+                            query, sort_specs, size=k,
+                            search_after=search_after,
                         )
-                    td, masks, svals = ex.execute_sorted(
-                        query,
-                        sort_specs,
-                        size=k,
-                        from_=0,
-                        knn=knn,
-                        min_score=min_score,
-                        search_after=search_after,
-                    )
+                    if device_sorted is not None:
+                        td, svals = device_sorted
+                        masks = None  # no aggs on this path (condition)
+                    else:
+                        # multi-key, keyword, _score/_doc/_id and
+                        # `missing` overrides: the reference's own host
+                        # route, the oracle's sorted collection
+                        oracle = (
+                            ex if isinstance(ex, NumpyExecutor) else ex._oracle
+                        )
+                        td, masks, svals = oracle.execute_sorted(
+                            query,
+                            sort_specs,
+                            size=k,
+                            from_=0,
+                            knn=knn,
+                            min_score=min_score,
+                            search_after=search_after,
+                        )
                 else:
                     td, masks = ex.execute(
                         query, size=k, from_=0, knn=knn, min_score=min_score

@@ -15,6 +15,7 @@ import numpy as np
 
 from .index import segment as _seg
 from .ops.int8_knn import QuantizedVectors
+from .ops.ivf import IvfSegmentIndex
 
 
 def _dataclass_from(cls, ref):
@@ -74,5 +75,23 @@ def quantized_from_reference(qv, device="cuda") -> QuantizedVectors:
         n=qv.n,
         dims=qv.dims,
         similarity=qv.similarity,
+        device=device,
+    )
+
+
+def ivf_index_from_reference(idx, device="cuda") -> IvfSegmentIndex:
+    """The port's `IvfSegmentIndex` over the cluster-major layout of a
+    reference `IvfSegmentIndex` (its `centroids`, `starts`, `counts`,
+    `perm`, `vecs_flat`, `v2_flat`, `qvecs_flat`, `scales_flat`, `n`,
+    `similarity`; device arrays are read back through numpy), so a probe
+    can be held to the reference's on one index, whatever k-means did."""
+
+    def host(a):
+        return None if a is None else np.array(a)
+
+    return IvfSegmentIndex.from_layout(
+        idx.similarity, idx.n, host(idx.centroids), host(idx.starts),
+        host(idx.counts), host(idx.perm), host(idx.vecs_flat),
+        host(idx.v2_flat), host(idx.qvecs_flat), host(idx.scales_flat),
         device=device,
     )

@@ -6,15 +6,13 @@ that brings it, so a caller learns what is missing instead of meeting a
 quiet fallback or an ImportError.
 """
 
-# ROADMAP.md queue 1 items the cuts below point at (items 1-6, 8 and
-# 10 are ported)
+# ROADMAP.md queue 1 items the cuts below point at (items 1-6, 8-10
+# and 15 are ported)
 RERANK = "ROADMAP queue 1 item 7 (second-stage rerank)"
-IVF = "ROADMAP queue 1 item 9 (IVF ANN)"
 DEVICE_BUILD = "ROADMAP queue 1 item 11 (device segment builds)"
 MESH = "ROADMAP queue 1 item 12 (mesh and multi-node cluster)"
 DISK = "ROADMAP queue 1 item 13 (on-disk segments and snapshots)"
 FETCH = "ROADMAP queue 1 item 14 (highlight, scripts and reindex)"
-SORT = "ROADMAP queue 1 item 15 (sorted collection on the card)"
 NODES = "ROADMAP queue 1 item 16 (phrase and the remaining query nodes)"
 
 

@@ -34,7 +34,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .scoring import topk_desc
+from .scoring import topk_desc, upload
 
 LANE = 128
 DOC_BLOCK = 512  # the reference pads N to its grid block; kept for layout parity
@@ -271,8 +271,10 @@ class QuantizedVectors:
             q = q / np.where(qn == 0, 1.0, qn)
         if q.shape[1] != self.d_pad:
             q = np.pad(q, ((0, 0), (0, self.d_pad - q.shape[1])))
+        # a pinned, asynchronous upload: a pageable copy would wait for
+        # every kernel queued before it
         dots = int8_dot_scores(
-            torch.from_numpy(np.ascontiguousarray(q, np.float32)).to(self.device),
+            upload(np.ascontiguousarray(q, np.float32), self.device),
             self.qvecs,
             self.scales,
         )

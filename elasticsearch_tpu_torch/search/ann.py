@@ -12,10 +12,6 @@ correctness never depends on cluster quality for tiny segments.
 The exact brute-force path is the float oracle and is never removed:
 every ANN failure (injected `ann.probe` fault, HBM budget breach,
 missing index) deterministically falls back to it.
-
-In the PyTorch port the IVF tier itself is not ported yet: resolving an
-IVF spec raises, naming its slice; `?exact=true` still selects the
-exact path.
 """
 
 from __future__ import annotations
@@ -24,8 +20,6 @@ import os
 import threading
 from dataclasses import dataclass
 from typing import List, Optional
-
-from ..cuts import IVF, not_ported
 
 ANN_MIN_DOCS_ENV = "ES_TPU_ANN_MIN_DOCS"
 ANN_MIN_DOCS_DEFAULT = 4096
@@ -56,18 +50,30 @@ class AnnSpec:
 
 
 def resolve(settings, sec, body_exact: bool) -> Optional[AnnSpec]:
-    """None for the exact path; an IVF index raises (not ported yet)
-    unless the request asked for the exact escape hatch. `settings` is
-    the index's flat settings dict."""
+    """AnnSpec for one knn section under one index's settings, or None
+    for the exact path. `settings` is the index's flat settings dict."""
     if str(settings.get("knn.type", "exact")) != "ivf":
         return None
     if body_exact:
         note("exact_searches")
         return None
-    # the probed path (ops/ivf.py) is not ported: an IVF index must not
-    # be served exact without saying so, because TorchExecutor has no
-    # `ann_index` and the batcher would quietly take the exact launch
-    raise not_ported("IVF approximate kNN (index.knn.type: ivf)", IVF)
+    nprobe = sec.nprobe
+    if nprobe is None:
+        try:
+            nprobe = int(settings.get("knn.nprobe", DEFAULT_NPROBE))
+        except (TypeError, ValueError):
+            nprobe = DEFAULT_NPROBE
+    try:
+        nlist = int(settings.get("knn.nlist", 0))
+    except (TypeError, ValueError):
+        nlist = 0
+    quant = str(settings.get("knn.quantization", "none")) == "int8"
+    return AnnSpec(
+        nlist=max(0, nlist),
+        nprobe=max(1, int(nprobe)),
+        quantized=quant,
+        min_docs=ann_min_docs(),
+    )
 
 
 def annotate(secs: List, settings, body: Optional[dict]) -> None:

@@ -41,9 +41,10 @@ block-max route for small ones, one device-side merge and one packed
 download per group), `serve` (bool / multi_match ServePlans: the
 multi-field fused route for large segments, one device-side merge and
 one packed download; segments below the fused size and slot overflows
-take `TorchExecutor.segment_topk` per job at collect time) and exact
-`knn` (one matmul per segment, the device-side num_candidates merge,
-one packed download), `sparse` (bare `sparse_vector` bodies: per
+take `TorchExecutor.segment_topk` per job at collect time), `knn`
+(one matmul per segment, or the IVF probe of ops/ivf.py on an index
+with `knn.type: ivf`; the device-side num_candidates merge, one packed
+download), `sparse` (bare `sparse_vector` bodies: per
 segment phase A on each term's first impact tile, one theta download,
 the kept tiles into a fresh accumulator, one device-side merge and one
 packed download; ops/impact.py) and `agg` (compiled device aggregation
@@ -71,8 +72,9 @@ from ..common.faults import InjectedFault, faults
 from ..common.memory import CircuitBreakingException
 from ..common.settings import batch_buckets, bucket_for, bucket_warmup
 from ..index.mapping import SPARSE_VECTOR, TEXT
-from ..ops import scoring
+from ..ops import ivf, scoring
 from ..ops.scoring import BPAD
+from . import ann as ann_mod
 from . import dsl
 from .admission import admission
 from .executor import Hit, TopDocs
@@ -187,14 +189,17 @@ class ServePlan:
 @dataclass(frozen=True)
 class KnnPlan:
     """A bare top-level knn section (no filter/threshold): batched
-    brute-force matmul per segment (BASELINE config 4). The reference's
-    IVF probed variant is not ported (search/ann.py raises for it)."""
+    brute-force matmul per segment (BASELINE config 4), or — when `ann`
+    carries a resolved search/ann.AnnSpec — the IVF probed path over
+    the same launch/merge plumbing. `ann` rides the group key, so exact
+    and probed jobs (or different probe widths) never share a launch."""
 
     field: str
     vector: Tuple[float, ...]
     k: int
     num_candidates: int
     boost: float
+    ann: Optional[object] = None
 
 
 @dataclass(frozen=True)
@@ -421,6 +426,7 @@ def extract_knn_plan(knn_sections, mappings) -> Optional[KnnPlan]:
         k=int(sec.k),
         num_candidates=int(sec.num_candidates),
         boost=float(sec.boost),
+        ann=getattr(sec, "ann", None),
     )
 
 
@@ -873,8 +879,9 @@ class QueryBatcher:
                     # the key so int8 and fp32 servings of one field
                     # never share a launch
                     key = (id(j.executor), "v", j.plan.field, j.plan.spec, kb)
-                else:  # knn (kb stays LAST — dispatch reads it as key[-1])
-                    key = (id(j.executor), "k", j.plan.field, kb)
+                else:  # knn (exact and IVF-probed jobs never share;
+                    # kb stays LAST — dispatch reads it as key[-1])
+                    key = (id(j.executor), "k", j.plan.field, j.plan.ann, kb)
                 groups.setdefault(key, []).append(j)
             ordered = sorted(
                 groups.items(), key=lambda kv: kv[0][1] == "m"
@@ -1833,17 +1840,22 @@ class QueryBatcher:
                             rows: Optional[int] = None,
                             record: bool = True) -> List[Tuple]:
         """Launches the batched brute-force kNN matmul per segment
-        (BASELINE config 4); results stay on the device until collect.
+        (BASELINE config 4), or the IVF probe when the group's plans
+        carry an AnnSpec; results stay on the device until collect.
         `rows` pads the query-row dimension to one ladder bucket. The
         query rows go up in one asynchronous upload per group; the
         candidate mask is the executor's device-resident live ∧ exists
         tensor, so nothing per-doc crosses PCIe and nothing here waits
-        for the device."""
+        for the device. A segment under the small-segment floor, over
+        the device-memory budget, or hit by an injected `ann.probe`
+        fault takes the exact launch; any other error reaches the
+        group's waiters."""
         ex = jobs[0].executor
         reader = ex.reader
         nj = len(jobs)
         rows = rows or BPAD
         field = jobs[0].plan.field
+        spec = jobs[0].plan.ann  # shared: ann rides the group key
         items: List[Tuple] = []
         q = valid = None
         for si, seg in enumerate(reader.segments):
@@ -1851,6 +1863,15 @@ class QueryBatcher:
                 continue
             vf = seg.vectors[field]
             n = seg.num_docs
+            idx = None
+            if spec is not None:
+                try:
+                    if record:
+                        faults.check("ann.probe", field=field, segment=si)
+                except InjectedFault:
+                    ann_mod.note("exact_fallbacks")
+                else:
+                    idx = ex.ann_index(si, field, spec)
             dims = int(vf.vectors.shape[1])
             if q is None:
                 qh = np.zeros((rows, dims), np.float32)
@@ -1869,6 +1890,21 @@ class QueryBatcher:
                 ),
                 max(n, 1),
             )
+            if idx is not None:
+                s, d = ivf.ann_topk_batch(
+                    idx, q, valid, ex.knn_candidates(si, field),
+                    spec.nprobe, kc, quantized=spec.quantized,
+                )
+                if record:
+                    ann_mod.note_search(spec.nprobe, idx.nlist, jobs=nj)
+                    with self._lock:
+                        self.stats["launches"] += 1
+                        self.stats["fused_jobs"] += nj
+                    self._add_flops(
+                        ivf.ann_flops(nj, idx.nlist, spec.nprobe, idx.cmax, dims)
+                    )
+                items.append((si, n, s, d))
+                continue
             vectors, _exists = ex.device_segments[si].vectors[field]
             s, d, _ = scoring.knn_topk_batch(
                 q, valid, vectors, ex.knn_candidates(si, field),

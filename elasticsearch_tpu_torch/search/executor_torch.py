@@ -9,10 +9,12 @@ top-k that breaks ties by the lowest doc.
 The port covers the shard query phase of `match` (BM25),
 `match_all`/`match_none`, `bool`, `multi_match` (best_fields /
 most_fields), `dis_max`, the filter-context leaves (`term`, `terms`,
-`range`, `exists`, `ids`, `constant_score`) and exact brute-force kNN
-(top-level `knn` sections, with or without a `filter`, and the `knn`
-query node), plus the surface the serving batcher drives: the fused
-routes for large segments (`fused_scorer` → `fused_plan` →
+`range`, `exists`, `ids`, `constant_score`), kNN (top-level `knn`
+sections, with or without a `filter`, brute force or through the IVF
+indexes of ops/ivf.py, built by `warm_ann`; the `knn` query node) and
+sorted collection on one numeric key (`execute_sorted_device`), plus
+the surface the serving batcher drives: the fused routes for large
+segments (`fused_scorer` → `fused_plan` →
 `FusedScorer.search_async`; `fused_scorer_mf` → `fused_plan_field` →
 `MultiFusedScorer.search_async`), the chunked block-max route for small
 ones (`block_index`, `chunked_scorer`), `segment_topk`, the filtered-bool
@@ -39,6 +41,7 @@ the device-memory ledger (common/memory.py) — the analog of Lucene's
 from __future__ import annotations
 
 import threading
+from types import SimpleNamespace
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -48,8 +51,10 @@ from .. import cuts
 from ..cuts import not_ported
 from ..index.mapping import DATE, KEYWORD, TEXT, parse_date_millis
 from ..index.segment import Segment
+from ..common.faults import InjectedFault, faults
 from ..models import bm25
-from ..ops import scoring
+from ..ops import ivf, scoring
+from . import ann as ann_mod
 from . import dsl
 from .dsl import (
     BoolQuery,
@@ -267,6 +272,11 @@ class TorchExecutor:
         # ledger category; a column that would not fit the budget is
         # served by the host dense oracle (None cached)
         self._impact_scorers: Dict[tuple, object] = {}
+        # IVF indexes (ops/ivf.py) per (segment, field, build shape), and
+        # sort-rank columns per (segment, field, desc): both charged to
+        # the ledger and released with the executor (= generation)
+        self._ann_indexes: Dict[tuple, object] = {}
+        self._sort_rank_cache: Dict[tuple, tuple] = {}
         # cache-miss builds are guarded so concurrent callers can't
         # duplicate a dense hot-row build; RLock because fused_scorer →
         # _inv_norm/_segment_weights nest
@@ -1022,11 +1032,13 @@ class TorchExecutor:
         return mask, torch.where(mask, out, 0.0)
 
     def _knn_topk_global(self, sec: KnnSection) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-        """Per-segment brute-force candidates (num_candidates each), then
-        the shard-wide k cut (score desc, (segment, doc) asc). The IVF
-        ANN branch of the reference comes with a later slice."""
-        if getattr(sec, "ann", None) is not None:
-            raise not_ported("IVF approximate kNN (ops/ivf.py)", cuts.IVF)
+        """Per-segment candidates (num_candidates each: brute force, or
+        the IVF probe when the section carries an AnnSpec), then the
+        shard-wide k cut (score desc, (segment, doc) asc). Only an
+        injected `ann.probe` fault or a device-memory degrade sends an
+        IVF segment to the exact path; any other error fails the
+        request."""
+        spec = getattr(sec, "ann", None)
         per_seg = []
         q = None
         for si, seg in enumerate(self.reader.segments):
@@ -1038,8 +1050,23 @@ class TorchExecutor:
             vf = seg.vectors[sec.field]
             cand_mask = self._knn_candidates(sec, si)
             k = min(sec.num_candidates, seg.num_docs)
-            vectors, _exists = self.device_segments[si].vectors[sec.field]
-            top_s, top_d = scoring.knn_topk(q, vectors, cand_mask, vf.similarity, k)
+            idx = None
+            if spec is not None:
+                try:
+                    faults.check("ann.probe", field=sec.field, segment=si)
+                except InjectedFault:
+                    ann_mod.note("exact_fallbacks")
+                else:
+                    idx = self.ann_index(si, sec.field, spec)
+            if idx is not None:
+                top_s, top_d = ivf.ann_topk_batch(
+                    idx, q, torch.ones(1, dtype=torch.bool, device=self.device),
+                    cand_mask, spec.nprobe, k, quantized=spec.quantized,
+                )
+                ann_mod.note_search(spec.nprobe, idx.nlist)
+            else:
+                vectors, _exists = self.device_segments[si].vectors[sec.field]
+                top_s, top_d = scoring.knn_topk(q, vectors, cand_mask, vf.similarity, k)
             per_seg.append((top_s[0].cpu().numpy(), top_d[0].cpu().numpy()))
         # global k cut across segments
         entries = []
@@ -1455,6 +1482,223 @@ class TorchExecutor:
             if seg.num_docs:
                 for fname in getattr(seg, "sparse", None) or {}:
                     self.impact_scorer(si, fname, quant)
+
+    # ---- IVF ANN tier (ops/ivf.py): per-segment cluster indexes ----
+
+    def ann_index(self, si: int, field: str, spec):
+        """Cached IvfSegmentIndex for one segment's vector column under
+        one build shape (spec.nlist / spec.quantized), or None when the
+        segment stays exact: below the small-segment floor, no vectors,
+        or the device-memory ledger can't fit the build (degrade, never
+        trip). Built once per executor generation — a refresh/merge that
+        touches the shard regenerates the executor, which re-clusters
+        exactly like the agg tables re-profile."""
+        seg = self.reader.segments[si]
+        n = seg.num_docs
+        key = (si, field, int(spec.nlist), bool(spec.quantized), int(spec.min_docs))
+        if key in self._ann_indexes:
+            return self._ann_indexes[key]
+        with self._build_lock:
+            if key in self._ann_indexes:
+                return self._ann_indexes[key]
+            from ..common.memory import hbm_ledger
+
+            idx = None
+            vf = seg.vectors.get(field)
+            if vf is not None and n >= max(spec.min_docs, 2):
+                mat = (
+                    vf.unit_vectors
+                    if vf.similarity == "cosine" and vf.unit_vectors is not None
+                    else vf.vectors
+                )
+                nlist = spec.nlist or ivf.auto_nlist(n)
+                nlist = max(1, min(nlist, n))
+                est = ivf.IvfSegmentIndex.estimate_nbytes(
+                    n, int(mat.shape[1]), nlist, spec.quantized,
+                    itemsize=mat.dtype.itemsize,
+                )
+                if not hbm_ledger.would_fit(est):
+                    hbm_ledger.note_degraded()
+                else:
+                    # deterministic seed: a pure function of the build
+                    # shape, so re-runs reproduce the same centroids
+                    # bit for bit
+                    seed = (si * 2654435761 + n * 97 + nlist) & 0x7FFFFFFF
+                    idx = ivf.IvfSegmentIndex(
+                        mat, vf.similarity, nlist, seed,
+                        quantized=spec.quantized, device=self.device,
+                    )
+                    self._charge("ann", idx.nbytes, False)
+                    ann_mod.note_build(idx.build_ms)
+            elif vf is not None and n:
+                ann_mod.note("small_segment_exact")
+            self._ann_indexes[key] = idx
+            return idx
+
+    def warm_ann(self, settings) -> None:
+        """Builds every segment's IVF index in the index's build shape
+        when the executor is built (an index with `knn.type: ivf`), so
+        k-means runs with the generation, not inside its first kNN
+        request (the reference does this in its generation prewarm)."""
+        spec = ann_mod.resolve(settings, SimpleNamespace(nprobe=None), False)
+        if spec is None:
+            return
+        for si, seg in enumerate(self.reader.segments):
+            if seg.num_docs:
+                for fname in seg.vectors:
+                    self.ann_index(si, fname, spec)
+
+    # ---- field-sorted collection on one numeric key ----
+
+    def _sort_ranks(self, si: int, field: str, desc: bool):
+        """Device int32 rank column for one segment's numeric doc-value
+        field: rank orders by (value, doc) asc — or (-value, doc) for
+        desc — with missing docs ranked last by doc. The ranks are built
+        on the host from the float64 values, so they are exact at any
+        magnitude (dates included). Returns (device_ranks,
+        host_sorted_values, n_have)."""
+        key = (si, field, desc)
+        cached = self._sort_rank_cache.get(key)
+        if cached is not None:
+            return cached
+        with self._build_lock:
+            cached = self._sort_rank_cache.get(key)
+            if cached is not None:
+                return cached
+            seg = self.reader.segments[si]
+            nf = seg.numerics.get(field)
+            n = seg.num_docs
+            if nf is None:
+                ranks_host = np.arange(n, dtype=np.int32)
+                sorted_vals = np.zeros(0)
+                n_have = 0
+            else:
+                have = nf.exists
+                vals = nf.values
+                docs = np.arange(n)
+                order_vals = -vals if desc else vals
+                have_idx = docs[have]
+                order = np.lexsort((have_idx, order_vals[have]))
+                ranked = have_idx[order]
+                missing = docs[~have]
+                ranks_host = np.empty(n, np.int32)
+                ranks_host[ranked] = np.arange(len(ranked), dtype=np.int32)
+                ranks_host[missing] = np.arange(len(ranked), n, dtype=np.int32)
+                sorted_vals = np.sort(vals[have])
+                n_have = int(len(ranked))
+            arr = scoring.upload(ranks_host, self.device)
+            self._charge("sort_ranks", int(ranks_host.nbytes), False)
+            cached = (arr, sorted_vals, n_have)
+            self._sort_rank_cache[key] = cached
+            return cached
+
+    def execute_sorted_device(
+        self,
+        query: Optional[Query],
+        sort_specs,
+        size: int = 10,
+        search_after=None,
+    ):
+        """Field-sorted collection on the card for a SINGLE
+        numeric/date/bool sort key: per segment a top-k over the rank
+        column of the matching docs, then one packed download of every
+        segment's k rows and match count. Returns (TopDocs, svals) or
+        None when the spec needs the oracle (multi-key, keyword keys,
+        `missing` overrides, _score/_doc)."""
+        if len(sort_specs) != 1:
+            return None
+        spec = sort_specs[0]
+        field = spec["field"]
+        if field in ("_score", "_doc"):
+            return None
+        mf = self.reader.mappings.get(field)
+        if mf is None or not mf.is_numeric():
+            return None
+        if spec.get("missing") not in (None, "_last"):
+            return None
+        desc = spec.get("order", "asc") == "desc"
+        after_v = None
+        if search_after is not None:
+            try:
+                after_v = float(search_after[0])
+            except (TypeError, ValueError):
+                return None
+        sentinel = -(2**31 - 1)
+        parts, widths = [], []  # device [2·kk + 1] int64 per segment
+        for si, seg in enumerate(self.reader.segments):
+            n = seg.num_docs
+            if n == 0:
+                continue
+            ranks, sorted_vals, n_have = self._sort_ranks(si, field, desc)
+            if query is not None:
+                mask = self._exec(query, si)[0]
+            else:
+                mask = torch.ones(n, dtype=torch.bool, device=self.device)
+            live = self.live_mask(si)
+            if live is not None:
+                mask = mask & live
+            # hits.total reports the FULL query match count — the
+            # search_after cursor narrows the page, never the total
+            total = mask.sum(dtype=torch.int64)
+            if after_v is not None:
+                # strictly-after in VALUE space (ties skipped, matching
+                # the oracle): rank >= count of values <=/>= after
+                if desc:
+                    thr = n_have - int(np.searchsorted(sorted_vals, after_v, side="left"))
+                else:
+                    thr = int(np.searchsorted(sorted_vals, after_v, side="right"))
+                mask = mask & (ranks >= thr)
+            kk = min(size, n)
+            # smallest ranks win: top-k over negated ranks (distinct, so
+            # the order is exact); masked docs sink below every real rank
+            neg = torch.where(mask, -ranks, sentinel)
+            top_neg, top_d = torch.topk(neg, kk)
+            parts.append(torch.cat([top_neg.long(), top_d, total.view(1)]))
+            widths.append((si, kk))
+        host = torch.cat(parts).cpu().numpy() if parts else np.zeros(0, np.int64)
+        entries = []  # (rank, si, doc)
+        total = 0
+        off = 0
+        for si, kk in widths:
+            top_neg, top_d = host[off : off + kk], host[off + kk : off + 2 * kk]
+            total += int(host[off + 2 * kk])
+            off += 2 * kk + 1
+            for j in range(kk):
+                if top_neg[j] == sentinel:
+                    continue
+                entries.append((int(-top_neg[j]), si, int(top_d[j])))
+        # cross-segment merge: segment-local ranks order identically to
+        # values WITHIN a segment; across segments compare actual values
+        nf_cols = [seg.numerics.get(field) for seg in self.reader.segments]
+
+        def global_key(e):
+            _, si, d = e
+            nf = nf_cols[si]
+            if nf is None or not nf.exists[d]:
+                return (1, 0.0, si, d)  # missing last
+            v = float(nf.values[d])
+            return (0, -v if desc else v, si, d)
+
+        entries.sort(key=global_key)
+        page = entries[:size]
+        hits = []
+        svals = []
+        for _, si, d in page:
+            hits.append(
+                Hit(
+                    score=0.0,
+                    segment=si,
+                    local_doc=d,
+                    doc_id=self.reader.segments[si].doc_ids[d],
+                )
+            )
+            nf = nf_cols[si]
+            if nf is None or not nf.exists[d]:
+                svals.append([None])
+            else:
+                v = nf.values[d]
+                svals.append([int(v)] if float(v).is_integer() else [float(v)])
+        return TopDocs(total=total, hits=hits, max_score=None), svals
 
     # ---- keyword terms aggregations in the query pass ----
 

@@ -738,7 +738,6 @@ CUT_BODIES = {
     "aggs": ({"size": 0, "query": {"match_phrase": {"body": "alpha bravo"}},
               "aggs": {"n": {"value_count": {"field": "title"}}}}, "item 16"),
     "highlight": ({"query": {"match": {"body": "alpha"}}, "highlight": {"fields": {"body": {}}}}, "item 14"),
-    "sort": ({"query": {"match": {"body": "alpha"}}, "sort": [{"_id": "asc"}]}, "item 15"),
 }
 
 
@@ -761,15 +760,29 @@ def test_cut_request_raises_naming_its_slice(small_torch_index, name):
         small_torch_index.search(body)
 
 
-def test_ivf_index_raises_and_exact_escape_serves(small_torch_index):
-    svc = IndexService("ivf", settings={"knn.type": "ivf"}, mappings_json=MAPPING, device="cpu")
+def test_ivf_index_serves_and_exact_escape_serves(small_torch_index, monkeypatch):
+    """An IVF index is served by the probe (the batcher's kNN family, a
+    filtered section through the executor), and `exact` still serves
+    the brute-force path."""
+    from elasticsearch_tpu_torch.search import ann as ann_mod
+
+    monkeypatch.setenv(ann_mod.ANN_MIN_DOCS_ENV, "8")
+    svc = IndexService("ivf", settings={"knn.type": "ivf", "knn.nlist": 4},
+                       mappings_json=MAPPING, device="cpu")
     try:
-        for doc_id, src in make_docs(20, seed=1):
+        for doc_id, src in make_docs(40, seed=1):
             svc.index_doc(doc_id, src)
         svc.refresh()
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-            svc.search({"knn": knn_body(0)})
+        before = ann_mod.stats_snapshot()
+        assert svc.search({"knn": knn_body(0)})["hits"]["hits"]
+        filtered = {**knn_body(0), "filter": {"term": {"tag": "t0"}}}
+        hits = svc.search({"knn": filtered})["hits"]["hits"]
+        assert hits and all(int(h["_id"][1:]) % 4 == 0 for h in hits)
+        after = ann_mod.stats_snapshot()
+        assert after["ann_searches"] >= before["ann_searches"] + 2
+        assert after["exact_fallbacks"] == before["exact_fallbacks"]
         assert svc.search({"knn": knn_body(0), "exact": True})["hits"]["hits"]
+        assert ann_mod.stats_snapshot()["exact_searches"] == after["exact_searches"] + 1
     finally:
         svc.close()
 
