@@ -6,9 +6,10 @@ Drives the port's shard query phase (`elasticsearch_tpu_torch`) at the
 scale of BASELINE configs 1 (BM25 `match`), 2 (`bool`), 3
 (`multi_match`), 4 (768-d cosine kNN) and 5 (hybrid BM25 + kNN +
 sparse_vector with RRF) and bench.py's `sparse_retrieval`,
-`repeated_agg` and `cold_agg`: one segment of 1,000,000 documents with a
-`body` text field over a 50,000-term Zipf vocabulary (15-34 tokens
-each), a `title` text field over a 20,000-term Zipf vocabulary (3-8
+`repeated_agg`, `cold_agg`, `ann_knn` and `rag_rerank`: one segment of
+1,000,000 documents with a `body` text field over a 50,000-term Zipf
+vocabulary (15-34 tokens each, with positions: a token's index in its
+doc), a `title` text field over a 20,000-term Zipf vocabulary (3-8
 tokens), a 768-d unit-vector `vec` field, bench.py's filter columns
 (`popularity` integer 0-99, `day` date over 30 days, `cat` keyword with
 16 values) and its learned-sparse `ml` column (3-9 terms per doc over a
@@ -84,7 +85,21 @@ any failure:
      against the exact bodies, >= 0.95 at nprobe 8; `knn.ann` shows
      builds, probes and 0 exact fallbacks), and route (i)'s sort bodies
      go to `/bench` and an `_id` sort to `/small`, held to the oracle
-     indices; `_nodes/stats` must show batched launches, a bucket wider
+     indices; route (j), bench.py's `rag_rerank` (200,000 docs, a
+     20,000-term body, 8 `cat` values, 64-d vectors, a `toks`
+     rank_vectors column of 4 x 64 rows per doc): 32 filtered 2-leg
+     `retriever.rrf` bodies with a `rescore` of window 100 on `/rerank`
+     (f32 rows), `/rerank_int8` and without the rescore, from 8 clients
+     then 1, f32 pages held to the host oracle's rescore (the
+     `/rerank_oracle` page, or the host blend over the card's own first
+     stage), int8 by recall@10 >= 0.9, NDCG@10 of both stages, every
+     rescore on the card (`device_rescores`, no fallback or skip), one
+     profiled `rerank` group of 8 (0 pageable uploads, one download) and
+     the maxsim op timed alone at the route's shape and at ColBERT's
+     widths; route (k): 32 `match_phrase`, 32 `prefix`, 16 `fuzzy`, 16
+     `wildcard` and 16 phrase-filtered `bool` bodies on `/bench` held to
+     `/bench_oracle`, every phrase through the device conjunction and
+     the host position verify (counted), the conjunction timed alone; `_nodes/stats` must show batched launches, a bucket wider
      than 1, the chunked path, serve launches, filter cache hits, every
      sparse body on the batcher's sparse family, every `cold_agg` body
      on the device plan, request-cache hits on repeated aggs; every
@@ -140,6 +155,7 @@ CLIENTS = 8  # concurrent HTTP clients in phase 4
 SMALL_DOCS = 2000  # docs of the small 2-shard index, in 2 _bulk calls
 SMALL_DELETES = 5
 SMALL_QUERIES = 16
+PHRASE_DF = (2_000, 20_000)  # df of each term of a route (k) phrase
 RTOL = 1e-5
 KERNEL_RTOL = 1e-5  # of max|dots|: f32 sums in another order
 # bench.py's ann_knn config: a clustered corpus of unit cosine rows
@@ -172,19 +188,39 @@ def check(cond: bool, what: str) -> None:
 # ---------------------------------------------------------------------------
 
 
+def draw_terms(rng, vocab: int, lengths: np.ndarray) -> np.ndarray:
+    """The token stream of a Zipf text field: `lengths[d]` term ids for
+    doc d, docs in order."""
+    probs = 1.0 / np.arange(1, vocab + 1)
+    probs /= probs.sum()
+    return rng.choice(vocab, size=int(lengths.sum()), p=probs).astype(np.int64)
+
+
 def build_postings(rng, vocab: int, lengths: np.ndarray):
+    return postings_from_stream(draw_terms(rng, vocab, lengths), vocab, lengths)
+
+
+def postings_from_stream(term_stream: np.ndarray, vocab: int, lengths: np.ndarray,
+                         positions: bool = False, names=None):
+    """The port's PostingsField over a token stream (`names`: the term
+    dictionary, sorted; "w00000"... by default). With `positions`, each
+    posting's sorted positions (a token's index in its doc) go into the
+    columnar position index, so phrases verify on it."""
     from elasticsearch_tpu_torch.index.segment import (
         INVALID_DOC, TILE, FieldStats, PostingsField,
     )
     from elasticsearch_tpu_torch.utils.smallfloat import encode_norms
 
     n_docs = len(lengths)
-    probs = 1.0 / np.arange(1, vocab + 1)
-    probs /= probs.sum()
-    total = int(lengths.sum())
-    term_stream = rng.choice(vocab, size=total, p=probs).astype(np.int64)
     doc_of = np.repeat(np.arange(n_docs, dtype=np.int64), lengths)
     key = term_stream * n_docs + doc_of
+    pos_fields = {}
+    if positions:
+        # postings run term-major, doc-ascending (the order of `key`); a
+        # stable sort keeps each (term, doc)'s positions ascending
+        pos = np.arange(len(term_stream), dtype=np.int64) - np.repeat(
+            np.cumsum(lengths) - lengths, lengths)
+        pos_fields["pos_data"] = pos[np.argsort(key, kind="stable")].astype(np.int32)
     uniq, counts = np.unique(key, return_counts=True)
     u_t = (uniq // n_docs).astype(np.int64)
     u_d = (uniq % n_docs).astype(np.int32)
@@ -210,8 +246,12 @@ def build_postings(rng, vocab: int, lengths: np.ndarray):
     norms = encode_norms(lengths.astype(np.int64))
     valid = doc_ids >= 0
     tile_norms = np.where(valid, norms[np.clip(doc_ids, 0, n_docs - 1)], 255)
+    if positions:
+        pos_fields["term_pos_start"] = term_post_start
+        pos_fields["pos_offsets"] = np.concatenate([[0], np.cumsum(tfs_flat, dtype=np.int64)])
     pf = PostingsField(
-        terms=[f"w{i:05d}" for i in range(vocab)],  # sorted lexicographically
+        # sorted lexicographically
+        terms=list(names) if names is not None else [f"w{i:05d}" for i in range(vocab)],
         term_df=term_df,
         term_total_tf=term_total_tf,
         term_tile_start=term_tile_start,
@@ -226,6 +266,7 @@ def build_postings(rng, vocab: int, lengths: np.ndarray):
             sum_total_term_freq=int(term_total_tf.sum()),
             sum_doc_freq=int(term_df.sum()),
         ),
+        **pos_fields,
     )
     return pf
 
@@ -238,7 +279,9 @@ def build_corpus(seed: int, n_docs: int, vocab: int, dims: int):
 
     rng = np.random.default_rng(seed)
     lengths = rng.integers(15, 35, size=n_docs)
-    body = build_postings(rng, vocab, lengths)
+    stream = draw_terms(rng, vocab, lengths)
+    body = postings_from_stream(stream, vocab, lengths, positions=True)
+    pairs = adjacent_pairs(stream, lengths, body.term_df)
     vecs = rng.standard_normal((n_docs, dims), dtype=np.float32)
     vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
     # bench.py's other columns, drawn after the body and the vectors so
@@ -274,7 +317,20 @@ def build_corpus(seed: int, n_docs: int, vocab: int, dims: int):
         sparse={"ml": ml},
     )
     mappings = Mappings(corpus_mapping(dims))
-    return ShardReader([seg], mappings, AnalysisRegistry()), vecs
+    return ShardReader([seg], mappings, AnalysisRegistry()), vecs, pairs
+
+
+def adjacent_pairs(stream: np.ndarray, lengths: np.ndarray, term_df: np.ndarray,
+                   lo: int = PHRASE_DF[0], hi: int = PHRASE_DF[1]) -> np.ndarray:
+    """[(a, b)] term-id pairs that stand next to each other in a doc of
+    the stream, both terms with a df in [lo, hi] (the phrases route (k)
+    asks for), from the first 20,000 docs."""
+    end = int(lengths[:20_000].sum())
+    a, b = stream[: end - 1], stream[1:end]
+    same_doc = np.repeat(np.arange(min(len(lengths), 20_000)), lengths[:20_000])
+    ok = (same_doc[:-1] == same_doc[1:]) & (a != b)
+    ok &= (term_df[a] >= lo) & (term_df[a] <= hi) & (term_df[b] >= lo) & (term_df[b] <= hi)
+    return np.unique(np.stack([a[ok], b[ok]], axis=1), axis=0)
 
 
 def sparse_popularity() -> np.ndarray:
@@ -1354,7 +1410,7 @@ def named_topk_desc():
     its calls outside a profile carry none."""
     import torch
 
-    from elasticsearch_tpu_torch.ops import int8_knn, ivf, scoring
+    from elasticsearch_tpu_torch.ops import int8_knn, ivf, rerank, scoring
 
     plain = scoring.topk_desc
 
@@ -1362,11 +1418,11 @@ def named_topk_desc():
         with torch.profiler.record_function("topk_desc"):
             return plain(x, k)
 
-    scoring.topk_desc = int8_knn.topk_desc = ivf.topk_desc = named
+    scoring.topk_desc = int8_knn.topk_desc = ivf.topk_desc = rerank.topk_desc = named
     try:
         yield
     finally:
-        scoring.topk_desc = int8_knn.topk_desc = ivf.topk_desc = plain
+        scoring.topk_desc = int8_knn.topk_desc = ivf.topk_desc = rerank.topk_desc = plain
 
 
 def _range_kernel_us(prof, name: str) -> float:
@@ -1419,6 +1475,7 @@ def profile_routes(routes: dict, device) -> dict:
         # "Memcpy HtoD (Pageable -> Device)": a copy that waits for the
         # device (ops/scoring.upload's pinned copies are "Pinned")
         pageable = sum(e.count for e in dev if "Pageable" in e.key and "HtoD" in e.key)
+        dtoh = sum(e.count for e in dev if "DtoH" in e.key)
         out[name] = {
             "wall_us": wall_us,
             "device_us": busy,
@@ -1426,6 +1483,7 @@ def profile_routes(routes: dict, device) -> dict:
             "topk_desc_device_us": topk,
             "topk_desc_share_of_device": topk / busy if busy else None,
             "pageable_htod": pageable,
+            "dtoh": dtoh,
             "top_kernels_us": [[e.key[:80], _device_us(e), e.count] for e in top],
         }
         log(f"profile {name}: wall {wall_us:.0f}us device {busy:.0f}us topk_desc {topk:.0f}us "
@@ -1882,7 +1940,8 @@ def node_stats(http: Http) -> dict:
             "pipeline": {k: v for k, v in node["pipeline"].items() if k != "batching"}}
 
 
-def phase_serve(reader, dims: int, seed: int, device, card: str, ann_reader, ann_q) -> dict:
+def phase_serve(reader, dims: int, seed: int, device, card: str, ann_reader, ann_q, rc: dict,
+                phrase_pairs) -> dict:
     import torch
 
     from elasticsearch_tpu_torch.rest.server import ElasticsearchTpuServer
@@ -2033,6 +2092,31 @@ def phase_serve(reader, dims: int, seed: int, device, card: str, ann_reader, ann
         ann_sort = serve_ann_sort(srv, http, clients_proc, ann_q, seg, docs, seed, rows)
         times["ann_sort_s"] = time.perf_counter() - t
 
+        # ---- route (j): rag_rerank; route (k): the remaining nodes ----
+        t = time.perf_counter()
+        rerank = serve_rerank(srv, http, clients_proc, rc, rows)
+        times["rerank_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        nodes = serve_nodes(http, clients_proc, phrase_pairs, pf.term_df, seed, rows)
+        times["nodes_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        rr_fns, rr_launch, rr_batcher = rerank_group_fns(srv, rc, device)
+        plain_ops = [phrase_conjunction_row(srv, phrase_pairs, pf.term_df, seed, device)]
+        if device.type == "cuda":
+            plain_ops += rerank_op_rows(rr_launch, device)
+            rr_profile = profile_routes(rr_fns, device)
+            rr_syncs = {name: count_syncs(fn) for name, fn in rr_fns.items()}
+            for name, pr in rr_profile.items():
+                check(pr["pageable_htod"] == 0 and pr["dtoh"] == 1,
+                      f"{name}: {pr['pageable_htod']} pageable uploads, {pr['dtoh']} downloads (want 0 and 1)")
+            rerank.update(profile=rr_profile, syncs_per_group=rr_syncs)
+            log(f"rerank groups: {rr_syncs}")
+        else:
+            for fn in rr_fns.values():
+                fn()
+        rr_batcher.close()
+        times["rerank_nodes_ops_s"] = time.perf_counter() - t
+
         # ---- profiles: 8 requests served over HTTP per route (the
         # card's activity; the server's threads are not traced on the
         # host side), then one batcher group of 8 per route run on this
@@ -2073,7 +2157,8 @@ def phase_serve(reader, dims: int, seed: int, device, card: str, ann_reader, ann
         diagnosis = diagnose_concurrency(srv, http, clients_proc, match_bodies, knn_bodies)
         times["diagnosis_s"] = time.perf_counter() - t
         return {"card": card, "latency": rows, "times": times, "bench_batcher": bench_search, "text_hybrid": text_hybrid,
-                "sparse_aggs": sparse_aggs, "ann_sort": ann_sort,
+                "sparse_aggs": sparse_aggs, "ann_sort": ann_sort, "rerank": rerank, "nodes": nodes,
+                "plain_ops": plain_ops,
                 "bench_launches_by_bucket": by_bucket, "small_chunked_jobs": chunked,
                 "pipeline": stats_small["pipeline"], "profile": profile,
                 "syncs_per_group": syncs, "concurrency_diagnosis": diagnosis,
@@ -2446,6 +2531,484 @@ def serve_ann_sort(srv, http: Http, clients_proc: ClientProcess, ann_q: np.ndarr
     return out
 
 
+# ---------------------------------------------------------------------------
+# route (j): bench.py's rag_rerank (filtered hybrid → rescore → fetch)
+# ---------------------------------------------------------------------------
+
+RR_DOCS = 200_000  # bench.py's RR_DOCS
+RR_VOCAB = 20_000
+RR_DIMS = 64
+RR_TOKENS = 4  # token rows per doc
+RR_QTOKENS = 3  # query token rows
+RR_CATS = 8
+RR_TOPICS = 64
+RR_BODIES = 32
+RR_EVAL = 24  # bodies whose NDCG@10 is computed (bench.py's RR_EVAL)
+RR_WINDOW = 100  # rank_window_size and the rescore window_size
+RR_INT8_RECALL = 0.9
+# ColBERT's published widths (Khattab & Zaharia 2020): 128-d token rows,
+# query_maxlen 32, doc_maxlen 180; a synthetic column of COLBERT_DOCS docs
+COLBERT_DIMS, COLBERT_QLEN, COLBERT_DLEN, COLBERT_DOCS = 128, 32, 180, 10_000
+
+
+def build_rerank_corpus(seed: int, n_docs: int = RR_DOCS) -> dict:
+    """bench.py's rag_rerank corpus (its build_rerank_services) on the
+    port's classes: a 20,000-term Zipf `body` (15-34 tokens), 8 `cat`
+    values (keyword postings and ordinals), 64-d unit `vec` rows around
+    64 topic centers (noise 0.6) and a `toks` rank_vectors column of 4
+    token rows per doc around the doc's center (noise 0.8); queries:
+    2-4 mid-frequency terms, 3 token rows around a topic center (noise
+    0.6) and a query vector near it (noise 0.4). From `seed`."""
+    from elasticsearch_tpu_torch.index.segment import MultiVectorField, OrdinalField, Segment, VectorField
+
+    rng = np.random.default_rng(seed + 57)
+    lengths = rng.integers(15, 35, size=n_docs)
+    body = build_postings(rng, RR_VOCAB, lengths)
+    centers = rng.normal(size=(RR_TOPICS, RR_DIMS)).astype(np.float32)
+    topic = rng.integers(0, RR_TOPICS, size=n_docs)
+    vecs = centers[topic] + 0.6 * rng.normal(size=(n_docs, RR_DIMS)).astype(np.float32)
+    vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+    toks = centers[topic][:, None, :] + 0.8 * rng.normal(size=(n_docs, RR_TOKENS, RR_DIMS)).astype(np.float32)
+    toks = toks.astype(np.float32)
+    cat_ords = rng.integers(0, RR_CATS, size=n_docs).astype(np.int32)
+    names = [f"cat{j}" for j in range(RR_CATS)]
+    exists = np.ones(n_docs, bool)
+    seg = Segment(
+        num_docs=n_docs,
+        doc_ids=[str(i) for i in range(n_docs)],
+        sources=[{"cat": names[c]} for c in cat_ords],
+        postings={"body": body,
+                  "cat": postings_from_stream(cat_ords.astype(np.int64), RR_CATS,
+                                              np.ones(n_docs, np.int64), names=names)},
+        numerics={},
+        ordinals={"cat": OrdinalField(ord_terms=names, ords=cat_ords, mv_ords=cat_ords.copy(),
+                                      mv_offsets=np.arange(n_docs + 1, dtype=np.int32))},
+        vectors={"vec": VectorField(vectors=vecs, exists=exists, similarity="cosine", unit_vectors=vecs)},
+        multi_vectors={"toks": MultiVectorField(
+            tok_vectors=toks.reshape(-1, RR_DIMS),
+            tok_offsets=(np.arange(n_docs + 1, dtype=np.int64) * RR_TOKENS).astype(np.int32),
+            exists=exists.copy(), similarity="dot_product")},
+    )
+    qtopic = rng.integers(0, RR_TOPICS, size=RR_BODIES)
+    qtoks = (centers[qtopic][:, None, :]
+             + 0.6 * rng.normal(size=(RR_BODIES, RR_QTOKENS, RR_DIMS)).astype(np.float32)).astype(np.float32)
+    qvec = centers[qtopic] + 0.4 * rng.normal(size=(RR_BODIES, RR_DIMS)).astype(np.float32)
+    qvec /= np.linalg.norm(qvec, axis=1, keepdims=True)
+    return {"seg": seg, "texts": match_texts(body.term_df, RR_BODIES, seed + 23, hi=6000),
+            "qtoks": qtoks, "qvec": qvec, "toks": toks, "cat_ords": cat_ords}
+
+
+def rerank_mapping() -> dict:
+    return {"properties": {
+        "body": {"type": "text"},
+        "cat": {"type": "keyword"},
+        "vec": {"type": "dense_vector", "dims": RR_DIMS, "similarity": "cosine"},
+        "toks": {"type": "rank_vectors", "dims": RR_DIMS, "similarity": "dot_product"},
+    }}
+
+
+def rerank_body(rc: dict, i: int, rescore: bool = True, size: int = K) -> dict:
+    """bench.py's rag_rerank body: a 2-leg `retriever.rrf` (a `match`
+    and a kNN, both under the body's `cat` filter) and a `rescore` of
+    window 100 with weights 1.0/1.0 over the `toks` column."""
+    flt = {"term": {"cat": f"cat{i % RR_CATS}"}}
+    b = {"retriever": {"rrf": {"rank_window_size": RR_WINDOW, "retrievers": [
+        {"standard": {"query": {"match": {"body": rc["texts"][i]}}, "filter": flt}},
+        {"knn": {"field": "vec", "query_vector": [float(x) for x in rc["qvec"][i]], "k": 50,
+                 "num_candidates": 200, "filter": flt}},
+    ]}}, "size": size, "_source": False}
+    if rescore:
+        b["rescore"] = {"window_size": RR_WINDOW, "query": {
+            "rescore_query": {"rank_vectors": {"field": "toks", "query_vectors": rc["qtoks"][i].tolist()}},
+            "query_weight": 1.0, "rescore_query_weight": 1.0}}
+    return b
+
+
+def ndcg_at_10(ranked_ids: list, grades: dict) -> float:
+    """bench.py's _ndcg_at_10."""
+    dcg = sum((2 ** grades.get(d, 0) - 1) / np.log2(i + 2) for i, d in enumerate(ranked_ids[:10]))
+    ideal = sorted(grades.values(), reverse=True)[:10]
+    idcg = sum((2 ** g - 1) / np.log2(i + 2) for i, g in enumerate(ideal))
+    return dcg / idcg if idcg > 0 else 0.0
+
+
+def true_maxsim(rc: dict, i: int) -> np.ndarray:
+    """Σ_q max_t q·d_t of body i's query tokens against every doc (host
+    float32), -inf outside the body's `cat` slice."""
+    toks = rc["toks"]
+    dots = (toks.reshape(-1, RR_DIMS) @ rc["qtoks"][i].T).reshape(len(toks), RR_TOKENS, RR_QTOKENS)
+    sims = dots.max(axis=1).sum(axis=1)
+    return np.where(rc["cat_ords"] == i % RR_CATS, sims, -np.inf)
+
+
+def host_rescored_page(rc: dict, i: int, first: dict) -> list:
+    """The page the rescore must give over a first-stage response of
+    RR_WINDOW hits: blended = 1.0·first + 1.0·maxsim in float32 (the
+    host oracle's models/rerank.host_maxsim), sorted desc with the
+    first-stage rank breaking ties."""
+    from elasticsearch_tpu_torch.models.rerank import host_maxsim
+
+    ranked = hits_of(first)[:RR_WINDOW]
+    q = rc["qtoks"][i]
+    blended = [float(np.float32(1.0) * np.float32(s)
+                     + np.float32(1.0) * np.float32(host_maxsim(q, rc["toks"][int(d)])))
+               for d, s in ranked]
+    order = sorted(range(len(ranked)), key=lambda j: (-blended[j], j))
+    return [(ranked[j][0], blended[j]) for j in order][:K]
+
+
+def same_rescored(want: list, got: dict) -> bool:
+    """A served page against an expected [(id, score)]: scores within
+    RTOL, ids position by position, a run tied within RTOL as a set."""
+    gh = hits_of(got)
+    if len(gh) != len(want):
+        return False
+    if not all(np.isclose(g, w, rtol=RTOL, atol=1e-6) for (_, g), (_, w) in zip(gh, want)):
+        return False
+    return all({d for d, _ in gh[i:j]} == {d for d, _ in want[i:j]}
+               for i, j in tie_runs([s for _, s in want]))
+
+
+def node_rescore(http: Http) -> dict:
+    return http.ok("GET", "/_nodes/stats")["nodes"]["node-0"]["rescore"]
+
+
+def serve_rerank(srv, http: Http, clients_proc: ClientProcess, rc: dict, rows: dict) -> dict:
+    """Route (j), bench.py's `rag_rerank` served on the card: `/rerank`
+    (f32 token rows), `/rerank_int8` (`rerank.quantization: int8`) and
+    `/rerank_oracle` (numpy) over one 200,000-doc segment; RR_BODIES
+    bodies from 8 clients then 1, and the same bodies without `rescore`
+    (the first stage) on `/rerank`. f32 pages are held to the host
+    oracle's rescore of a first stage (the card's own, or the oracle
+    index's), int8 pages by recall@10 against the f32 ones; NDCG@10 of
+    the first stage and of the rescored pages against the true maxsim
+    ordering (bench.py's grades); the `rescore` block's counters."""
+    out = {}
+    for name, extra in (("rerank", {"search.backend": "torch"}),
+                        ("rerank_int8", {"search.backend": "torch", "rerank.quantization": "int8"}),
+                        ("rerank_oracle", {"search.backend": "numpy"})):
+        http.ok("PUT", f"/{name}", {"settings": {"number_of_shards": 1, "refresh_interval": "-1", **extra},
+                                    "mappings": rerank_mapping()})
+        install_segment(srv.cluster.get_index(name), rc["seg"])
+    bodies = [rerank_body(rc, i) for i in range(RR_BODIES)]
+    firsts = [rerank_body(rc, i, rescore=False) for i in range(RR_BODIES)]
+    # the first request of each index uploads its columns: set-up
+    t = time.perf_counter()
+    for path in ("/rerank", "/rerank_int8"):
+        http.ok("POST", f"{path}/_search", bodies[0])
+        http.ok("POST", f"{path}/_search", firsts[0])
+    out["first_requests_s"] = time.perf_counter() - t
+    served, counters = {}, {}
+    for clients in (CLIENTS, 1):
+        for route, path, bl in (("rag_rerank", "/rerank", bodies), ("rag_rerank_int8", "/rerank_int8", bodies),
+                                ("rag_first_stage", "/rerank", firsts)):
+            st0 = node_rescore(http)
+            served[(route, clients)], rows[f"{route}_{clients}_clients"] = drive_measured(
+                clients_proc, f"{path}/_search", bl, clients)
+            st1 = node_rescore(http)
+            d = {k: st1[k] - st0[k] for k in ("device_rescores", "host_rescores", "skipped", "fallbacks",
+                                               "batched_jobs")}
+            d["kernel_ms_per_rescore"] = ((st1["kernel_ms"] - st0["kernel_ms"]) / d["device_rescores"]
+                                          if d["device_rescores"] else None)
+            counters[f"{route}_{clients}_clients"] = d
+            log(f"{path} {route} x{len(bl)} from {clients} clients: {rows[f'{route}_{clients}_clients']} {d}")
+            if route != "rag_first_stage":
+                check(d["device_rescores"] == len(bl) and d["fallbacks"] == 0 and d["skipped"] == 0
+                      and d["batched_jobs"] == len(bl),
+                      f"{path}: rescore counters {d} for {len(bl)} bodies: not all reranked on the card")
+    out["counters"] = counters
+    # ---- f32 pages against the host oracle; int8 by recall ----
+    t = time.perf_counter()
+    modes = {"oracle_page": 0, "card_first_stage": 0}
+    recalls = []
+    for i in range(RR_BODIES):
+        deep = rerank_body(rc, i, rescore=False, size=RR_WINDOW)
+        oracle_page = http.ok("POST", "/rerank_oracle/_search", bodies[i])
+        for clients in (CLIENTS, 1):
+            got = served[("rag_rerank", clients)][i]
+            if same_rescored(hits_of(oracle_page), got):
+                modes["oracle_page"] += 1
+            else:
+                # the card's first stage may order BM25 scores tied within
+                # rtol otherwise (float atomics, ROADMAP queue 3), and so
+                # bring another candidate set: hold the rescore to the
+                # host oracle's blend over the card's own candidates
+                want = host_rescored_page(rc, i, http.ok("POST", "/rerank/_search", deep))
+                check(same_rescored(want, got),
+                      f"/rerank body {i} ({clients} clients): page {hits_of(got)} != host rescore {want}")
+                modes["card_first_stage"] += 1
+            recalls.append(recall_at(got, served[("rag_rerank_int8", clients)][i]))
+    out["f32_checks"] = modes
+    out["int8_recall_at_10"] = float(np.mean(recalls))
+    log(f"/rerank f32 pages: {modes}; /rerank_int8 recall@{K} {out['int8_recall_at_10']:.4f}")
+    check(out["int8_recall_at_10"] >= RR_INT8_RECALL,
+          f"/rerank_int8: recall@{K} {out['int8_recall_at_10']:.4f} < {RR_INT8_RECALL}")
+    # ---- NDCG@10 against the true maxsim order (bench.py's grades) ----
+    nd_first, nd_rerank, nd_int8 = [], [], []
+    for i in range(min(RR_EVAL, RR_BODIES)):
+        order = np.argsort(-true_maxsim(rc, i))[:200]
+        grades = {str(int(d)): (3 if r < 10 else 2 if r < 50 else 1) for r, d in enumerate(order)}
+        nd_first.append(ndcg_at_10([d for d, _ in hits_of(served[("rag_first_stage", 1)][i])], grades))
+        nd_rerank.append(ndcg_at_10([d for d, _ in hits_of(served[("rag_rerank", 1)][i])], grades))
+        nd_int8.append(ndcg_at_10([d for d, _ in hits_of(served[("rag_rerank_int8", 1)][i])], grades))
+    out["ndcg_at_10"] = {"first_stage": float(np.mean(nd_first)), "rescored_f32": float(np.mean(nd_rerank)),
+                         "rescored_int8": float(np.mean(nd_int8))}
+    out["check_s"] = time.perf_counter() - t
+    out["rescore_block"] = node_rescore(http)
+    cols = {}
+    for name in ("rerank", "rerank_int8"):
+        idx = srv.cluster.get_index(name)
+        cols[name] = sum(c["toks"].numel() * c["toks"].element_size()
+                         + (0 if c["scales"] is None else c["scales"].numel() * 4)
+                         for c in idx._executor(idx.shards[0])._rerank_columns.values() if c is not None)
+    out["token_row_bytes"] = cols
+    log(f"route (j): NDCG@10 {out['ndcg_at_10']}; token rows {cols} B; rescore block {out['rescore_block']}")
+    return out
+
+
+def rerank_group_fns(srv, rc: dict, device) -> tuple:
+    """(one batcher `rerank` group of CLIENTS jobs over `/rerank` and
+    `/rerank_int8`'s first-stage candidates, as callables; the group's
+    launch inputs, for the op timings)."""
+    from elasticsearch_tpu_torch.cluster.indices import _reader_locations
+    from elasticsearch_tpu_torch.models import rerank as rerank_model
+    from elasticsearch_tpu_torch.search import rescorer
+    from elasticsearch_tpu_torch.search.batcher import QueryBatcher
+
+    gb = QueryBatcher(workers=1)
+    gb._ensure_thread = lambda: None  # groups run on this thread
+    fns, launch = {}, {}
+    for name in ("rerank", "rerank_int8"):
+        idx = srv.cluster.get_index(name)
+        ex = idx._executor(idx.shards[0])
+        locs = _reader_locations(ex)
+        model = rerank_model.resolve_model(idx.mappings, idx.settings, "toks")
+        plans = []
+        for i in range(CLIENTS):
+            body = rerank_body(rc, i)
+            ranked = idx._run_retriever(body["retriever"], K, K, None, None)
+            cands = [(float(s), *locs[d]) for d, s in ranked]
+            plans.append(rescorer.build_plan(ex.reader, model, rescorer.parse_rescore(body), cands))
+
+        def group(ex=ex, plans=plans):
+            jobs = [gb.submit_nowait(ex, p, len(p.first), kind="rerank") for p in plans]
+            gb._collect_rerank_group(jobs, gb._dispatch_rerank_group(jobs, rows=CLIENTS))
+            check(all(j.result[0] == "ok" for j in jobs), "a rerank group did not run on the card")
+
+        fns[f"batcher_{name}_group_8"] = group
+        launch[name] = (ex, plans)
+    return fns, launch, gb
+
+
+def maxsim_inputs(ex, plans: list, rows: int):
+    """The device tensors one rerank group of `plans` launches with (the
+    batcher's staging, uploaded), and the column."""
+    from elasticsearch_tpu_torch.ops.scoring import upload
+
+    col = ex.rerank_column(plans[0].model)
+    p0 = plans[0]
+    dev = col["starts"].device
+    qtoks = np.zeros((rows, p0.qb, col["dims"]), np.float32)
+    qvalid = np.zeros((rows, p0.qb), bool)
+    docs = np.zeros((rows, p0.wb), np.int32)
+    first = np.full((rows, p0.wb), -np.inf, np.float32)
+    valid = np.zeros((rows, p0.wb), bool)
+    for r, p in enumerate(plans):
+        qtoks[r, : len(p.qtoks)] = p.qtoks
+        qvalid[r, : len(p.qtoks)] = True
+        docs[r, : len(p.first)] = p.gdocs
+        first[r, : len(p.first)] = p.first
+        valid[r, : len(p.first)] = True
+    return col, [upload(a, dev) for a in (qtoks, qvalid, docs, first, valid)]
+
+
+def maxsim_row(name: str, col: dict, t: list, window: int, real: dict, device) -> dict:
+    """`maxsim_candidates` + `blend_and_sort` timed alone (CUDA events)
+    on one group's device inputs, beside its bound: the bytes the real
+    candidates need (their token rows — and int8 scales — read once, the
+    query rows, each candidate's bounds and first-stage score, the packed
+    result written once) over the memory rate, and their FLOP
+    (2·Qt·T·d per candidate and query token) over the float32 rate."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops import rerank as rerank_ops
+
+    qtoks, qvalid, docs, first, valid = t
+    weights = torch.tensor([1.0, 1.0], dtype=torch.float32, device=docs.device)
+
+    def op():
+        msim = rerank_ops.maxsim_candidates(qtoks, qvalid, col["starts"], col["counts"], col["toks"],
+                                            col["scales"], docs, col["tmax"])
+        return rerank_ops.blend_and_sort(msim, first, valid, weights, window)
+
+    ms = device_ms(op, device)
+    dev_ms = op_device_ms(op, device)
+    nbytes = (real["tokens"] * (col["dims"] * col["toks"].element_size() + (4 if col["scales"] is not None else 0))
+              + real["qrows"] * col["dims"] * 4 + real["cands"] * (4 + 4 + 4 + 4 + 1)
+              + real["cands"] * 8)
+    flops = 2 * real["qtok_dots"] * col["dims"]
+    byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    flop_ms = flops / PEAK_F32_FLOPS * 1e3
+    bound_ms = max(byte_ms, flop_ms)
+    row = {"op": "ops/rerank.py maxsim_candidates + blend_and_sort", "shape": name, "ms": ms,
+           "device_ms": dev_ms, "bytes": int(nbytes), "flops": int(flops), "bound_ms": bound_ms,
+           "bound_by": "bytes" if byte_ms >= flop_ms else "operations", "bound_share": bound_ms / ms,
+           "device_bound_share": bound_ms / dev_ms if dev_ms else None,
+           "gathered_f32_bytes": int(docs.numel() * col["tmax"] * col["dims"] * 4)}
+    log(f"plain op maxsim ({name}): {ms:.4f} ms (kernels {dev_ms}), bound {bound_ms:.4f} ms "
+        f"({row['bound_by']}; {nbytes} B, {flops} FLOP), share {row['bound_share']:.3f}")
+    return row
+
+
+def op_device_ms(fn, device):
+    """The device time of one call of `fn`: its kernels and copies summed
+    from a profile (CUDA-event times of a launch-bound op are host
+    time); None off the card."""
+    if device.type != "cuda":
+        return None
+    return profile_routes({"op": fn}, device)["op"]["device_us"] / 1e3
+
+
+def rerank_op_rows(launch: dict, device) -> list:
+    """The maxsim op at route (j)'s shape (f32 and int8, one group of
+    CLIENTS jobs) and at ColBERT's published widths (B 8, W 128, a
+    10,000-doc synthetic f32 column, every doc 180 token rows, 32 query
+    token rows)."""
+    import torch
+
+    rows = []
+    for name, (ex, plans) in launch.items():
+        col, t = maxsim_inputs(ex, plans, len(plans))
+        cands = sum(len(p.first) for p in plans)
+        real = {"cands": cands, "tokens": cands * RR_TOKENS, "qrows": sum(len(p.qtoks) for p in plans),
+                "qtok_dots": sum(len(p.first) * len(p.qtoks) * RR_TOKENS for p in plans)}
+        rows.append(maxsim_row(f"route (j) {name}: B {len(plans)}, W {plans[0].wb}, Qt {RR_QTOKENS}, "
+                               f"T {RR_TOKENS}, d {RR_DIMS}", col, t, plans[0].win_static, real, device))
+    g = torch.Generator(device=device)
+    g.manual_seed(7)
+    rng = np.random.default_rng(7)
+    b, w = CLIENTS, 128
+    n_tok = COLBERT_DOCS * COLBERT_DLEN
+    col = {"starts": torch.arange(0, n_tok, COLBERT_DLEN, dtype=torch.int32, device=device),
+           "counts": torch.full((COLBERT_DOCS,), COLBERT_DLEN, dtype=torch.int32, device=device),
+           "toks": torch.randn(n_tok + COLBERT_DLEN, COLBERT_DIMS, generator=g, device=device),
+           "scales": None, "tmax": COLBERT_DLEN, "dims": COLBERT_DIMS}
+    docs = np.stack([rng.choice(COLBERT_DOCS, size=w, replace=False) for _ in range(b)]).astype(np.int32)
+    first = -np.sort(-rng.normal(size=(b, w)).astype(np.float32), axis=1)
+    t = [torch.randn(b, COLBERT_QLEN, COLBERT_DIMS, generator=g, device=device),
+         torch.ones(b, COLBERT_QLEN, dtype=torch.bool, device=device),
+         torch.from_numpy(docs).to(device), torch.from_numpy(first).to(device),
+         torch.ones(b, w, dtype=torch.bool, device=device)]
+    real = {"cands": b * w, "tokens": b * w * COLBERT_DLEN, "qrows": b * COLBERT_QLEN,
+            "qtok_dots": b * w * COLBERT_QLEN * COLBERT_DLEN}
+    rows.append(maxsim_row(f"ColBERT widths: B {b}, W {w}, Qt {COLBERT_QLEN}, T {COLBERT_DLEN}, "
+                           f"d {COLBERT_DIMS}, {COLBERT_DOCS} docs, f32", col, t, w, real, device))
+    del col, t
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# route (k): the remaining query nodes on /bench
+# ---------------------------------------------------------------------------
+
+NODE_COUNTS = {"match_phrase": 32, "prefix": 32, "fuzzy": 16, "wildcard": 16, "bool_phrase_filter": 16}
+
+
+def node_bodies(phrase_pairs: np.ndarray, term_df: np.ndarray, seed: int) -> dict:
+    """Route (k)'s bodies: `match_phrase` over adjacent term pairs of real
+    docs (each term's df in PHRASE_DF), `prefix` (5 characters: 10
+    terms), `fuzzy` (a term with its last digit changed, 1 edit, prefix
+    length 3), `wildcard` (one `?`: 10 terms) and a `bool` whose filter
+    is a phrase and whose `must` matches the phrase's first term."""
+    rng = np.random.default_rng(seed + 29)
+    check(len(phrase_pairs) >= NODE_COUNTS["match_phrase"],
+          f"only {len(phrase_pairs)} adjacent pairs with df in {PHRASE_DF}")
+    picks = phrase_pairs[rng.choice(len(phrase_pairs), size=NODE_COUNTS["match_phrase"], replace=False)]
+    phrases = [f"w{a:05d} w{b:05d}" for a, b in picks]
+    mid = np.argsort(-term_df)[100:5000]
+    terms = [f"w{int(t):05d}" for t in rng.choice(mid, size=64, replace=False)]
+    out = {
+        "match_phrase": [{"query": {"match_phrase": {"body": p}}, "size": K} for p in phrases],
+        "prefix": [{"query": {"prefix": {"body": t[:5]}}, "size": K} for t in terms[:32]],
+        "fuzzy": [{"query": {"fuzzy": {"body": {"value": t[:-1] + str((int(t[-1]) + 1) % 10), "fuzziness": 1,
+                                                "prefix_length": 3}}}, "size": K} for t in terms[32:48]],
+        "wildcard": [{"query": {"wildcard": {"body": t[:4] + "?" + t[5]}}, "size": K} for t in terms[48:64]],
+        "bool_phrase_filter": [{"query": {"bool": {"must": [{"match": {"body": p.split()[0]}}],
+                                                   "filter": [{"match_phrase": {"body": p}}]}}, "size": K}
+                               for p in phrases[:16]],
+    }
+    return out
+
+
+def serve_nodes(http: Http, clients_proc: ClientProcess, phrase_pairs, term_df, seed: int, rows: dict) -> dict:
+    """Route (k) on `/bench` (1M docs, `body` with positions): each
+    family of node_bodies from 8 clients then 1, held to `/bench_oracle`;
+    the phrase routes the executor took (the device conjunction and the
+    host position verify, or the oracle's route for a segment without
+    positions), the conjunction's candidates and the verify's wall."""
+    from elasticsearch_tpu_torch.search import executor_torch
+
+    bodies = node_bodies(phrase_pairs, term_df, seed)
+    out, phrase = {}, {}
+    for fam, bl in bodies.items():
+        served = {}
+        for clients in (CLIENTS, 1):
+            p0 = dict(executor_torch.PHRASE_STATS)
+            served[clients], rows[f"{fam}_{clients}_clients"] = drive_measured(
+                clients_proc, "/bench/_search", bl, clients)
+            p1 = dict(executor_torch.PHRASE_STATS)
+            d = {k: p1[k] - p0[k] for k in p1}
+            if d["conjunction"]:
+                d["candidates_per_phrase"] = d["candidates"] / d["conjunction"]
+                d["verify_ms_per_phrase"] = d["verify_s"] * 1e3 / d["conjunction"]
+            phrase[f"{fam}_{clients}_clients"] = d
+            log(f"/bench {fam} x{len(bl)} from {clients} clients: {rows[f'{fam}_{clients}_clients']} phrase {d}")
+            # a phrase filter is computed once, then the filter-bitset
+            # cache answers it: only its first drive runs the phrases
+            if fam == "match_phrase" or (fam == "bool_phrase_filter" and clients == CLIENTS):
+                check(d["conjunction"] >= len(bl) and d["oracle"] == 0,
+                      f"/bench {fam}: phrase routes {d}: not every phrase took the device conjunction")
+        hits = 0
+        for i, body in enumerate(bl):
+            ref = http.ok("POST", "/bench_oracle/_search", body)
+            hits += len(ref["hits"]["hits"])
+            for clients in (CLIENTS, 1):
+                same_served(ref, served[clients][i], f"/bench {fam} body {i} ({clients} clients)")
+        check(hits > 0, f"/bench {fam}: no body matched anything")
+        out[fam] = {"bodies": len(bl), "oracle_hits": hits}
+    out["phrase"] = phrase
+    return out
+
+
+def phrase_conjunction_row(srv, phrase_pairs, term_df, seed: int, device) -> dict:
+    """`_exec_phrase`'s device conjunction (`_exec_match`, operator and)
+    for one route (k) phrase on the 1M-doc segment, timed alone, beside
+    its byte bound: the two terms' tiles (doc ids and tfs) and each
+    posting's norm read once, the [n] mask and scores written once."""
+    from elasticsearch_tpu_torch.search.dsl import MatchQuery
+
+    bench = srv.cluster.get_index("bench")
+    ex = bench._executor(bench.shards[0])
+    text = node_bodies(phrase_pairs, term_df, seed)["match_phrase"][0]["query"]["match_phrase"]["body"]
+    q = MatchQuery(field="body", query=text, operator="and")
+    ms = device_ms(lambda: ex._exec_match(q, 0), device)
+    dev_ms = op_device_ms(lambda: ex._exec_match(q, 0), device)
+    pf = ex.reader.segments[0].postings["body"]
+    n = ex.reader.segments[0].num_docs
+    tids = [pf.term_id(t) for t in text.split()]
+    tiles = sum(int(pf.term_tile_count[t]) for t in tids)
+    slots = sum(int(pf.term_df[t]) for t in tids)
+    nbytes = tiles * 128 * 8 + slots * 4 + n * 5
+    bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    row = {"op": "executor_torch._exec_phrase conjunction (_exec_match, operator and)",
+           "shape": f"1 phrase, 2 terms, {tiles} tiles, {n} docs", "ms": ms, "device_ms": dev_ms,
+           "bytes": nbytes, "bound_ms": bound_ms, "bound_by": "bytes", "bound_share": bound_ms / ms,
+           "device_bound_share": bound_ms / dev_ms if dev_ms else None}
+    log(f"plain op phrase conjunction: {ms:.4f} ms (kernels {dev_ms}), bound {bound_ms:.4f} ms ({nbytes} B)")
+    return row
+
+
 def node_query_cache(http: Http) -> dict:
     return http.ok("GET", "/_nodes/stats")["nodes"]["node-0"]["indices"]["query_cache"]
 
@@ -2470,7 +3033,7 @@ def run(device, seed: int, n_docs: int, vocab: int, dims: int, card: str) -> dic
     phases["1_build_s"] = time.perf_counter() - t
 
     t = time.perf_counter()
-    reader, vecs = build_corpus(seed, n_docs, vocab, dims)
+    reader, vecs, phrase_pairs = build_corpus(seed, n_docs, vocab, dims)
     oracle = NumpyExecutor(reader)
     qv = QuantizedVectors(vecs, similarity="cosine", device=device)
     phases["corpus_s"] = time.perf_counter() - t
@@ -2511,7 +3074,10 @@ def run(device, seed: int, n_docs: int, vocab: int, dims: int, card: str) -> dic
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     t = time.perf_counter()
-    serve = phase_serve(reader, vecs.shape[1], seed, device, card, ann_reader, ann_q)
+    rc = build_rerank_corpus(seed, min(RR_DOCS, n_docs))
+    phases["rerank_corpus_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    serve = phase_serve(reader, vecs.shape[1], seed, device, card, ann_reader, ann_q, rc, phrase_pairs)
     phases["4_serve_s"] = time.perf_counter() - t
     peaks["phase_4"] = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
     peak = max(peaks.values()) if device.type == "cuda" else None

@@ -11,8 +11,11 @@ finds each counterpart under the same relative path:
 
   utils/, analysis/, index/, models/, common/, tasks/, ingest/,
   plugins.py, search/{dsl,executor,admission,aggs,coordinator,
-  failures,query_cache,ann}.py, rest/router.py
-                       host-side copies (numpy / pure Python)
+  failures,query_cache,ann,rescorer}.py, rest/router.py
+                       host-side copies (numpy / pure Python);
+                       models/rerank.py is the rerank model registry and
+                       its host maxsim oracle, search/rescorer.py the
+                       `rescore` phase's parsing, plans and host blend
   ops/scoring.py       BM25 tile scoring, single- and multi-field fused
                        scorers, chunked scorer, cross-segment merges, kNN
   ops/fusion.py        reciprocal-rank fusion of hybrid legs
@@ -22,9 +25,10 @@ finds each counterpart under the same relative path:
   ops/ivf.py           IVF ANN: seeded k-means on the device, probed search
   ops/impact.py, ops/agg_kernels.py
                        learned-sparse impact tiles; device aggregations
+  ops/rerank.py        late-interaction (maxsim) rescore of a window
   search/executor_torch.py   TorchExecutor (counterpart of JaxExecutor)
-  search/batcher.py    QueryBatcher: the match, serve, knn, sparse and agg
-                       families
+  search/batcher.py    QueryBatcher: the match, serve, knn, sparse, agg and
+                       rerank families
   cluster/, rest/      IndexService, ClusterService, the REST server
   cuts.py              what is not ported yet, and which slice brings it
   convert.py           carries segments / quantized corpora across

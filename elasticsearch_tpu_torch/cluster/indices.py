@@ -29,9 +29,12 @@ QueryBatcher; ``numpy`` selects the NumpyExecutor oracle. Retrievers
 and ``rank: {rrf}`` run their legs concurrently and fuse on the card
 (ops/fusion.py) when every leg rode the batcher. A single numeric sort
 key collects on the card (rank columns); other sorts take the oracle's
-host route, as in the reference. Paths whose modules are not ported yet
-(rescore, highlight, scripts, the mesh, on-disk shards) raise, naming
-the slice that brings them (see cuts.py).
+host route, as in the reference. A `rescore` runs between the merge
+and the fetch: on the card through the batcher's `rerank` family for a
+shard's page or a one-shard index's fused candidates, else through the
+host oracle. Paths whose modules are not ported yet (highlight,
+scripts, the mesh, on-disk shards) raise, naming the slice that brings
+them (see cuts.py).
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ from ..analysis import AnalysisRegistry
 from ..common.faults import faults
 from ..common.slowlog import FETCH_ACC, SearchSlowLog
 from ..common.tracing import OPAQUE_ID_CTX, TRACE_CTX
-from ..cuts import FETCH, MESH, RERANK, not_ported
+from ..cuts import FETCH, MESH, not_ported
 from ..index.engine import OpResult, ShardEngine, VersionConflictError
 from ..index.mapping import Mappings
 from ..search import dsl
@@ -1515,6 +1518,33 @@ class IndexService:
 
                 PROFILE_CTX.reset(prof_token)
 
+        # ---- rescore phase (search/rescorer.py): second-stage
+        # late-interaction reranking of the top window_size candidates,
+        # BETWEEN merge and fetch — on the torch backend the maxsim
+        # rides the batcher's `rerank` job family over the device-
+        # resident rank_vectors column (one launch + one packed download
+        # per group); sources are fetched only for the re-sorted page ----
+        if (
+            "rescore" in body
+            and sort_specs is None
+            and td is not None
+            and td.hits
+        ):
+            from ..search import rescorer
+
+            rescore_spec = rescorer.parse_rescore(body, validate_size=False)
+            if rescore_spec is not None:
+                t_resc = time.perf_counter_ns()
+                td = self._apply_rescore(
+                    ex, rescore_spec, td, sid, shard_deadline, task,
+                    prof=prof_phases,
+                )
+                if prof_phases is not None:
+                    prof_phases["rescore_ns"] = (
+                        prof_phases.get("rescore_ns", 0)
+                        + time.perf_counter_ns() - t_resc
+                    )
+
         # ---- folded fetch phase: sources + highlight for this shard's
         # candidates (FetchPhase, SURVEY.md §3.3) ----
         _check_shard_deadline()
@@ -2279,9 +2309,19 @@ class IndexService:
         if "retriever" in body:
             _validate_sparse_fields(body.get("retriever"), self.mappings)
         if "rescore" in body:
-            # also inside a retriever: the second stage over the fused
-            # candidates is the same rescorer
-            raise not_ported("rescore (search/rescorer.py)", RERANK)
+            from ..search import rescorer
+
+            # coordinator-side request validation (KnnSearchBuilder
+            # style): malformed rescore elements 400 here, before any
+            # shard work
+            rescorer.parse_rescore(body)
+            if pinned_executors is not None:
+                # QueryRescorer parity: rescore over a scroll / PIT
+                # context is a request error, not a server-side one
+                raise dsl.QueryParseError(
+                    "Cannot use [rescore] option in conjunction with "
+                    "[scroll] or a point in time."
+                )
         if "retriever" in body:
             return self._retriever_search(body, extra_filter), None, []
         rank = body.get("rank")
@@ -2493,6 +2533,186 @@ class IndexService:
 
     # ---- hybrid retrieval: the retriever tree, concurrent legs, RRF ----
 
+    def _rerank_job(self, ex, plan, n, mode, deadline=None, sid=None,
+                     task=None, prof=None):
+        """Runs one rerank job through the batcher's `rerank` family and
+        returns (scores, perm, kernel_ms), or None when the first-stage
+        order stands. The degrade contract, narrower than the
+        reference's (which keeps the first stage on ANY failure): an
+        injected `rerank.score` fault or a batcher closed under the
+        request counts `fallbacks`; a column over the device-memory
+        budget counts `skipped` (an error under ES_TPU_RERANK=force).
+        Timeout, task cancel and 429 keep their request semantics, and
+        any other error — a failed launch on the card — fails the
+        request."""
+        from ..common.faults import InjectedFault
+        from ..models import rerank as rerank_model
+        from ..search.batcher import QueryBatcher
+
+        try:
+            job = self._batcher.submit_nowait(
+                ex, plan, n, kind="rerank", deadline=deadline, prof=prof,
+            )
+            if sid is None:
+                got = QueryBatcher.wait(job)
+            else:
+                got = self._wait_batched(job, sid, deadline, task)
+        except InjectedFault:
+            rerank_model.note("fallbacks")
+            return None
+        except RuntimeError:
+            if not self._batcher._closed:
+                raise
+            rerank_model.note("fallbacks")
+            return None
+        tag, scores, perm, kernel_ms = got
+        if tag != "ok":
+            if mode == "force":
+                raise RuntimeError(
+                    "[rescore] rerank column unavailable under "
+                    "ES_TPU_RERANK=force"
+                )
+            rerank_model.note("skipped")
+            return None
+        return scores, perm, kernel_ms
+
+    def _rerank_model(self, spec):
+        from ..models import rerank as rerank_model
+
+        model = rerank_model.resolve_model(self.mappings, self.settings, spec.field)
+        if model is None:
+            raise dsl.QueryParseError(
+                f"[rescore] field [{spec.field}] is not mapped as "
+                "[rank_vectors]"
+            )
+        return model
+
+    def _apply_rescore(self, ex, spec, td, sid, shard_deadline, task,
+                       prof=None):
+        """Applies one shard's rescore phase to its first-stage
+        TopDocs: the numpy backend takes the host float oracle, the
+        torch backend the batcher's `rerank` family (ops/rerank.py),
+        under `_rerank_job`'s degrade contract. ES_TPU_RERANK=off keeps
+        the first-stage order (counted `skipped`)."""
+        from ..common.settings import rerank_mode
+        from ..models import rerank as rerank_model
+        from ..search import rescorer
+
+        model = self._rerank_model(spec)
+        mode = rerank_mode()
+        if mode == "off":
+            rerank_model.note("skipped")
+            return td
+        if isinstance(ex, NumpyExecutor):
+            # the numpy backend IS the float oracle
+            return rescorer.host_rescore_topdocs(ex.reader, model, spec, td)
+        plan = rescorer.build_plan(
+            ex.reader, model, spec,
+            [(h.score, h.segment, h.local_doc) for h in td.hits],
+        )
+        got = self._rerank_job(ex, plan, len(td.hits), mode, shard_deadline,
+                               sid, task, prof)
+        if got is None:
+            return td
+        scores, perm, kernel_ms = got
+        rerank_model.note_rescore(
+            min(spec.window_size, len(td.hits)), device=True,
+            kernel_ms=kernel_ms,
+        )
+        return rescorer.apply_perm_to_topdocs(td, scores, perm)
+
+    def _rescore_ranked(
+        self, spec, ranked: List[tuple], pins=None, prof=None
+    ) -> List[tuple]:
+        """Rescore phase for the retriever/rrf coordinator path over a
+        fused ranked [(doc_id, score)] list. A single local torch shard
+        reranks on the card; everything else — multi-shard, numpy —
+        takes the host oracle, as in the reference. Same degrade
+        contract as `_apply_rescore`.
+
+        Candidates map to (segment, doc) through the PINNED reader's
+        own location table (`_reader_locations`), never the live
+        engine's `_locations` — a refresh landing between the legs and
+        the rescore would otherwise point fused doc ids at local docs
+        of a DIFFERENT generation (wrong token rows rescored)."""
+        import numpy as np
+
+        from ..common.settings import rerank_mode
+        from ..models import rerank as rerank_model
+        from ..search import rescorer
+        from ..search.executor_torch import TorchExecutor
+
+        model = self._rerank_model(spec)
+        mode = rerank_mode()
+        if mode == "off":
+            rerank_model.note("skipped")
+            return ranked
+        window = min(int(spec.window_size), len(ranked))
+        # device path: one local torch shard → the fused candidates keep
+        # exact (segment, doc) identity via the pinned reader's locations
+        if (
+            self.routing is None
+            and self.num_shards == 1
+            and str(self.settings.get("search.backend")) == "torch"
+        ):
+            try:
+                ex = pins[0] if pins else self._executor(self.local_shard(0))
+            except KeyError:
+                ex = None
+            if ex is not None and isinstance(ex, TorchExecutor):
+                locs = _reader_locations(ex)
+                cands = []
+                for doc_id, score in ranked:
+                    loc = locs.get(doc_id)
+                    if loc is None:
+                        cands = None
+                        break
+                    cands.append((float(score), int(loc[0]), int(loc[1])))
+                if cands is not None:
+                    plan = rescorer.build_plan(ex.reader, model, spec, cands)
+                    got = self._rerank_job(ex, plan, len(cands), mode, prof=prof)
+                    if got is None:
+                        return ranked
+                    scores, perm, kernel_ms = got
+                    rerank_model.note_rescore(window, device=True, kernel_ms=kernel_ms)
+                    out = []
+                    for s, p in zip(scores, perm):
+                        if not np.isfinite(s):
+                            break
+                        out.append((ranked[int(p)][0], float(s)))
+                    return out
+        # host oracle path (multi-shard / numpy backend)
+        qtoks = rerank_model.prepare_query_vectors(
+            spec.query_vectors, model.dims, model.similarity
+        )
+        blended = []
+        for doc_id, score in ranked[:window]:
+            msim = 0.0
+            try:
+                sid = route_shard_id(doc_id, self.num_shards)
+                if pins and sid < len(pins) and not isinstance(pins[sid], dict):
+                    px = pins[sid]
+                else:
+                    px = self._executor(self.local_shard(sid))
+                loc = _reader_locations(px).get(doc_id)
+                if loc is not None:
+                    mvf = px.reader.segments[loc[0]].multi_vectors.get(model.field)
+                    if mvf is not None:
+                        s0 = int(mvf.tok_offsets[loc[1]])
+                        s1 = int(mvf.tok_offsets[loc[1] + 1])
+                        msim = rerank_model.host_maxsim(qtoks, mvf.tok_vectors[s0:s1])
+            except KeyError:
+                pass  # shard not local: candidate keeps first stage
+            blended.append(
+                float(
+                    np.float32(spec.query_weight) * np.float32(score)
+                    + np.float32(spec.rescore_query_weight) * np.float32(msim)
+                )
+            )
+        order = sorted(range(window), key=lambda i: (-blended[i], i))
+        rerank_model.note_rescore(window, device=False)
+        return [(ranked[i][0], blended[i]) for i in order] + list(ranked[window:])
+
     def _retriever_search(
         self, body: dict, extra_filter: Optional[dict] = None
     ) -> dict:
@@ -2533,6 +2753,16 @@ class IndexService:
             body["retriever"], window, size, extra_filter, pins, prof_out=prof
         )
         m_retr = time.perf_counter_ns()
+        if "rescore" in body and ranked:
+            from ..search import rescorer
+
+            rescore_spec = rescorer.parse_rescore(body)
+            if rescore_spec is not None:
+                # second stage over the FUSED candidates (the RAG shape:
+                # filtered hybrid retrieval → rerank → fetch); sources
+                # are fetched below, after the window re-sort
+                ranked = self._rescore_ranked(rescore_spec, ranked, pins, prof=prof)
+        m_resc = time.perf_counter_ns()
         page = ranked[from_ : from_ + size]
         from ..search.executor import filter_source
 
@@ -2548,7 +2778,7 @@ class IndexService:
         m_fetch = time.perf_counter_ns()
         acc = FETCH_ACC.get()
         if acc is not None:
-            acc["fetch_ns"] += m_fetch - m_retr
+            acc["fetch_ns"] += m_fetch - m_resc
         took = int((time.perf_counter() - t0) * 1000)
         tr = TRACE_CTX.get()
         if tr is not None:
@@ -2556,7 +2786,8 @@ class IndexService:
                 "retriever_search", tns, m_fetch, index=self.name, took_ms=took,
             )
             tr.add_span("retriever", tns, m_retr, parent_id=root)
-            tr.add_span("fetch", m_retr, m_fetch, parent_id=root)
+            tr.add_span("rescore", m_retr, m_resc, parent_id=root)
+            tr.add_span("fetch", m_resc, m_fetch, parent_id=root)
         n = self.num_shards
         resp = {
             "took": took,
@@ -2573,8 +2804,8 @@ class IndexService:
                 "coordinator": {
                     "phases": {
                         "retriever_ns": m_retr - tns,
-                        "rescore_ns": 0,
-                        "fetch_ns": m_fetch - m_retr,
+                        "rescore_ns": m_resc - m_retr,
+                        "fetch_ns": m_fetch - m_resc,
                     },
                     "took_ns": m_fetch - tns,
                 },

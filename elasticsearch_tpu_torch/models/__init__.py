@@ -1,3 +1,3 @@
-from . import bm25, similarity
+from . import bm25, rerank, similarity
 
-__all__ = ["bm25", "similarity"]
+__all__ = ["bm25", "rerank", "similarity"]

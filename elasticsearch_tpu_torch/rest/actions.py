@@ -693,6 +693,14 @@ class RestActions:
         from ..search.ann import stats_snapshot as ann_stats
 
         knn_block = {"ann": ann_stats()}
+        # second-stage reranking counters (models/rerank.py):
+        # device/host rescores, degrade-to-skip and first-stage
+        # fallbacks, maxsim wall time, the window-size histogram, and
+        # the `rerank` ledger bytes
+        from ..models.rerank import stats_snapshot as rescore_stats
+
+        rescore_block = rescore_stats()
+        rescore_block["batched_jobs"] = sum(b.stats.get("rerank_jobs", 0) for b in batchers)
         # write-path durability counters (index/translog.py): live
         # uncommitted WAL state aggregated over local shards, plus the
         # process-wide hygiene/recovery counters (torn tails truncated,
@@ -789,6 +797,7 @@ class RestActions:
                     "pipeline": pipeline,
                     "aggs": aggs_block,
                     "knn": knn_block,
+                    "rescore": rescore_block,
                     "sparse": sparse_block,
                     "translog": translog_block,
                     "ingest": ingest_block,

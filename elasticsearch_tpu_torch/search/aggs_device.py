@@ -1155,8 +1155,9 @@ class DeviceAggPlan:
         """Launches all device work (query masks + bucket scatters)
         WITHOUT host sync; ``collect`` downloads and builds partials.
         The ``aggs.collect`` fault site fires here so an injected error
-        surfaces through the batcher to the shard's host route. A query
-        node the port does not serve yet raises here (cuts.NODES)."""
+        surfaces through the batcher to the shard's host route. A script
+        query node raises here, naming the slice that brings scripts
+        (cuts.FETCH)."""
         faults.check("aggs.collect", index=self.index, shard=self.sid)
         ex = self.ex
         t0 = time.perf_counter()

@@ -47,13 +47,14 @@ with `knn.type: ivf`; the device-side num_candidates merge, one packed
 download), `sparse` (bare `sparse_vector` bodies: per
 segment phase A on each term's first impact tile, one theta download,
 the kept tiles into a fresh accumulator, one device-side merge and one
-packed download; ops/impact.py) and `agg` (compiled device aggregation
-plans, search/aggs_device.py). Group inputs reach the card through
+packed download; ops/impact.py), `agg` (compiled device aggregation
+plans, search/aggs_device.py) and `rerank` (the rescore phase's maxsim
+over a window of first-stage candidates, ops/rerank.py: one launch and
+one packed download per group). Group inputs reach the card through
 asynchronous pinned uploads (ops/scoring.upload), and per-doc masks are
 the executor's device-resident live ∧ exists tensors, so a dispatch
-never waits for the device. The reference's `rerank` and `mesh_*`
-families are not ported yet: their bodies reach `TorchExecutor.search`,
-which raises naming the slice that brings them.
+never waits for the device. The reference's `mesh_*` families are not
+ported yet (ROADMAP queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -570,6 +571,10 @@ class QueryBatcher:
             # riding the dispatch/collect pipeline as impact-tile
             # launches with block-max pruning)
             "sparse_jobs": 0,
+            # second-stage rerank job family (rescore bodies riding the
+            # dispatch/collect pipeline as maxsim launches between
+            # merge and fetch)
+            "rerank_jobs": 0,
         }
         # per-bucket launch histogram + occupancy sums (guarded by
         # self._lock; surfaced via batching_stats() → _nodes/stats):
@@ -586,7 +591,7 @@ class QueryBatcher:
         self._warm_inflight = 0
         # family → groups currently dispatched-but-not-collected,
         # across ALL workers (guarded by self._lock)
-        self._inflight = {"text": 0, "knn": 0, "agg": 0, "sparse": 0}
+        self._inflight = {"text": 0, "knn": 0, "agg": 0, "sparse": 0, "rerank": 0}
         # per-device roofline accounting (straggler visibility): device
         # id → [inflight_groups, busy_t0, busy_s, flops]; every group
         # runs on the executor's one card, device 0 (guarded by
@@ -655,7 +660,7 @@ class QueryBatcher:
         at dequeue instead of dispatched dead."""
         if self._closed:
             raise RuntimeError("query batcher closed")
-        if kind not in ("match", "serve", "knn", "sparse", "agg"):
+        if kind not in ("match", "serve", "knn", "sparse", "agg", "rerank"):
             # the reference's other families are not ported (see the
             # module docstring); their plans never reach a port batcher
             raise ValueError(f"unknown batcher job kind [{kind}]")
@@ -879,6 +884,11 @@ class QueryBatcher:
                     # the key so int8 and fp32 servings of one field
                     # never share a launch
                     key = (id(j.executor), "v", j.plan.field, j.plan.spec, kb)
+                elif j.kind == "rerank":
+                    # second-stage rerank family: jobs share a maxsim
+                    # launch when model, padded window/query-token
+                    # shapes, static window, and blend weights agree
+                    key = (id(j.executor), "r", j.plan.sig, kb)
                 else:  # knn (exact and IVF-probed jobs never share;
                     # kb stays LAST — dispatch reads it as key[-1])
                     key = (id(j.executor), "k", j.plan.field, j.plan.ann, kb)
@@ -888,7 +898,7 @@ class QueryBatcher:
             )
             for key, jobs in ordered:
                 kind, kb = key[1], key[-1]
-                fam = {"k": "knn", "a": "agg", "v": "sparse"}.get(kind, "text")
+                fam = {"k": "knn", "a": "agg", "v": "sparse", "r": "rerank"}.get(kind, "text")
                 # pad-bucket ladder: the group's launch width is the
                 # smallest bucket covering its occupancy
                 rows = bucket_for(len(jobs), self.buckets)
@@ -962,6 +972,17 @@ class QueryBatcher:
                             self._prof_mark(jobs, rows, t_prof, now,
                                             express)
                         self._maybe_warm(key, jobs, kb, rows)
+                    elif kind == "r":
+                        self._record_bucket(rows, len(jobs))
+                        ctx.pending.append(
+                            (key, jobs, fam,
+                             self._dispatch_rerank_group(jobs, rows=rows),
+                             dev_ids)
+                        )
+                        dispatched = True
+                        if prof_on:
+                            self._prof_mark(jobs, rows, t_prof, now,
+                                            express)
                     else:  # "k"
                         self._record_bucket(rows, len(jobs))
                         ctx.pending.append(
@@ -1018,6 +1039,8 @@ class QueryBatcher:
                         self._collect_agg_group(jobs, pend)
                     elif kind == "v":
                         self._collect_sparse_group(jobs, key[-1], pend)
+                    elif kind == "r":
+                        self._collect_rerank_group(jobs, pend)
                     else:
                         self._collect_knn_group(jobs, pend)
                     if prof_on:
@@ -1834,6 +1857,80 @@ class QueryBatcher:
                 max_score=hits[0].score if hits else None,
                 relation=relation,
             )
+            j.event.set()
+
+    def _dispatch_rerank_group(self, jobs: List[_Job],
+                               rows: Optional[int] = None) -> Tuple:
+        """Launches one maxsim rescore (ops/rerank.py) for a group of
+        same-sig rerank jobs (search/rescorer.RerankPlan) WITHOUT host
+        sync; the one packed download happens at collect. The
+        `rerank.score` fault site fires here: an injected fault surfaces
+        to exactly this group's waiters, whose requests then keep their
+        first-stage ranking. A column over the device-memory budget
+        (None) completes the group with a "skip" marker instead of
+        device work. Any other error reaches the waiters as it is."""
+        from ..ops import rerank as rerank_ops
+
+        ex = jobs[0].executor
+        plan0 = jobs[0].plan
+        nj = len(jobs)
+        rows = rows or BPAD
+        faults.check("rerank.score", field=plan0.field, jobs=nj)
+        col = ex.rerank_column(plan0.model)
+        if col is None:
+            return ("skip", None, 0.0)
+        wb, qb = plan0.wb, plan0.qb
+        dims = col["dims"]
+        qtoks = np.zeros((rows, qb, dims), np.float32)
+        qvalid = np.zeros((rows, qb), bool)
+        docs = np.zeros((rows, wb), np.int32)
+        first = np.full((rows, wb), -np.inf, np.float32)
+        valid = np.zeros((rows, wb), bool)
+        for ji, j in enumerate(jobs):
+            p = j.plan
+            qtoks[ji, : len(p.qtoks)] = p.qtoks
+            qvalid[ji, : len(p.qtoks)] = True
+            w = len(p.first)
+            docs[ji, :w] = p.gdocs.astype(np.int32)
+            first[ji, :w] = p.first
+            valid[ji, :w] = True
+        t0 = time.perf_counter()
+        out = rerank_ops.maxsim_rescore_batch(
+            qtoks, qvalid, col["starts"], col["counts"], col["toks"],
+            col["scales"], docs, first, valid,
+            plan0.spec.query_weight, plan0.spec.rescore_query_weight,
+            col["tmax"], plan0.win_static,
+        )
+        with self._lock:
+            self.stats["launches"] += 1
+            self.stats["rerank_jobs"] += nj
+        self._add_flops(
+            rerank_ops.rerank_flops(nj, qb, wb, col["tmax"], dims)
+        )
+        return ("ok", out, t0)
+
+    def _collect_rerank_group(self, jobs: List[_Job], pend: Tuple):
+        """Host side: the ONE packed download, then each waiter gets its
+        (tag, scores, perm, kernel_ms) — the shard applies the
+        permutation to its first-stage TopDocs before fetch."""
+        from ..ops import rerank as rerank_ops
+
+        tag, out, t0 = pend
+        if tag == "skip":
+            for j in jobs:
+                if not j.event.is_set():
+                    j.result = ("skip", None, None, 0.0)
+                    j.event.set()
+            return
+        t1 = time.perf_counter()
+        scores, perm = rerank_ops.unpack_rescore(out)
+        self._add_stall(time.perf_counter() - t1)
+        kernel_ms = (time.perf_counter() - t0) * 1000.0
+        for ji, j in enumerate(jobs):
+            if j.event.is_set():
+                continue
+            w = len(j.plan.first)
+            j.result = ("ok", scores[ji][:w], perm[ji][:w], kernel_ms)
             j.event.set()
 
     def _dispatch_knn_group(self, jobs: List[_Job],

@@ -9,7 +9,10 @@ top-k that breaks ties by the lowest doc.
 The port covers the shard query phase of `match` (BM25),
 `match_all`/`match_none`, `bool`, `multi_match` (best_fields /
 most_fields), `dis_max`, the filter-context leaves (`term`, `terms`,
-`range`, `exists`, `ids`, `constant_score`), kNN (top-level `knn`
+`range`, `exists`, `ids`, `constant_score`), `match_phrase` and
+`multi_match` `type: phrase` (a device conjunction, then the positions
+verified on the host), `prefix`/`wildcard`/`regexp`/`fuzzy` (expanded on
+the host, scored in one device pass), kNN (top-level `knn`
 sections, with or without a `filter`, brute force or through the IVF
 indexes of ops/ivf.py, built by `warm_ann`; the `knn` query node) and
 sorted collection on one numeric key (`execute_sorted_device`), plus
@@ -26,8 +29,9 @@ and live ∧ exists masks built once per executor (= reader generation).
 Filter-context clauses go through the node-level bitset cache
 (search/query_cache.py) as device `torch.bool` tensors; `exists` and a
 `sparse_vector` node inside a tree are the oracle's host mask and
-scores, uploaded, as in the reference. Every other query node raises
-NotImplementedError naming the slice that brings it (cuts.py).
+scores, uploaded, as in the reference, and so is every other query node
+(function_score, spans, nested, geo, ...). Script nodes raise there,
+naming the slice that brings scripts (cuts.py).
 
 Numeric doc values stay float64 on the device, so a `date` range at
 epoch-millisecond precision compares exactly (float32 spacing near
@@ -41,14 +45,13 @@ the device-memory ledger (common/memory.py) — the analog of Lucene's
 from __future__ import annotations
 
 import threading
+import time
 from types import SimpleNamespace
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .. import cuts
-from ..cuts import not_ported
 from ..index.mapping import DATE, KEYWORD, TEXT, parse_date_millis
 from ..index.segment import Segment
 from ..common.faults import InjectedFault, faults
@@ -60,17 +63,16 @@ from .dsl import (
     BoolQuery,
     ConstantScoreQuery,
     DisMaxQuery,
-    ExistsQuery,
     IdsQuery,
     KnnQueryWrapper,
     KnnSection,
     MatchAllQuery,
     MatchNoneQuery,
+    MatchPhraseQuery,
     MatchQuery,
     MultiMatchQuery,
     Query,
     RangeQuery,
-    SparseVectorQuery,
     TermQuery,
     TermsQuery,
 )
@@ -89,6 +91,20 @@ from .executor import (
 FUSED_MIN_DOCS = 100_000
 # device-memory budget for dense hot-term tf rows, bytes (uint8 per doc per term)
 DENSE_ROWS_HBM_BUDGET = 512 * 1024 * 1024
+
+# phrase routes taken (`conjunction`: the device conjunction and the host
+# position verify; `oracle`: a segment without positions), the
+# conjunction's candidates and the verify's wall time
+PHRASE_STATS = {"conjunction": 0, "oracle": 0, "candidates": 0, "verify_s": 0.0}
+_PHRASE_LOCK = threading.Lock()
+
+
+def _note_phrase(route: str, candidates: int = 0, verify_s: float = 0.0) -> None:
+    with _PHRASE_LOCK:
+        PHRASE_STATS[route] += 1
+        PHRASE_STATS["candidates"] += candidates
+        PHRASE_STATS["verify_s"] += verify_s
+
 
 class DevicePostings:
     def __init__(self, pf, device):
@@ -277,6 +293,10 @@ class TorchExecutor:
         # the ledger and released with the executor (= generation)
         self._ann_indexes: Dict[tuple, object] = {}
         self._sort_rank_cache: Dict[tuple, tuple] = {}
+        # shard-level rank_vectors columns per RerankModel (the rescore
+        # phase's gather arrays), charged to the `rerank` ledger
+        # category; a column that would not fit is cached as None
+        self._rerank_columns: Dict[tuple, Optional[dict]] = {}
         # cache-miss builds are guarded so concurrent callers can't
         # duplicate a dense hot-row build; RLock because fused_scorer →
         # _inv_norm/_segment_weights nest
@@ -673,13 +693,6 @@ class TorchExecutor:
             return self._exec_terms(q, si)
         if isinstance(q, RangeQuery):
             return self._exec_range(q, si)
-        if isinstance(q, (ExistsQuery, SparseVectorQuery)):
-            # the oracle's host mask and scores, uploaded: `exists` is
-            # cheap and static; a `sparse_vector` node inside a tree is
-            # scored by the dense fp32 oracle, as the reference does (a
-            # bare one rides the batcher's impact-tile family)
-            hm, hs = self._oracle._exec(q, self.reader.segments[si])
-            return scoring.upload(hm, self.device), scoring.upload(hs, self.device)
         if isinstance(q, BoolQuery):
             return self._exec_bool(q, si)
         if isinstance(q, ConstantScoreQuery):
@@ -691,9 +704,24 @@ class TorchExecutor:
             return self._exec_knn_query(q.knn, si)
         if isinstance(q, IdsQuery):
             return self._exec_ids(q, si)
+        if isinstance(q, MatchPhraseQuery):
+            return self._exec_phrase(q, si)
+        if isinstance(
+            q, (dsl.PrefixQuery, dsl.WildcardQuery, dsl.RegexpQuery, dsl.FuzzyQuery)
+        ):
+            # constant-score rewrite: the dictionary expansion stays on
+            # the host, the expanded terms score in one device pass
+            return self._exec_expanded(q, si)
         if isinstance(q, DisMaxQuery):
             return self._exec_dis_max(q, si)
-        raise not_ported(f"the [{type(q).__name__}] query node", cuts.NODES)
+        # every other node is the oracle's host mask and scores, uploaded,
+        # as the reference routes it: `exists` (cheap and static), a
+        # `sparse_vector` inside a tree (the dense fp32 oracle; a bare one
+        # rides the batcher's impact-tile family), function_score,
+        # match_phrase_prefix, spans, more_like_this, geo, nested,
+        # boosting, ...; script nodes raise there, naming their slice
+        hm, hs = self._oracle._exec(q, self.reader.segments[si])
+        return scoring.upload(hm, self.device), scoring.upload(hs, self.device)
 
     # ---- text leaves via the tile scorer ----
 
@@ -745,6 +773,72 @@ class TorchExecutor:
             self._inv_norm(si, field, n),
             n,
         )
+
+    def _exec_expanded(self, q, si: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """prefix/wildcard/regexp/fuzzy: host term-dictionary expansion,
+        then the expanded terms score as one device pass (constant
+        score)."""
+        seg = self.reader.segments[si]
+        if isinstance(q, dsl.FuzzyQuery):
+            terms = self._oracle._fuzzy_terms(q, seg)
+        else:
+            terms = self._oracle._expand_terms(q, seg)
+        if not terms:
+            return self._empty(seg.num_docs)
+        _, cnt = self._field_terms_scored(si, q.field, terms, 1.0)
+        mask = cnt >= 1
+        return mask, _const_scores(mask, q.boost)
+
+    def _exec_phrase(self, q: MatchPhraseQuery, si: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Phrase = device conjunction scoring + host position verify
+        against the columnar position index (PositionsEnum analog): one
+        device→host copy of the conjunction mask, the positions checked
+        per candidate on the host, the verified mask uploaded. BM25
+        weights stay on the device. A segment without positions takes
+        the oracle's route, as in the reference."""
+        from .executor import _phrase_match
+
+        seg = self.reader.segments[si]
+        n = seg.num_docs
+        mf = self.reader.mappings.get(q.field)
+        if mf is None or mf.type != TEXT:
+            return self._empty(n)
+        analyzer_name = q.analyzer or mf.search_analyzer or mf.analyzer
+        qtoks = self.reader.analysis.get(analyzer_name).analyze(q.query)
+        terms = [t.text for t in qtoks]
+        if not terms:
+            return self._empty(n)
+        conj, scores = self._exec_match(
+            MatchQuery(field=q.field, query=q.query, operator="and",
+                       analyzer=analyzer_name, boost=q.boost),
+            si,
+        )
+        pf = seg.postings.get(q.field)
+        if pf is None or not pf.has_positions:
+            _note_phrase("oracle")
+            hm, hs = self._oracle._exec(q, seg)
+            return scoring.upload(hm, self.device), scoring.upload(hs, self.device)
+        t0 = time.perf_counter()
+        cand = np.nonzero(conj.cpu().numpy())[0]
+        qpos = [t.position for t in qtoks]
+        rel = [p - qpos[0] for p in qpos]
+        mask = np.zeros(n, bool)
+        tids = [pf.term_id(t) for t in terms]
+        for doc in cand:
+            pos_of = {}
+            ok = True
+            for t, tid in zip(terms, tids):
+                if t in pos_of:
+                    continue
+                ps = pf.doc_positions(tid, int(doc)) if tid >= 0 else None
+                if ps is None:
+                    ok = False
+                    break
+                pos_of[t] = ps.tolist()
+            mask[doc] = ok and _phrase_match(pos_of, terms, rel, q.slop)
+        _note_phrase("conjunction", len(cand), time.perf_counter() - t0)
+        dmask = scoring.upload(mask, self.device)
+        return dmask, torch.where(dmask, scores, 0.0)
 
     def _exec_match(self, q: MatchQuery, si: int) -> Tuple[torch.Tensor, torch.Tensor]:
         n = self.reader.segments[si].num_docs
@@ -926,13 +1020,15 @@ class TorchExecutor:
 
     def _exec_multi_match(self, q: MultiMatchQuery, si: int) -> Tuple[torch.Tensor, torch.Tensor]:
         n = self.reader.segments[si].num_docs
-        if q.type == "phrase":
-            raise not_ported("[multi_match] of type [phrase]", cuts.NODES)
         fields = expand_match_fields(self.reader.mappings, q.fields)
         if not fields:
             return self._empty(n)
         per_field = [
-            self._exec_match(
+            self._exec_phrase(
+                MatchPhraseQuery(field=fn, query=q.query, boost=q.boost * fb), si
+            )
+            if q.type == "phrase"
+            else self._exec_match(
                 MatchQuery(field=fn, query=q.query, operator=q.operator, boost=q.boost * fb), si
             )
             for fn, fb in fields
@@ -1547,6 +1643,89 @@ class TorchExecutor:
             if seg.num_docs:
                 for fname in seg.vectors:
                     self.ann_index(si, fname, spec)
+
+    # ---- second-stage rerank column (flat rank_vectors gather arrays) ----
+
+    def rerank_column(self, model) -> Optional[dict]:
+        """Device-resident shard-level `rank_vectors` column for one
+        RerankModel: per-doc CSR bounds over the GLOBAL doc encoding
+        (segment base + local doc, the bases rescorer.build_plan uses)
+        plus the flat token matrix, tail-padded with `tmax` zero rows so
+        the maxsim gather never reads out of bounds. int8 models store
+        quantized rows and per-token scales
+        (models/rerank.quantize_tokens). Uploaded through pinned copies
+        and charged to the `rerank` ledger category. A column that would
+        not fit the device-memory budget degrades to SKIP (None is
+        cached and returned; the first-stage ranking stands), as in the
+        reference. Cached per executor (= reader generation)."""
+        key = ("rerank", model)
+        if key in self._rerank_columns:
+            return self._rerank_columns[key]
+        with self._build_lock:
+            if key in self._rerank_columns:
+                return self._rerank_columns[key]
+            from ..common.memory import hbm_ledger
+            from ..models import rerank as rerank_model
+
+            n_total = sum(s.num_docs for s in self.reader.segments)
+            starts = np.zeros(max(n_total, 1), np.int32)
+            counts = np.zeros(max(n_total, 1), np.int32)
+            chunks: List[np.ndarray] = []
+            tmax = 1
+            base = 0
+            flat = 0
+            for seg in self.reader.segments:
+                mvf = seg.multi_vectors.get(model.field)
+                n = seg.num_docs
+                if mvf is not None and len(mvf.tok_vectors):
+                    offs = mvf.tok_offsets.astype(np.int64)
+                    starts[base : base + n] = flat + offs[:-1]
+                    counts[base : base + n] = np.diff(offs)
+                    chunks.append(mvf.tok_vectors)
+                    flat += int(offs[-1])
+                    tmax = max(tmax, mvf.max_tokens)
+                base += n
+            dims = int(model.dims) or (int(chunks[0].shape[1]) if chunks else 1)
+            toks_host = (
+                np.concatenate(chunks, axis=0)
+                if chunks
+                else np.zeros((0, dims), np.float32)
+            )
+            pad = np.zeros((tmax, toks_host.shape[1]), toks_host.dtype)
+            toks_host = np.concatenate([toks_host, pad], axis=0)
+            est = (
+                starts.nbytes
+                + counts.nbytes
+                + toks_host.nbytes
+                # the int8 twin replaces the f32 rows but adds scales
+                + (toks_host.shape[0] * 4 if model.quantized else 0)
+            )
+            if not hbm_ledger.would_fit(est):
+                hbm_ledger.note_degraded()
+                rerank_model.note("skipped")
+                self._rerank_columns[key] = None
+                return None
+            scales_dev = None
+            if model.quantized:
+                qv, scales = rerank_model.quantize_tokens(toks_host)
+                toks_dev = scoring.upload(qv, self.device)
+                scales_dev = scoring.upload(scales, self.device)
+                nbytes = int(qv.nbytes + scales.nbytes)
+            else:
+                toks_dev = scoring.upload(toks_host.astype(np.float32), self.device)
+                nbytes = int(toks_host.nbytes)
+            col = {
+                "starts": scoring.upload(starts, self.device),
+                "counts": scoring.upload(counts, self.device),
+                "toks": toks_dev,
+                "scales": scales_dev,
+                "tmax": int(tmax),
+                "dims": int(toks_host.shape[1]),
+                "nbytes": int(nbytes + starts.nbytes + counts.nbytes),
+            }
+            self._charge("rerank", col["nbytes"], False)
+            self._rerank_columns[key] = col
+            return col
 
     # ---- field-sorted collection on one numeric key ----
 

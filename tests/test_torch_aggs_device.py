@@ -489,12 +489,15 @@ def test_runtime_error_in_dispatch_fails_the_request(trio, monkeypatch):
 
 
 def test_cut_query_node_raises_through_the_agg_plan(trio):
-    """The plan runs the body's query through the port's `_exec`: a node
-    the port still cuts raises naming its item there."""
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 16"):
-        trio["torch"].search({"size": 0, "request_cache": False,
-                              "query": {"match_phrase": {"body": "alpha beta"}},
-                              "aggs": {"s": {"stats": {"field": "qty"}}}})
+    """The plan runs the body's query through the port's `_exec`: a
+    phrase node (cut before the port served it) takes the device
+    conjunction and the host position verify there, and the aggregation
+    equals the JAX package's and the numpy backend's."""
+    body = {"size": 0, "request_cache": False,
+            "query": {"match_phrase": {"body": "alpha beta"}},
+            "aggs": {"s": {"stats": {"field": "qty"}}}}
+    got = check_parity(trio, body)
+    assert got["hits"]["total"]["value"] > 0
 
 
 def test_host_routed_percentiles_under_terms(trio):

@@ -1,7 +1,7 @@
 """The port's hand-written CUDA kernel against its plain version, and
 the served routes (match, knn, bool, multi_match, filtered bool, hybrid
-RRF, sparse_vector, aggregations, IVF kNN, sorts) against the numpy
-backend, on the card. Every test here carries the `cuda` marker, needs an NVIDIA GPU and
+RRF, sparse_vector, aggregations, IVF kNN, sorts, phrase and the other
+remaining query nodes, rescore) against the numpy backend, on the card. Every test here carries the `cuda` marker, needs an NVIDIA GPU and
 nvcc, decides so inside its fixture and skips without them. The module
 imports neither jax nor the JAX package, so on a machine with the card
 it also runs where only PyTorch is installed:
@@ -454,3 +454,86 @@ def test_served_sort_on_card_matches_numpy(cuda, monkeypatch):
     finally:
         svc.close()
         oracle.close()
+
+
+NODE_BODIES = [
+    {"query": {"match_phrase": {"body": "ant bee"}}},
+    {"query": {"match_phrase": {"body": {"query": "ant cat", "slop": 2}}}},
+    {"query": {"multi_match": {"query": "ant bee", "fields": ["title^2", "body"], "type": "phrase"}}},
+    {"query": {"prefix": {"body": "ca"}}},
+    {"query": {"wildcard": {"body": "d?g"}}},
+    {"query": {"fuzzy": {"body": {"value": "fax", "fuzziness": 1}}}},
+    {"query": {"bool": {"must": [{"match": {"body": "cat"}}], "filter": [{"match_phrase": {"body": "ant bee"}}]}}},
+    {"query": {"function_score": {"query": {"match": {"body": "eel"}},
+                                  "functions": [{"field_value_factor": {"field": "n", "factor": 0.1,
+                                                                        "modifier": "ln1p"}}]}}},
+]
+
+
+def test_served_nodes_on_card_match_numpy(cuda, monkeypatch):
+    """Phrase (device conjunction, host position verify), expanded terms
+    (one device pass) and a host-routed node, alone and as a filter."""
+    from elasticsearch_tpu_torch.search import executor_torch
+
+    svc, oracle = _served_pair(monkeypatch, cuda)
+    try:
+        before = executor_torch.PHRASE_STATS["conjunction"]
+        for body in NODE_BODIES:
+            ref = oracle.search(dict(body))
+            assert ref["hits"]["hits"], body
+            _same_served(ref, svc.search(dict(body)))
+        assert executor_torch.PHRASE_STATS["conjunction"] > before
+    finally:
+        svc.close()
+        oracle.close()
+
+
+@pytest.mark.parametrize("quant", ["none", "int8"])
+def test_served_rescore_on_card(cuda, monkeypatch, quant):
+    """`rescore` over a rank_vectors column on the card, after `match` and
+    after a 2-leg `retriever.rrf`: f32 pages equal the numpy backend's
+    host maxsim; int8 ones rerank on the card too (no fallback, no skip)."""
+    from elasticsearch_tpu_torch.cluster.indices import IndexService
+    from elasticsearch_tpu_torch.models import rerank as rerank_model
+
+    monkeypatch.setenv("ES_TPU_BG_REFRESH", "off")
+    mapping = {"properties": {"body": {"type": "text"},
+                              "vec": {"type": "dense_vector", "dims": 16, "similarity": "cosine"},
+                              "toks": {"type": "rank_vectors", "dims": 16, "similarity": "dot_product"}}}
+    words = ["ant", "bee", "cat", "dog"]
+    rng = np.random.default_rng(9)
+    pair = []
+    for backend in ("torch", "numpy"):
+        pair.append(IndexService(f"rr-{backend}", mappings_json=mapping, device=cuda,
+                                 settings={"search.backend": backend, "rerank.quantization": quant}))
+    for i in range(200):
+        doc = {"body": " ".join(words[j] for j in range(4) if (i >> j) & 1) or "eel",
+               "vec": [float(x) for x in rng.normal(size=16)],
+               "toks": rng.normal(size=(1 + i % 5, 16)).round(3).tolist()}
+        for svc in pair:
+            svc.index_doc(f"r{i}", dict(doc))
+    for svc in pair:
+        svc.refresh()
+    try:
+        before = rerank_model.stats_snapshot()
+        for i in range(4):
+            resc = {"window_size": 30, "query": {"rescore_query": {"rank_vectors": {
+                "field": "toks", "query_vectors": rng.normal(size=(3, 16)).round(3).tolist()}},
+                "query_weight": 1.0, "rescore_query_weight": 1.0}}
+            for body in ({"query": {"match": {"body": words[i]}}, "size": 10, "rescore": resc},
+                         {"retriever": {"rrf": {"rank_window_size": 30, "retrievers": [
+                             {"standard": {"query": {"match": {"body": words[i]}}}},
+                             {"knn": {"field": "vec", "query_vector": [float(x) for x in rng.normal(size=16)],
+                                      "k": 20, "num_candidates": 40}}]}},
+                          "size": 10, "rescore": resc}):
+                got, ref = pair[0].search(dict(body)), pair[1].search(dict(body))
+                if quant == "none":
+                    _same_served(ref, got)
+                else:
+                    assert len(got["hits"]["hits"]) == len(ref["hits"]["hits"])
+        after = rerank_model.stats_snapshot()
+        assert after["device_rescores"] >= before["device_rescores"] + 8
+        assert after["fallbacks"] == before["fallbacks"] and after["skipped"] == before["skipped"]
+    finally:
+        for svc in pair:
+            svc.close()

@@ -409,7 +409,7 @@ def test_fused_plan_overflow_is_none():
     assert tex.fused_plan(fs_small, 0, "body", VOCAB, 1.0, 1) is None
 
 
-# ---- what the slice does not cover, and what it must not do ----
+# ---- the remaining query nodes, and what the port must not do ----
 
 
 @pytest.mark.parametrize(
@@ -419,21 +419,29 @@ def test_fused_plan_overflow_is_none():
         {"bool": {"must": [{"prefix": {"body": "alp"}}]}},
         {"multi_match": {"query": "alpha", "fields": ["title", "body"], "type": "phrase"}},
         {"wildcard": {"body": "al*a"}},
-        {"fuzzy": {"body": "alpah"}},
+        {"fuzzy": {"body": {"value": "alpah", "fuzziness": 2}}},
     ],
 )
 def test_unported_node_raises(body):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 16"):
-        TEX.search(dsl.parse_query(body), size=5)
+    """These nodes were cut before the port served them; now each is
+    held to the JAX package (phrase: a device conjunction and a host
+    position verify; prefix/wildcard/fuzzy: host expansion, one device
+    pass)."""
+    ref = JAXEX.search(jdsl.parse_query(body), size=20)
+    got = TEX.search(dsl.parse_query(body), size=20)
+    assert ref.total > 0
+    assert_same(ref, got)
 
 
 def test_knn_filter_raises_not_implemented():
-    """A kNN filter is served; one made of a node still cut raises,
-    naming the item that brings it."""
-    _, tk = _knn({"field": "vec", "query_vector": [0.1] * 8, "k": 3,
-                  "filter": {"match_phrase": {"body": "alpha bravo"}}})
-    with pytest.raises(NotImplementedError, match="item 16"):
-        TEX.search(None, knn=tk, size=3)
+    """A kNN filter made of a phrase node (cut before) is held to the
+    JAX package."""
+    params = {"field": "vec", "query_vector": [0.1] * 8, "k": 3,
+              "filter": {"match_phrase": {"body": "alpha bravo"}}}
+    jk, tk = _knn(params)
+    ref = JAXEX.search(None, knn=jk, size=3)
+    assert ref.hits
+    assert_same(ref, TEX.search(None, knn=tk, size=3))
 
 
 def test_default_device_is_cuda_and_does_not_fall_back():

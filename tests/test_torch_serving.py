@@ -8,12 +8,15 @@ chunked scorer and the kNN merge (`ops/scoring.py`), `QueryBatcher` at
 every bucket of the ladder and at pipeline depths 1 and 2, and
 `IndexService.search`, for `match`, `knn`, `bool`, `multi_match`,
 filtered `bool` (the cached-bitset route), `retriever.rrf` and
-`rank: {rrf}`. Hits must agree: the same totals and ids, scores within
-rtol 1e-5 (float32 sums taken in another order; the reference's own kNN
-scores move in the last ulp with the batch's row count). The paths the
-port does not have yet must raise, naming their slice.
+`rank: {rrf}`, and for the bodies that raised while their slice was cut
+(phrase nodes, rescore). Hits must agree: the same totals and ids,
+scores within rtol 1e-5 (float32 sums taken in another order; the
+reference's own kNN scores move in the last ulp with the batch's row
+count). The paths the port does not have yet must raise, naming their
+slice.
 """
 
+import copy
 import dataclasses
 
 import threading
@@ -521,7 +524,7 @@ def test_batcher_pipeline_depth_matches_reference(serving_pair, depth):
 def test_batcher_refuses_families_it_does_not_have(serving_pair):
     b = QueryBatcher(workers=1)
     try:
-        for kind in ("rerank", "mesh_serve", "mesh_sparse", "mesh_agg"):
+        for kind in ("mesh_serve", "mesh_sparse", "mesh_agg"):
             with pytest.raises(ValueError, match=kind):
                 b.submit_nowait(None, None, 10, kind=kind)
     finally:
@@ -719,8 +722,10 @@ def test_default_device_is_cuda_without_fallback(entry):
             make()
 
 
-# a sparse_vector leg and an aggs body are served; one whose query
-# holds a node still cut raises naming that node's item
+# bodies that raised while their ROADMAP queue 1 item was cut: the
+# phrase and rescore ones now get the JAX package's answer (served, or
+# its 400: a `match_all` rescore_query is unsupported there too); a
+# highlight still raises naming item 14
 CUT_BODIES = {
     "sparse_vector_leg": ({"retriever": {"rrf": {"retrievers": [
         {"standard": {"query": {"match": {"body": "alpha"}}}},
@@ -739,13 +744,13 @@ CUT_BODIES = {
               "aggs": {"n": {"value_count": {"field": "title"}}}}, "item 16"),
     "highlight": ({"query": {"match": {"body": "alpha"}}, "highlight": {"fields": {"body": {}}}}, "item 14"),
 }
+SMALL_MAPPING = {"properties": {**MAPPING["properties"], "ml": {"type": "sparse_vector"}}}
 
 
 @pytest.fixture(scope="module")
 def small_torch_index():
     docs = make_docs(60, seed=3)
-    mapping = {"properties": {**MAPPING["properties"], "ml": {"type": "sparse_vector"}}}
-    svc = IndexService("cuts", settings={"number_of_shards": 2}, mappings_json=mapping, device="cpu")
+    svc = IndexService("cuts", settings={"number_of_shards": 2}, mappings_json=SMALL_MAPPING, device="cpu")
     for doc_id, src in docs:
         svc.index_doc(doc_id, src)
     svc.refresh()
@@ -753,11 +758,38 @@ def small_torch_index():
     svc.close()
 
 
+@pytest.fixture(scope="module")
+def small_jax_index():
+    svc = JIndexService("cuts", settings={"number_of_shards": 2, "search.backend": "jax"},
+                        mappings_json=SMALL_MAPPING)
+    for doc_id, src in make_docs(60, seed=3):
+        svc.index_doc(doc_id, src)
+    svc.refresh()
+    yield svc
+    svc.close()
+
+
+def _search_or_error(svc, body):
+    try:
+        return svc.search(copy.deepcopy(body)), None
+    except (dsl.QueryParseError, jdsl.QueryParseError) as e:
+        return None, str(e)
+
+
 @pytest.mark.parametrize("name", sorted(CUT_BODIES))
-def test_cut_request_raises_naming_its_slice(small_torch_index, name):
+def test_cut_request_raises_naming_its_slice(small_torch_index, small_jax_index, name):
     body, item = CUT_BODIES[name]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
-        small_torch_index.search(body)
+    if item == "item 14":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
+            small_torch_index.search(body)
+        return
+    ref, ref_err = _search_or_error(small_jax_index, body)
+    got, got_err = _search_or_error(small_torch_index, body)
+    assert got_err == ref_err, (name, ref_err, got_err)
+    if ref is not None:
+        assert ref["hits"]["total"]["value"] > 0, name
+        same_response(ref, got, name)
+        assert got.get("aggregations") == ref.get("aggregations"), name
 
 
 def test_ivf_index_serves_and_exact_escape_serves(small_torch_index, monkeypatch):
