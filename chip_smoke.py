@@ -60,7 +60,16 @@ any failure:
      each (same totals and hits, scores within rtol 1e-5), (d) to
      recall@10 >= 0.9 against exact f32 cosine; every kernel must have
      launched; the profiles of routes (c) and (d) must show no pageable
-     host→device copy;
+     host→device copy; then the build parity phase: one segment of
+     20,000 docs with every column family (two text fields with
+     positions, a multi-valued keyword, an integer, a date, a 768-d
+     cosine and a 768-d l2_norm dense_vector, 4 x 64 rank_vectors,
+     bench.py's `ml` sparse_vector) built on the card through
+     ops/index_build.py and on the host by SegmentBuilder from the same
+     builder, equal bit for bit; route (g)'s 1M `cat` bucket ids through
+     agg_perm_tables_device equal to a stable host argsort; each build
+     op timed alone (CUDA events over 20 calls, one profiled call)
+     beside its byte bound;
   4. serving on the card over HTTP: the port's ElasticsearchTpuServer
      (REST → ClusterService → IndexService → QueryBatcher →
      TorchExecutor) with `/bench` (torch) and `/bench_oracle` (numpy)
@@ -99,7 +108,20 @@ any failure:
      widths; route (k): 32 `match_phrase`, 32 `prefix`, 16 `fuzzy`, 16
      `wildcard` and 16 phrase-filtered `bool` bodies on `/bench` held to
      `/bench_oracle`, every phrase through the device conjunction and
-     the host position verify (counted), the conjunction timed alone; `_nodes/stats` must show batched launches, a bucket wider
+     the host position verify (counted), the conjunction timed alone;
+     route (l), bench.py's `indexing` scenario in process: 100,000 base
+     docs (8-15 words over a 4,000-word Zipf-1.1 vocabulary, an integer)
+     on one torch shard with refresh_interval 200ms and the background
+     refresher, a 1 s write warmup, 512 two-term `match` bodies, the
+     read-only closed-loop peak at 64 threads, 15 s open-loop reads at
+     0.4 x that peak, then 15 s at that rate while 4 writers offer 1,500
+     docs/s: docs/s, refresh lag, read-only and mixed p50/p99, builds by
+     route, build op walls and launches, prewarm ms and one swap's
+     uploaded and adopted bytes; every segment built on the card, every
+     prewarm building the text serving caches, every streamed doc
+     searchable, 32 bodies held to a numpy index fed the same sources,
+     the base batch bit-identical card against host, and a swap after a
+     small refresh adopting every old segment's uploads; `_nodes/stats` must show batched launches, a bucket wider
      than 1, the chunked path, serve launches, filter cache hits, every
      sparse body on the batcher's sparse family, every `cold_agg` body
      on the device plan, request-cache hits on repeated aggs; every
@@ -3013,6 +3035,544 @@ def node_query_cache(http: Http) -> dict:
     return http.ok("GET", "/_nodes/stats")["nodes"]["node-0"]["indices"]["query_cache"]
 
 
+# ---------------------------------------------------------------------------
+# segment builds on the card: the column-family parity phase and route (l)
+# ---------------------------------------------------------------------------
+
+PARITY_DOCS = 20_000
+PARITY_VOCAB = 5_000  # body and title words, Zipf 1.1
+PARITY_CATS = 16
+BUILD_OPS = ("postings_tiles_device", "text_impacts_device", "ordinals_device", "scatter_rows_device",
+             "csr_offsets_device", "sparse_planes_device")
+FAMILY_ATTRS = {
+    "postings": ("terms", "term_df", "term_total_tf", "term_tile_start", "term_tile_count", "doc_ids", "tfs",
+                 "tile_max_tf", "tile_min_norm", "norms", "term_pos_start", "pos_offsets", "pos_data",
+                 "impacts", "impact_scales"),
+    "ordinals": ("ord_terms", "ords", "mv_ords", "mv_offsets"),
+    "numerics": ("values", "exists"),
+    "vectors": ("vectors", "exists", "unit_vectors"),
+    "multi_vectors": ("tok_vectors", "tok_offsets", "exists"),
+    "sparse": ("terms", "term_df", "term_tile_start", "term_tile_count", "doc_ids", "weights", "qweights",
+               "scales", "tile_max", "tile_qmax", "exists", "pruned"),
+}
+
+
+def _same_column(a, b) -> bool:
+    if a is None or b is None:
+        return a is None and b is None
+    if isinstance(a, (list, int)) or isinstance(b, (list, int)):
+        return a == b
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and bool(np.array_equal(a, b))
+
+
+def segment_diff(host, dev) -> tuple:
+    """(columns compared, the names of those that differ) between a host
+    and a device build: dtype, shape and every bit of every column of
+    every family."""
+    bad, n = [], 1
+    if host.num_docs != dev.num_docs or host.doc_ids != dev.doc_ids:
+        bad.append("doc_ids")
+    for fam, attrs in FAMILY_ATTRS.items():
+        h, d = getattr(host, fam), getattr(dev, fam)
+        if sorted(h) != sorted(d):
+            bad.append(fam)
+            continue
+        for f in h:
+            for attr in attrs:
+                n += 1
+                if not _same_column(getattr(h[f], attr, None), getattr(d[f], attr, None)):
+                    bad.append(f"{fam}.{f}.{attr}")
+            if fam == "postings" and vars(h[f].stats) != vars(d[f].stats):
+                bad.append(f"postings.{f}.stats")
+    return n, bad
+
+
+def parity_mapping(dims: int) -> dict:
+    """Every column family at the repo's own widths: two text fields with
+    positions, a multi-valued keyword, an integer and a date, a 768-d
+    cosine and a 768-d l2_norm dense_vector, route (j)'s rank_vectors
+    (4 x 64) and bench.py's `ml` sparse_vector."""
+    return {"properties": {
+        "body": {"type": "text"}, "title": {"type": "text"}, "tag": {"type": "keyword"},
+        "popularity": {"type": "integer"}, "day": {"type": "date"},
+        "vec": {"type": "dense_vector", "dims": dims, "similarity": "cosine"},
+        "vec_l2": {"type": "dense_vector", "dims": dims, "similarity": "l2_norm"},
+        "toks": {"type": "rank_vectors", "dims": RR_DIMS, "similarity": "cosine"},
+        "ml": {"type": "sparse_vector"},
+    }}
+
+
+def parity_sources(seed: int, n: int, dims: int) -> list:
+    rng = np.random.default_rng(seed + 61)
+    words = np.array([f"p{i}" for i in range(PARITY_VOCAB)])
+    zipf = 1.0 / np.arange(1, PARITY_VOCAB + 1) ** 1.1
+    zipf /= zipf.sum()
+    cats = [f"c{i}" for i in range(PARITY_CATS)]
+    pop = sparse_popularity()
+    out = []
+    for i in range(n):
+        src = {
+            "body": " ".join(rng.choice(words, size=int(rng.integers(15, 35)), p=zipf)),
+            "title": " ".join(rng.choice(words, size=int(rng.integers(3, 9)), p=zipf)),
+            "tag": [cats[j] for j in rng.integers(0, PARITY_CATS, size=int(rng.integers(1, 4)))],
+            "popularity": int(rng.integers(0, 100)),
+            "day": int(1_700_000_000_000 + rng.integers(0, 30 * DAY_MS)),
+            "toks": rng.standard_normal((RR_TOKENS, RR_DIMS), dtype=np.float32).tolist(),
+            "ml": {f"tok{int(t):04d}": float(rng.random() * 3 + 0.05)
+                   for t in rng.choice(SPARSE_VOCAB, size=int(rng.integers(*SPARSE_TERMS_PER_DOC)), p=pop)},
+        }
+        if i % 10:  # a tenth of the docs lack the vectors
+            src["vec"] = rng.standard_normal(dims, dtype=np.float32).tolist()
+            src["vec_l2"] = rng.standard_normal(dims, dtype=np.float32).tolist()
+        out.append((f"p{i}", src))
+    return out
+
+
+def _nbytes(x) -> int:
+    if isinstance(x, np.ndarray):
+        return int(x.nbytes)
+    if isinstance(x, dict):
+        return sum(_nbytes(v) for v in x.values())
+    if isinstance(x, (tuple, list)):
+        return sum(_nbytes(v) for v in x)
+    return 0
+
+
+def build_op_row(name: str, fn, args: tuple, shape: str, device) -> dict:
+    """One build op alone on the inputs the build gave it: CUDA-event ms
+    over 20 calls, the device time of one profiled call, and its byte
+    bound (each numpy input read once, each output written once)."""
+    out = fn(*args)
+    nbytes = sum(_nbytes(a) for a in args) + _nbytes(out)
+    ms = device_ms(lambda: fn(*args), device)
+    dev_ms = op_device_ms(lambda: fn(*args), device)
+    bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    row = {"op": f"ops/index_build.py {name}", "route": shape, "calls_per_request": None, "ms": ms,
+           "device_ms": dev_ms, "bytes": nbytes, "bound_ms": bound_ms, "bound_by": "bytes",
+           "bound_share": bound_ms / ms if ms else None,
+           "device_bound_share": bound_ms / dev_ms if dev_ms else None}
+    log(f"build op {name} ({shape}): {ms:.4f} ms (device {dev_ms}), bound {bound_ms:.5f} ms ({nbytes} B)")
+    return row
+
+
+def phase_build_parity(seed: int, dims: int, cat_ids: np.ndarray, n_cats: int, device) -> dict:
+    """One segment of PARITY_DOCS docs with every column family, built on
+    the card by index/segment_build._device_build and on the host by
+    SegmentBuilder from the same builder, compared bit for bit; route
+    (g)'s 1M-doc bucket ids through agg_perm_tables_device against a
+    stable host argsort; each build op timed alone beside its bound."""
+    from elasticsearch_tpu_torch.analysis import AnalysisRegistry
+    from elasticsearch_tpu_torch.index import segment_build
+    from elasticsearch_tpu_torch.index.mapping import DocumentParser, Mappings
+    from elasticsearch_tpu_torch.index.segment import SegmentBuilder
+    from elasticsearch_tpu_torch.ops import index_build as ib
+
+    out = {"plain_ops": []}
+    t = time.perf_counter()
+    maps = Mappings(parity_mapping(dims))
+    parser = DocumentParser(maps, AnalysisRegistry())
+    builder = SegmentBuilder(maps)
+    for doc_id, src in parity_sources(seed, PARITY_DOCS, dims):
+        builder.add(parser.parse(doc_id, src))
+    out["parse_s"] = time.perf_counter() - t
+    ib.reset_kernel_stats()
+    with OpCounter([(ib, name) for name in BUILD_OPS]) as ops:
+        t = time.perf_counter()
+        dev = segment_build._device_build(builder, device)
+        out["device_build_s"] = time.perf_counter() - t
+    out["build_kernels"] = ib.kernel_stats_snapshot()
+    t = time.perf_counter()
+    host = builder.build()
+    out["host_build_s"] = time.perf_counter() - t
+    n_cols, bad = segment_diff(host, dev)
+    out["columns_compared"], out["columns_differing"] = n_cols, bad
+    check(not bad, f"build parity: {len(bad)} of {n_cols} columns differ between the card and the host: {bad[:8]}")
+    check(set(ops.calls) == set(BUILD_OPS), f"build parity: ops not run on the card: {set(BUILD_OPS) - set(ops.calls)}")
+    log(f"build parity: {PARITY_DOCS} docs, {n_cols} columns bit-identical (device {out['device_build_s']:.1f}s, "
+        f"host {out['host_build_s']:.1f}s)")
+
+    t = time.perf_counter()
+    got = ib.agg_perm_tables_device(cat_ids, n_cats, device)
+    hperm = np.argsort(cat_ids, kind="stable").astype(np.int32)
+    hbounds = np.searchsorted(cat_ids[hperm], np.arange(n_cats + 1)).astype(np.int32)
+    check(got is not None and _same_column(got[0], hperm) and _same_column(got[1], hbounds),
+          "agg_perm_tables_device differs from the stable host argsort on route (g)'s bucket ids")
+    out["agg_tables_s"] = time.perf_counter() - t
+
+    shape = f"parity segment: {PARITY_DOCS} docs"
+    for name in BUILD_OPS:
+        out["plain_ops"].append(build_op_row(name, getattr(ib, name), ops.args[name], shape, device))
+    vec_rows = host.vectors["vec"].vectors[host.vectors["vec"].exists]
+    out["plain_ops"].append(build_op_row("quantize_int8_device", ib.quantize_int8_device, (vec_rows, device),
+                                         f"{len(vec_rows)} x {dims} vec rows", device))
+    out["plain_ops"].append(build_op_row("agg_perm_tables_device", ib.agg_perm_tables_device,
+                                         (cat_ids, n_cats, device), f"route (g): {len(cat_ids)} cat ids", device))
+    return out
+
+
+INGEST_BASE = 100_000  # bench.py's INGEST_BASE at BENCH_N_DOCS 1M
+INGEST_SECONDS = 15.0
+INGEST_WRITERS = 4
+INGEST_REFRESH = "200ms"
+INGEST_RATE = 1500.0  # offered docs/s across the writers
+INGEST_VOCAB = 4000
+INGEST_QUERIES = 512
+INGEST_THREADS = 64
+INGEST_CHECKS = 32  # bodies held to the numpy index after the final refresh
+INGEST_DIAG_SECONDS = 5.0  # the read-only open loop of the one-worker diagnosis
+INGEST_MAPPING = {"properties": {"body": {"type": "text"}, "popularity": {"type": "integer"}}}
+
+
+def run_load(svc, bodies, threads: int):
+    """bench.py's run_load: closed-loop, `threads` workers over `bodies`;
+    (qps, p50_ms, p99_ms, wall_s)."""
+    lat, lock, nxt = [], threading.Lock(), [0]
+
+    def worker():
+        local = []
+        while True:
+            with lock:
+                i = nxt[0]
+                if i >= len(bodies):
+                    break
+                nxt[0] += 1
+            t0 = time.perf_counter()
+            r = svc.search(bodies[i])
+            local.append(time.perf_counter() - t0)
+            check("hits" in r, "route (l): a closed-loop search gave no hits block")
+        with lock:
+            lat.extend(local)
+
+    ts = [threading.Thread(target=worker) for _ in range(threads)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    wall = time.perf_counter() - t0
+    lat_ms = np.asarray(lat) * 1e3
+    return len(bodies) / wall, float(np.percentile(lat_ms, 50)), float(np.percentile(lat_ms, 99)), wall
+
+
+def run_open_loop(svc, bodies, rate_qps: float, duration_s: float, slo_ms: float, seed: int,
+                  window_end=None) -> dict:
+    """bench.py's run_open_loop: Poisson arrivals at `rate_qps` for
+    `duration_s` on a pool of 256 threads; accepted-request latency.
+    `window_end` is called when the arrivals stop, before the backlog
+    drains."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from elasticsearch_tpu_torch.common.memory import CircuitBreakingException
+    from elasticsearch_tpu_torch.search.admission import EsOverloadedError
+    from elasticsearch_tpu_torch.search.batcher import EsRejectedExecutionError
+
+    rng = np.random.default_rng(seed)
+    results, lock = [], threading.Lock()
+
+    def one(body):
+        t0 = time.perf_counter()
+        try:
+            ok, shed = "hits" in svc.search(body), False
+        except (EsOverloadedError, EsRejectedExecutionError, CircuitBreakingException):
+            ok, shed = False, True
+        with lock:
+            results.append((ok, shed, (time.perf_counter() - t0) * 1e3))
+
+    pool = ThreadPoolExecutor(max_workers=256, thread_name_prefix="open-loop")
+    prev = sys.getswitchinterval()
+    sys.setswitchinterval(0.001)
+    offered, t_start, next_t = 0, time.perf_counter(), 0.0
+    try:
+        while True:
+            now = time.perf_counter() - t_start
+            if now >= duration_s:
+                break
+            if now < next_t:
+                time.sleep(min(next_t - now, 0.01))
+                continue
+            pool.submit(one, bodies[offered % len(bodies)])
+            offered += 1
+            next_t += float(rng.exponential(1.0 / rate_qps))
+    finally:
+        sys.setswitchinterval(prev)
+        if window_end is not None:
+            window_end()
+    pool.shutdown(wait=True)
+    wall = time.perf_counter() - t_start
+    ok_lat = np.asarray([dt for ok, _, dt in results if ok])
+    shed = sum(1 for _, s, _ in results if s)
+    return {"offered": offered, "offered_qps": offered / wall, "completed": int(len(ok_lat)),
+            "shed_429": shed, "errors": len(results) - len(ok_lat) - shed,
+            "within_slo": int((ok_lat <= slo_ms).sum()) if len(ok_lat) else 0, "slo_ms": slo_ms,
+            "p50_ms": float(np.percentile(ok_lat, 50)) if len(ok_lat) else None,
+            "p99_ms": float(np.percentile(ok_lat, 99)) if len(ok_lat) else None, "wall_s": wall}
+
+
+def same_page_any_tie_cut(oracle, body: dict, got: dict, what: str) -> None:
+    """same_served against an index whose segments lie in another order:
+    exact ties rank the lower global doc first on both, so the page's
+    last run of tied scores may be cut at other docs. Every earlier run
+    must hold the same ids; the last run's ids must be docs the oracle
+    scores the same (read from its page deep enough to hold the run)."""
+    ref = oracle.search(body)
+    check(ref["hits"]["total"] == got["hits"]["total"],
+          f"{what}: total {got['hits']['total']} != oracle {ref['hits']['total']}")
+    rh, gh = hits_of(ref), hits_of(got)
+    check(len(rh) == len(gh), f"{what}: {len(gh)} hits != oracle {len(rh)}")
+    if not rh:
+        return
+    for (_, rs), (_, gs) in zip(rh, gh):
+        check(np.isclose(gs, rs, rtol=RTOL, atol=1e-6), f"{what}: score {gs} != oracle {rs}")
+    i, j = tie_runs([sc for _, sc in rh])[-1]
+    same_ids([d for d, _ in rh[:i]], [sc for _, sc in rh[:i]], [d for d, _ in gh[:i]], what)
+    last = rh[i][1]
+    deep = oracle.search({**body, "size": min(ref["hits"]["total"]["value"], 10_000)})
+    pool = {d for d, sc in hits_of(deep) if np.isclose(sc, last, rtol=RTOL, atol=1e-6)}
+    check({d for d, _ in gh[i:j]} <= pool, f"{what}: ids {gh[i:j]} of the last tied run are not the oracle's")
+
+
+def route_ingest(seed: int, device, seconds: float = INGEST_SECONDS, base: int = INGEST_BASE) -> dict:
+    """Route (l), bench.py's `indexing` scenario (`bench.py:1475-1681`)
+    on the port: one shard, `search.backend: torch`, refresh_interval
+    200ms with the background refresher, admission off; `base` seeded
+    docs of 8-15 words over a 4,000-word Zipf-1.1 vocabulary plus an
+    integer; a 1-second write warmup; 512 two-term `match` bodies; the
+    read-only closed-loop peak at 64 threads; `seconds` of open-loop
+    reads at 0.4 x that peak; then `seconds` at the same rate while 4
+    writers offer 1,500 docs/s. Every refresh and merge segment must be
+    built on the card, every prewarm must build the text serving caches,
+    every streamed doc must be searchable after the final refresh and 32
+    bodies must equal a numpy-backend index fed the same sources; the
+    base batch built on the card and on the host from one builder must
+    be bit-identical, and a swap after a small refresh must adopt every
+    old segment's uploads. Then, as a diagnosis, the closed loop and
+    INGEST_DIAG_SECONDS of the read-only open loop again on a batcher of
+    one worker (the served path's default is six)."""
+    import os
+
+    from elasticsearch_tpu_torch.cluster.indices import IndexService
+    from elasticsearch_tpu_torch.index import segment_build
+    from elasticsearch_tpu_torch.index.mapping import DocumentParser
+    from elasticsearch_tpu_torch.index.segment import SegmentBuilder
+    from elasticsearch_tpu_torch.search.admission import admission
+    from elasticsearch_tpu_torch.search.executor_torch import TorchExecutor
+
+    admission.configure(enabled=False)
+    prev_bg = os.environ.get("ES_TPU_BG_REFRESH")
+    os.environ["ES_TPU_BG_REFRESH"] = "auto"
+    rng = np.random.default_rng(seed + 7)
+    vocab = np.array([f"w{i}" for i in range(INGEST_VOCAB)])
+    zipf = 1.0 / np.arange(1, INGEST_VOCAB + 1) ** 1.1
+    zipf /= zipf.sum()
+
+    def make_source(r):
+        return {"body": " ".join(r.choice(vocab, size=int(r.integers(8, 16)), p=zipf)),
+                "popularity": int(r.integers(0, 1000))}
+
+    # every prewarm a refresh tick runs must build the text serving
+    # caches: the tick swallows a prewarm error, this record does not
+    prewarms = {"calls": 0, "failures": [], "missing": []}
+    real_prewarm = TorchExecutor.prewarm
+
+    def checked_prewarm(self, settings=None):
+        try:
+            real_prewarm(self, settings)
+        except BaseException as e:
+            prewarms["failures"].append(repr(e))
+            raise
+        prewarms["calls"] += 1
+        for si, seg in enumerate(self.reader.segments):
+            if seg.num_docs and "body" in seg.postings and (
+                    self._block_indexes.get((si, "body")) is None
+                    or self._chunked_scorers.get((si, "body")) is None):
+                prewarms["missing"].append(si)
+
+    TorchExecutor.prewarm = checked_prewarm
+    segment_build.reset_stats()
+    svc = IndexService("ingest-bench", settings={"number_of_shards": 1, "search.backend": "torch",
+                                                 "refresh_interval": INGEST_REFRESH},
+                       mappings_json=INGEST_MAPPING, device=device)
+    out = {"base_docs": base, "refresh_interval": INGEST_REFRESH, "writers": INGEST_WRITERS,
+           "offered_docs_per_s": INGEST_RATE, "seconds": seconds}
+    fed = []  # (id, source) in write order, for the numpy index
+    try:
+        t = time.perf_counter()
+        base_src = [(f"b{i}", make_source(rng)) for i in range(base)]
+        for doc_id, src in base_src:
+            svc.index_doc(doc_id, src)
+        svc.refresh()
+        out["seed_s"] = time.perf_counter() - t
+        fed += base_src
+        # the 1-second write warmup through the NRT loop
+        r0 = np.random.default_rng(seed + 3)
+        warm_n = max(int(INGEST_RATE * 1.0), 64)
+        for i in range(warm_n):
+            src = make_source(r0)
+            svc.index_doc(f"warm{i}", src)
+            fed.append((f"warm{i}", src))
+            if i % max(warm_n // 4, 1) == 0:
+                svc.wait_for_refresh(timeout=30)
+        svc.wait_for_refresh(timeout=30)
+        mids = vocab[40:400]
+        bodies = [{"query": {"match": {"body": " ".join(rng.choice(mids, size=2))}}, "size": K}
+                  for _ in range(INGEST_QUERIES)]
+        for b in bodies[:6]:
+            svc.search(b)
+        ro_qps, ro_p50, ro_p99, _ = run_load(svc, bodies, INGEST_THREADS)
+        rate = max(0.4 * ro_qps, 4.0)
+        slo_ms = max(8.0 * ro_p50, 250.0)
+        out["readonly_closed_loop"] = {"qps": ro_qps, "p50_ms": ro_p50, "p99_ms": ro_p99}
+        log(f"(l) read-only closed loop at {INGEST_THREADS} threads: {ro_qps:.1f} QPS; open loop at {rate:.1f}/s")
+        out["readonly"] = run_open_loop(svc, bodies, rate, seconds, slo_ms, seed + 101)
+
+        def mixed(duration: float, tag: str, wseed: int, qseed: int):
+            """The open loop at `rate` while INGEST_WRITERS paced writers
+            (generators seeded by their index) offer INGEST_RATE docs/s
+            until the arrivals stop (bench.py stops them only once the
+            query backlog has drained, which lets a saturated run write
+            on for minutes); (open-loop result, docs written, the
+            writers' wall s)."""
+            stop = threading.Event()
+            written = [[] for _ in range(INGEST_WRITERS)]
+            per_writer_dt = INGEST_WRITERS / INGEST_RATE
+
+            def writer(tid):
+                r = np.random.default_rng(wseed + tid)
+                t_start, next_t = time.perf_counter(), 0.0
+                while not stop.is_set():
+                    now = time.perf_counter() - t_start
+                    if now < next_t:
+                        time.sleep(min(next_t - now, 0.02))
+                        continue
+                    doc_id, src = f"{tag}{tid}-{len(written[tid])}", make_source(r)
+                    svc.index_doc(doc_id, src)
+                    written[tid].append((doc_id, src))
+                    next_t += per_writer_dt
+
+            threads = [threading.Thread(target=writer, args=(i,), daemon=True) for i in range(INGEST_WRITERS)]
+            t_mix = time.perf_counter()
+            walls = []
+
+            def window_end():
+                stop.set()
+                walls.append(time.perf_counter() - t_mix)
+
+            for th in threads:
+                th.start()
+            res = run_open_loop(svc, bodies, rate, duration, slo_ms, qseed, window_end)
+            for th in threads:
+                th.join(timeout=30)
+            check(not any(th.is_alive() for th in threads), "route (l): a writer did not stop")
+            for w in written:
+                fed.extend(w)
+            return res, sum(len(w) for w in written), walls[0]
+
+        # ---- mixed: the same open-loop rate while the writers stream ----
+        out["mixed"], n_written, mix_wall = mixed(seconds, "s", seed + 100, seed + 11)
+        ing = segment_build.stats_snapshot()
+        svc.refresh()
+        total = svc.search({"size": 0, "track_total_hits": True})["hits"]["total"]["value"]
+        out.update({
+            "docs_per_s": n_written / mix_wall, "docs_written": n_written, "seed_docs_per_s": base / out["seed_s"],
+            "refresh_lag": ing["refresh_lag"], "refreshes": ing["refreshes"],
+            "concurrent_refreshes": ing["concurrent_refreshes"], "concurrent_merges": ing["concurrent_merges"],
+            "device_builds": ing["device_builds"], "host_builds": ing["host_builds"],
+            "fallbacks": ing["fallbacks"], "degraded": ing["degraded"],
+            "generations_discarded": ing["generations_discarded"], "build_kernels": ing["build_kernels"],
+            "overlap_ms": ing["overlap_ms"], "prewarm_ms": ing["prewarm_ms"],
+            "p99_ratio_vs_readonly": (out["mixed"]["p99_ms"] / out["readonly"]["p99_ms"]
+                                      if out["mixed"]["p99_ms"] and out["readonly"]["p99_ms"] else None),
+            "total_docs_after": total, "prewarms": dict(prewarms),
+        })
+        log(f"(l) {out['docs_per_s']:.1f} docs/s, refresh lag {ing['refresh_lag']}, read-only p50/p99 "
+            f"{out['readonly']['p50_ms']}/{out['readonly']['p99_ms']} ms, mixed {out['mixed']['p50_ms']}/"
+            f"{out['mixed']['p99_ms']} ms; builds {ing['device_builds']} device / {ing['host_builds']} host, "
+            f"fallbacks {ing['fallbacks']}, degraded {ing['degraded']}; kernels {ing['build_kernels']}")
+        check(out["readonly"]["errors"] == 0 and out["mixed"]["errors"] == 0, "route (l): searches failed")
+        check(ing["device_builds"] > 0 and ing["host_builds"] == 0 and ing["fallbacks"] == 0,
+              f"route (l): not every segment was built on the card: {ing}")
+        check(total == len(fed), f"route (l): {total} docs searchable after the final refresh, {len(fed)} written")
+        check(prewarms["calls"] > 0 and not prewarms["failures"] and not prewarms["missing"],
+              f"route (l): a refresh's prewarm failed or left the text caches unbuilt: {prewarms}")
+
+        # ---- a swap after a small refresh adopts every old upload ----
+        shard = svc.local_shard(0)
+        for attempt in range(3):
+            old = svc._executor(shard)
+            old.prewarm(svc.settings)
+            old_cols = {(id(ds.seg), c): dict(getattr(ds, c)._cache)
+                        for ds in old.device_segments for c in ("postings", "numerics", "vectors", "ordinals")}
+            r1 = np.random.default_rng(seed + 5 + attempt)
+            for i in range(64):
+                src = make_source(r1)
+                svc.index_doc(f"swap{attempt}-{i}", src)
+                fed.append((f"swap{attempt}-{i}", src))
+            svc.wait_for_refresh(timeout=30)
+            new = svc._executor(shard)
+            kept = [ds for ds in new.device_segments if (id(ds.seg), "postings") in old_cols]
+            if kept:
+                break
+        check(bool(kept), "route (l): every swap merged away the old segments")
+        missing = [(id(ds.seg), c, k) for ds in kept for c in ("postings", "numerics", "vectors", "ordinals")
+                   for k, v in old_cols[(id(ds.seg), c)].items() if getattr(ds, c)._cache.get(k) is not v]
+        check(not missing, f"route (l): the swap re-uploaded {len(missing)} columns of unchanged segments")
+        adopted = sum(ds.adopted_bytes for ds in new.device_segments)
+        charged = sum(nb for _, nb in new._charges)
+        out["swap"] = {"segments": len(new.device_segments), "unchanged_segments": len(kept),
+                       "adopted_bytes": adopted, "uploaded_bytes": charged - adopted}
+        log(f"(l) swap: {out['swap']}")
+
+        # ---- diagnosis: the same loads on a batcher of one worker ----
+        from elasticsearch_tpu_torch.search.batcher import QueryBatcher
+
+        old_batcher, svc._batcher = svc._batcher, QueryBatcher(workers=1)
+        old_batcher.close()
+        d_qps, d_p50, d_p99, _ = run_load(svc, bodies, INGEST_THREADS)
+        diag = {"readonly_closed_loop": {"qps": d_qps, "p50_ms": d_p50, "p99_ms": d_p99},
+                "readonly": run_open_loop(svc, bodies, rate, INGEST_DIAG_SECONDS, slo_ms, seed + 17)}
+        out["diagnosis_workers1"] = diag
+        log(f"(l) one batcher worker: closed loop {d_qps:.1f} QPS; read-only p50/p99 "
+            f"{diag['readonly']['p50_ms']}/{diag['readonly']['p99_ms']} ms")
+        end = segment_build.stats_snapshot()
+        check(end["host_builds"] == 0 and end["fallbacks"] == 0,
+              f"route (l): a later refresh was built on the host: {end}")
+
+        # ---- 32 bodies held to a numpy-backend index fed the same sources ----
+        t = time.perf_counter()
+        oracle = IndexService("ingest-oracle", settings={"number_of_shards": 1, "search.backend": "numpy",
+                                                         "refresh_interval": "-1"},
+                              mappings_json=INGEST_MAPPING, device=device)
+        try:
+            for doc_id, src in fed:
+                oracle.index_doc(doc_id, src)
+            oracle.refresh()
+            svc.refresh()
+            for i, b in enumerate(bodies[:INGEST_CHECKS]):
+                same_page_any_tie_cut(oracle, b, svc.search(b), f"(l) body {i} against the numpy index")
+        finally:
+            oracle.close()
+        out["oracle_s"] = time.perf_counter() - t
+
+        # ---- the base batch, card and host, from one builder ----
+        t = time.perf_counter()
+        parser = DocumentParser(svc.mappings, svc.analysis)
+        builder = SegmentBuilder(svc.mappings)
+        for doc_id, src in base_src:
+            builder.add(parser.parse(doc_id, src))
+        n_cols, bad = segment_diff(builder.build(), segment_build._device_build(builder, device))
+        check(not bad, f"route (l): the base batch's columns differ between the card and the host: {bad}")
+        out["base_parity"] = {"columns_compared": n_cols, "s": time.perf_counter() - t}
+        return out
+    finally:
+        TorchExecutor.prewarm = real_prewarm
+        svc.close()
+        if prev_bg is None:
+            os.environ.pop("ES_TPU_BG_REFRESH", None)
+        else:
+            os.environ["ES_TPU_BG_REFRESH"] = prev_bg
+
+
 def gpu_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3069,6 +3629,13 @@ def run(device, seed: int, n_docs: int, vocab: int, dims: int, card: str) -> dic
     main["plain_ops"] += ivf_h["plain_ops"]
     phases["3h_ivf_s"] = time.perf_counter() - t
 
+    t = time.perf_counter()
+    cat = reader.segments[0].ordinals["cat"]
+    parity = phase_build_parity(seed, dims, cat.mv_ords.astype(np.int64), len(cat.ord_terms), device)
+    main["plain_ops"] += parity.pop("plain_ops")
+    main["build_parity"] = parity
+    phases["3l_build_parity_s"] = time.perf_counter() - t
+
     # the peak so far (phases 1-3), then phase 4's own from a reset
     peaks = {"phases_1_3": torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None}
     if device.type == "cuda":
@@ -3080,6 +3647,9 @@ def run(device, seed: int, n_docs: int, vocab: int, dims: int, card: str) -> dic
     serve = phase_serve(reader, vecs.shape[1], seed, device, card, ann_reader, ann_q, rc, phrase_pairs)
     phases["4_serve_s"] = time.perf_counter() - t
     peaks["phase_4"] = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+    t = time.perf_counter()
+    ingest = route_ingest(seed, device)
+    phases["4l_ingest_s"] = time.perf_counter() - t
     peak = max(peaks.values()) if device.type == "cuda" else None
     log(f"peak device bytes {peaks}")
     return {
@@ -3088,6 +3658,7 @@ def run(device, seed: int, n_docs: int, vocab: int, dims: int, card: str) -> dic
         "phases": phases,
         "main_path": main,
         "serve": serve,
+        "ingest": ingest,
         "peak_device_bytes": peak,
         "peak_device_bytes_by_phase": peaks,
         "kernels": kernels,
@@ -3119,6 +3690,7 @@ def main(argv=None) -> int:
     print(json.dumps({"card": card, "phases": result["phases"], "build_s": result["build_s"],
                       "main_path": result["main_path"], "peak_device_bytes": result["peak_device_bytes"],
                       "peak_device_bytes_by_phase": result["peak_device_bytes_by_phase"]}))
+    print(json.dumps({"card": card, "ingest": result["ingest"]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"card": card, "serve": result["serve"]}), flush=True)
     print(card, flush=True)

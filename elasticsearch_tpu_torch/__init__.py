@@ -10,8 +10,9 @@ Layout mirrors the reference package module for module, so a reader
 finds each counterpart under the same relative path:
 
   utils/, analysis/, index/, models/, common/, tasks/, ingest/,
-  plugins.py, search/{dsl,executor,admission,aggs,coordinator,
-  failures,query_cache,ann,rescorer}.py, rest/router.py
+  script/, plugins.py, reindex.py, search/{dsl,executor,admission,
+  aggs,coordinator,failures,query_cache,ann,rescorer,highlight}.py,
+  rest/router.py
                        host-side copies (numpy / pure Python);
                        models/rerank.py is the rerank model registry and
                        its host maxsim oracle, search/rescorer.py the
@@ -26,6 +27,9 @@ finds each counterpart under the same relative path:
   ops/impact.py, ops/agg_kernels.py
                        learned-sparse impact tiles; device aggregations
   ops/rerank.py        late-interaction (maxsim) rescore of a window
+  ops/index_build.py   segment-build ops (postings tiles, impacts,
+                       ordinal CSRs, vector columns, agg tables) on the
+                       index's device; index/segment_build.py drives them
   search/executor_torch.py   TorchExecutor (counterpart of JaxExecutor)
   search/batcher.py    QueryBatcher: the match, serve, knn, sparse, agg and
                        rerank families

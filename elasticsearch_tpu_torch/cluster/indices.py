@@ -32,9 +32,8 @@ key collects on the card (rank columns); other sorts take the oracle's
 host route, as in the reference. A `rescore` runs between the merge
 and the fetch: on the card through the batcher's `rerank` family for a
 shard's page or a one-shard index's fused candidates, else through the
-host oracle. Paths whose modules are not ported yet (highlight,
-scripts, the mesh, on-disk shards) raise, naming the slice that brings
-them (see cuts.py).
+host oracle. Paths whose modules are not ported yet (the mesh, on-disk
+shards) raise, naming the slice that brings them (see cuts.py).
 """
 
 from __future__ import annotations
@@ -50,7 +49,7 @@ from ..analysis import AnalysisRegistry
 from ..common.faults import faults
 from ..common.slowlog import FETCH_ACC, SearchSlowLog
 from ..common.tracing import OPAQUE_ID_CTX, TRACE_CTX
-from ..cuts import FETCH, MESH, not_ported
+from ..cuts import MESH, not_ported
 from ..index.engine import OpResult, ShardEngine, VersionConflictError
 from ..index.mapping import Mappings
 from ..search import dsl
@@ -577,9 +576,9 @@ class IndexService:
     def _durability_opts(self) -> dict:
         """index.translog.* settings → ShardEngine kwargs (previously
         every engine silently ran at the 'request' default regardless
-        of the index setting), plus the reference's device segment-build
-        preference (torch-backend indices; the port builds on the host,
-        see index/segment_build.py)."""
+        of the index setting), plus the device segment-build preference
+        (torch-backend indices build on the index's device, see
+        index/segment_build.py)."""
         from ..search.failures import parse_timeout
 
         interval = parse_timeout(
@@ -593,6 +592,7 @@ class IndexService:
             "device_build": (
                 str(self.settings.get("search.backend", "numpy")) == "torch"
             ),
+            "device": self.device,
         }
 
     def apply_translog_settings(self) -> None:
@@ -1099,12 +1099,20 @@ class IndexService:
             if backend == "torch":
                 from ..search import executor_torch
 
+                stale = self._executors.get(shard.shard_id)
+                reuse = (
+                    stale[1]
+                    if stale is not None
+                    and isinstance(stale[1], executor_torch.TorchExecutor)
+                    else None
+                )
                 # the fused-route threshold is read here, at build time,
                 # so a caller (a test) may lower the module constant
                 ex = executor_torch.TorchExecutor(
                     reader,
                     device=self.device,
                     fused_min_docs=executor_torch.FUSED_MIN_DOCS,
+                    reuse_from=reuse,
                 )
                 ex.cache_ctx = CacheCtx(shard_key, gen, "torch")
                 ex._oracle.cache_ctx = CacheCtx(shard_key, gen, "np")
@@ -1549,12 +1557,18 @@ class IndexService:
         # candidates (FetchPhase, SURVEY.md §3.3) ----
         _check_shard_deadline()
         t_fetch = time.perf_counter_ns()
+        highlight_specs = None
+        highlight_terms = None
         if "highlight" in body:
-            raise not_ported("highlight (search/highlight.py)", FETCH)
+            from ..search.highlight import extract_highlight_terms, parse_highlight
+
+            highlight_specs = parse_highlight(body["highlight"])
+            highlight_terms = extract_highlight_terms(
+                query, self.mappings, self.analysis
+            )
         from ..search.executor import filter_source
 
-        if body.get("script_fields"):
-            raise not_ported("script_fields (script/)", FETCH)
+        script_fields = body.get("script_fields")
         fields_spec = body.get("fields")
         # nested queries requesting inner_hits (InnerHitsPhase)
         nested_inner = _nested_with_inner_hits(query) if query else []
@@ -1589,6 +1603,10 @@ class IndexService:
                 entry["_source"] = filtered
             if sort_specs is not None:
                 entry["sort"] = list(svals[i]) if i < len(svals) else []
+            if highlight_specs is not None and src is not None:
+                hl = self._highlight_hit(src, highlight_specs, highlight_terms)
+                if hl:
+                    entry["highlight"] = hl
             if field_names:
                 # the `fields` option (FetchFieldsPhase): flat lists of
                 # values for mapped fields; the key is omitted when no
@@ -1646,6 +1664,23 @@ class IndexService:
                     }
                 if ih:
                     entry["inner_hits"] = ih
+            if script_fields:
+                from ..script import ScriptError, script_service
+                from ..search.executor import _source_field_lookup
+
+                lookup = _source_field_lookup(
+                    reader.segments[h.segment], h.local_doc
+                )
+                flds = entry.setdefault("fields", {})
+                for fname, spec in script_fields.items():
+                    try:
+                        v = script_service.run_field(
+                            spec.get("script") if isinstance(spec, dict) else spec,
+                            lookup,
+                        )
+                    except ScriptError as e:
+                        raise dsl.QueryParseError(str(e))
+                    flds[fname] = v if isinstance(v, list) else [v]
             hits.append(entry)
         fetch_ns = time.perf_counter_ns() - t_fetch
         acc = FETCH_ACC.get()
@@ -2586,6 +2621,48 @@ class IndexService:
                 "[rank_vectors]"
             )
         return model
+
+    def _highlight_hit(self, src: dict, specs: dict, terms_by_field: dict) -> dict:
+        from ..search.highlight import highlight_field
+
+        out = {}
+        for fname, spec in specs.items():
+            terms = terms_by_field.get(fname)
+            if not terms:
+                continue
+            value = src.get(fname)
+            if value is None and "." in fname:
+                node = src
+                for part in fname.split("."):
+                    node = node.get(part) if isinstance(node, dict) else None
+                    if node is None:
+                        break
+                value = node
+            if value is None:
+                continue
+            mf = self.mappings.get(fname)
+            analyzer_name = mf.analyzer if mf is not None else "standard"
+            try:
+                analyzer = self.analysis.get(analyzer_name)
+            except ValueError:
+                continue
+            values = value if isinstance(value, list) else [value]
+            frags: List[str] = []
+            for v in values:
+                frags.extend(
+                    highlight_field(
+                        str(v),
+                        terms,
+                        analyzer,
+                        spec["pre"],
+                        spec["post"],
+                        spec["fragment_size"],
+                        spec["number_of_fragments"],
+                    )
+                )
+            if frags:
+                out[fname] = frags
+        return out
 
     def _apply_rescore(self, ex, spec, td, sid, shard_deadline, task,
                        prof=None):

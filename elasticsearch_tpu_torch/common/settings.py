@@ -228,12 +228,18 @@ def rerank_mode() -> str:
 
 # ---- streaming-ingest knobs (index/segment_build.py, cluster/indices.py) ----
 #
-# ES_TPU_DEVICE_BUILD:  "auto" (default) and "off" — the host
-#                       SegmentBuilder (the port has no device build
-#                       yet); "force" asks for the device build
-#                       (ops/index_build.py in the reference), which
-#                       raises in the port, naming the slice that
-#                       brings it (index/segment_build.py).
+# ES_TPU_DEVICE_BUILD:  "auto" (default) — segment builds on torch-backend
+#                       indices materialize their column arrays through
+#                       the build ops (ops/index_build.py) on the
+#                       index's device; device-built columns are
+#                       BIT-IDENTICAL to the host SegmentBuilder output.
+#                       Only an injected fault at `build.device` or a
+#                       build over the ledger's budget takes the host
+#                       build; any other failure fails the build.
+#                       "force" — every build (any backend) uses the
+#                       device path and an injected fault RAISES too
+#                       (budget degrades still take the host build).
+#                       "off" — the host SegmentBuilder everywhere.
 # ES_TPU_BG_REFRESH:    "auto" (default) — every IndexService runs a
 #                       background refresher thread driven by the
 #                       dynamic `index.refresh_interval` setting

@@ -6,12 +6,10 @@ that brings it, so a caller learns what is missing instead of meeting a
 quiet fallback or an ImportError.
 """
 
-# ROADMAP.md queue 1 items the cuts below point at (items 1-10, 15
-# and 16 are ported)
-DEVICE_BUILD = "ROADMAP queue 1 item 11 (device segment builds)"
+# ROADMAP.md queue 1 items the cuts below point at (items 1-11 and
+# 14-16 are ported)
 MESH = "ROADMAP queue 1 item 12 (mesh and multi-node cluster)"
 DISK = "ROADMAP queue 1 item 13 (on-disk segments and snapshots)"
-FETCH = "ROADMAP queue 1 item 14 (highlight, scripts and reindex)"
 
 
 def not_ported(what: str, where: str) -> NotImplementedError:

@@ -90,6 +90,7 @@ class ShardEngine:
         primary_term: int = 1,
         codec: str = "default",
         device_build: bool = False,
+        device="cuda",
     ):
         self.mappings = mappings
         self.analysis = analysis
@@ -98,9 +99,11 @@ class ShardEngine:
         self.shard_id = shard_id
         self.primary_term = primary_term
         self.codec = codec
-        # the reference's device segment-build preference; the port
-        # builds on the host (index/segment_build.py)
+        # torch-backend indices prefer the device segment-build pipeline
+        # (index/segment_build.py; ES_TPU_DEVICE_BUILD still overrides),
+        # on the index's device
         self.device_build = device_build
+        self.device = device
         self._lock = threading.RLock()
         # serializes refreshes (sync AND concurrent) without blocking
         # writes/reads: the double-buffered build runs outside _lock
@@ -386,6 +389,7 @@ class ShardEngine:
             docs,
             shard_id=self.shard_id,
             prefer_device=self.device_build,
+            device=self.device,
         )
         versions = np.asarray([buf.version for _, buf in items], np.int64)
         seqnos = np.asarray([buf.seq_no for _, buf in items], np.int64)
@@ -703,6 +707,7 @@ class ShardEngine:
             merged = segment_build.build_segment(
                 self.mappings, docs, shard_id=self.shard_id,
                 prefer_device=self.device_build,
+                device=self.device,
             )
             self.segments = [merged]
             self.live_docs = [None]
@@ -766,6 +771,7 @@ class ShardEngine:
                 merged = segment_build.build_segment(
                     self.mappings, docs, shard_id=self.shard_id,
                     prefer_device=self.device_build,
+                    device=self.device,
                 )
             except BaseException:
                 # half-build discarded; the old segment list keeps

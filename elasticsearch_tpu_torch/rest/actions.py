@@ -21,7 +21,6 @@ from typing import Any, Dict, List, Optional, Tuple
 from ..cluster import ClusterError, ClusterService
 from ..common import deep_merge
 from ..common import tracing
-from ..cuts import FETCH, not_ported
 from ..index.engine import VersionConflictError
 from ..search.dsl import QueryParseError
 from .router import Router, error_body
@@ -469,13 +468,36 @@ class RestActions:
         return 200, {"task": task.id}
 
     def reindex(self, body, params, qs):
-        raise not_ported("_reindex (reindex.py)", FETCH)
+        from ..reindex import reindex as _reindex
+
+        src = ((body or {}).get("source") or {}).get("index")
+        dst = ((body or {}).get("dest") or {}).get("index")
+        return self._by_scroll(
+            "indices:data/write/reindex",
+            f"reindex from [{src}] to [{dst}]",
+            qs,
+            lambda task: _reindex(self.cluster, body, task),
+        )
 
     def update_by_query(self, body, params, qs):
-        raise not_ported("_update_by_query (reindex.py)", FETCH)
+        from ..reindex import update_by_query as _ubq
+
+        return self._by_scroll(
+            "indices:data/write/update/byquery",
+            f"update-by-query [{params['index']}]",
+            qs,
+            lambda task: _ubq(self.cluster, params["index"], body, task),
+        )
 
     def delete_by_query(self, body, params, qs):
-        raise not_ported("_delete_by_query (reindex.py)", FETCH)
+        from ..reindex import delete_by_query as _dbq
+
+        return self._by_scroll(
+            "indices:data/write/delete/byquery",
+            f"delete-by-query [{params['index']}]",
+            qs,
+            lambda task: _dbq(self.cluster, params["index"], body, task),
+        )
 
     # ---- ingest pipelines ----
 
@@ -1269,9 +1291,36 @@ class RestActions:
 
     @staticmethod
     def _run_update_script(script, source: dict, doc_id: str):
-        """(new_source, op) for an update script in the reference; the
-        script service is not ported yet."""
-        raise not_ported("update scripts (script/)", FETCH)
+        """(new_source, op) for an update script: ctx._source mutations
+        + ctx.op in {index (default), none/noop, delete}. The source is
+        DEEP-copied first — the engine's get() hands back the live
+        stored object, and a script must never mutate it in place
+        (especially on the noop path)."""
+        import copy
+
+        from ..script import ScriptError, script_service
+
+        ctx = {
+            "_source": copy.deepcopy(source),
+            "_id": doc_id,
+            "op": "index",
+        }
+        try:
+            script_service.run_ingest(script, ctx)
+        except ScriptError as e:
+            raise ClusterError(400, str(e), "script_exception")
+        op = str(ctx.get("op", "index"))
+        if op in ("noop", "none"):
+            op = "none"
+        elif op not in ("index", "delete"):
+            # UpdateHelper rejects unknown ops instead of masking typos
+            raise ClusterError(
+                400,
+                f"Operation type [{op}] not allowed, only [noop, index, "
+                "delete] are allowed",
+                "illegal_argument_exception",
+            )
+        return ctx.get("_source", source), op
 
     def mget(self, body, params, qs):
         body = body or {}

@@ -418,8 +418,21 @@ def counts_layout(ex, si: int, skey: tuple, space):
         if key in ex._agg_cols:
             return ex._agg_cols[key]
         ids, map_host, gate, nb = space
-        perm = np.argsort(ids, kind="stable")
-        bounds = np.searchsorted(ids[perm], np.arange(nb + 1)).astype(np.int32)
+        from ..common.settings import device_build_mode
+        from ..ops.index_build import agg_perm_tables_device
+
+        got = None
+        if device_build_mode() != "off":
+            # bucket ids are small ints: the stable argsort + boundary
+            # table build rides the device build ops on the index's
+            # device (bit-identical by the stable-sort contract); only
+            # the int32 guard's None keeps the host path
+            got = agg_perm_tables_device(ids, nb, ex.device)
+        if got is not None:
+            perm, bounds = got
+        else:
+            perm = np.argsort(ids, kind="stable")
+            bounds = np.searchsorted(ids[perm], np.arange(nb + 1)).astype(np.int32)
         map_p = (
             perm if map_host is None else map_host[perm]
         ).astype(np.int32)
@@ -1156,8 +1169,8 @@ class DeviceAggPlan:
         WITHOUT host sync; ``collect`` downloads and builds partials.
         The ``aggs.collect`` fault site fires here so an injected error
         surfaces through the batcher to the shard's host route. A script
-        query node raises here, naming the slice that brings scripts
-        (cuts.FETCH)."""
+        query node is evaluated by the executor's host oracle and
+        uploaded, as in the reference."""
         faults.check("aggs.collect", index=self.index, shard=self.sid)
         ex = self.ex
         t0 = time.perf_counter()

@@ -64,14 +64,6 @@ from .dsl import (
 )
 
 
-def _later_slice(what: str):
-    """The script service behind these nodes is not copied into the port
-    yet; the node raises instead of reaching into the JAX package."""
-    from ..cuts import FETCH, not_ported
-
-    raise not_ported(what, FETCH)
-
-
 @dataclass
 class Hit:
     score: float
@@ -996,7 +988,7 @@ class NumpyExecutor:
         """ScriptScoreQuery: the script runs per matching doc with
         doc-value + vector-function bindings (host-side, exactly where
         the reference runs painless)."""
-        ScriptError, script_service = _later_slice("script_score (script/)")
+        from ..script import ScriptError, script_service
 
         mask, base = self._exec(q.query, seg)
         scores = np.zeros(seg.num_docs, np.float32)
@@ -1017,7 +1009,7 @@ class NumpyExecutor:
     def _exec_script_query(
         self, q: "dsl.ScriptQuery", seg: Segment
     ) -> Tuple[np.ndarray, np.ndarray]:
-        ScriptError, script_service = _later_slice("script queries (script/)")
+        from ..script import ScriptError, script_service
 
         n = seg.num_docs
         mask = np.zeros(n, bool)
@@ -1050,9 +1042,7 @@ class NumpyExecutor:
                     [_stable_random(seed, d) for d in seg.doc_ids], np.float32
                 ) if n else np.zeros(0, np.float32)
             elif fn.script_score is not None:
-                ScriptError, script_service = _later_slice(
-                    "function_score script_score (script/)"
-                )
+                from ..script import ScriptError, script_service
 
                 script = fn.script_score.get("script")
                 val = np.zeros(n, np.float32)

@@ -30,8 +30,7 @@ Filter-context clauses go through the node-level bitset cache
 (search/query_cache.py) as device `torch.bool` tensors; `exists` and a
 `sparse_vector` node inside a tree are the oracle's host mask and
 scores, uploaded, as in the reference, and so is every other query node
-(function_score, spans, nested, geo, ...). Script nodes raise there,
-naming the slice that brings scripts (cuts.py).
+(function_score, spans, nested, geo, the script nodes, ...).
 
 Numeric doc values stay float64 on the device, so a `date` range at
 epoch-millisecond precision compares exactly (float32 spacing near
@@ -211,6 +210,33 @@ class DeviceSegment:
             ),
             charge=charge, category="doc_values",
         )
+        self._adopt_charge = charge
+        # bytes taken over from the previous generation (adopt_from)
+        self.adopted_bytes = 0
+
+    def adopt_from(self, other: "DeviceSegment") -> None:
+        """Cross-generation reuse: a refresh appends segments but never
+        mutates existing ones, so the NEW executor generation adopts the
+        previous generation's device uploads for every already-uploaded
+        field of this (same, immutable) segment instead of re-shipping
+        them. Adopted bytes are re-charged to THIS executor's ledger
+        records — the old executor's close() releases its own — so
+        accounting stays per-generation while the tensors are shared."""
+        for mine, theirs, cat in (
+            (self.postings, other.postings, "postings"),
+            (self.numerics, other.numerics, "doc_values"),
+            (self.vectors, other.vectors, "vectors"),
+            (self.ordinals, other.ordinals, "doc_values"),
+        ):
+            with theirs._lock:
+                items = dict(theirs._cache)
+            for k, v in items.items():
+                if k in mine._names and k not in mine._cache:
+                    mine._cache[k] = v
+                    nbytes = _tree_nbytes(v)
+                    self.adopted_bytes += nbytes
+                    if self._adopt_charge is not None:
+                        self._adopt_charge(cat, nbytes, False)
 
 
 def _host_to(host, device, dtype) -> torch.Tensor:
@@ -227,7 +253,9 @@ class TorchExecutor:
 
     `device` defaults to "cuda": the CPU is used only when the caller
     asks for it. `fused_min_docs` is the segment size from which
-    `fused_scorer` builds the fused route (FUSED_MIN_DOCS by default)."""
+    `fused_scorer` builds the fused route (FUSED_MIN_DOCS by default).
+    `reuse_from`, the previous generation's executor, lends its uploads
+    of the segments both generations share (DeviceSegment.adopt_from)."""
 
     def __init__(
         self,
@@ -236,6 +264,7 @@ class TorchExecutor:
         b: float = bm25.DEFAULT_B,
         device="cuda",
         fused_min_docs: int = FUSED_MIN_DOCS,
+        reuse_from: "Optional[TorchExecutor]" = None,
     ):
         self.reader = reader
         self.k1 = k1
@@ -259,6 +288,16 @@ class TorchExecutor:
             DeviceSegment(s, self.device, charge=self._charge)
             for s in reader.segments
         ]
+        if reuse_from is not None:
+            # NRT generation lifecycle: segments are immutable and a
+            # refresh only appends, so the new generation adopts the
+            # old one's uploads for unchanged segments — the swap
+            # re-uploads only the NEW segments' columns
+            prev = {id(ds.seg): ds for ds in reuse_from.device_segments}
+            for ds in self.device_segments:
+                old = prev.get(id(ds.seg))
+                if old is not None:
+                    ds.adopt_from(old)
         # the oracle is reused for stats and term weights
         self._oracle = NumpyExecutor(reader, k1, b)
         self._inv_norm_cache: Dict[Tuple[int, str], torch.Tensor] = {}
@@ -339,6 +378,54 @@ class TorchExecutor:
             charges, self._charges = self._charges, []
         for category, nbytes in charges:
             hbm_ledger.release(category, nbytes)
+
+    def prewarm(self, settings=None) -> None:
+        """Generation-lifecycle prewarm (the NRT refresher calls this
+        right after a generation swap, BEFORE queries observe the new
+        executor): uploads the serving-hot device columns and builds the
+        per-generation serving caches — postings, inverse norms,
+        block-max indexes and chunked scorers, vector columns, the IVF
+        indexes (`index.knn.type: ivf`), the impact scorers and the
+        rerank token columns — so the first query after a refresh pays
+        neither uploads nor k-means. A column is skipped only when the
+        ledger refuses it (breaker or degrade) or on an injected fault;
+        any other error propagates (the reference swallows every
+        exception here, which would hide a failed upload or build)."""
+        from ..common.memory import CircuitBreakingException
+        from ..index.mapping import RANK_VECTORS
+        from ..models import rerank as rerank_model
+
+        settings = settings or {}
+        skippable = (CircuitBreakingException, InjectedFault)
+        for si, seg in enumerate(self.reader.segments):
+            n = seg.num_docs
+            if n == 0:
+                continue
+            ds = self.device_segments[si]
+            for fname in seg.postings:
+                try:
+                    ds.postings.get(fname)
+                    self._inv_norm(si, fname, n)
+                    self.block_index(si, fname)
+                    self.chunked_scorer(si, fname)
+                except skippable:
+                    pass
+            for fname in seg.vectors:
+                try:
+                    ds.vectors.get(fname)
+                except skippable:
+                    pass
+        # IVF indexes and impact scorers degrade to None (cached) when
+        # the ledger cannot fit them
+        self.warm_ann(settings)
+        self.warm_impacts(settings)
+        for fname, mf in list(self.reader.mappings.fields.items()):
+            if getattr(mf, "type", None) == RANK_VECTORS:
+                model = rerank_model.resolve_model(
+                    self.reader.mappings, settings, fname
+                )
+                if model is not None:
+                    self.rerank_column(model)
 
     # ---- filter-context evaluation via the device bitset cache ----
 
@@ -719,7 +806,7 @@ class TorchExecutor:
         # `sparse_vector` inside a tree (the dense fp32 oracle; a bare one
         # rides the batcher's impact-tile family), function_score,
         # match_phrase_prefix, spans, more_like_this, geo, nested,
-        # boosting, ...; script nodes raise there, naming their slice
+        # boosting, script, script_score, ...
         hm, hs = self._oracle._exec(q, self.reader.segments[si])
         return scoring.upload(hm, self.device), scoring.upload(hs, self.device)
 

@@ -1,7 +1,9 @@
 """The port's hand-written CUDA kernel against its plain version, and
 the served routes (match, knn, bool, multi_match, filtered bool, hybrid
 RRF, sparse_vector, aggregations, IVF kNN, sorts, phrase and the other
-remaining query nodes, rescore) against the numpy backend, on the card. Every test here carries the `cuda` marker, needs an NVIDIA GPU and
+remaining query nodes, rescore) against the numpy backend, and segments
+built on the card (ops/index_build.py) against the host build, on the
+card. Every test here carries the `cuda` marker, needs an NVIDIA GPU and
 nvcc, decides so inside its fixture and skips without them. The module
 imports neither jax nor the JAX package, so on a machine with the card
 it also runs where only PyTorch is installed:
@@ -534,6 +536,116 @@ def test_served_rescore_on_card(cuda, monkeypatch, quant):
         after = rerank_model.stats_snapshot()
         assert after["device_rescores"] >= before["device_rescores"] + 8
         assert after["fallbacks"] == before["fallbacks"] and after["skipped"] == before["skipped"]
+    finally:
+        for svc in pair:
+            svc.close()
+
+
+# ---- device segment builds on the card (ops/index_build.py) ----
+
+BUILD_MAPPING = {"properties": {
+    "body": {"type": "text"}, "tag": {"type": "keyword"}, "n": {"type": "integer"},
+    "vec": {"type": "dense_vector", "dims": 16, "similarity": "cosine"},
+    "vec2": {"type": "dense_vector", "dims": 8, "similarity": "l2_norm"},
+    "toks": {"type": "rank_vectors", "dims": 8, "similarity": "cosine"},
+    "ml": {"type": "sparse_vector"},
+}}
+BUILD_COLUMNS = {
+    "postings": ("terms", "term_df", "term_total_tf", "term_tile_start", "term_tile_count", "doc_ids", "tfs",
+                 "tile_max_tf", "tile_min_norm", "norms", "term_pos_start", "pos_offsets", "pos_data",
+                 "impacts", "impact_scales"),
+    "ordinals": ("ord_terms", "ords", "mv_ords", "mv_offsets"),
+    "numerics": ("values", "exists"),
+    "vectors": ("vectors", "exists", "unit_vectors"),
+    "multi_vectors": ("tok_vectors", "tok_offsets", "exists"),
+    "sparse": ("terms", "doc_ids", "weights", "qweights", "scales", "tile_max", "tile_qmax", "exists"),
+}
+
+
+def _build_docs(n, seed):
+    words = ["ant", "bee", "cat", "dog", "eel", "fox", "gnu", "hen", "ibis", "jay"]
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        src = {"body": " ".join(rng.choice(words, int(rng.integers(1, 30)))), "n": int(rng.integers(0, 99)),
+               "tag": [str(t) for t in rng.choice(words[:4], int(rng.integers(1, 4)))],
+               "ml": {str(w): float(rng.random() * 3 + 0.05) for w in rng.choice(words, 3)}}
+        if i % 3:
+            src["vec"] = [float(x) for x in rng.normal(size=16)]
+            src["toks"] = rng.normal(size=(int(rng.integers(1, 5)), 8)).tolist()
+        if i % 4 == 0:
+            src["vec2"] = [float(x) for x in rng.normal(size=8)]
+        out.append((f"b{i}", src))
+    return out
+
+
+def test_device_build_on_card_is_bit_identical_to_host(cuda, monkeypatch):
+    """Every column family built through ops/index_build.py on the card
+    equals the host SegmentBuilder's, bit for bit."""
+    from elasticsearch_tpu_torch.analysis import AnalysisRegistry
+    from elasticsearch_tpu_torch.index import segment_build
+    from elasticsearch_tpu_torch.index.mapping import DocumentParser, Mappings
+    from elasticsearch_tpu_torch.index.segment import SegmentBuilder
+
+    monkeypatch.setenv("ES_TPU_DEVICE_BUILD", "auto")
+    maps = Mappings(BUILD_MAPPING)
+    parser = DocumentParser(maps, AnalysisRegistry())
+    docs = [parser.parse(i, s) for i, s in _build_docs(700, 3)]
+    builder = SegmentBuilder(maps)
+    for d in docs:
+        builder.add(d)
+    host = builder.build()
+    before = segment_build.INGEST_STATS["device_builds"]
+    dev = segment_build.build_segment(maps, docs, prefer_device=True, device=cuda)
+    assert segment_build.INGEST_STATS["device_builds"] == before + 1
+    for fam, attrs in BUILD_COLUMNS.items():
+        h, d = getattr(host, fam), getattr(dev, fam)
+        assert sorted(h) == sorted(d), fam
+        for f in h:
+            for attr in attrs:
+                a, b = getattr(h[f], attr), getattr(d[f], attr)
+                if isinstance(a, list) or a is None:
+                    assert a == b, (fam, f, attr)
+                else:
+                    assert a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b), (fam, f, attr)
+
+
+def test_device_built_index_on_card_matches_numpy(cuda, monkeypatch):
+    """A torch index whose refreshes build on the card, with the
+    generation swaps adopting and prewarming, answers as the numpy
+    index over the same docs."""
+    from elasticsearch_tpu_torch.cluster.indices import IndexService
+    from elasticsearch_tpu_torch.index import segment_build
+
+    monkeypatch.setenv("ES_TPU_BG_REFRESH", "off")
+    monkeypatch.setenv("ES_TPU_DEVICE_BUILD", "auto")
+    docs = _build_docs(400, 4)
+    pair = []
+    before = segment_build.INGEST_STATS["device_builds"]
+    for backend in ("torch", "numpy"):
+        # fp32 impact planes: the int8 twin is held by recall elsewhere
+        svc = IndexService(f"build-{backend}", settings={"number_of_shards": 1, "search.backend": backend,
+                                                        "sparse.quantization": "none"},
+                           mappings_json=BUILD_MAPPING, device=cuda)
+        for i, (doc_id, src) in enumerate(docs):
+            svc.index_doc(doc_id, src)
+            if i in (150, 300):
+                svc.refresh()
+                ex = svc._executor(svc.local_shard(0))
+                if backend == "torch":
+                    ex.prewarm(svc.settings)
+        svc.refresh()
+        pair.append(svc)
+    try:
+        assert segment_build.INGEST_STATS["device_builds"] == before + 3
+        tex = pair[0]._executor(pair[0].local_shard(0))
+        assert sum(ds.adopted_bytes for ds in tex.device_segments) > 0
+        for body in ({"query": {"match": {"body": "cat dog"}}, "size": 20},
+                     {"query": {"bool": {"must": [{"match": {"body": "eel"}}],
+                                         "filter": [{"term": {"tag": "bee"}}]}}, "size": 20},
+                     {"query": {"sparse_vector": {"field": "ml", "query_vector": {"fox": 1.0, "ant": 0.5}}},
+                      "size": 10}):
+            _same_served(pair[1].search(body), pair[0].search(body))
     finally:
         for svc in pair:
             svc.close()

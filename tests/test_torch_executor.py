@@ -488,6 +488,36 @@ def test_port_imports_no_jax(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def _module_exists(base: Path, dotted: str) -> bool:
+    target = base.joinpath(*dotted.split("."))
+    return target.with_suffix(".py").is_file() or (target / "__init__.py").is_file()
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_port_relative_imports_resolve_inside_the_port(path):
+    """Every relative import of the port names a module the port has
+    (its own copy), so no verbatim copy reaches for a module that was
+    left behind in the JAX package."""
+    missing = []
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.ImportFrom) or node.level == 0:
+            continue
+        base = path.parent
+        for _ in range(node.level - 1):
+            base = base.parent
+        assert (base / "__init__.py").is_file(), f"{path}: {node.level} dots leave the package"
+        if node.module:
+            if not _module_exists(base, node.module):
+                missing.append(node.module)
+            continue
+        init = (base / "__init__.py").read_text()
+        for a in node.names:
+            if not _module_exists(base, a.name) and a.name not in init:
+                missing.append(a.name)
+    assert not missing, f"{path} imports missing port modules {missing}"
+
+
 # ---- dates at millisecond precision (held to the reference's oracle) ----
 
 DATE_MAPPING = {"properties": {"day": {"type": "date"}, "body": {"type": "text"}}}

@@ -12,7 +12,8 @@ as an aggregation's query, through the JAX package's `IndexService`
 on `numpy` (its `NumpyExecutor`): the same totals and ids (a run of
 scores tied within rtol 1e-5 as a set), scores within rtol 1e-5, equal
 aggregations. A segment without positions takes the oracle's phrase
-route; a script node still raises naming ROADMAP queue 1 item 14.
+route; a script node (ROADMAP queue 1 item 14) is the oracle's host
+mask and scores, uploaded.
 """
 
 import copy
@@ -270,8 +271,14 @@ def test_expanded_terms_score_in_one_pass(trio, monkeypatch):
                         "functions": [{"script_score": {"script": {"source": "_score"}}}]}},
 ])
 def test_script_nodes_still_raise_naming_item_14(trio, body):
-    _, tr = _readers(trio)
+    """Script nodes raised naming ROADMAP queue 1 item 14 while it was
+    cut; since it is ported they are the oracle's host masks and scores,
+    uploaded, as the reference routes them, and answer as JaxExecutor."""
+    jr, tr = _readers(trio)
     tex = TorchExecutor(tr, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 14"):
-        tex.search(dsl.parse_query(body), size=5)
+    got = tex.search(dsl.parse_query(body), size=5)
+    ref = JaxExecutor(jr).search(jdsl.parse_query(body), size=5)
+    assert got.total == ref.total and ref.hits
+    assert [h.doc_id for h in got.hits] == [h.doc_id for h in ref.hits]
+    np.testing.assert_allclose([h.score for h in got.hits], [h.score for h in ref.hits], rtol=RTOL)
     tex.close()

@@ -722,10 +722,9 @@ def test_default_device_is_cuda_without_fallback(entry):
             make()
 
 
-# bodies that raised while their ROADMAP queue 1 item was cut: the
-# phrase and rescore ones now get the JAX package's answer (served, or
-# its 400: a `match_all` rescore_query is unsupported there too); a
-# highlight still raises naming item 14
+# bodies that raised while their ROADMAP queue 1 item was cut: each now
+# gets the JAX package's answer (served, or its 400: a `match_all`
+# rescore_query is unsupported there too; a highlight's fragments too)
 CUT_BODIES = {
     "sparse_vector_leg": ({"retriever": {"rrf": {"retrievers": [
         {"standard": {"query": {"match": {"body": "alpha"}}}},
@@ -779,10 +778,6 @@ def _search_or_error(svc, body):
 @pytest.mark.parametrize("name", sorted(CUT_BODIES))
 def test_cut_request_raises_naming_its_slice(small_torch_index, small_jax_index, name):
     body, item = CUT_BODIES[name]
-    if item == "item 14":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
-            small_torch_index.search(body)
-        return
     ref, ref_err = _search_or_error(small_jax_index, body)
     got, got_err = _search_or_error(small_torch_index, body)
     assert got_err == ref_err, (name, ref_err, got_err)
@@ -790,6 +785,8 @@ def test_cut_request_raises_naming_its_slice(small_torch_index, small_jax_index,
         assert ref["hits"]["total"]["value"] > 0, name
         same_response(ref, got, name)
         assert got.get("aggregations") == ref.get("aggregations"), name
+        hl = {h["_id"]: h.get("highlight") for h in got["hits"]["hits"]}
+        assert {h["_id"]: h.get("highlight") for h in ref["hits"]["hits"]} == hl, name
 
 
 def test_ivf_index_serves_and_exact_escape_serves(small_torch_index, monkeypatch):
@@ -826,12 +823,20 @@ def test_mesh_force_raises(small_torch_index, monkeypatch):
 
 
 def test_device_build_force_raises(monkeypatch):
+    """`ES_TPU_DEVICE_BUILD=force` raised naming ROADMAP queue 1 item 11
+    while it was cut; since it is ported the refresh builds through
+    ops/index_build.py on the index's device and the doc is served."""
+    from elasticsearch_tpu_torch.index import segment_build
+
     monkeypatch.setenv("ES_TPU_DEVICE_BUILD", "force")
     svc = IndexService("db", mappings_json=MAPPING, device="cpu")
     try:
         svc.index_doc("a", {"body": "alpha"})
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
-            svc.refresh()
+        before = segment_build.INGEST_STATS["device_builds"]
+        svc.refresh()
+        assert segment_build.INGEST_STATS["device_builds"] == before + 1
+        hits = svc.search({"query": {"match": {"body": "alpha"}}})["hits"]["hits"]
+        assert [h["_id"] for h in hits] == ["a"]
     finally:
         monkeypatch.setenv("ES_TPU_DEVICE_BUILD", "off")
         svc.close()
