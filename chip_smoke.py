@@ -121,7 +121,28 @@ any failure:
      prewarm building the text serving caches, every streamed doc
      searchable, 32 bodies held to a numpy index fed the same sources,
      the base batch bit-identical card against host, and a swap after a
-     small refresh adopting every old segment's uploads; `_nodes/stats` must show batched launches, a bucket wider
+     small refresh adopting every old segment's uploads; route (m), a
+     durable node on the card: the 1M-doc segment installed into
+     `/durable` (`best_compression`) of an in-process node with a data
+     path and flushed (wall, bytes per file, postings raw against
+     delta+varint, the native codec built), the node closed and opened
+     again (every saved array reloaded bit for bit; the time to recover
+     split into the cluster-state read, `Segment.load` with its native
+     decode, the first executor and each family's first search with the
+     bytes they upload, and the steady p50), 32 `match`, 32 `knn` and 8
+     hybrid bodies held to `/bench_oracle` and to the pages `/bench`
+     served before; `python -m elasticsearch_tpu_torch serve
+     --data-path` spawned, phase 4's /small docs by `_bulk` into a
+     2-shard `request`-durability index, a `_flush`, 200 more acknowledged
+     and unflushed, SIGKILL and a new process (every acknowledged doc
+     searchable, the replay built on the card, 24 bodies equal to a
+     numpy index fed the same docs, the wall from spawn to the first
+     answered search), an fs snapshot, delete, restore and a restore
+     under a rename serving the pages from before on the card, a second
+     snapshot adding no blobs; the crash matrix of index/crashpoints.py
+     (11 sites x request/async) on the card, each recovered reader
+     against the numpy oracle; and `python -m elasticsearch_tpu_torch
+     check`; `_nodes/stats` must show batched launches, a bucket wider
      than 1, the chunked path, serve launches, filter cache hits, every
      sparse body on the batcher's sparse family, every `cold_agg` body
      on the device plan, request-cache hits on repeated aggs; every
@@ -132,7 +153,8 @@ any failure:
      8-client drive is repeated with 1, 2 and 6 batcher workers, at two
      interpreter switch intervals, and once under a host stack sampler
      (measured, not checked);
-  5. a `kernels` JSON line and per-phase wall times.
+  5. a `durable` JSON line (route (m)), a `kernels` JSON line and
+     per-phase wall times.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device,
 or without the rest of the repository beside it, the script exits
@@ -145,6 +167,8 @@ import argparse
 import contextlib
 import json
 import multiprocessing
+import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -643,7 +667,16 @@ def phase_build() -> dict:
     for line in compiler_out.splitlines():
         log(f"nvcc: {line}")
     log(f"built {lib.name} in {secs:.2f}s")
-    return {"int8_knn": secs}
+    # the host postings codec of route (m) (csrc/postings_codec.cpp, g++):
+    # built here so a failed build stops the run before any phase
+    from elasticsearch_tpu_torch.native import codec
+
+    t = time.perf_counter()
+    path = codec.build()
+    codec_s = time.perf_counter() - t
+    check(codec.native_available(), f"the postings codec {path} does not load")
+    log(f"built {Path(path).name} in {codec_s:.2f}s")
+    return {"int8_knn": secs, "postings_codec": codec_s}
 
 
 def phase_kernels(qv, queries: np.ndarray, device) -> list:
@@ -2103,6 +2136,10 @@ def phase_serve(reader, dims: int, seed: int, device, card: str, ann_reader, ann
         t = time.perf_counter()
         text_hybrid = serve_text_hybrid(srv, http, clients_proc, seg, docs, dims, seed, device, rows)
         times["text_hybrid_s"] = time.perf_counter() - t
+        durable_pages = {"match_bodies": match_bodies[:DURABLE_MATCH],
+                         "match_served": served[("match", 1)][:DURABLE_MATCH],
+                         "knn_bodies": knn_bodies[:DURABLE_KNN], "knn_served": served[("knn", 1)][:DURABLE_KNN],
+                         **text_hybrid.pop("pages")}
 
         # ---- sparse_vector and aggregations ----
         t = time.perf_counter()
@@ -2178,7 +2215,13 @@ def phase_serve(reader, dims: int, seed: int, device, card: str, ann_reader, ann
         t = time.perf_counter()
         diagnosis = diagnose_concurrency(srv, http, clients_proc, match_bodies, knn_bodies)
         times["diagnosis_s"] = time.perf_counter() - t
-        return {"card": card, "latency": rows, "times": times, "bench_batcher": bench_search, "text_hybrid": text_hybrid,
+
+        # ---- route (m): a durable node on the card, held to
+        # /bench_oracle and to the pages /bench served above ----
+        t = time.perf_counter()
+        durable = route_durable(seg, dims, vocab, seed, device, http, durable_pages)
+        times["durable_s"] = time.perf_counter() - t
+        return {"durable": durable, "card": card, "latency": rows, "times": times, "bench_batcher": bench_search, "text_hybrid": text_hybrid,
                 "sparse_aggs": sparse_aggs, "ann_sort": ann_sort, "rerank": rerank, "nodes": nodes,
                 "plain_ops": plain_ops,
                 "bench_launches_by_bucket": by_bucket, "small_chunked_jobs": chunked,
@@ -2361,7 +2404,10 @@ def serve_text_hybrid(srv, http: Http, clients_proc: ClientProcess, seg, docs, d
         gb.close()
     return {"served_routes": {r: len(bodies[r]) for r in TEXT_HYBRID_ROUTES}, "counters": per_route,
             "rrf_stats_bench": rrf, "rrf_stats_small": small_rrf, "checked": checked,
-            "small_bodies": len(small), "profile": profile, "syncs_per_group": syncs}
+            "small_bodies": len(small), "profile": profile, "syncs_per_group": syncs,
+            # for route (m), not printed
+            "pages": {"hybrid_bodies": bodies["hybrid_rrf"][:DURABLE_HYBRID],
+                      "hybrid_served": served[("hybrid_rrf", 1)][:DURABLE_HYBRID]}}
 
 
 SPARSE_AGG_ROUTES = ("sparse_retrieval", "sparse_retrieval_exact", "repeated_agg", "cold_agg")
@@ -3066,10 +3112,11 @@ def _same_column(a, b) -> bool:
     return a.dtype == b.dtype and a.shape == b.shape and bool(np.array_equal(a, b))
 
 
-def segment_diff(host, dev) -> tuple:
+def segment_diff(host, dev, skip=()) -> tuple:
     """(columns compared, the names of those that differ) between a host
-    and a device build: dtype, shape and every bit of every column of
-    every family."""
+    and a device build (or a saved segment and its reload): dtype, shape
+    and every bit of every column of every family, but the attributes
+    named in `skip`."""
     bad, n = [], 1
     if host.num_docs != dev.num_docs or host.doc_ids != dev.doc_ids:
         bad.append("doc_ids")
@@ -3080,6 +3127,8 @@ def segment_diff(host, dev) -> tuple:
             continue
         for f in h:
             for attr in attrs:
+                if attr in skip:
+                    continue
                 n += 1
                 if not _same_column(getattr(h[f], attr, None), getattr(d[f], attr, None)):
                     bad.append(f"{fam}.{f}.{attr}")
@@ -3349,8 +3398,6 @@ def route_ingest(seed: int, device, seconds: float = INGEST_SECONDS, base: int =
     old segment's uploads. Then, as a diagnosis, the closed loop and
     INGEST_DIAG_SECONDS of the read-only open loop again on a batcher of
     one worker (the served path's default is six)."""
-    import os
-
     from elasticsearch_tpu_torch.cluster.indices import IndexService
     from elasticsearch_tpu_torch.index import segment_build
     from elasticsearch_tpu_torch.index.mapping import DocumentParser
@@ -3573,6 +3620,463 @@ def route_ingest(seed: int, device, seconds: float = INGEST_SECONDS, base: int =
             os.environ["ES_TPU_BG_REFRESH"] = prev_bg
 
 
+DURABLE_MATCH = 32  # route (m): match bodies held before and after the restart
+DURABLE_KNN = 32
+DURABLE_HYBRID = 8
+DURABLE_MORE = 200  # acknowledged, unflushed docs the spawned node must replay
+PCIE_BYTES_PER_S = 64e9  # PCIe Gen5 x16, one direction, nominal
+SPAWN_TIMEOUT_S = 300.0
+
+
+@contextlib.contextmanager
+def timed_loads(acc: dict):
+    """Adds the walls of `Segment.load` and of the native codec's decodes
+    (which run inside it) to `acc` while open."""
+    from elasticsearch_tpu_torch import native
+    from elasticsearch_tpu_torch.index.segment import Segment
+
+    real_load = Segment.__dict__["load"]
+    real = {name: getattr(native, name) for name in ("tiles_decode", "vb_decode")}
+
+    def wrap(fn, key):
+        def run(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                acc[key] = acc.get(key, 0.0) + time.perf_counter() - t
+        return run
+
+    Segment.load = classmethod(wrap(real_load.__func__, "segment_load_s"))
+    for name, fn in real.items():
+        setattr(native, name, wrap(fn, "native_decode_s"))
+    try:
+        yield acc
+    finally:
+        Segment.load = real_load
+        for name, fn in real.items():
+            setattr(native, name, fn)
+
+
+def disk_bytes(root: str) -> dict:
+    """Bytes of every file under `root`, by path relative to it."""
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            full = os.path.join(d, f)
+            out[os.path.relpath(full, root)] = os.path.getsize(full)
+    return out
+
+
+def npz_bytes(path: str) -> dict:
+    """Bytes of each array in an .npz (uncompressed: the stored size)."""
+    import zipfile
+
+    with zipfile.ZipFile(path) as z:
+        return {i.filename[:-4]: i.file_size for i in z.infolist()}
+
+
+def durable_reopen(seg, dims: int, device, http: Http, pages: dict, root: str) -> dict:
+    """Route (m) steps 1-2: the 1M-doc segment flushed into `/durable`
+    (best_compression) by an in-process node with a data path, the node
+    closed and opened again, every saved array held bit for bit, the
+    time to recover split, and the reopened index's pages held to
+    `/bench_oracle` and to the pages `/bench` served before."""
+    import gc
+
+    import torch
+
+    from elasticsearch_tpu_torch.cluster.service import ClusterService
+    from elasticsearch_tpu_torch.common.memory import hbm_ledger
+    from elasticsearch_tpu_torch.native import native_available
+
+    out = {}
+    path = os.path.join(root, "node")
+    check(native_available(), "(m) the native postings codec did not build (g++): the NumPy codec would run")
+    c = ClusterService(data_path=path, device=device)
+    try:
+        c.create_index("durable", {"settings": {"number_of_shards": 1, "search.backend": "torch",
+                                                "codec": "best_compression", "refresh_interval": "-1"},
+                                   "mappings": corpus_mapping(dims)})
+        idx = c.get_index("durable")
+        install_segment(idx, seg)
+        t = time.perf_counter()
+        idx.flush()
+        out["flush_s"] = time.perf_counter() - t
+    finally:
+        c.close()
+    shard = os.path.join(path, "indices", "durable", "0")
+    files = disk_bytes(shard)
+    seg_dir = next(os.path.dirname(f) for f in files if f.endswith("segment.json"))
+    arrays = npz_bytes(os.path.join(shard, seg_dir, "arrays.npz"))
+    out["disk_bytes"] = files
+    out["disk_bytes_total"] = sum(files.values())
+    out["postings"] = {
+        f: {"raw_bytes": int(seg.postings[f].doc_ids.nbytes + seg.postings[f].tfs.nbytes),
+            "delta_varint_bytes": arrays[f"{f}.doc_ids_vb"] + arrays[f"{f}.tfs_vb"]}
+        for f in ("body", "title")
+    }
+    log(f"(m) flush of {seg.num_docs} docs: {out['flush_s']:.2f}s, {out['disk_bytes_total']} bytes on disk; "
+        f"postings raw vs delta+varint {out['postings']}")
+
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    split = {}
+    t = time.perf_counter()
+    with open(os.path.join(path, "cluster_state.json"), encoding="utf-8") as f:
+        json.load(f)
+    split["cluster_state_read_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    with timed_loads(split):
+        c = ClusterService(data_path=path, device=device)
+    split["node_open_s"] = time.perf_counter() - t
+    try:
+        idx = c.get_index("durable")
+        eng = idx.shards[0]
+        loaded = eng.segments[0]
+        n_cols, bad = segment_diff(seg, loaded, skip=("unit_vectors",))
+        check(not bad and loaded.sources == seg.sources and loaded.generation == seg.generation,
+              f"(m) reloaded columns differ from the saved ones: {bad}")
+        unit_err = float(np.abs(loaded.vectors["vec"].unit_vectors - seg.vectors["vec"].unit_vectors).max())
+        out["columns_bit_identical"] = n_cols
+        out["unit_vectors_max_abs_diff"] = unit_err
+        check(eng.committed_seq_no == seg.num_docs - 1 and eng.max_seq_no == seg.num_docs - 1,
+              f"(m) reopened shard at seq {eng.committed_seq_no}/{eng.max_seq_no}, want {seg.num_docs - 1}")
+        used = hbm_ledger.used
+        t = time.perf_counter()
+        ex = idx._executor(eng)
+        sync(device)
+        split["first_executor_s"] = time.perf_counter() - t
+        split["uploaded_bytes"] = hbm_ledger.used - used
+        split["uploaded_pcie_bound_s"] = split["uploaded_bytes"] / PCIE_BYTES_PER_S
+        check(ex.device.type == device.type, f"(m) /durable serves on {ex.device}, not the card")
+        # the executor uploads a column when a query first needs it: the
+        # first body of each family pays for its columns
+        for route in ("match", "knn", "hybrid"):
+            before = hbm_ledger.used
+            t = time.perf_counter()
+            c.search("durable", pages[f"{route}_bodies"][0])
+            sync(device)
+            split[f"first_{route}_search_s"] = time.perf_counter() - t
+            split[f"first_{route}_uploaded_bytes"] = hbm_ledger.used - before
+        split["uploaded_bytes_total"] = hbm_ledger.used - used
+        split["uploaded_total_pcie_bound_s"] = split["uploaded_bytes_total"] / PCIE_BYTES_PER_S
+        lat = []
+        got = {}
+        for route in ("match", "knn"):
+            got[route] = []
+            for body in pages[f"{route}_bodies"]:
+                t = time.perf_counter()
+                got[route].append(c.search("durable", body))
+                lat.append(time.perf_counter() - t)
+        split["steady_p50_ms"] = float(np.percentile(np.asarray(lat[:len(pages["match_bodies"])]) * 1e3, 50))
+        split["steady_knn_p50_ms"] = float(np.percentile(np.asarray(lat[len(pages["match_bodies"]):]) * 1e3, 50))
+        split["engine_rest_s"] = split["node_open_s"] - split["segment_load_s"]
+        out["recover"] = split
+        log(f"(m) time to recover: {split}")
+
+        for route in ("match", "knn"):
+            for i, body in enumerate(pages[f"{route}_bodies"]):
+                ref = http.ok("POST", "/bench_oracle/_search", body)
+                same_served(ref, got[route][i], f"(m) /durable {route} body {i} against the oracle")
+                same_served(pages[f"{route}_served"][i], got[route][i],
+                            f"(m) /durable {route} body {i} against /bench before the restart")
+        modes = []
+        with idx._rrf_lock:
+            for key in idx.rrf_stats:
+                idx.rrf_stats[key] = 0
+        for i, body in enumerate(pages["hybrid_bodies"]):
+            page = c.search("durable", body)
+            leg_bodies, window = hybrid_legs(body)
+            legs = []
+            for leg in leg_bodies:
+                mine = c.search("durable", leg)
+                if "sparse_vector" in leg.get("query", {}):
+                    # the int8 column: held to the leg /bench serves from
+                    # the segment before the restart; the fusion to the
+                    # served leg
+                    same_served(http.ok("POST", "/bench/_search", leg), mine, f"(m) /durable hybrid {i} sparse leg")
+                    legs.append(mine)
+                    continue
+                ref = http.ok("POST", "/bench_oracle/_search", leg)
+                same_served(ref, mine, f"(m) /durable hybrid {i} leg")
+                legs.append(ref)
+            mode = same_fused(legs, page, window, f"(m) /durable hybrid {i}", by_global_doc=True)
+            # the page /bench served before the restart is a fusion of the
+            # same legs (exact, or within the RRF intervals their ties allow)
+            same_fused(legs, pages["hybrid_served"][i], window, f"(m) /bench hybrid {i} before the restart",
+                       by_global_doc=True)
+            if mode == "exact":
+                # no tied leg scores: the fused page is determined, so both
+                # pages agree
+                same_served(pages["hybrid_served"][i], page, f"(m) /durable hybrid {i} against /bench before")
+            modes.append(mode)
+        rrf = dict(idx.rrf_stats)
+        check(rrf["device_fused"] == len(pages["hybrid_bodies"]) and rrf["host_fused"] == 0,
+              f"(m) /durable hybrids not fused on the card: {rrf}")
+        out["checked"] = {"match": len(pages["match_bodies"]), "knn": len(pages["knn_bodies"]),
+                          "hybrid": len(pages["hybrid_bodies"]), "fused_check_modes": modes}
+        del loaded, eng, ex
+    finally:
+        c.close()
+    shutil.rmtree(path, ignore_errors=True)
+    return out
+
+
+def repo_env(repo: str) -> dict:
+    """This environment with the checkout first on the import path."""
+    path = os.environ.get("PYTHONPATH")
+    return dict(os.environ, PYTHONPATH=repo + (os.pathsep + path if path else ""))
+
+
+class SpawnedNode:
+    """`python -m elasticsearch_tpu_torch serve --data-path D --port 0` in
+    a process of its own (output to a log file under D's parent); `port`
+    is read from its "listening" line."""
+
+    def __init__(self, data_path: str, log_path: str):
+        repo = str(Path(__file__).resolve().parent)
+        env = repo_env(repo)
+        self.t0 = time.perf_counter()
+        self.log_path = log_path
+        self.log = open(log_path, "wb")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "elasticsearch_tpu_torch", "serve", "--data-path", data_path, "--port", "0"],
+            stdout=self.log, stderr=subprocess.STDOUT, cwd=repo, env=env,
+        )
+        try:
+            self.port = self._wait_listening()
+        except BaseException:
+            self.kill()
+            raise
+
+    def _tail(self) -> str:
+        with open(self.log_path, "rb") as f:
+            return f.read()[-2000:].decode(errors="replace")
+
+    def _wait_listening(self) -> int:
+        import re
+
+        deadline = time.perf_counter() + SPAWN_TIMEOUT_S
+        while time.perf_counter() < deadline:
+            with open(self.log_path, "rb") as f:
+                m = re.search(rb"listening on http://[^:\s]+:(\d+)", f.read())
+            if m:
+                return int(m.group(1))
+            check(self.proc.poll() is None, f"(m) the spawned node exited ({self.proc.returncode}): {self._tail()}")
+            time.sleep(0.05)
+        raise SmokeFailure(f"(m) the spawned node did not listen in {SPAWN_TIMEOUT_S}s: {self._tail()}")
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()  # SIGKILL: no flush, no close
+        self.proc.wait(timeout=60)
+        self.log.close()
+
+
+def durable_small_bodies(docs: list, dims: int, seed: int) -> list:
+    """Phase 4's `/small` shapes over the small docs: `match` (some with
+    operator and), `knn`, `bool`, `multi_match` and filtered `bool`."""
+    rng = np.random.default_rng(seed + 41)
+    words = [w for _, src in docs[:200] for w in src["body"].split()]
+    out = []
+    for i in range(8):
+        q = " ".join(rng.choice(words, size=int(rng.integers(2, 5))))
+        out.append({"query": {"match": {"body": {"query": q, "operator": "and"} if i % 4 == 3 else q}}, "size": K})
+    for v in rng.standard_normal((4, dims)).astype(np.float32):
+        out.append({"knn": {"field": "vec", "query_vector": [float(x) for x in v], "k": K,
+                            "num_candidates": 50}})
+    sb = small_text_hybrid_bodies(docs, dims, seed)
+    for r in ("bool", "multi_match", "filtered_bool"):
+        out += sb[r]
+    return out
+
+
+def durable_node(seed: int, vocab: int, dims: int, device, root: str) -> dict:
+    """Route (m) steps 3-4 through the real entry point: phase 4's /small
+    docs by `_bulk` into `/small_durable` (2 shards, request durability),
+    `_flush`, 200 more acknowledged and unflushed, SIGKILL, a new
+    process; every acknowledged doc searchable, the replay built on the
+    card, pages equal to a numpy index fed the same docs; then an fs
+    snapshot, a delete, a restore and a restore under a rename, both
+    serving the pages from before on the card, and a second snapshot
+    that adds no blobs."""
+    from elasticsearch_tpu_torch.cluster.indices import IndexService
+
+    out = {}
+    data = os.path.join(root, "node2")
+    docs = small_docs(seed, vocab, dims)
+    more = [(f"m{i}", src) for i, (_, src) in enumerate(small_docs(seed + 1, vocab, dims)[:DURABLE_MORE])]
+    batches = (docs[:len(docs) // 2], docs[len(docs) // 2:], more)
+    mapping = corpus_mapping(dims)
+    node = SpawnedNode(data, os.path.join(root, "node2.log"))
+    try:
+        out["first_spawn_listening_s"] = time.perf_counter() - node.t0
+        http = Http(node.port)
+        http.ok("PUT", "/small_durable", {"settings": {"number_of_shards": 2, "search.backend": "torch",
+                                                       "translog.durability": "request",
+                                                       "refresh_interval": "-1"},
+                                          "mappings": mapping})
+        for bi, part in enumerate(batches):
+            lines = []
+            for doc_id, src in part:
+                lines += [{"index": {"_id": doc_id}}, src]
+            # the last batch is acknowledged but neither refreshed nor flushed
+            res = http.ok("POST", "/small_durable/_bulk" + ("?refresh=true" if bi < 2 else ""), ndjson=lines)
+            check(not res["errors"], "(m) /small_durable/_bulk reported errors")
+            if bi == 1:
+                http.ok("POST", "/small_durable/_flush")
+    finally:
+        node.kill()
+
+    t = time.perf_counter()
+    node = SpawnedNode(data, os.path.join(root, "node2-restart.log"))
+    try:
+        http = Http(node.port)
+        out["restart_listening_s"] = time.perf_counter() - node.t0
+        http.ok("POST", "/small_durable/_search", {"query": {"match_all": {}}, "size": 1})
+        out["restart_to_first_search_s"] = time.perf_counter() - t
+        n_acked = len(docs) + len(more)
+        count = http.ok("POST", "/small_durable/_count", {"query": {"match_all": {}}})["count"]
+        check(count == n_acked, f"(m) {count} docs after the restart, {n_acked} acknowledged")
+        ids = [d for d, _ in more]
+        res = http.ok("POST", "/small_durable/_search", {"query": {"ids": {"values": ids}}, "size": len(ids)})
+        check(sorted(h["_id"] for h in res["hits"]["hits"]) == sorted(ids),
+              "(m) an acknowledged, unflushed doc is missing after the restart")
+        ingest = http.ok("GET", "/_nodes/stats")["nodes"]["node-0"]["ingest"]
+        out["replay_builds"] = {k: ingest[k] for k in ("device_builds", "host_builds", "fallbacks", "degraded")}
+        check(ingest["device_builds"] >= 2 and ingest["host_builds"] == 0 and ingest["fallbacks"] == 0,
+              f"(m) the replay was not built on the card: {out['replay_builds']}")
+
+        oracle = IndexService("small_durable_oracle", settings={"number_of_shards": 2, "search.backend": "numpy",
+                                                                "refresh_interval": "-1"},
+                              mappings_json=mapping, device=device)
+        bodies = durable_small_bodies(docs, dims, seed)
+        try:
+            for part in batches:
+                for doc_id, src in part:
+                    oracle.index_doc(doc_id, src)
+                oracle.refresh()
+            before = []
+            for i, body in enumerate(bodies):
+                page = http.ok("POST", "/small_durable/_search", body)
+                same_served(oracle.search(body), page, f"(m) /small_durable body {i} after the restart")
+                before.append(page)
+        finally:
+            oracle.close()
+        out["bodies_held"] = len(bodies)
+
+        t = time.perf_counter()
+        blobs = os.path.join(root, "repo", "blobs")
+        http.ok("PUT", "/_snapshot/fs", {"type": "fs", "settings": {"location": os.path.join(root, "repo")}})
+        snap = http.ok("PUT", "/_snapshot/fs/s1?wait_for_completion=true", {"indices": "small_durable"})
+        check(snap["snapshot"]["state"] == "SUCCESS", f"(m) snapshot: {snap}")
+        n_blobs = len(os.listdir(blobs))
+        http.ok("DELETE", "/small_durable")
+        http.ok("POST", "/_snapshot/fs/s1/_restore", {})
+        http.ok("POST", "/_snapshot/fs/s1/_restore", {"indices": "small_durable", "rename_pattern": "small_",
+                                                      "rename_replacement": "restored_"})
+        launches = http.ok("GET", "/_nodes/stats")["nodes"]["node-0"]["thread_pool"]["search"]["launches"]
+        for name in ("small_durable", "restored_durable"):
+            for i, body in enumerate(bodies):
+                same_served(before[i], http.ok("POST", f"/{name}/_search", body),
+                            f"(m) restored /{name} body {i} against the page before the snapshot")
+        launched = http.ok("GET", "/_nodes/stats")["nodes"]["node-0"]["thread_pool"]["search"]["launches"] - launches
+        check(launched > 0, "(m) the restored indexes made no batched launch on the card")
+        http.ok("PUT", "/_snapshot/fs/s2?wait_for_completion=true", {"indices": "small_durable"})
+        added = len(os.listdir(blobs)) - n_blobs
+        check(added == 0, f"(m) a second snapshot of unchanged segments added {added} blobs")
+        out["snapshot"] = {"blobs": n_blobs, "second_snapshot_new_blobs": added, "restored_launches": launched,
+                           "s": time.perf_counter() - t}
+        log(f"(m) spawned node: {out}")
+    finally:
+        node.kill()
+    return out
+
+
+def durable_crash_matrix(device, root: str) -> dict:
+    """Route (m) step 5: crashpoints' ENGINE_CRASH_SITES x {request,
+    async} with engines on the card and device builds: each recovered
+    engine meets the durability contract and its reader gives the numpy
+    oracle's pages on the card's executor."""
+    from elasticsearch_tpu_torch.index import segment_build
+    from elasticsearch_tpu_torch.index.crashpoints import ENGINE_CRASH_SITES, run_engine_crash_case
+    from elasticsearch_tpu_torch.search import dsl
+    from elasticsearch_tpu_torch.search.executor import NumpyExecutor
+    from elasticsearch_tpu_torch.search.executor_torch import TorchExecutor
+
+    t = time.perf_counter()
+    before = dict(segment_build.INGEST_STATS)
+    cells = 0
+    for label, rule in ENGINE_CRASH_SITES:
+        for durability in ("request", "async"):
+            path = os.path.join(root, "crash", f"{cells}")
+            eng, _, report = run_engine_crash_case(path, rule, durability, sync_interval=3600.0, device=device)
+            try:
+                what = f"(m) crash cell {label} [{durability}]"
+                check(report["crashed"], f"{what}: the crash never fired")
+                if durability == "request":
+                    check(report["lost_acks_beyond_bound"] == 0 and report["durable_bound"] == report["max_acked_seq"],
+                          f"{what}: {report}")
+                reader = eng.reader()
+                tex = TorchExecutor(reader, device=device)
+                nex = NumpyExecutor(reader)
+                try:
+                    for body in ({"match": {"body": "shared"}}, {"match": {"body": "alpha"}}):
+                        q = dsl.parse_query(body)
+                        same_hits(nex.search(q, size=50), tex.search(q, size=50), f"{what} {body}")
+                finally:
+                    tex.close()
+            finally:
+                eng.close()
+            cells += 1
+    after = segment_build.INGEST_STATS
+    builds = {k: after[k] - before[k] for k in ("device_builds", "host_builds", "fallbacks", "degraded")}
+    check(builds["device_builds"] > 0 and builds["host_builds"] == 0,
+          f"(m) the crash matrix's builds did not all run on the card: {builds}")
+    out = {"cells": cells, "builds": builds, "wall_s": time.perf_counter() - t}
+    log(f"(m) crash matrix: {out}")
+    return out
+
+
+def cli_check() -> dict:
+    """`python -m elasticsearch_tpu_torch check` exits 0 on the card."""
+    repo = str(Path(__file__).resolve().parent)
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "elasticsearch_tpu_torch", "check"], capture_output=True,
+                          text=True, timeout=300, cwd=repo, env=repo_env(repo))
+    check(proc.returncode == 0, f"(m) check exited {proc.returncode}: {proc.stdout} {proc.stderr}")
+    out = json.loads(proc.stdout)
+    check(out["checks_passed"] is True, f"(m) check: {out}")
+    out["wall_s"] = time.perf_counter() - t
+    return out
+
+
+def route_durable(seg, dims: int, vocab: int, seed: int, device, http: Http, pages: dict) -> dict:
+    """Route (m), a durable node on the card (steps in the docstring of
+    each part): the 1M segment flushed and reopened in process, the real
+    entry point killed and restarted, snapshots and restores on it, the
+    crash matrix on the card and `check`. Its files live under a
+    temporary directory that is removed at the end."""
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="es-torch-durable-")
+    try:
+        out = {}
+        t = time.perf_counter()
+        out["reopen"] = durable_reopen(seg, dims, device, http, pages, root)
+        out["reopen"]["s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["node"] = durable_node(seed, vocab, dims, device, root)
+        out["node"]["s"] = time.perf_counter() - t
+        out["crash_matrix"] = durable_crash_matrix(device, root)
+        out["check"] = cli_check()
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def gpu_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3646,6 +4150,8 @@ def run(device, seed: int, n_docs: int, vocab: int, dims: int, card: str) -> dic
     t = time.perf_counter()
     serve = phase_serve(reader, vecs.shape[1], seed, device, card, ann_reader, ann_q, rc, phrase_pairs)
     phases["4_serve_s"] = time.perf_counter() - t
+    durable = serve.pop("durable")
+    phases["4m_durable_s"] = serve["times"]["durable_s"]
     peaks["phase_4"] = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
     t = time.perf_counter()
     ingest = route_ingest(seed, device)
@@ -3659,6 +4165,7 @@ def run(device, seed: int, n_docs: int, vocab: int, dims: int, card: str) -> dic
         "main_path": main,
         "serve": serve,
         "ingest": ingest,
+        "durable": durable,
         "peak_device_bytes": peak,
         "peak_device_bytes_by_phase": peaks,
         "kernels": kernels,
@@ -3691,6 +4198,8 @@ def main(argv=None) -> int:
                       "main_path": result["main_path"], "peak_device_bytes": result["peak_device_bytes"],
                       "peak_device_bytes_by_phase": result["peak_device_bytes_by_phase"]}))
     print(json.dumps({"card": card, "ingest": result["ingest"]}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"card": card, "durable": result["durable"]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"card": card, "serve": result["serve"]}), flush=True)
     print(card, flush=True)

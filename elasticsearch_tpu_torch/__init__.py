@@ -34,6 +34,14 @@ finds each counterpart under the same relative path:
   search/batcher.py    QueryBatcher: the match, serve, knn, sparse, agg and
                        rerank families
   cluster/, rest/      IndexService, ClusterService, the REST server
+  index/segment.py, index/engine.py, index/crashpoints.py, native/,
+  snapshots/           on-disk shards: Segment.save/load (the same format
+                       as the reference), flush and crash recovery, the
+                       crash matrix, the postings codec (host C++ from
+                       csrc/postings_codec.cpp, built with g++ into
+                       _build/), fs snapshots and restore
+  cli.py, __main__.py  `python -m elasticsearch_tpu_torch
+                       {serve,version,check,plugin}`
   cuts.py              what is not ported yet, and which slice brings it
   convert.py           carries segments / quantized corpora across
 

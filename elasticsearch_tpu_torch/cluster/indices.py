@@ -32,8 +32,11 @@ key collects on the card (rank columns); other sorts take the oracle's
 host route, as in the reference. A `rescore` runs between the merge
 and the fetch: on the card through the batcher's `rerank` family for a
 shard's page or a one-shard index's fused candidates, else through the
-host oracle. Paths whose modules are not ported yet (the mesh, on-disk
-shards) raise, naming the slice that brings them (see cuts.py).
+host oracle. With a ``base_path`` each shard is an on-disk engine
+(flush, crash recovery, file snapshots); a reopened shard's segments
+upload to the device when its executor is first built. Paths whose
+modules are not ported yet (the mesh and multi-node mode) raise, naming
+the slice that brings them (see cuts.py).
 """
 
 from __future__ import annotations
@@ -3366,6 +3369,47 @@ class IndexService:
                 pass
         return n
 
+    # ---- snapshots (SnapshotShardsService.snapshotShard) ----
+
+    def snapshot_shard_local(self, sid: int) -> dict:
+        """One shard's snapshot payload: the committed file set for
+        disk-backed engines (immutable segments + manifest — exactly the
+        incremental unit BlobStoreRepository ships), or a doc dump for
+        in-memory engines."""
+        eng = self.local_shard(sid)
+        if eng.path is None:
+            return {"docs": dump_engine_docs(eng)}
+        with eng._lock:
+            eng.flush()
+            files: Dict[str, bytes] = {}
+            for root, _, fnames in os.walk(eng.path):
+                for fn in fnames:
+                    full = os.path.join(root, fn)
+                    rel = os.path.relpath(full, eng.path)
+                    # flush committed everything; the WAL tail is empty
+                    if rel.startswith("translog"):
+                        continue
+                    try:
+                        with open(full, "rb") as f:
+                            files[rel] = f.read()
+                    except OSError:
+                        pass
+            return {"files": files}
+
+    def snapshot_shards(self) -> Dict[int, dict]:
+        """Collects every shard's payload. A shard whose primary is on
+        another node would come over the transport, which the port does
+        not have yet (cuts.py)."""
+        out: Dict[int, dict] = {}
+        for sid in range(self.num_shards):
+            owner = self._owner(sid)
+            if owner is not None and owner != self.local_node:
+                raise not_ported(
+                    "a snapshot of a shard held by another node", MESH
+                )
+            out[sid] = self.snapshot_shard_local(sid)
+        return out
+
     def local_stats(self) -> dict:
         """Stats over the PRIMARY shards held on THIS node (wire-shaped;
         replicas are excluded so cross-node aggregation counts each
@@ -3571,6 +3615,29 @@ def _reduce_suggest(suggest_body: dict, shard_parts: List[dict]) -> dict:
         out[name] = entries
     return out
 
+
+
+def dump_engine_docs(eng: ShardEngine) -> List[dict]:
+    """Live docs of one engine as seqno/version-stamped wire dicts
+    (snapshot doc-mode payloads and doc-replay restores)."""
+    docs: List[dict] = []
+    with eng._lock:
+        for doc_id, ve in eng._versions.items():
+            if ve.deleted:
+                continue
+            doc = eng.get(doc_id)
+            if doc is None:
+                continue
+            docs.append(
+                {
+                    "id": doc_id,
+                    "source": doc["_source"],
+                    "version": ve.version,
+                    "seq_no": ve.seq_no,
+                }
+            )
+    docs.sort(key=lambda d: d["seq_no"])
+    return docs
 
 
 def apply_shard_ops(eng: ShardEngine, ops: List[dict]) -> List[dict]:

@@ -10,9 +10,9 @@ atomically-replaced JSON document, versioned like ClusterState.version.
 
 PyTorch port: every index is created on the service's ``device``
 ("cuda" unless the caller passes another; no card → the constructor
-raises). The node is in-memory: ``data_path`` and snapshots need the
-on-disk segment codec, which the port does not have yet, so they raise
-naming the slice that brings them.
+raises). With a ``data_path`` the node keeps its cluster state and its
+shards on disk and recovers them on the next start; every recovered or
+restored index serves on the same device.
 """
 
 from __future__ import annotations
@@ -26,7 +26,6 @@ from typing import Dict, List, Optional, Tuple
 from ..analysis import AnalysisRegistry
 from ..common import deep_merge
 from ..common.settings import ClusterSettingsStore, SettingsError, validate_index_settings
-from ..cuts import DISK, not_ported
 from ..index.mapping import MappingParseError
 from .indices import IndexService, _flatten_settings
 
@@ -61,10 +60,6 @@ class ClusterService:
             raise RuntimeError(
                 "ClusterService: device 'cuda' was asked for and no CUDA "
                 "device is available (pass device='cpu' to run on the CPU)"
-            )
-        if data_path is not None:
-            raise not_ported(
-                "a node data path (on-disk shards need Segment.save/load)", DISK
             )
         self.cluster_name = cluster_name
         self.node_name = node_name
@@ -926,27 +921,234 @@ class ClusterService:
         return {"acknowledged": True}
 
     def _repo(self, name: str):
+        from ..snapshots import FsRepository
+
         meta = self.repositories.get(name)
         if meta is None:
             raise ClusterError(
                 404, f"[{name}] missing", "repository_missing_exception"
             )
-        raise not_ported("snapshots (snapshots/repository.py)", DISK)
+        return FsRepository(name, meta["settings"]["location"])
 
-    # each snapshot action resolves its repository first: an unknown one
-    # is a 404, a known one raises the cut (snapshots are not ported)
+    def _snapshot_indices(self, expression) -> List[str]:
+        """Resolves a snapshot/restore indices expression (list or
+        comma-string, wildcards) against existing indices."""
+        import fnmatch
+
+        if expression is None:
+            expression = "_all"
+        parts = (
+            expression
+            if isinstance(expression, list)
+            else [p.strip() for p in str(expression).split(",") if p.strip()]
+        )
+        out: List[str] = []
+        for part in parts:
+            if part in ("_all", "*"):
+                out.extend(self.indices.keys())
+            elif "*" in part or "?" in part:
+                out.extend(
+                    n for n in self.indices if fnmatch.fnmatch(n, part)
+                )
+            elif part in self.indices:
+                out.append(part)
+            else:
+                raise IndexNotFoundError(part)
+        seen: Dict[str, None] = {}
+        for n in out:
+            seen.setdefault(n)
+        return list(seen)
 
     def create_snapshot(self, repo: str, snap: str, body: Optional[dict] = None) -> dict:
-        return self._repo(repo)
+        from ..snapshots import SnapshotError
+
+        body = body or {}
+        repository = self._repo(repo)
+        names = self._snapshot_indices(body.get("indices"))
+        payloads: Dict[str, dict] = {}
+        for name in names:
+            idx = self.indices[name]
+            meta_settings = {k: v for k, v in idx.settings.items()}
+            if idx.analysis_config:
+                meta_settings["analysis"] = idx.analysis_config
+            payloads[name] = {
+                "settings": meta_settings,
+                "mappings": idx.mappings.to_json(),
+                "uuid": idx.uuid,
+                "num_shards": idx.num_shards,
+                "shards": idx.snapshot_shards(),
+            }
+        try:
+            entry = repository.create(snap, payloads)
+        except SnapshotError as e:
+            raise ClusterError(e.status, e.reason, e.err_type)
+        return {
+            "snapshot": {
+                "snapshot": snap,
+                "uuid": entry["uuid"],
+                "state": entry["state"],
+                "indices": names,
+                "shards": {
+                    "total": sum(self.indices[n].num_shards for n in names),
+                    "failed": 0,
+                    "successful": sum(
+                        self.indices[n].num_shards for n in names
+                    ),
+                },
+            }
+        }
 
     def get_snapshot(self, repo: str, snap: str) -> dict:
-        return self._repo(repo)
+        from ..snapshots import SnapshotError
+
+        repository = self._repo(repo)
+        try:
+            if snap in ("_all", "*"):
+                entries = repository.list()
+            else:
+                entries = [repository.get(s) for s in snap.split(",")]
+        except SnapshotError as e:
+            raise ClusterError(e.status, e.reason, e.err_type)
+        return {
+            "snapshots": [
+                {
+                    "snapshot": e["snapshot"],
+                    "uuid": e["uuid"],
+                    "state": e["state"],
+                    "indices": sorted(e["indices"].keys()),
+                    "start_time_in_millis": e["start_time_in_millis"],
+                    "end_time_in_millis": e["end_time_in_millis"],
+                }
+                for e in entries
+            ]
+        }
 
     def delete_snapshot(self, repo: str, snap: str) -> dict:
-        return self._repo(repo)
+        from ..snapshots import SnapshotError
+
+        repository = self._repo(repo)
+        try:
+            repository.delete(snap)
+        except SnapshotError as e:
+            raise ClusterError(e.status, e.reason, e.err_type)
+        return {"acknowledged": True}
 
     def restore_snapshot(self, repo: str, snap: str, body: Optional[dict] = None) -> dict:
-        return self._repo(repo)
+        """Restore = recovery from the repository (restoreShard): file
+        snapshots are materialized into the index path and the engines
+        recover from them, preserving versions and seqnos; doc-mode
+        shards replay with their recorded version/seqno stamps."""
+        import fnmatch
+        import re as _re
+
+        from ..snapshots import SnapshotError
+
+        body = body or {}
+        repository = self._repo(repo)
+        try:
+            entry = repository.get(snap)
+        except SnapshotError as e:
+            raise ClusterError(e.status, e.reason, e.err_type)
+        expression = body.get("indices", "_all")
+        parts = (
+            expression
+            if isinstance(expression, list)
+            else [p.strip() for p in str(expression).split(",") if p.strip()]
+        )
+        chosen: List[str] = []
+        for part in parts:
+            if part in ("_all", "*"):
+                chosen.extend(entry["indices"].keys())
+            else:
+                matched = [
+                    n for n in entry["indices"] if fnmatch.fnmatch(n, part)
+                ]
+                if not matched:
+                    raise IndexNotFoundError(part)
+                chosen.extend(matched)
+        pattern = body.get("rename_pattern")
+        replacement = body.get("rename_replacement", "")
+        restored: List[str] = []
+        for source_name in dict.fromkeys(chosen):
+            target = (
+                _re.sub(pattern, replacement, source_name)
+                if pattern
+                else source_name
+            )
+            if target in self.indices:
+                raise ClusterError(
+                    400,
+                    f"cannot restore index [{target}] because an open index "
+                    "with same name already exists in the cluster",
+                    "snapshot_restore_exception",
+                )
+            self._restore_index(repository, snap, entry, source_name, target)
+            restored.append(target)
+        return {
+            "snapshot": {
+                "snapshot": snap,
+                "indices": restored,
+                "shards": {
+                    "total": sum(
+                        entry["indices"][s]["num_shards"] for s in dict.fromkeys(chosen)
+                    ),
+                    "failed": 0,
+                    "successful": sum(
+                        entry["indices"][s]["num_shards"] for s in dict.fromkeys(chosen)
+                    ),
+                },
+            }
+        }
+
+    def _restore_index(
+        self, repository, snap: str, entry: dict, source_name: str, target: str
+    ) -> None:
+        imeta = entry["indices"][source_name]
+        num_shards = int(imeta["num_shards"])
+        index_path = self._index_path(target)
+        file_restore = index_path is not None
+        if file_restore:
+            # phase 1: lay the committed shard files down BEFORE the
+            # engines open — IndexService recovery then treats them
+            # exactly like a local restart (restore-as-recovery-source)
+            for sid in range(num_shards):
+                files = repository.shard_files(snap, source_name, sid)
+                if files is None:
+                    continue
+                shard_dir = os.path.join(index_path, str(sid))
+                for rel, data in files.items():
+                    full = os.path.join(shard_dir, rel)
+                    os.makedirs(os.path.dirname(full), exist_ok=True)
+                    with open(full, "wb") as f:
+                        f.write(data)
+        with self._lock:
+            idx = IndexService(
+                target,
+                settings=imeta.get("settings"),
+                mappings_json=imeta.get("mappings"),
+                base_path=index_path,
+                device=self.device,
+            )
+            self.indices[target] = idx
+            self.version += 1
+            self._persist()
+        # doc-mode shards (or file snapshots restored into a diskless
+        # node) replay with their recorded version/seqno stamps
+        for sid in range(num_shards):
+            docs = repository.shard_docs(snap, source_name, sid)
+            if docs is None and index_path is None:
+                files = repository.shard_files(snap, source_name, sid)
+                if files is not None:
+                    docs = _docs_from_snapshot_files(
+                        files, imeta.get("mappings"), imeta.get("settings")
+                    )
+            if docs:
+                eng = idx.local_shard(sid)
+                for d in docs:
+                    eng.index_replica(
+                        d["id"], d["source"], d["version"], d["seq_no"]
+                    )
+                eng.refresh()
 
     def health(self, params: Optional[dict] = None) -> dict:
         """Cluster health with the wait semantics of
@@ -1043,6 +1245,46 @@ class ClusterService:
     def close(self) -> None:
         for idx in self.indices.values():
             idx.close()
+
+
+def _docs_from_snapshot_files(
+    files: Dict[str, bytes], mappings_json: Optional[dict], settings: Optional[dict]
+) -> List[dict]:
+    """Opens a file-mode shard snapshot in a scratch directory and dumps
+    its live docs — the bridge from file snapshots to doc-replay
+    restores (diskless nodes, distributed mode)."""
+    import shutil
+    import tempfile
+
+    from ..analysis import AnalysisRegistry
+    from ..index.engine import ShardEngine
+    from ..index.mapping import Mappings
+    from .indices import dump_engine_docs
+
+    tmp = tempfile.mkdtemp(prefix="restore-shard-")
+    try:
+        for rel, data in files.items():
+            full = os.path.join(tmp, rel)
+            os.makedirs(os.path.dirname(full), exist_ok=True)
+            with open(full, "wb") as f:
+                f.write(data)
+        analysis_cfg = (settings or {}).get("analysis")
+        eng = ShardEngine(
+            Mappings(mappings_json or {}),
+            AnalysisRegistry(
+                {"analysis": analysis_cfg} if analysis_cfg else None
+            ),
+            path=tmp,
+            # it only dumps docs: a replayed tail builds on the host,
+            # never on the card
+            device_build=False,
+            device="cpu",
+        )
+        docs = dump_engine_docs(eng)
+        eng.close()
+        return docs
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _empty_search_response() -> dict:

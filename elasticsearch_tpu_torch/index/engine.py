@@ -31,7 +31,6 @@ import numpy as np
 
 from ..analysis import AnalysisRegistry
 from ..common.faults import faults
-from ..cuts import DISK, not_ported
 from ..search.executor import ShardReader
 from .mapping import DocumentParser, Mappings
 from .segment import Segment
@@ -146,13 +145,8 @@ class ShardEngine:
         }
         self.translog: Optional[Translog] = None
         if path is not None:
-            # flush and recovery write and read segments through
-            # Segment.save/load, which the port does not have yet: its
-            # engines are in-memory
-            raise not_ported(
-                "an on-disk shard (Segment.save/load and the native codec)",
-                DISK,
-            )
+            os.makedirs(path, exist_ok=True)
+            self._recover(durability, sync_interval)
 
     # ------------------------------------------------------------------
     # write path (InternalEngine.index / delete)

@@ -28,14 +28,24 @@ rather than ported:
     store a unit-normalized copy used for scoring) — brute-force kNN is
     one MXU matmul.
 
-This copy serves the PyTorch port: the same in-memory layout and the
-same builder. On-disk persistence (`Segment.save`/`load`, the native
-codec) is not part of it yet.
+Persistence: one directory per segment holding .npy files plus a
+`segment.json` manifest; term dictionaries are a utf-8 blob + offsets
+(terms may contain any byte except nothing). Commits are crash-safe via
+atomic manifest rename at the shard level (see engine.py).
+
+This copy serves the PyTorch port: the same in-memory layout, the same
+builder and the same on-disk format (`format_version` 1, the same array
+names), so a segment directory written by either package loads in the
+other. `best_compression` posting tiles go through the port's own copy
+of the native codec (`native/codec.py`). Segments load to the host;
+`TorchExecutor` uploads them to the index's device.
 """
 
 from __future__ import annotations
 
+import json
 import math
+import os
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -401,8 +411,319 @@ class Segment:
         self.sparse = sparse or {}
         self.generation = generation
 
-    # On-disk persistence (save/load through the native codec) belongs to
-    # a later slice of the port; segments here are built in memory.
+    # ---------- persistence ----------
+
+    def save(self, path: str, codec: str = "default") -> None:
+        os.makedirs(path, exist_ok=True)
+        compress = codec == "best_compression"
+        manifest: dict = {
+            "format_version": 1,
+            "num_docs": self.num_docs,
+            "generation": self.generation,
+            "codec": codec,
+            "postings": {},
+            "numerics": sorted(self.numerics),
+            "ordinals": sorted(self.ordinals),
+            "vectors": {},
+            "multi_vectors": {},
+            "sparse": {},
+        }
+        arrays: Dict[str, np.ndarray] = {}
+
+        def put(name: str, arr: np.ndarray):
+            arrays[name] = np.ascontiguousarray(arr)
+
+        for fname, pf in self.postings.items():
+            key = _fkey(fname)
+            manifest["postings"][fname] = {
+                "key": key,
+                "n_terms": len(pf.terms),
+                "stats": vars(pf.stats),
+            }
+            blob, offsets = _encode_terms(pf.terms)
+            arrays[f"{key}.terms_blob"] = blob
+            put(f"{key}.term_offsets", offsets)
+            put(f"{key}.term_df", pf.term_df)
+            put(f"{key}.term_total_tf", pf.term_total_tf)
+            put(f"{key}.term_tile_start", pf.term_tile_start)
+            put(f"{key}.term_tile_count", pf.term_tile_count)
+            if compress:
+                # best_compression: posting tiles go to disk delta+varint
+                # encoded (the native codec — ForUtil's on-disk role);
+                # decoded once at load into the dense device-upload form
+                from ..native import tiles_encode, vb_encode
+
+                manifest["postings"][fname]["tiles_vb"] = list(
+                    pf.doc_ids.shape
+                )
+                arrays[f"{key}.doc_ids_vb"] = np.frombuffer(
+                    tiles_encode(pf.doc_ids), np.uint8
+                )
+                arrays[f"{key}.tfs_vb"] = np.frombuffer(
+                    vb_encode(pf.tfs.ravel()), np.uint8
+                )
+            else:
+                put(f"{key}.doc_ids", pf.doc_ids)
+                put(f"{key}.tfs", pf.tfs)
+            put(f"{key}.tile_max_tf", pf.tile_max_tf)
+            put(f"{key}.tile_min_norm", pf.tile_min_norm)
+            put(f"{key}.norms", pf.norms)
+            if pf.has_positions:
+                manifest["postings"][fname]["positions"] = True
+                put(f"{key}.term_pos_start", pf.term_pos_start)
+                put(f"{key}.pos_offsets", pf.pos_offsets)
+                put(f"{key}.pos_data", pf.pos_data)
+            if pf.impacts is not None:
+                manifest["postings"][fname]["impacts"] = True
+                put(f"{key}.impacts", pf.impacts)
+                put(f"{key}.impact_scales", pf.impact_scales)
+        for fname, nf in self.numerics.items():
+            key = _fkey(fname)
+            put(f"num.{key}.values", nf.values)
+            put(f"num.{key}.exists", nf.exists)
+        for fname, of in self.ordinals.items():
+            key = _fkey(fname)
+            blob, offsets = _encode_terms(of.ord_terms)
+            arrays[f"ord.{key}.terms_blob"] = blob
+            put(f"ord.{key}.term_offsets", offsets)
+            put(f"ord.{key}.ords", of.ords)
+            put(f"ord.{key}.mv_ords", of.mv_ords)
+            put(f"ord.{key}.mv_offsets", of.mv_offsets)
+        for fname, vf in self.vectors.items():
+            key = _fkey(fname)
+            manifest["vectors"][fname] = {"key": key, "similarity": vf.similarity}
+            put(f"vec.{key}.vectors", vf.vectors)
+            put(f"vec.{key}.exists", vf.exists)
+        for fname, mvf in self.multi_vectors.items():
+            key = _fkey(fname)
+            manifest["multi_vectors"][fname] = {
+                "key": key,
+                "similarity": mvf.similarity,
+            }
+            put(f"mvec.{key}.tok_vectors", mvf.tok_vectors)
+            put(f"mvec.{key}.tok_offsets", mvf.tok_offsets)
+            put(f"mvec.{key}.exists", mvf.exists)
+        for fname, sf in self.sparse.items():
+            key = _fkey(fname)
+            manifest["sparse"][fname] = {
+                "key": key,
+                "n_terms": len(sf.terms),
+                "pruned": sf.pruned,
+            }
+            blob, offsets = _encode_terms(sf.terms)
+            arrays[f"sp.{key}.terms_blob"] = blob
+            put(f"sp.{key}.term_offsets", offsets)
+            put(f"sp.{key}.term_df", sf.term_df)
+            put(f"sp.{key}.term_tile_start", sf.term_tile_start)
+            put(f"sp.{key}.term_tile_count", sf.term_tile_count)
+            put(f"sp.{key}.doc_ids", sf.doc_ids)
+            put(f"sp.{key}.weights", sf.weights)
+            put(f"sp.{key}.qweights", sf.qweights)
+            put(f"sp.{key}.scales", sf.scales)
+            put(f"sp.{key}.tile_max", sf.tile_max)
+            put(f"sp.{key}.tile_qmax", sf.tile_qmax)
+            put(f"sp.{key}.exists", sf.exists)
+
+        np.savez(os.path.join(path, "arrays.npz"), **arrays)
+        fsync_path(os.path.join(path, "arrays.npz"))
+        if compress:
+            # stored fields ride DEFLATE (the reference's
+            # best_compression stored-fields codec)
+            import gzip
+
+            with gzip.open(
+                os.path.join(path, "docs.json.gz"), "wt", encoding="utf-8"
+            ) as f:
+                json.dump(
+                    {"doc_ids": self.doc_ids, "sources": self.sources}, f
+                )
+            fsync_path(os.path.join(path, "docs.json.gz"))
+        else:
+            with open(os.path.join(path, "docs.json"), "w") as f:
+                json.dump(
+                    {"doc_ids": self.doc_ids, "sources": self.sources}, f
+                )
+                f.flush()
+                os.fsync(f.fileno())
+        tmp = os.path.join(path, "segment.json.tmp")
+        with open(tmp, "w") as f:
+            json.dump(manifest, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, os.path.join(path, "segment.json"))
+        fsync_dir(path)
+
+    @classmethod
+    def load(cls, path: str) -> "Segment":
+        with open(os.path.join(path, "segment.json")) as f:
+            manifest = json.load(f)
+        gz = os.path.join(path, "docs.json.gz")
+        if os.path.exists(gz):
+            import gzip
+
+            with gzip.open(gz, "rt", encoding="utf-8") as f:
+                docs = json.load(f)
+        else:
+            with open(os.path.join(path, "docs.json")) as f:
+                docs = json.load(f)
+        data = np.load(os.path.join(path, "arrays.npz"), allow_pickle=False)
+        postings: Dict[str, PostingsField] = {}
+        for fname, meta in manifest["postings"].items():
+            key = meta["key"]
+            terms = _decode_terms(data[f"{key}.terms_blob"], data[f"{key}.term_offsets"])
+            if meta.get("tiles_vb"):
+                # best_compression: one-time native decode into the
+                # dense device-upload form (the ForUtil decode moment)
+                from ..native import tiles_decode, vb_decode
+
+                n_tiles, width = meta["tiles_vb"]
+                doc_ids = tiles_decode(
+                    data[f"{key}.doc_ids_vb"].tobytes(), n_tiles, width
+                )
+                tfs = vb_decode(
+                    data[f"{key}.tfs_vb"].tobytes(), n_tiles * width
+                ).reshape(n_tiles, width)
+            else:
+                doc_ids = data[f"{key}.doc_ids"]
+                tfs = data[f"{key}.tfs"]
+            postings[fname] = PostingsField(
+                terms=terms,
+                term_df=data[f"{key}.term_df"],
+                term_total_tf=data[f"{key}.term_total_tf"],
+                term_tile_start=data[f"{key}.term_tile_start"],
+                term_tile_count=data[f"{key}.term_tile_count"],
+                doc_ids=doc_ids,
+                tfs=tfs,
+                tile_max_tf=data[f"{key}.tile_max_tf"],
+                tile_min_norm=data[f"{key}.tile_min_norm"],
+                norms=data[f"{key}.norms"],
+                stats=FieldStats(**meta["stats"]),
+                term_pos_start=(
+                    data[f"{key}.term_pos_start"] if meta.get("positions") else None
+                ),
+                pos_offsets=(
+                    data[f"{key}.pos_offsets"] if meta.get("positions") else None
+                ),
+                pos_data=(
+                    data[f"{key}.pos_data"] if meta.get("positions") else None
+                ),
+                impacts=(
+                    data[f"{key}.impacts"] if meta.get("impacts") else None
+                ),
+                impact_scales=(
+                    data[f"{key}.impact_scales"]
+                    if meta.get("impacts")
+                    else None
+                ),
+            )
+        numerics = {
+            fname: NumericField(
+                values=data[f"num.{_fkey(fname)}.values"],
+                exists=data[f"num.{_fkey(fname)}.exists"],
+            )
+            for fname in manifest["numerics"]
+        }
+        ordinals = {}
+        for fname in manifest["ordinals"]:
+            key = _fkey(fname)
+            ordinals[fname] = OrdinalField(
+                ord_terms=_decode_terms(
+                    data[f"ord.{key}.terms_blob"], data[f"ord.{key}.term_offsets"]
+                ),
+                ords=data[f"ord.{key}.ords"],
+                mv_ords=data[f"ord.{key}.mv_ords"],
+                mv_offsets=data[f"ord.{key}.mv_offsets"],
+            )
+        vectors = {}
+        for fname, meta in manifest["vectors"].items():
+            key = meta["key"]
+            vf = VectorField(
+                vectors=data[f"vec.{key}.vectors"],
+                exists=data[f"vec.{key}.exists"],
+                similarity=meta["similarity"],
+            )
+            if vf.similarity == "cosine":
+                vf.unit_vectors = _unit_normalize(vf.vectors)
+            vectors[fname] = vf
+        multi_vectors = {}
+        for fname, meta in manifest.get("multi_vectors", {}).items():
+            key = meta["key"]
+            multi_vectors[fname] = MultiVectorField(
+                tok_vectors=data[f"mvec.{key}.tok_vectors"],
+                tok_offsets=data[f"mvec.{key}.tok_offsets"],
+                exists=data[f"mvec.{key}.exists"],
+                similarity=meta["similarity"],
+            )
+        sparse = {}
+        for fname, meta in manifest.get("sparse", {}).items():
+            key = meta["key"]
+            sparse[fname] = SparseField(
+                terms=_decode_terms(
+                    data[f"sp.{key}.terms_blob"],
+                    data[f"sp.{key}.term_offsets"],
+                ),
+                term_df=data[f"sp.{key}.term_df"],
+                term_tile_start=data[f"sp.{key}.term_tile_start"],
+                term_tile_count=data[f"sp.{key}.term_tile_count"],
+                doc_ids=data[f"sp.{key}.doc_ids"],
+                weights=data[f"sp.{key}.weights"],
+                qweights=data[f"sp.{key}.qweights"],
+                scales=data[f"sp.{key}.scales"],
+                tile_max=data[f"sp.{key}.tile_max"],
+                tile_qmax=data[f"sp.{key}.tile_qmax"],
+                exists=data[f"sp.{key}.exists"],
+                pruned=int(meta.get("pruned", 0)),
+            )
+        return cls(
+            num_docs=manifest["num_docs"],
+            doc_ids=docs["doc_ids"],
+            sources=docs["sources"],
+            postings=postings,
+            numerics=numerics,
+            ordinals=ordinals,
+            vectors=vectors,
+            generation=manifest.get("generation", 0),
+            multi_vectors=multi_vectors,
+            sparse=sparse,
+        )
+
+
+def fsync_path(path: str) -> None:
+    """fsync an already-written file by path (durability before commit)."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def fsync_dir(path: str) -> None:
+    """fsync a directory so its entries (renames, new files) are durable."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def _fkey(fname: str) -> str:
+    return fname.replace("/", "_")
+
+
+def _encode_terms(terms: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
+    encoded = [t.encode("utf-8") for t in terms]
+    blob = np.frombuffer(b"".join(encoded), dtype=np.uint8)
+    offsets = np.zeros(len(terms) + 1, dtype=np.int64)
+    np.cumsum([len(e) for e in encoded], out=offsets[1:])
+    return blob, offsets
+
+
+def _decode_terms(blob: np.ndarray, offsets: np.ndarray) -> List[str]:
+    raw = blob.tobytes()
+    return [
+        raw[offsets[i] : offsets[i + 1]].decode("utf-8")
+        for i in range(len(offsets) - 1)
+    ]
 
 
 def _unit_normalize(vectors: np.ndarray) -> np.ndarray:

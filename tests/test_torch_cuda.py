@@ -1,9 +1,11 @@
 """The port's hand-written CUDA kernel against its plain version, and
 the served routes (match, knn, bool, multi_match, filtered bool, hybrid
 RRF, sparse_vector, aggregations, IVF kNN, sorts, phrase and the other
-remaining query nodes, rescore) against the numpy backend, and segments
-built on the card (ops/index_build.py) against the host build, on the
-card. Every test here carries the `cuda` marker, needs an NVIDIA GPU and
+remaining query nodes, rescore) against the numpy backend, segments
+built on the card (ops/index_build.py) against the host build, a node
+with a data path reopened after a crash (its tail replayed into a build
+on the card) against the numpy backend, and `python -m
+elasticsearch_tpu_torch check`, on the card. Every test here carries the `cuda` marker, needs an NVIDIA GPU and
 nvcc, decides so inside its fixture and skips without them. The module
 imports neither jax nor the JAX package, so on a machine with the card
 it also runs where only PyTorch is installed:
@@ -261,7 +263,7 @@ def test_served_route_on_card_matches_numpy(cuda, monkeypatch, route):
             else:
                 _same_served(oracle.search(body), svc.search(body))
         ex = svc._executor(svc.shards[0])
-        assert isinstance(ex, TorchExecutor) and ex.device.type == "cuda"
+        assert isinstance(ex, TorchExecutor) and ex.device.type == cuda.type
         if route == "hybrid":
             # two shards: the legs run on the leg pool, the fuse on the host
             assert svc.rrf_stats["host_fused"] == len(bodies)
@@ -649,3 +651,65 @@ def test_device_built_index_on_card_matches_numpy(cuda, monkeypatch):
     finally:
         for svc in pair:
             svc.close()
+
+
+def test_reopened_index_on_card_matches_numpy(cuda, monkeypatch, tmp_path):
+    """A node on the card with a data path: flushed segments and an
+    unflushed tail survive a restart, the reopened torch index serves
+    the numpy index's pages, and its tail replay built on the card."""
+    from elasticsearch_tpu_torch.cluster.service import ClusterService
+    from elasticsearch_tpu_torch.index import segment_build
+    from elasticsearch_tpu_torch.search.executor_torch import TorchExecutor
+
+    monkeypatch.setenv("ES_TPU_BG_REFRESH", "off")
+    monkeypatch.setenv("ES_TPU_DEVICE_BUILD", "auto")
+    docs = _build_docs(300, 5)
+    path = str(tmp_path / "node")
+    c = ClusterService(data_path=path, device=cuda)
+    for backend in ("torch", "numpy"):
+        c.create_index(f"d-{backend}", {"settings": {"number_of_shards": 2, "search.backend": backend,
+                                                     "sparse.quantization": "none",
+                                                     "codec": "best_compression"},
+                                        "mappings": BUILD_MAPPING})
+        idx = c.get_index(f"d-{backend}")
+        for doc_id, src in docs[:200]:
+            idx.index_doc(doc_id, src)
+        idx.flush()
+        for doc_id, src in docs[200:]:
+            idx.index_doc(doc_id, src)
+    # a power loss: the tail lives only in the translogs
+    for idx in c.indices.values():
+        idx.crash()
+    before = dict(segment_build.INGEST_STATS)
+    c = ClusterService(data_path=path, device=cuda)
+    try:
+        assert segment_build.INGEST_STATS["device_builds"] >= before["device_builds"] + 2
+        assert segment_build.INGEST_STATS["host_builds"] == before["host_builds"] + 2  # the numpy index
+        t, n = c.get_index("d-torch"), c.get_index("d-numpy")
+        ex = t._executor(t.shards[0])
+        assert isinstance(ex, TorchExecutor) and ex.device.type == cuda.type
+        for body in ({"query": {"match": {"body": "cat dog"}}, "size": 20},
+                     {"knn": {"field": "vec", "query_vector": [0.1] * 16, "k": 10, "num_candidates": 50}},
+                     {"query": {"sparse_vector": {"field": "ml", "query_vector": {"fox": 1.0, "ant": 0.5}}},
+                      "size": 10}):
+            _same_served(n.search(body), t.search(body))
+        assert t.search({"size": 0, "track_total_hits": True})["hits"]["total"]["value"] == 300
+    finally:
+        c.close()
+
+
+def test_check_passes_on_card(cuda):
+    """`python -m elasticsearch_tpu_torch check` exits 0 with a card."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=str(repo))
+    out = subprocess.run([sys.executable, "-m", "elasticsearch_tpu_torch", "check"],
+                         capture_output=True, text=True, timeout=300, env=env, cwd=str(repo))
+    assert out.returncode == 0, (out.stdout, out.stderr)
+    data = json.loads(out.stdout)
+    assert data["checks_passed"] is True and data["hbm_budget_bytes"] > 0

@@ -488,6 +488,32 @@ def test_port_imports_no_jax(path):
     assert not bad, f"{path} imports {bad}"
 
 
+DURABLE_MODULES = (
+    "native/__init__.py", "native/codec.py", "index/crashpoints.py",
+    "snapshots/__init__.py", "snapshots/repository.py", "cli.py", "__main__.py",
+)
+
+
+@pytest.mark.parametrize("rel", DURABLE_MODULES)
+def test_scan_covers_the_durable_modules(rel):
+    """The on-disk modules and the CLI are port files the scan above
+    reads (they import neither jax nor the JAX package, pure Python as
+    they are), and each keeps its own copy under the same relative path."""
+    path = REPO / "elasticsearch_tpu_torch" / rel
+    assert path in PORT_FILES
+    assert (REPO / "elasticsearch_tpu" / rel).is_file()
+    assert not [m for m in _imports(path) if m.split(".")[0] in ("jax", "jaxlib", "elasticsearch_tpu")]
+
+
+def test_only_the_mesh_cut_is_left():
+    """On-disk shards are ported: `cuts.DISK` is gone and `MESH` (the mesh
+    and multi-node mode) is the only cut."""
+    from elasticsearch_tpu_torch import cuts
+
+    assert not hasattr(cuts, "DISK")
+    assert [k for k in vars(cuts) if k.isupper()] == ["MESH"]
+
+
 def _module_exists(base: Path, dotted: str) -> bool:
     target = base.joinpath(*dotted.split("."))
     return target.with_suffix(".py").is_file() or (target / "__init__.py").is_file()

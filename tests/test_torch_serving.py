@@ -843,9 +843,28 @@ def test_device_build_force_raises(monkeypatch):
 
 
 def test_data_path_raises(tmp_path):
+    """A data path raised naming ROADMAP queue 1 item 13 while on-disk
+    shards were cut; since they are ported a node and an index open on
+    disk, and a reopened index answers as before, as the JAX one does."""
     from elasticsearch_tpu_torch.cluster import ClusterService
 
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
-        ClusterService(data_path=str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
-        IndexService("p", base_path=str(tmp_path / "p"), device="cpu")
+    c = ClusterService(data_path=str(tmp_path / "node"), device="cpu")
+    c.close()
+    assert (tmp_path / "node").is_dir()
+    pages = []
+    for cls, kw in ((IndexService, {"device": "cpu"}), (JIndexService, {})):
+        base = str(tmp_path / cls.__module__.split(".")[0])
+        svc = cls("p", mappings_json=MAPPING, base_path=base,
+                  settings={"search.backend": "numpy"}, **kw)
+        svc.index_doc("a", {"body": "alpha bravo"})
+        svc.index_doc("b", {"body": "alpha"})
+        svc.flush()
+        svc.close()
+        svc = cls("p", mappings_json=MAPPING, base_path=base,
+                  settings={"search.backend": "numpy"}, **kw)
+        try:
+            hits = svc.search({"query": {"match": {"body": "alpha"}}})["hits"]["hits"]
+            pages.append([(h["_id"], h["_score"]) for h in hits])
+        finally:
+            svc.close()
+    assert pages[0] == pages[1] and len(pages[0]) == 2
