@@ -142,7 +142,28 @@ any failure:
      snapshot adding no blobs; the crash matrix of index/crashpoints.py
      (11 sites x request/async) on the card, each recovered reader
      against the numpy oracle; and `python -m elasticsearch_tpu_torch
-     check`; `_nodes/stats` must show batched launches, a bucket wider
+     check`; route (n), a multi-node cluster on the card: (n1) three
+     in-process `TpuNode`s over localhost TCP with REST in node mode in
+     front of each, `/dist` (8 shards, 0 replicas) spread over them, the
+     1M-doc corpus split into 8 per-shard segments by the router's
+     murmur3 `shard_id` of each `_id` and each installed on its owning
+     node; 32 `match`, 32 exact `knn` and 8 3-leg hybrids through
+     node-0 held to `/local8` (the same 8 segments on one node: ids,
+     scores within rtol 1e-5, hybrids by RRF over `/local8`'s legs) and
+     `match`/`knn` to a numpy 8-shard index, a GET by `_id` through each
+     node, p50/p99/QPS at 8 clients and 1 beside `/local8`, shard
+     requests and bytes on the transport per request, the card's busy
+     time per request; (n2) at /small scale: `/rep` (2 shards, 1
+     replica) fed by `_bulk` through node-1 and searched from node-2,
+     every acknowledged doc on every in-sync copy, a primary's node
+     crashed without a flush and its replica promoted, the node
+     restarted and its copies peer-recovered (files shipped, every
+     build on the card), a `_cluster/reroute` move, a distributed
+     snapshot and restore, the pages unchanged throughout; (n3) two
+     `python -m elasticsearch_tpu_torch serve --node-name ... --seeds
+     ...` processes sharing the card, the one holding a primary
+     SIGKILLed, every acknowledged doc answered by the other, the node
+     restarted as an in-sync replica; `_nodes/stats` must show batched launches, a bucket wider
      than 1, the chunked path, serve launches, filter cache hits, every
      sparse body on the batcher's sparse family, every `cold_agg` body
      on the device plan, request-cache hits on repeated aggs; every
@@ -153,8 +174,8 @@ any failure:
      8-client drive is repeated with 1, 2 and 6 batcher workers, at two
      interpreter switch intervals, and once under a host stack sampler
      (measured, not checked);
-  5. a `durable` JSON line (route (m)), a `kernels` JSON line and
-     per-phase wall times.
+  5. a `durable` JSON line (route (m)), a `cluster` JSON line (route
+     (n)), a `kernels` JSON line and per-phase wall times.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device,
 or without the rest of the repository beside it, the script exits
@@ -332,13 +353,17 @@ def build_corpus(seed: int, n_docs: int, vocab: int, dims: int):
     vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
     # bench.py's other columns, drawn after the body and the vectors so
     # those stay as earlier runs had them
-    title = build_postings(rng, min(TITLE_VOCAB, vocab), rng.integers(*TITLE_LEN, size=n_docs))
+    title_vocab = min(TITLE_VOCAB, vocab)
+    title_lengths = rng.integers(*TITLE_LEN, size=n_docs)
+    title_stream = draw_terms(rng, title_vocab, title_lengths)
+    title = postings_from_stream(title_stream, title_vocab, title_lengths)
     exists = np.ones(n_docs, bool)
     popularity = rng.integers(0, 100, size=n_docs).astype(np.float64)
     day = (DAY0 + rng.integers(0, 30, size=n_docs).astype(np.int64) * DAY_MS).astype(np.float64)
     cat_ords = rng.integers(0, 16, size=n_docs).astype(np.int32)
     # drawn last, so every earlier column stays as earlier runs had it
-    ml = build_sparse_column(rng, n_docs)
+    ml_triples = sparse_triples(rng, n_docs)
+    ml = sparse_column(ml_triples, n_docs)
     seg = Segment(
         num_docs=n_docs,
         doc_ids=[str(i) for i in range(n_docs)],
@@ -363,7 +388,12 @@ def build_corpus(seed: int, n_docs: int, vocab: int, dims: int):
         sparse={"ml": ml},
     )
     mappings = Mappings(corpus_mapping(dims))
-    return ShardReader([seg], mappings, AnalysisRegistry()), vecs, pairs
+    # the columns the segment was built from, for route (n)'s per-shard
+    # segments (shard_segments)
+    raw = {"stream": stream, "lengths": lengths, "vocab": vocab, "title_stream": title_stream,
+           "title_lengths": title_lengths, "title_vocab": title_vocab, "vecs": vecs,
+           "popularity": popularity, "day": day, "cat_ords": cat_ords, "ml": ml_triples}
+    return ShardReader([seg], mappings, AnalysisRegistry()), vecs, pairs, raw
 
 
 def adjacent_pairs(stream: np.ndarray, lengths: np.ndarray, term_df: np.ndarray,
@@ -384,13 +414,11 @@ def sparse_popularity() -> np.ndarray:
     return pop / pop.sum()
 
 
-def build_sparse_column(rng, n_docs: int):
+def sparse_triples(rng, n_docs: int):
     """bench.py's learned-sparse `ml` column (its build_sparse_column):
     3-9 terms per doc over a 300-token Zipf-0.7 vocabulary, weights in
-    [0.05, 3.05), laid out by the port's own planner
-    (index/segment.sparse_plan / sparse_from_plan, pruning_ratio 0)."""
-    from elasticsearch_tpu_torch.index.segment import sparse_from_plan, sparse_plan
-
+    [0.05, 3.05); (term, doc, weight) sorted by term, a doc activating
+    each term once."""
     nt = rng.integers(*SPARSE_TERMS_PER_DOC, size=n_docs)
     total = int(nt.sum())
     t_flat = rng.choice(SPARSE_VOCAB, size=total, p=sparse_popularity()).astype(np.int64)
@@ -400,7 +428,15 @@ def build_sparse_column(rng, n_docs: int):
     _, first = np.unique(t_flat * n_docs + d_flat, return_index=True)
     t_u, d_u, w_u = t_flat[first], d_flat[first], w_flat[first]
     order = np.argsort(t_u, kind="stable")
-    t_u, d_u, w_u = t_u[order], d_u[order], w_u[order]
+    return t_u[order], d_u[order], w_u[order]
+
+
+def sparse_column(triples, n_docs: int):
+    """The `ml` column of `triples` laid out by the port's own planner
+    (index/segment.sparse_plan / sparse_from_plan, pruning_ratio 0)."""
+    from elasticsearch_tpu_torch.index.segment import sparse_from_plan, sparse_plan
+
+    t_u, d_u, w_u = triples
     bounds = np.searchsorted(t_u, np.arange(SPARSE_VOCAB + 1))
     inv = {}
     for tid in range(SPARSE_VOCAB):
@@ -1579,11 +1615,10 @@ class Http:
         return out
 
 
-def install_segment(svc, seg) -> None:
-    """One prebuilt segment as shard 0's whole searchable state (bench.py's
-    make_service): `_bulk` of 1M docs through host analysis is set-up,
-    not the thing served."""
-    eng = svc.shards[0]
+def install_segment(eng, seg) -> None:
+    """One prebuilt segment as a shard engine's whole searchable state
+    (bench.py's make_service): `_bulk` of 1M docs through host analysis
+    is set-up, not the thing served."""
     n = seg.num_docs
     eng.segments = [seg]
     eng.live_docs = [None]
@@ -2032,14 +2067,14 @@ def phase_serve(reader, dims: int, seed: int, device, card: str, ann_reader, ann
                                                      "refresh_interval": "-1"},
                                         "mappings": mapping})
         for name in ("bench", "bench_oracle"):
-            install_segment(srv.cluster.get_index(name), seg)
+            install_segment(srv.cluster.get_index(name).shards[0], seg)
         # bench.py's ann_knn indexes over route (h)'s corpus
         ivf = {"knn.type": "ivf", "knn.nlist": ann_nlist(ann_reader.segments[0].num_docs),
                "knn.nprobe": ANN_GATE_NPROBE}
         for name, extra in (("ann", {}), ("ann_int8", {"knn.quantization": "int8"})):
             http.ok("PUT", f"/{name}", {"settings": {"number_of_shards": 1, "refresh_interval": "-1", **ivf, **extra},
                                         "mappings": ann_mapping(dims)})
-            install_segment(srv.cluster.get_index(name), ann_reader.segments[0])
+            install_segment(srv.cluster.get_index(name).shards[0], ann_reader.segments[0])
         docs = small_docs(seed, vocab, dims)
         half = len(docs) // 2
         for name in ("small", "small_oracle"):
@@ -2757,7 +2792,7 @@ def serve_rerank(srv, http: Http, clients_proc: ClientProcess, rc: dict, rows: d
                         ("rerank_oracle", {"search.backend": "numpy"})):
         http.ok("PUT", f"/{name}", {"settings": {"number_of_shards": 1, "refresh_interval": "-1", **extra},
                                     "mappings": rerank_mapping()})
-        install_segment(srv.cluster.get_index(name), rc["seg"])
+        install_segment(srv.cluster.get_index(name).shards[0], rc["seg"])
     bodies = [rerank_body(rc, i) for i in range(RR_BODIES)]
     firsts = [rerank_body(rc, i, rescore=False) for i in range(RR_BODIES)]
     # the first request of each index uploads its columns: set-up
@@ -3699,7 +3734,7 @@ def durable_reopen(seg, dims: int, device, http: Http, pages: dict, root: str) -
                                                 "codec": "best_compression", "refresh_interval": "-1"},
                                    "mappings": corpus_mapping(dims)})
         idx = c.get_index("durable")
-        install_segment(idx, seg)
+        install_segment(idx.shards[0], seg)
         t = time.perf_counter()
         idx.flush()
         out["flush_s"] = time.perf_counter() - t
@@ -3831,18 +3866,22 @@ def repo_env(repo: str) -> dict:
 
 
 class SpawnedNode:
-    """`python -m elasticsearch_tpu_torch serve --data-path D --port 0` in
-    a process of its own (output to a log file under D's parent); `port`
-    is read from its "listening" line."""
+    """`python -m elasticsearch_tpu_torch serve --data-path D --port 0
+    [args]` in a process of its own (output to a log file under D's
+    parent); `port` is read from the HTTP address of its startup line
+    (a single node's "listening on http://...", or a cluster node's
+    "transport ... http://...")."""
 
-    def __init__(self, data_path: str, log_path: str):
+    def __init__(self, data_path: str, log_path: str, args=(), what: str = "(m) the spawned node"):
         repo = str(Path(__file__).resolve().parent)
         env = repo_env(repo)
         self.t0 = time.perf_counter()
         self.log_path = log_path
+        self.what = what
         self.log = open(log_path, "wb")
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "elasticsearch_tpu_torch", "serve", "--data-path", data_path, "--port", "0"],
+            [sys.executable, "-m", "elasticsearch_tpu_torch", "serve", "--data-path", data_path, "--port", "0",
+             *args],
             stdout=self.log, stderr=subprocess.STDOUT, cwd=repo, env=env,
         )
         try:
@@ -3861,12 +3900,12 @@ class SpawnedNode:
         deadline = time.perf_counter() + SPAWN_TIMEOUT_S
         while time.perf_counter() < deadline:
             with open(self.log_path, "rb") as f:
-                m = re.search(rb"listening on http://[^:\s]+:(\d+)", f.read())
+                m = re.search(rb"http://[^:\s/]+:(\d+)", f.read())
             if m:
                 return int(m.group(1))
-            check(self.proc.poll() is None, f"(m) the spawned node exited ({self.proc.returncode}): {self._tail()}")
+            check(self.proc.poll() is None, f"{self.what} exited ({self.proc.returncode}): {self._tail()}")
             time.sleep(0.05)
-        raise SmokeFailure(f"(m) the spawned node did not listen in {SPAWN_TIMEOUT_S}s: {self._tail()}")
+        raise SmokeFailure(f"{self.what} did not listen in {SPAWN_TIMEOUT_S}s: {self._tail()}")
 
     def kill(self) -> None:
         if self.proc.poll() is None:
@@ -4077,6 +4116,661 @@ def route_durable(seg, dims: int, vocab: int, seed: int, device, http: Http, pag
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# route (n): a multi-node cluster on the card
+# ---------------------------------------------------------------------------
+
+CLUSTER_NODES = 3
+CLUSTER_SHARDS = 8  # BASELINE config 5's shard count
+CLUSTER_MATCH = 32
+CLUSTER_KNN = 32
+CLUSTER_HYBRID = 8
+CLUSTER_GETS = 16
+CLUSTER_FD = {"fd_interval": 0.2, "fd_retries": 2}
+CLUSTER_WAIT_S = 120.0
+
+
+def _sub_postings(stream: np.ndarray, lengths: np.ndarray, vocab: int, positions: bool = False):
+    """postings_from_stream over one shard's token stream, its term
+    dictionary cut to the terms the shard holds (as a segment built from
+    documents has no term of df 0)."""
+    present = np.zeros(vocab, bool)
+    present[stream] = True
+    ids = np.flatnonzero(present)
+    remap = np.full(vocab, -1, np.int64)
+    remap[ids] = np.arange(len(ids))
+    return postings_from_stream(remap[stream], len(ids), lengths, positions=positions,
+                                names=[f"w{i:05d}" for i in ids])
+
+
+def shard_segments(raw: dict, n_shards: int) -> tuple:
+    """The corpus split by the router: doc `str(i)` belongs to
+    utils/murmur3.shard_id(str(i), n_shards), and each shard's docs (in
+    ascending order) make one segment with every column of the 1M-doc
+    segment. Returns (segments, shard of each doc)."""
+    from elasticsearch_tpu_torch.index.segment import NumericField, OrdinalField, Segment, VectorField
+    from elasticsearch_tpu_torch.utils.murmur3 import shard_id
+
+    n = len(raw["lengths"])
+    owner = np.fromiter((shard_id(str(i), n_shards) for i in range(n)), np.int64, count=n)
+    body_owner = np.repeat(owner, raw["lengths"])
+    title_owner = np.repeat(owner, raw["title_lengths"])
+    t_u, d_u, w_u = raw["ml"]
+    ml_owner = owner[d_u]
+    segs = []
+    for s in range(n_shards):
+        docs = np.flatnonzero(owner == s)
+        m = len(docs)
+        local = np.full(n, -1, np.int64)
+        local[docs] = np.arange(m)
+        keep = ml_owner == s
+        exists = np.ones(m, bool)
+        vecs = np.ascontiguousarray(raw["vecs"][docs])
+        cat = raw["cat_ords"][docs]
+        segs.append(Segment(
+            num_docs=m,
+            doc_ids=[str(int(g)) for g in docs],
+            sources=[None] * m,
+            postings={
+                "body": _sub_postings(raw["stream"][body_owner == s], raw["lengths"][docs], raw["vocab"],
+                                      positions=True),
+                "title": _sub_postings(raw["title_stream"][title_owner == s], raw["title_lengths"][docs],
+                                       raw["title_vocab"]),
+            },
+            numerics={
+                "popularity": NumericField(values=raw["popularity"][docs], exists=exists.copy()),
+                "day": NumericField(values=raw["day"][docs], exists=exists.copy()),
+            },
+            ordinals={"cat": OrdinalField(
+                ord_terms=[f"cat{j:02d}" for j in range(16)], ords=cat, mv_ords=cat.copy(),
+                mv_offsets=np.arange(m + 1, dtype=np.int32))},
+            vectors={"vec": VectorField(vectors=vecs, exists=exists, similarity="cosine", unit_vectors=vecs)},
+            sparse={"ml": sparse_column((t_u[keep], local[d_u[keep]], w_u[keep]), m)},
+        ))
+    return segs, owner
+
+
+def install_shard(eng, seg) -> None:
+    """install_segment, with the version map and doc locations filled as
+    a reopened engine fills them, so a realtime GET by `_id` finds every
+    doc."""
+    from elasticsearch_tpu_torch.index.engine import _VersionEntry
+
+    with eng._lock:
+        eng._versions = {d: _VersionEntry(1, i, False) for i, d in enumerate(seg.doc_ids)}
+        eng._locations = {d: (0, i) for i, d in enumerate(seg.doc_ids)}
+        install_segment(eng, seg)
+
+
+def start_cluster(n: int, device, root=None, **kw) -> list:
+    """n in-process `TpuNode`s on `device` over localhost TCP; node-0
+    (the lowest id) is the master. With `root`, each keeps its shards
+    under root/node-i."""
+    from elasticsearch_tpu_torch.cluster.node import TpuNode
+
+    nodes = []
+    try:
+        for i in range(n):
+            path = os.path.join(root, f"node-{i}") if root else None
+            seeds = [nodes[0].address] if nodes else None
+            nodes.append(TpuNode(f"node-{i}", seeds=seeds, data_path=path, device=device, **kw).start())
+    except BaseException:
+        close_cluster(nodes, [])
+        raise
+    return nodes
+
+
+def stop_http(srv) -> None:
+    """Stops a node-mode server's HTTP tier; the node closes its own
+    cluster service."""
+    srv.httpd.shutdown()
+    srv.httpd.server_close()
+
+
+def close_cluster(nodes: list, servers: list) -> None:
+    for srv in servers:
+        stop_http(srv)
+    for node in nodes:
+        node.close()
+
+
+def node_servers(nodes: list) -> list:
+    """One REST server in node mode per node (the HTTP tier fronting the
+    node's DistributedClusterService, as `serve --node-name` runs it)."""
+    from elasticsearch_tpu_torch.rest.server import ElasticsearchTpuServer
+
+    out = []
+    for node in nodes:
+        srv = ElasticsearchTpuServer(port=0, cluster=node.cluster)
+        srv.start_background()
+        out.append(srv)
+    return out
+
+
+def wait_for(cond, what: str, timeout: float = CLUSTER_WAIT_S, interval: float = 0.1) -> float:
+    t = time.perf_counter()
+    while time.perf_counter() - t < timeout:
+        if cond():
+            return time.perf_counter() - t
+        time.sleep(interval)
+    raise SmokeFailure(f"timed out after {timeout}s waiting for {what}")
+
+
+def shard_owner(node, index: str, sid: int) -> dict:
+    from elasticsearch_tpu_torch.cluster.indices import norm_shard_routing
+
+    return norm_shard_routing(node.state["indices"][index]["routing"][str(sid)])
+
+
+def check_engines_on(nodes: list, index: str, device, what: str) -> int:
+    """Every engine of `index` on every node serves on `device`; returns
+    how many there are."""
+    n = 0
+    for node in nodes:
+        idx = node.indices.get(index)
+        if idx is None:
+            continue
+        check(idx.device.type == device.type, f"{what}: {node.name}'s /{index} is on {idx.device}")
+        for sid, eng in idx.local_shards.items():
+            check(eng.device.type == device.type, f"{what}: {node.name}'s [{index}][{sid}] engine is on {eng.device}")
+            n += 1
+    return n
+
+
+class TransportMeter:
+    """While on: every frame the port's transport writes (bytes on the
+    wire, after DEFLATE) and every request a node sends over it, by
+    action. In-process nodes share this process, so the counts are the
+    whole cluster's; a coordinator's own shards run without a hop."""
+
+    def __init__(self):
+        self.frames = 0
+        self.bytes = 0
+        self.requests: dict = {}
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        from elasticsearch_tpu_torch.transport import service
+
+        frame, send = service._frame, service.TransportService.send
+        meter = self
+
+        def counted_frame(msg):
+            out = frame(msg)
+            with meter._lock:
+                meter.frames += 1
+                meter.bytes += len(out)
+            return out
+
+        def counted_send(transport, address, action, payload, timeout=30.0):
+            with meter._lock:
+                meter.requests[action] = meter.requests.get(action, 0) + 1
+            return send(transport, address, action, payload, timeout)
+
+        self._saved = (frame, send)
+        service._frame = counted_frame
+        service.TransportService.send = counted_send
+        return self
+
+    def __exit__(self, *exc):
+        from elasticsearch_tpu_torch.transport import service
+
+        service._frame, service.TransportService.send = self._saved
+        return False
+
+    def per_request(self, n: int) -> dict:
+        return {"frames": self.frames / n, "bytes": self.bytes / n,
+                "requests_by_action": {a: c / n for a, c in sorted(self.requests.items())}}
+
+
+def cluster_full_width(segs: list, owner: np.ndarray, seg, dims: int, seed: int, device) -> dict:
+    """Route (n1): three in-process nodes on the card over localhost
+    TCP, REST in node mode in front of each; `/dist` (8 shards, 0
+    replicas) spread over the three, each shard's segment of the 1M-doc
+    corpus installed on its owning node; the same 8 segments in
+    `/local8` (one node, torch) and `/local8_oracle` (numpy). 32 `match`,
+    32 exact `knn` and 8 3-leg hybrids go to `/dist` through node-0;
+    pages are held to `/local8` (ids position by position, scores within
+    RTOL, tie runs as sets; hybrids by RRF over `/local8`'s legs) and
+    `match`/`knn` to `/local8_oracle`; a GET by `_id` through each node
+    finds its doc. Latency at 8 clients and 1, shard requests and bytes
+    on the transport per request, the coordinator's wall against the
+    card's busy time, peak device memory: printed, not checked."""
+    import torch
+
+    from elasticsearch_tpu_torch.rest.server import ElasticsearchTpuServer
+    from elasticsearch_tpu_torch.search.admission import admission
+
+    admission.configure(enabled=False)
+    out = {"rows": {}}
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)  # the context exists before the reset
+        torch.cuda.reset_peak_memory_stats(device)
+    mapping = corpus_mapping(dims)
+    settings = {"number_of_shards": CLUSTER_SHARDS, "refresh_interval": "-1"}
+    nodes, servers, procs, local = [], [], [], None
+    t = time.perf_counter()
+    try:
+        nodes = start_cluster(CLUSTER_NODES, device)
+        servers = node_servers(nodes)
+        local = ElasticsearchTpuServer(port=0, device=device)
+        local.start_background()
+        http = [Http(srv.port) for srv in servers]
+        h0, lh = http[0], Http(local.port)
+        h0.ok("PUT", "/dist", {"settings": {**settings, "number_of_replicas": 0, "search.backend": "torch"},
+                               "mappings": mapping})
+        for name, backend in (("local8", "torch"), ("local8_oracle", "numpy")):
+            lh.ok("PUT", f"/{name}", {"settings": {**settings, "search.backend": backend}, "mappings": mapping})
+        by_name = {node.name: node for node in nodes}
+        placement = {}
+        for sid, sseg in enumerate(segs):
+            primary = shard_owner(nodes[0], "dist", sid)["primary"]
+            placement[sid] = primary
+            install_shard(by_name[primary].indices["dist"].local_shards[sid], sseg)
+            for name in ("local8", "local8_oracle"):
+                install_shard(local.cluster.get_index(name).local_shards[sid], sseg)
+        check(set(placement.values()) == set(by_name), f"(n1) /dist does not span the 3 nodes: {placement}")
+        out["placement"] = {str(s): n for s, n in placement.items()}
+        out["docs_per_shard"] = [sseg.num_docs for sseg in segs]
+        out["setup_s"] = time.perf_counter() - t
+
+        texts = match_texts(seg.postings["body"].term_df, CLUSTER_MATCH, seed + 101)
+        rng = np.random.default_rng(seed + 103)
+        match_bodies = [{"query": {"match": {"body": q}}, "size": K} for q in texts]
+        knn_bodies = [{"knn": {"field": "vec", "query_vector": [float(x) for x in v], "k": K,
+                               "num_candidates": 100}, "size": K}
+                      for v in rng.standard_normal((CLUSTER_KNN, dims)).astype(np.float32)]
+        hybrids = text_hybrid_bodies(seg.postings["body"].term_df, seg.postings["title"].term_df, dims,
+                                     seed + 107)["hybrid_rrf"][:CLUSTER_HYBRID]
+
+        # the first request of each family uploads its columns: set-up
+        t = time.perf_counter()
+        for h, path in ((h0, "/dist"), (lh, "/local8")):
+            h.ok("POST", f"{path}/_search", match_bodies[0])
+            h.ok("POST", f"{path}/_search", knn_bodies[0])
+        out["first_requests_s"] = time.perf_counter() - t
+        check_engines_on(nodes, "dist", device, "(n1)")
+
+        procs = [ClientProcess(servers[0].port), ClientProcess(local.port)]
+        served = {}
+        for clients in (CLIENTS, 1):
+            for route, bodies in (("match", match_bodies), ("knn", knn_bodies)):
+                for path, proc in (("/dist", procs[0]), ("/local8", procs[1])):
+                    with TransportMeter() as meter:
+                        pages, row = drive_measured(proc, f"{path}/_search", bodies, clients)
+                    if path == "/dist":
+                        row["transport_per_request"] = meter.per_request(len(bodies))
+                    served[(path, route, clients)] = pages
+                    out["rows"][f"{path[1:]}_{route}_{clients}_clients"] = row
+                    log(f"(n1) {path} {route} from {clients} clients: {row}")
+
+        # ---- held to /local8 and to the numpy oracle ----
+        t = time.perf_counter()
+        for route, bodies in (("match", match_bodies), ("knn", knn_bodies)):
+            for clients in (CLIENTS, 1):
+                for i in range(len(bodies)):
+                    same_served(served[("/local8", route, clients)][i], served[("/dist", route, clients)][i],
+                                f"(n1) /dist {route} body {i} ({clients} clients) against /local8")
+            for i in range(ORACLE_QUERIES):
+                ref = lh.ok("POST", "/local8_oracle/_search", bodies[i])
+                same_served(ref, served[("/dist", route, 1)][i], f"(n1) /dist {route} body {i} against the oracle")
+        # a hybrid's legs as each index runs them: a distributed index
+        # sends them through the shards' batchers (the sparse leg in
+        # int8, as a bare sparse_vector body), while a one-node
+        # multi-shard index pins its executors for the request and
+        # scores the sparse leg on the unbatched path, the dense fp32
+        # oracle (the reference's routing, ROADMAP queue 3), which a
+        # bare body gets with "exact": true
+        modes = []
+        for i, body in enumerate(hybrids):
+            legs, window = hybrid_legs(body)
+            exact = [{**leg, "exact": True} if "sparse_vector" in leg.get("query", {}) else leg for leg in legs]
+            for path, h, leg_bodies in (("/dist", h0, legs), ("/local8", lh, exact)):
+                leg_pages = [lh.ok("POST", "/local8/_search", leg) for leg in leg_bodies]
+                if path == "/dist":
+                    for leg, ref in zip(leg_bodies, leg_pages):
+                        same_served(ref, h0.ok("POST", "/dist/_search", leg), f"(n1) /dist hybrid {i} leg")
+                modes.append(same_fused(leg_pages, h.ok("POST", f"{path}/_search", body), window,
+                                        f"(n1) {path} hybrid {i}", by_global_doc=False))
+        out["hybrid_check_modes"] = modes
+        ids = [str(int(g)) for g in np.random.default_rng(seed + 109).choice(len(owner), CLUSTER_GETS, replace=False)]
+        check(len({int(owner[int(d)]) for d in ids}) > 1, "(n1) the GET ids lie on one shard")
+        for h, node in zip(http, nodes):
+            for d in ids:
+                got = h.ok("GET", f"/dist/_doc/{d}")
+                check(got.get("found") is True and got["_id"] == d, f"(n1) GET /dist/_doc/{d} through {node.name}: {got}")
+        out["gets"] = len(ids) * len(nodes)
+        out["checks_s"] = time.perf_counter() - t
+
+        if device.type == "cuda":
+            def group(proc, path, bodies):
+                return lambda: proc.drive(f"{path}/_search", bodies[:CLIENTS], 1)
+
+            out["profile"] = profile_routes({
+                "dist_match_1_client_8": group(procs[0], "/dist", match_bodies),
+                "local8_match_1_client_8": group(procs[1], "/local8", match_bodies),
+                "dist_knn_1_client_8": group(procs[0], "/dist", knn_bodies),
+                "local8_knn_1_client_8": group(procs[1], "/local8", knn_bodies),
+            }, device)
+            out["peak_device_bytes"] = torch.cuda.max_memory_allocated(device)
+        log(f"(n1) placement {out['placement']}, hybrids {modes}")
+        return out
+    finally:
+        for proc in procs:
+            proc.close()
+        close_cluster(nodes, servers)
+        if local is not None:
+            local.close()
+
+
+def acked_ids(res: dict) -> list:
+    return [item["index"]["_id"] for item in res["items"] if item["index"].get("status") in (200, 201)]
+
+
+def check_copies_hold(nodes: list, index: str, acked: list, n_shards: int, what: str) -> int:
+    """Every acknowledged doc is on every in-sync copy of its shard (each
+    node's own engine, read in process). Returns the copies read."""
+    from elasticsearch_tpu_torch.utils.murmur3 import shard_id
+
+    want: dict = {}
+    for d in acked:
+        want.setdefault(shard_id(d, n_shards), []).append(d)
+    copies = 0
+    for node in nodes:
+        idx = node.indices[index]
+        for sid, eng in idx.local_shards.items():
+            entry = idx._entry(sid)
+            if node.name not in entry["in_sync"]:
+                continue
+            missing = [d for d in want.get(sid, []) if eng.get(d) is None]
+            check(not missing, f"{what}: {node.name}'s copy of [{index}][{sid}] lacks {len(missing)} "
+                  f"acknowledged docs, e.g. {missing[:3]}")
+            copies += 1
+    return copies
+
+
+def cluster_replication(seed: int, vocab: int, dims: int, device, root: str) -> dict:
+    """Route (n2) at phase 4's /small scale (a shard ships whole in one
+    transport frame, whose limit is MAX_FRAME): three nodes with data
+    paths; `/rep` (2 shards, 1 replica) created and fed by `_bulk`
+    through node-1, searched from node-2 and held to a numpy index fed
+    the same docs; every acknowledged doc on every in-sync copy; replica
+    allocation held to primaries (ES's rolling-restart setting), then a
+    node holding a primary crashes without a flush and its replica is
+    promoted (pages unchanged, nothing lost); the node restarts, replica
+    allocation is enabled again and its copies peer-recover onto it
+    (files shipped, the ops refreshed by a build on the card); a
+    `_cluster/reroute` move ends with the pages unchanged; a distributed
+    fs snapshot, a delete and a restore serve the pages from before.
+    Every build of the route on the card, every engine on the card."""
+    from elasticsearch_tpu_torch.cluster.indices import IndexService
+    from elasticsearch_tpu_torch.index import segment_build
+    from elasticsearch_tpu_torch.index.translog import durability_stats_snapshot
+
+    out = {}
+    mapping = corpus_mapping(dims)
+    docs = small_docs(seed, vocab, dims)
+    bodies = durable_small_bodies(docs, dims, seed)
+    # the oracle's refresh builds on the host, before the route's count
+    oracle = IndexService("rep_oracle", settings={"number_of_shards": 2, "search.backend": "numpy",
+                                                  "refresh_interval": "-1"},
+                          mappings_json=mapping, device=device)
+    nodes, servers = [], []
+    t0 = time.perf_counter()
+    try:
+        for doc_id, src in docs:
+            oracle.index_doc(doc_id, src)
+        oracle.refresh()
+        builds0 = dict(segment_build.INGEST_STATS)
+        nodes = start_cluster(CLUSTER_NODES, device, root=os.path.join(root, "rep"), **CLUSTER_FD)
+        servers = node_servers(nodes)
+        http = [Http(srv.port) for srv in servers]
+        h0, h1, h2 = http
+        h1.ok("PUT", "/rep", {"settings": {"number_of_shards": 2, "number_of_replicas": 1, "search.backend": "torch",
+                                           "refresh_interval": "-1"}, "mappings": mapping})
+        wait_for(lambda: h0.ok("GET", "/_cluster/health")["status"] == "green", "(n2) /rep green")
+        acked = []
+        for part in (docs[:len(docs) // 2], docs[len(docs) // 2:]):
+            lines = []
+            for doc_id, src in part:
+                lines += [{"index": {"_id": doc_id}}, src]
+            res = h1.ok("POST", "/rep/_bulk?refresh=true", ndjson=lines)
+            check(not res["errors"], "(n2) /rep/_bulk reported errors")
+            acked += acked_ids(res)
+        check(len(acked) == len(docs), f"(n2) {len(acked)} of {len(docs)} docs acknowledged")
+        out["copies_read"] = check_copies_hold(nodes, "rep", acked, 2, "(n2) after _bulk")
+        before = []
+        for i, body in enumerate(bodies):
+            page = h2.ok("POST", "/rep/_search", body)
+            same_served(oracle.search(body), page, f"(n2) /rep body {i} from node-2")
+            before.append(page)
+        check_engines_on(nodes, "rep", device, "(n2)")
+        out["setup_s"] = time.perf_counter() - t0
+
+        # ---- a primary's node crashes; its replica is promoted ----
+        t = time.perf_counter()
+        h0.ok("PUT", "/_cluster/settings", {"transient": {"cluster.routing.allocation.enable": "primaries"}})
+        primaries = {shard_owner(nodes[0], "rep", sid)["primary"] for sid in (0, 1)}
+        victim_i = next(i for i in (2, 1) if f"node-{i}" in primaries)
+        victim = nodes[victim_i]
+        lost = [sid for sid in (0, 1) if shard_owner(nodes[0], "rep", sid)["primary"] == victim.name]
+        stop_http(servers[victim_i])
+        victim.crash()  # no flush, no close
+        survivors = [n for n in nodes if n is not victim]
+        wait_for(lambda: victim.name not in nodes[0].state["nodes"], "(n2) the crashed node to leave")
+        wait_for(lambda: all(shard_owner(nodes[0], "rep", sid)["primary"] not in (None, victim.name)
+                             for sid in (0, 1)), "(n2) the replica's promotion")
+        out["promotion_s"] = time.perf_counter() - t
+        hs = http[1 if victim_i == 2 else 2]
+        hs.ok("POST", "/rep/_refresh")
+        count = hs.ok("POST", "/rep/_count", {"query": {"match_all": {}}})["count"]
+        check(count == len(acked), f"(n2) {count} docs after the promotion, {len(acked)} acknowledged")
+        check_copies_hold(survivors, "rep", acked, 2, "(n2) after the promotion")
+        for i, body in enumerate(bodies):
+            same_served(before[i], hs.ok("POST", "/rep/_search", body), f"(n2) /rep body {i} after the promotion")
+        out["victim"], out["promoted_shards"] = victim.name, lost
+        check_engines_on(survivors, "rep", device, "(n2) after the promotion")
+
+        # ---- the node restarts and peer-recovers its copies ----
+        t = time.perf_counter()
+        files0 = durability_stats_snapshot()["recovered_files"]
+        from elasticsearch_tpu_torch.cluster.node import TpuNode
+
+        victim = TpuNode(victim.name, seeds=[nodes[0].address], data_path=os.path.join(root, "rep", victim.name),
+                         device=device, **CLUSTER_FD).start()
+        nodes[victim_i] = victim
+        servers[victim_i] = node_servers([victim])[0]
+        http[victim_i] = Http(servers[victim_i].port)
+        # the rolling restart's end: each replica the crash took goes
+        # back onto the restarted node (an explicit operator command),
+        # then replica allocation is enabled again
+        commands = [{"allocate_replica": {"index": "rep", "shard": sid, "node": victim.name}}
+                    for sid in (0, 1) if not shard_owner(nodes[0], "rep", sid)["replicas"]]
+        check(commands, "(n2) no shard lost a replica in the crash")
+        h0.ok("POST", "/_cluster/reroute", {"commands": commands})
+        h0.ok("PUT", "/_cluster/settings", {"transient": {"cluster.routing.allocation.enable": "all"}})
+        wait_for(lambda: h0.ok("GET", "/_cluster/health")["status"] == "green", "(n2) green after the restart")
+        out["restart_to_green_s"] = time.perf_counter() - t
+        out["recovered_files"] = durability_stats_snapshot()["recovered_files"] - files0
+        check(out["recovered_files"] > 0, "(n2) the restarted node's peer recovery shipped no files")
+        check(victim.indices["rep"].local_shards, "(n2) the restarted node holds no copy of /rep")
+        check_copies_hold(nodes, "rep", acked, 2, "(n2) after the peer recovery")
+        check_engines_on(nodes, "rep", device, "(n2) after the peer recovery")
+        for i, body in enumerate(bodies):
+            same_served(before[i], http[2].ok("POST", "/rep/_search", body),
+                        f"(n2) /rep body {i} after the peer recovery")
+
+        # ---- a reroute move ----
+        t = time.perf_counter()
+        entry = shard_owner(nodes[0], "rep", 0)
+        src = entry["replicas"][0]
+        dst = next(n.name for n in nodes if n.name not in [entry["primary"]] + entry["replicas"])
+        h0.ok("POST", "/_cluster/reroute", {"commands": [{"move": {"index": "rep", "shard": 0, "from_node": src,
+                                                                   "to_node": dst}}]})
+        wait_for(lambda: not shard_owner(nodes[0], "rep", 0).get("relocating")
+                 and h0.ok("GET", "/_cluster/health")["status"] == "green", "(n2) the relocation's end")
+        moved = shard_owner(nodes[0], "rep", 0)
+        check(dst in moved["replicas"] and src not in moved["replicas"], f"(n2) the move did not land: {moved}")
+        rel = h0.ok("GET", "/_nodes/stats")["nodes"]["node-0"]["relocation"]
+        check(rel["completed"] >= 1 and rel["failed"] == 0, f"(n2) relocation stats {rel}")
+        out["move"] = {"from": src, "to": dst, "s": time.perf_counter() - t, "relocation": rel}
+        for i, body in enumerate(bodies):
+            same_served(before[i], http[2].ok("POST", "/rep/_search", body), f"(n2) /rep body {i} after the move")
+        check_copies_hold(nodes, "rep", acked, 2, "(n2) after the move")
+        # every build so far (the refreshes, the peer recoveries' and the
+        # relocation's) ran on the index's device
+        builds = {k: segment_build.INGEST_STATS[k] - builds0[k] for k in ("device_builds", "host_builds", "fallbacks")}
+        out["builds"] = builds
+        if device.type == "cuda":
+            check(builds["device_builds"] > 0 and builds["host_builds"] == 0 and builds["fallbacks"] == 0,
+                  f"(n2) a build of a refresh, replay or recovery ran on the host: {builds}")
+
+        # ---- a distributed snapshot and a restore ----
+        t = time.perf_counter()
+        h0.ok("PUT", "/_snapshot/fs", {"type": "fs", "settings": {"location": os.path.join(root, "rep-repo")}})
+        snap = h0.ok("PUT", "/_snapshot/fs/s1?wait_for_completion=true", {"indices": "rep"})
+        check(snap["snapshot"]["state"] == "SUCCESS", f"(n2) snapshot: {snap}")
+        h0.ok("DELETE", "/rep")
+        h0.ok("POST", "/_snapshot/fs/s1/_restore", {})
+        wait_for(lambda: h0.ok("GET", "/_cluster/health")["status"] == "green", "(n2) green after the restore")
+        h0.ok("POST", "/rep/_refresh")
+        for i, body in enumerate(bodies):
+            same_served(before[i], http[2].ok("POST", "/rep/_search", body), f"(n2) restored /rep body {i}")
+        out["snapshot_restore_s"] = time.perf_counter() - t
+        check_engines_on(nodes, "rep", device, "(n2) after the restore")
+        # the restore reads each shard's files through a scratch engine
+        # on the host (cluster/service._docs_from_snapshot_files) and
+        # replays the docs into the new index, whose builds are the card's
+        out["restore_builds"] = {k: segment_build.INGEST_STATS[k] - builds0[k] - builds[k] for k in builds}
+        out["bodies_held"] = len(bodies)
+        log(f"(n2) {out}")
+        return out
+    finally:
+        close_cluster(nodes, servers)
+        oracle.close()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def cat_shards(http: Http, index: str) -> list:
+    status, rows = http.call("GET", "/_cat/shards?format=json")
+    check(status == 200, f"_cat/shards: HTTP {status}")
+    return [r for r in rows if r["index"] == index]
+
+
+def cluster_processes(seed: int, vocab: int, dims: int, root: str) -> dict:
+    """Route (n3), the real entry point: two `python -m
+    elasticsearch_tpu_torch serve --node-name ... --seeds ...`
+    processes sharing the card; phase 4's /small docs by `_bulk` into
+    `/small_dist` (2 shards, 1 replica); the process holding a primary
+    (the non-master) is SIGKILLed and the other answers every
+    acknowledged doc; the killed node restarts on its data path and
+    recovers as a replica."""
+    out = {}
+    mapping = corpus_mapping(dims)
+    docs = small_docs(seed, vocab, dims)
+    ports = [free_port(), free_port()]
+    seeds = f"127.0.0.1:{ports[0]}"
+
+    def spawn(i, tag):
+        args = ["--node-name", f"node-{i}", "--transport-port", str(ports[i])]
+        if i:
+            args += ["--seeds", seeds]
+        return SpawnedNode(os.path.join(root, f"proc-{i}"), os.path.join(root, f"proc-{i}-{tag}.log"), args,
+                           what=f"(n3) node-{i}")
+
+    procs = []
+    try:
+        t = time.perf_counter()
+        procs.append(spawn(0, "first"))
+        procs.append(spawn(1, "first"))
+        out["spawn_to_listening_s"] = time.perf_counter() - t
+        h0, h1 = Http(procs[0].port), Http(procs[1].port)
+        wait_for(lambda: h0.ok("GET", "/_cluster/health")["number_of_nodes"] == 2, "(n3) node-1 to join")
+        h1.ok("PUT", "/small_dist", {"settings": {"number_of_shards": 2, "number_of_replicas": 1,
+                                                  "search.backend": "torch", "refresh_interval": "-1"},
+                                     "mappings": mapping})
+        wait_for(lambda: h0.ok("GET", "/_cluster/health")["status"] == "green", "(n3) green")
+        acked = []
+        for part in (docs[:len(docs) // 2], docs[len(docs) // 2:]):
+            lines = []
+            for doc_id, src in part:
+                lines += [{"index": {"_id": doc_id}}, src]
+            res = h0.ok("POST", "/small_dist/_bulk?refresh=true", ndjson=lines)
+            check(not res["errors"], "(n3) /small_dist/_bulk reported errors")
+            acked += acked_ids(res)
+        check(len(acked) == len(docs), f"(n3) {len(acked)} of {len(docs)} docs acknowledged")
+        rows = cat_shards(h0, "small_dist")
+        check(any(r["prirep"] == "p" and r["node"] == "node-1" for r in rows),
+              f"(n3) node-1 holds no primary: {rows}")
+        out["shards_before"] = rows
+
+        t = time.perf_counter()
+        procs[1].kill()  # SIGKILL: no flush, no close
+        wait_for(lambda: h0.ok("GET", "/_cluster/health")["number_of_nodes"] == 1, "(n3) node-1 to leave")
+        out["kill_to_failover_s"] = time.perf_counter() - t
+        h0.ok("POST", "/small_dist/_refresh")
+        count = h0.ok("POST", "/small_dist/_count", {"query": {"match_all": {}}})["count"]
+        check(count == len(acked), f"(n3) {count} docs after the kill, {len(acked)} acknowledged")
+        res = h0.ok("POST", "/small_dist/_search", {"query": {"ids": {"values": acked}}, "size": len(acked),
+                                                    "_source": False})
+        check(sorted(h["_id"] for h in res["hits"]["hits"]) == sorted(acked),
+              "(n3) an acknowledged doc is missing after the kill")
+
+        t = time.perf_counter()
+        procs[1] = spawn(1, "restart")
+        wait_for(lambda: h0.ok("GET", "/_cluster/health")["status"] == "green", "(n3) green after the restart")
+        out["restart_to_green_s"] = time.perf_counter() - t
+        rows = cat_shards(h0, "small_dist")
+        mine = [r for r in rows if r["node"] == "node-1"]
+        check(mine and all(r["prirep"] == "r" and r["state"] == "STARTED" for r in mine),
+              f"(n3) the restarted node is not an in-sync replica: {rows}")
+        local = cat_shards(Http(procs[1].port), "small_dist")
+        held = sum(int(r["docs"]) for r in local if r["node"] == "node-1" and r["docs"])
+        check(held == len(acked), f"(n3) the restarted node's replicas hold {held} docs, {len(acked)} acknowledged")
+        out["shards_after"] = rows
+        log(f"(n3) {out}")
+        return out
+    finally:
+        for proc in procs:
+            proc.kill()
+
+
+def route_cluster(raw: dict, seg, dims: int, vocab: int, seed: int, device) -> dict:
+    """Route (n), a multi-node cluster on the card: (n1) at full width,
+    (n2) replication at /small scale, (n3) the real entry point. Files
+    of (n2) and (n3) live under a temporary directory removed at the
+    end."""
+    import tempfile
+
+    out = {}
+    t = time.perf_counter()
+    segs, owner = shard_segments(raw, CLUSTER_SHARDS)
+    out["split_s"] = time.perf_counter() - t
+    log(f"(n) {CLUSTER_SHARDS} shard segments in {out['split_s']:.1f}s: {[s.num_docs for s in segs]}")
+    t = time.perf_counter()
+    out["n1"] = cluster_full_width(segs, owner, seg, dims, seed, device)
+    out["n1"]["s"] = time.perf_counter() - t
+    del segs
+    root = tempfile.mkdtemp(prefix="es-torch-cluster-")
+    try:
+        t = time.perf_counter()
+        out["n2"] = cluster_replication(seed, vocab, dims, device, root)
+        out["n2"]["s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["n3"] = cluster_processes(seed, vocab, dims, root)
+        out["n3"]["s"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def gpu_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4097,7 +4791,7 @@ def run(device, seed: int, n_docs: int, vocab: int, dims: int, card: str) -> dic
     phases["1_build_s"] = time.perf_counter() - t
 
     t = time.perf_counter()
-    reader, vecs, phrase_pairs = build_corpus(seed, n_docs, vocab, dims)
+    reader, vecs, phrase_pairs, raw = build_corpus(seed, n_docs, vocab, dims)
     oracle = NumpyExecutor(reader)
     qv = QuantizedVectors(vecs, similarity="cosine", device=device)
     phases["corpus_s"] = time.perf_counter() - t
@@ -4156,6 +4850,10 @@ def run(device, seed: int, n_docs: int, vocab: int, dims: int, card: str) -> dic
     t = time.perf_counter()
     ingest = route_ingest(seed, device)
     phases["4l_ingest_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    cluster = route_cluster(raw, reader.segments[0], dims, vocab, seed, device)
+    phases["4n_cluster_s"] = time.perf_counter() - t
+    peaks["route_n"] = cluster["n1"].get("peak_device_bytes")
     peak = max(peaks.values()) if device.type == "cuda" else None
     log(f"peak device bytes {peaks}")
     return {
@@ -4166,6 +4864,7 @@ def run(device, seed: int, n_docs: int, vocab: int, dims: int, card: str) -> dic
         "serve": serve,
         "ingest": ingest,
         "durable": durable,
+        "cluster": cluster,
         "peak_device_bytes": peak,
         "peak_device_bytes_by_phase": peaks,
         "kernels": kernels,
@@ -4200,6 +4899,8 @@ def main(argv=None) -> int:
     print(json.dumps({"card": card, "ingest": result["ingest"]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"card": card, "durable": result["durable"]}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"card": card, "cluster": result["cluster"]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"card": card, "serve": result["serve"]}), flush=True)
     print(card, flush=True)

@@ -21,22 +21,23 @@ deployment shapes share this class:
   fold trades (n_shards-1)×size over-fetched sources for one fewer
   DCN round trip and no reader-pinning window between phases).
 
-PyTorch port: local mode only (the transport and cluster/node.py are
-not ported, so ``routing`` raises). An index with ``search.backend:
-torch`` (the default) serves through `TorchExecutor` on the service's
-``device`` — "cuda" unless the caller passes another — and the port's
-QueryBatcher; ``numpy`` selects the NumpyExecutor oracle. Retrievers
-and ``rank: {rrf}`` run their legs concurrently and fuse on the card
-(ops/fusion.py) when every leg rode the batcher. A single numeric sort
-key collects on the card (rank columns); other sorts take the oracle's
-host route, as in the reference. A `rescore` runs between the merge
-and the fetch: on the card through the batcher's `rerank` family for a
-shard's page or a one-shard index's fused candidates, else through the
-host oracle. With a ``base_path`` each shard is an on-disk engine
-(flush, crash recovery, file snapshots); a reopened shard's segments
-upload to the device when its executor is first built. Paths whose
-modules are not ported yet (the mesh and multi-node mode) raise, naming
-the slice that brings them (see cuts.py).
+PyTorch port: local mode, and distributed mode under cluster/node.py
+(``routing``/``local_node``/``remote_call``; every engine a replica, a
+peer recovery or a promotion opens stays on the index's ``device``). An
+index with ``search.backend: torch`` (the default) serves through
+`TorchExecutor` on the service's ``device`` — "cuda" unless the caller
+passes another — and the port's QueryBatcher; ``numpy`` selects the
+NumpyExecutor oracle. Retrievers and ``rank: {rrf}`` run their legs
+concurrently and fuse on the card (ops/fusion.py) when every leg rode
+the batcher. A single numeric sort key collects on the card (rank
+columns); other sorts take the oracle's host route, as in the
+reference. A `rescore` runs between the merge and the fetch: on the
+card through the batcher's `rerank` family for a shard's page or a
+one-shard index's fused candidates, else through the host oracle. With
+a ``base_path`` each shard is an on-disk engine (flush, crash recovery,
+file snapshots, peer recovery); a reopened shard's segments upload to
+the device when its executor is first built. The serving mesh raises,
+naming the slice that brings it (see cuts.py).
 """
 
 from __future__ import annotations
@@ -76,11 +77,6 @@ from ..utils.murmur3 import shard_id as route_shard_id
 from ..common.settings import INDEX_SETTINGS, SettingsError, validate_index_settings
 
 DEFAULT_SETTINGS = {k: s.default for k, s in INDEX_SETTINGS.items()}
-
-# the message marker of a write refused by a drained relocation source
-# (the reference keeps it in cluster/allocation.py, which the port does
-# not copy)
-RELOCATED_MARKER = "shard_not_in_primary_mode"
 
 # shared shard fan-out pool (coordinator scatter; leaf tasks only, so a
 # saturated pool queues requests rather than deadlocking)
@@ -141,9 +137,15 @@ def _retriable_routing_error(e: BaseException) -> bool:
     """Write failures worth re-resolving the owner for: the drained
     relocation source's shard_not_in_primary_mode refusal, a copy the
     routing table moved off the contacted node, a node that vanished
-    from the membership table. Everything request-scoped (conflicts,
-    validation, red shards) propagates immediately. (The reference also
-    retries transport failures; the port has no transport.)"""
+    from the membership table, and plain transport failures (the owner
+    crashed — failover promotes a replica within the retry window).
+    Everything request-scoped (conflicts, validation, red shards)
+    propagates immediately."""
+    from ..transport.service import TransportError
+    from .allocation import RELOCATED_MARKER
+
+    if isinstance(e, TransportError):
+        return True
     msg = str(e)
     return (
         RELOCATED_MARKER in msg
@@ -391,10 +393,6 @@ class IndexService:
         response_times: Optional[Dict[str, float]] = None,
         device="cuda",
     ):
-        if routing is not None:
-            raise not_ported(
-                "a distributed index (shard routing across nodes)", MESH
-            )
         self.name = name
         # the card every TorchExecutor of this index runs on; the CPU
         # only when the caller asks for it (no fallback)
@@ -441,6 +439,18 @@ class IndexService:
         self.response_times: Dict[str, float] = (
             response_times if response_times is not None else {}
         )
+        # primary-side replication tracking: shard → extra targets added
+        # during peer recovery, before they enter the in-sync set
+        # (ReplicationTracker.initiateTracking)
+        self._tracked: Dict[int, set] = {}
+        # relocation handoff gate (IndexShardOperationPermits +
+        # relocated-state, radically simplified): per-shard in-flight
+        # write counts, plus the shards whose primary has completed the
+        # relocation drain — writes there are refused with a retryable
+        # marker until the cutover state lands (or the relocation dies)
+        self._op_permits: Dict[int, int] = {}
+        self._handed_off: set = set()
+        self._permit_cond = threading.Condition()
         # round-robin cursor for in-sync copy selection on search
         # (adaptive replica selection, radically simplified)
         self._ars_cursor = 0
@@ -561,6 +571,16 @@ class IndexService:
         e = self._entry(sid)
         return 1 if e is None else e["primary_term"]
 
+    def _needs_peer_recovery(self, sid: int) -> bool:
+        """True when this node's copy is an out-of-sync replica — the
+        shape peer recovery owns end to end (wipe → transfer → install)."""
+        e = self._entry(sid)
+        return (
+            e is not None
+            and e["primary"] not in (None, self.local_node)
+            and self.local_node in e["replicas"]
+            and self.local_node not in e["in_sync"]
+        )
 
     def _marker_path(self, sid: int) -> Optional[str]:
         if self.base_path is None:
@@ -707,6 +727,70 @@ class IndexService:
         except Exception:
             pass  # reporting must never fail the search
 
+    def replica_targets(self, sid: int) -> List[str]:
+        """Write fan-out set on the primary: assigned in-sync copies plus
+        recovery-tracked targets, minus self (ReplicationOperation's
+        replication group)."""
+        e = self._entry(sid)
+        if e is None:
+            return []
+        targets = set(n for n in e["in_sync"] if n in self._copies(sid))
+        targets |= self._tracked.get(sid, set())
+        targets.discard(self.local_node)
+        return sorted(targets)
+
+    def add_tracked(self, sid: int, node: str) -> None:
+        self._tracked.setdefault(sid, set()).add(node)
+
+    # ---- relocation handoff permits (IndexShardOperationPermits) ----
+
+    def begin_shard_op(self, sid: int) -> None:
+        """Takes a write permit on a locally-primaried shard; refused
+        with a retryable 503 once the relocation drain has completed
+        (ES: ShardNotInPrimaryModeException — the coordinator re-resolves
+        the owner and retries against the promoted target)."""
+        from .allocation import RELOCATED_MARKER
+        from .service import ClusterError
+
+        with self._permit_cond:
+            if sid in self._handed_off:
+                raise ClusterError(
+                    503,
+                    f"{RELOCATED_MARKER}: shard [{self.name}][{sid}] has "
+                    "handed off its primary during relocation; retry",
+                    "shard_not_in_primary_mode_exception",
+                )
+            self._op_permits[sid] = self._op_permits.get(sid, 0) + 1
+
+    def end_shard_op(self, sid: int) -> None:
+        with self._permit_cond:
+            left = self._op_permits.get(sid, 0) - 1
+            if left <= 0:
+                self._op_permits.pop(sid, None)
+            else:
+                self._op_permits[sid] = left
+            self._permit_cond.notify_all()
+
+    def drain_for_handoff(self, sid: int, timeout: float = 10.0) -> bool:
+        """Relocation cutover, source side: block NEW writes on the
+        shard, then wait for in-flight write handlers (local apply +
+        synchronous replica fan-out, which includes the recovery-tracked
+        relocation target) to finish.  After this returns, every acked
+        op lives on the target — the shard-started report that follows
+        makes the cutover a single atomic state publish."""
+        with self._permit_cond:
+            self._handed_off.add(sid)
+            return self._permit_cond.wait_for(
+                lambda: self._op_permits.get(sid, 0) == 0, timeout
+            )
+
+    def is_handed_off(self, sid: int) -> bool:
+        return sid in self._handed_off
+
+    def clear_handoff(self, sid: int) -> None:
+        with self._permit_cond:
+            self._handed_off.discard(sid)
+
     @property
     def shards(self) -> List[ShardEngine]:
         """Locally-held shard engines (all shards in local mode)."""
@@ -716,6 +800,83 @@ class IndexService:
     def local_shards(self) -> Dict[int, ShardEngine]:
         """shard id → locally-held engine (IndicesService view)."""
         return dict(self._local)
+
+    def apply_routing(self, routing: Optional[Dict[int, Any]]) -> None:
+        """Reconciles local engines with a new routing table (the
+        IndicesClusterStateService.applyClusterState shard create/remove
+        path): engines are created for newly-owned shards and closed for
+        shards routed away. Callers check ``recovery_needed()`` after
+        applying to find replica copies that must peer-recover."""
+        if routing is not None:
+            self.routing = {
+                int(k): norm_shard_routing(v) for k, v in routing.items()
+            }
+        # copy-on-write: readers (search/refresh/stats threads) iterate
+        # self._local without the state lock, so it is never mutated in
+        # place — a fresh dict is swapped in atomically
+        local = dict(self._local)
+        for sid in range(self.num_shards):
+            if self._owns(sid) and sid not in local:
+                if self._needs_peer_recovery(sid):
+                    # peer recovery wipes the directory and installs the
+                    # engine itself; opening the leftover (possibly
+                    # half-transferred) files here raced the in-flight
+                    # transfer and could crash the state-apply thread
+                    continue
+                shard_path = (
+                    os.path.join(self.base_path, str(sid))
+                    if self.base_path is not None
+                    else None
+                )
+                local[sid] = ShardEngine(
+                    self.mappings, self.analysis, path=shard_path, shard_id=sid,
+                    primary_term=self._primary_term(sid),
+                    codec=str(self.settings.get("codec", "default")),
+                    **self._durability_opts(),
+                )
+            elif not self._owns(sid) and sid in local:
+                eng = local.pop(sid)
+                self._executors.pop(sid, None)
+                eng.close()
+            if self.routing is not None:
+                e = self._entry(sid)
+                if e is not None:
+                    # a promoted local primary adopts the bumped term
+                    eng = local.get(sid)
+                    if eng is not None and e["primary"] == self.local_node:
+                        eng.primary_term = max(eng.primary_term, e["primary_term"])
+                    # recovery-tracked targets that reached the in-sync
+                    # set (or were routed away) no longer need tracking
+                    tracked = self._tracked.get(sid)
+                    if tracked:
+                        tracked &= set(e["replicas"]) - set(e["in_sync"])
+        self._local = local
+        # a handoff gate stays closed only while ITS relocation is still
+        # in flight: the cutover routes the shard away (engine closed
+        # above), while a cancelled relocation / dead target leaves this
+        # node primary with no relocating marker — writes must resume
+        if self._handed_off:
+            with self._permit_cond:
+                for sid in list(self._handed_off):
+                    e = self._entry(sid)
+                    if (
+                        e is None
+                        or not e.get("relocating")
+                        or e["primary"] != self.local_node
+                    ):
+                        self._handed_off.discard(sid)
+                self._permit_cond.notify_all()
+
+    def recovery_needed(self) -> List[int]:
+        """Locally-assigned replica shards that are not yet in-sync —
+        the set the owning node must peer-recover from their primaries.
+        Deliberately NOT keyed off self._local: engines for these copies
+        are no longer opened eagerly (the recovery installs them), so
+        the routing table is the only truth."""
+        return [
+            sid for sid in range(self.num_shards)
+            if self._needs_peer_recovery(sid)
+        ]
 
 
     def local_shard(self, sid: int) -> ShardEngine:
@@ -2223,6 +2384,16 @@ class IndexService:
         return pins
 
 
+    def release_pins(self, pins: List) -> None:
+        for pin in pins or []:
+            if isinstance(pin, dict):
+                try:
+                    self.remote_call(
+                        pin["node"], ACTION_CTX_CLOSE, {"ctx": pin["ctx"]}
+                    )
+                except Exception:
+                    pass  # best-effort (context TTL reaps it anyway)
+
     # ---- mesh-parallel serving: the reference runs whole-index SPMD
     # programs here (parallel/mesh_executor.py); the port serves every
     # request through the per-shard fan-out ----
@@ -3371,6 +3542,63 @@ class IndexService:
 
     # ---- snapshots (SnapshotShardsService.snapshotShard) ----
 
+    # ---- peer recovery, target side (RecoveryTarget) ----
+
+    def begin_peer_recovery(self, sid: int) -> Optional[str]:
+        """Discards the placeholder engine + any stale on-disk state so
+        phase-1 files can land in a clean shard directory. Copy-on-write
+        on _local (see apply_routing)."""
+        local = dict(self._local)
+        eng = local.pop(sid, None)
+        self._local = local
+        self._executors.pop(sid, None)
+        if eng is not None:
+            eng.close()
+        if self.base_path is None:
+            return None
+        shard_path = os.path.join(self.base_path, str(sid))
+        if os.path.isdir(shard_path):
+            import shutil
+
+            shutil.rmtree(shard_path, ignore_errors=True)
+        # the `_recovering` marker makes a crash mid-transfer detectable:
+        # until finish_peer_recovery removes it, the directory contents
+        # are a half-copied transfer no engine open may trust
+        os.makedirs(shard_path, exist_ok=True)
+        with open(os.path.join(shard_path, "_recovering"), "w",
+                  encoding="utf-8") as f:
+            f.write(self.local_node or "")
+        return shard_path
+
+    def finish_peer_recovery(self, sid: int) -> ShardEngine:
+        """Opens the recovered shard (replaying any copied translog
+        tail) and installs it."""
+        shard_path = (
+            os.path.join(self.base_path, str(sid))
+            if self.base_path is not None
+            else None
+        )
+        if shard_path is not None:
+            # the transfer is complete: the directory now holds a copy
+            # of the primary's crash-consistent commit, safe to open
+            try:
+                os.remove(os.path.join(shard_path, "_recovering"))
+            except OSError:
+                pass
+        eng = ShardEngine(
+            self.mappings, self.analysis, path=shard_path, shard_id=sid,
+            primary_term=self._primary_term(sid),
+            codec=str(self.settings.get("codec", "default")),
+            **self._durability_opts(),
+        )
+        local = dict(self._local)
+        local[sid] = eng
+        self._local = local
+        self._executors.pop(sid, None)
+        return eng
+
+    # ---- snapshots (SnapshotShardsService.snapshotShard) ----
+
     def snapshot_shard_local(self, sid: int) -> dict:
         """One shard's snapshot payload: the committed file set for
         disk-backed engines (immutable segments + manifest — exactly the
@@ -3397,17 +3625,29 @@ class IndexService:
             return {"files": files}
 
     def snapshot_shards(self) -> Dict[int, dict]:
-        """Collects every shard's payload. A shard whose primary is on
-        another node would come over the transport, which the port does
-        not have yet (cuts.py)."""
+        """Collects every shard's payload, pulling remote shards from
+        their primary over the transport."""
+        import base64
+
         out: Dict[int, dict] = {}
         for sid in range(self.num_shards):
             owner = self._owner(sid)
-            if owner is not None and owner != self.local_node:
-                raise not_ported(
-                    "a snapshot of a shard held by another node", MESH
+            if owner is None or owner == self.local_node:
+                out[sid] = self.snapshot_shard_local(sid)
+            else:
+                r = self.remote_call(
+                    owner, ACTION_SNAPSHOT_SHARD,
+                    {"index": self.name, "shard": sid},
                 )
-            out[sid] = self.snapshot_shard_local(sid)
+                if "files_b64" in r:
+                    out[sid] = {
+                        "files": {
+                            k: base64.b64decode(v)
+                            for k, v in r["files_b64"].items()
+                        }
+                    }
+                else:
+                    out[sid] = {"docs": r["docs"]}
         return out
 
     def local_stats(self) -> dict:

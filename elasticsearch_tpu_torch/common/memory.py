@@ -31,6 +31,7 @@ in `_nodes/stats` (child_breakers())."""
 
 from __future__ import annotations
 
+import collections
 import os
 import threading
 from typing import Dict
@@ -83,6 +84,12 @@ class HbmLedger:
         self._budget = budget
         self._lock = threading.Lock()
         self._by_category: Dict[str, int] = {}
+        # releases waiting to be applied under the lock: `release` runs
+        # from `weakref.finalize` callbacks (ops/wand.py), which the
+        # collector may fire on a thread that already holds the lock
+        self._pending: "collections.deque[tuple[str, int]]" = (
+            collections.deque()
+        )
         self.stats_counters = {"tripped": 0, "degraded": 0}
 
     @property
@@ -95,9 +102,20 @@ class HbmLedger:
     def budget(self, value: int) -> None:
         self._budget = value
 
+    def _apply_pending(self) -> None:
+        """Applies queued releases; the caller holds the lock."""
+        while self._pending:
+            category, nbytes = self._pending.popleft()
+            left = self._by_category.get(category, 0) - nbytes
+            if left <= 0:
+                self._by_category.pop(category, None)
+            else:
+                self._by_category[category] = left
+
     @property
     def used(self) -> int:
         with self._lock:
+            self._apply_pending()
             return sum(self._by_category.values())
 
     def would_fit(self, nbytes: int) -> bool:
@@ -109,6 +127,7 @@ class HbmLedger:
         record overage instead — better a tracked overage than a lying
         ledger)."""
         with self._lock:
+            self._apply_pending()
             used = sum(self._by_category.values())
             if breaker and used + nbytes > self.budget:
                 self.stats_counters["tripped"] += 1
@@ -123,19 +142,26 @@ class HbmLedger:
             )
 
     def release(self, category: str, nbytes: int) -> None:
-        with self._lock:
-            left = self._by_category.get(category, 0) - nbytes
-            if left <= 0:
-                self._by_category.pop(category, None)
-            else:
-                self._by_category[category] = left
+        """Never blocks: queues the release (a deque append is atomic)
+        and applies it at once when the lock is free. A finalizer that
+        runs while its own thread holds the lock leaves it queued for
+        the next locked call, so it cannot deadlock or change the dict
+        under a sum."""
+        self._pending.append((category, nbytes))
+        if self._lock.acquire(blocking=False):
+            try:
+                self._apply_pending()
+            finally:
+                self._lock.release()
 
     def note_degraded(self) -> None:
         with self._lock:
+            self._apply_pending()
             self.stats_counters["degraded"] += 1
 
     def stats(self) -> dict:
         with self._lock:
+            self._apply_pending()
             used = sum(self._by_category.values())
             return {
                 "limit_size_in_bytes": self.budget,
@@ -151,6 +177,7 @@ class HbmLedger:
         the per-category byte usage the `_nodes/stats` breakers section
         surfaces next to the `hbm` parent."""
         with self._lock:
+            self._apply_pending()
             return {
                 f"hbm.{cat}": {
                     "limit_size_in_bytes": self.budget,

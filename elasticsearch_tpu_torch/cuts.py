@@ -6,9 +6,9 @@ that brings it, so a caller learns what is missing instead of meeting a
 quiet fallback or an ImportError.
 """
 
-# the ROADMAP.md queue 1 item the cuts below point at (items 1-11 and
-# 13-16 are ported)
-MESH = "ROADMAP queue 1 item 12 (mesh and multi-node cluster)"
+# the ROADMAP.md queue 1 item the cuts below point at (items 1-11, 12a
+# (multi-node clusters) and 13-16 are ported)
+MESH = "ROADMAP queue 1 item 12b (the serving mesh)"
 
 
 def not_ported(what: str, where: str) -> NotImplementedError:

@@ -783,6 +783,9 @@ class RestActions:
                 "finalize_redelivered": dur["finalize_redelivered"],
             },
         }
+        from ..cluster.allocation import relocation_stats_snapshot
+
+        relocation_block = relocation_stats_snapshot()
         return 200, {
             "cluster_name": self.cluster.cluster_name,
             "nodes": {
@@ -824,6 +827,10 @@ class RestActions:
                     "translog": translog_block,
                     "ingest": ingest_block,
                     "recovery": recovery_block,
+                    # relocation lifecycle counters (cluster/allocation.py):
+                    # started/completed/cancelled/failed moves, transferred
+                    # bytes, handoff drains and their cumulative latency
+                    "relocation": relocation_block,
                     # overload-protection block (search/admission.py):
                     # per-tenant queue depths, the adaptive concurrency
                     # limit, pressure tier, shed/brownout/retry-budget

@@ -8,11 +8,13 @@ NDJSON endpoints (_bulk, _msearch) are split/parsed here, mirroring
 RestBulkAction's line-by-line XContent parsing.
 
 PyTorch port: the node serves on the card (`device="cuda"`, an argument
-of `ElasticsearchTpuServer`; tests pass "cpu"). A request that reaches a
-path the port does not have yet gets a 501 whose reason names the slice
-that brings it.
+of `ElasticsearchTpuServer` and of `TpuNode`; tests pass "cpu"). With
+``--node-name``/``--seeds`` the HTTP tier fronts a `TpuNode` on the
+card. A request that reaches a path the port does not have yet gets a
+501 whose reason names the slice that brings it.
 
-Run: ``python -m elasticsearch_tpu_torch.rest.server --port 9200``
+Run: ``python -m elasticsearch_tpu_torch.rest.server --port 9200
+[--data-path d] [--node-name n --transport-port p --seeds host:port,...]``
 """
 
 from __future__ import annotations
@@ -27,7 +29,6 @@ from urllib.parse import parse_qs, unquote, urlparse
 from ..cluster import ClusterError, ClusterService
 from ..common.memory import CircuitBreakingException
 from ..common.tracing import OPAQUE_ID_CTX
-from ..cuts import MESH, not_ported
 from ..index.engine import EngineError, VersionConflictError
 from ..index.mapping import MappingParseError
 from ..search.admission import EsOverloadedError, admission, overload_body
@@ -260,21 +261,54 @@ def main(argv=None):
         help="comma-separated host:port seed list (discovery.seed_hosts)",
     )
     args = ap.parse_args(argv)
+    node = None
     if args.node_name is not None or args.seeds is not None:
-        # the reference starts a TpuNode (transport + discovery) here
-        raise not_ported("multi-node mode (cluster/node.py, transport/)", MESH)
-    server = ElasticsearchTpuServer(
-        port=args.port, host=args.host, data_path=args.data_path
-    )
-    print(
-        f"elasticsearch-tpu listening on http://{args.host}:{server.port} "
-        f"(data: {args.data_path or 'in-memory'})",
-        flush=True,
-    )
+        # multi-node mode: the HTTP tier fronts a TpuNode's distributed
+        # cluster service (Netty4HttpServerTransport + TransportService
+        # both bound on one Node, SURVEY.md §3.1)
+        from ..cluster.node import TpuNode
+
+        seeds = []
+        for part in (args.seeds or "").split(","):
+            part = part.strip()
+            if part:
+                h, _, p = part.rpartition(":")
+                seeds.append((h or "127.0.0.1", int(p)))
+        node = TpuNode(
+            args.node_name or "node-0",
+            seeds=seeds,
+            data_path=args.data_path,
+            port=args.transport_port,
+        ).start()
+        server = ElasticsearchTpuServer(
+            port=args.port, host=args.host, cluster=node.cluster
+        )
+        print(
+            f"elasticsearch-tpu node [{node.name}] transport "
+            f"{node.address[0]}:{node.address[1]} http://{args.host}:{server.port}"
+            f" (data: {args.data_path or 'in-memory'})",
+            flush=True,
+        )
+    else:
+        server = ElasticsearchTpuServer(
+            port=args.port, host=args.host, data_path=args.data_path
+        )
+        print(
+            f"elasticsearch-tpu listening on http://{args.host}:{server.port} "
+            f"(data: {args.data_path or 'in-memory'})",
+            flush=True,
+        )
     try:
         server.serve_forever()
     except KeyboardInterrupt:
-        server.close()
+        if node is None:
+            server.close()
+        else:
+            # the node closes its cluster service itself: closing it
+            # through the server too would close each engine twice
+            server.httpd.shutdown()
+            server.httpd.server_close()
+            node.close()
 
 
 if __name__ == "__main__":

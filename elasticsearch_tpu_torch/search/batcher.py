@@ -54,7 +54,7 @@ one packed download per group). Group inputs reach the card through
 asynchronous pinned uploads (ops/scoring.upload), and per-doc masks are
 the executor's device-resident live ∧ exists tensors, so a dispatch
 never waits for the device. The reference's `mesh_*` families are not
-ported yet (ROADMAP queue 1 item 12).
+ported yet (ROADMAP queue 1 item 12b, the serving mesh).
 """
 
 from __future__ import annotations

@@ -5,13 +5,16 @@ remaining query nodes, rescore) against the numpy backend, segments
 built on the card (ops/index_build.py) against the host build, a node
 with a data path reopened after a crash (its tail replayed into a build
 on the card) against the numpy backend, and `python -m
-elasticsearch_tpu_torch check`, on the card. Every test here carries the `cuda` marker, needs an NVIDIA GPU and
+elasticsearch_tpu_torch check`, and a two-node cluster (replication,
+failover, peer recovery) against the numpy backend, on the card. Every test here carries the `cuda` marker, needs an NVIDIA GPU and
 nvcc, decides so inside its fixture and skips without them. The module
 imports neither jax nor the JAX package, so on a machine with the card
 it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
+
+import time
 
 import numpy as np
 import pytest
@@ -696,6 +699,68 @@ def test_reopened_index_on_card_matches_numpy(cuda, monkeypatch, tmp_path):
         assert t.search({"size": 0, "track_total_hits": True})["hits"]["total"]["value"] == 300
     finally:
         c.close()
+
+
+def test_cluster_on_card_matches_numpy(cuda, monkeypatch, tmp_path):
+    """Two nodes on the card over localhost TCP: an index of 4 shards and
+    1 replica serves the numpy index's pages from either node; a node
+    holding primaries dies and its replicas are promoted with nothing
+    lost; it restarts and peer-recovers, every engine on the card and
+    every build of the recovery on the card."""
+    from elasticsearch_tpu_torch.cluster.node import TpuNode
+    from elasticsearch_tpu_torch.cluster.service import ClusterService
+    from elasticsearch_tpu_torch.index import segment_build
+
+    monkeypatch.setenv("ES_TPU_BG_REFRESH", "off")
+    monkeypatch.setenv("ES_TPU_DEVICE_BUILD", "auto")
+    docs = _build_docs(300, 6)
+    fd = {"fd_interval": 0.2, "fd_retries": 2}
+    oracle = ClusterService(device=cuda)
+    a = TpuNode("node-0", data_path=str(tmp_path / "n0"), device=cuda, **fd).start()
+    b = TpuNode("node-1", seeds=[a.address], data_path=str(tmp_path / "n1"), device=cuda, **fd).start()
+    b2 = None
+    try:
+        settings = {"number_of_shards": 4, "sparse.quantization": "none"}
+        a.create_index("c", {"settings": {**settings, "number_of_replicas": 1}, "mappings": BUILD_MAPPING})
+        oracle.create_index("c", {"settings": {**settings, "search.backend": "numpy"}, "mappings": BUILD_MAPPING})
+        for doc_id, src in docs:
+            assert b.index_doc("c", doc_id, src)["result"] == "created"
+            oracle.get_index("c").index_doc(doc_id, src)
+        a.refresh("c")
+        oracle.get_index("c").refresh()
+        bodies = ({"query": {"match": {"body": "cat dog"}}, "size": 20},
+                  {"knn": {"field": "vec", "query_vector": [0.1] * 16, "k": 10, "num_candidates": 50}})
+        for node in (a, b):
+            for body in bodies:
+                _same_served(oracle.search("c", body), node.search("c", body))
+            for eng in node.indices["c"].local_shards.values():
+                assert eng.device.type == cuda.type
+        b.close()
+        deadline = time.time() + 30
+        while set(a.state["nodes"]) != {"node-0"} and time.time() < deadline:
+            time.sleep(0.05)
+        assert set(a.state["nodes"]) == {"node-0"}
+        a.refresh("c")
+        assert a.count("c")["count"] == 300
+        for body in bodies:
+            _same_served(oracle.search("c", body), a.search("c", body))
+        before = dict(segment_build.INGEST_STATS)
+        b2 = TpuNode("node-1", seeds=[a.address], data_path=str(tmp_path / "n1"), device=cuda, **fd).start()
+        deadline = time.time() + 60
+        while a.cluster.health()["status"] != "green" and time.time() < deadline:
+            time.sleep(0.05)
+        assert a.cluster.health()["status"] == "green"
+        assert segment_build.INGEST_STATS["host_builds"] == before["host_builds"]
+        assert sum(e.num_docs for e in b2.indices["c"].local_shards.values()) == 300
+        for eng in b2.indices["c"].local_shards.values():
+            assert eng.device.type == cuda.type
+        for body in bodies:
+            _same_served(oracle.search("c", body), b2.search("c", body))
+    finally:
+        for node in (b2, b, a):
+            if node is not None:
+                node.close()
+        oracle.close()
 
 
 def test_check_passes_on_card(cuda):

@@ -27,9 +27,9 @@ Contract under test:
 The workloads are this file's own copies of tests/test_durability.py's
 and tests/test_native_plugins_cli.py's. What `TestReplicaConvergence`
 covers there (replica failure, peer recovery, node crash and restart
-across nodes, primary promotion) is multi-node and waits for ROADMAP
-queue 1 item 12, as does the peer-recovery half of the torn-transfer
-test.
+across nodes, primary promotion) is multi-node and lives in
+tests/test_torch_replication.py, with the peer-recovery half of the
+torn-transfer test.
 """
 
 import json
@@ -670,7 +670,7 @@ class TestSegmentQuarantine:
         """A shard dir still holding the `_recovering` marker of a peer
         recovery is a half-copied transfer: no engine opens it, in the
         port as in the JAX package (local mode; re-running the transfer
-        is peer recovery, ROADMAP queue 1 item 12)."""
+        is peer recovery, tests/test_torch_replication.py)."""
         from elasticsearch_tpu.cluster.indices import IndexService as JIndexService
 
         opened = []

@@ -12,8 +12,9 @@ refusal to restore over an open index, blob dedup, garbage collection
 on delete, doc-mode snapshots of a diskless node), held to the JAX
 package's node where the two can be compared, a restored index serving
 on the node's device, and the CLI (`python -m elasticsearch_tpu_torch`)
-in a subprocess. Distributed snapshots (`TestDistributedSnapshots`)
-wait for ROADMAP queue 1 item 12.
+in a subprocess. `TestDistributedSnapshots` snapshots an index whose
+shards lie on two nodes of each package and restores it through the
+master.
 """
 
 import json
@@ -34,6 +35,14 @@ from elasticsearch_tpu_torch.cluster.service import ClusterError, ClusterService
 from elasticsearch_tpu_torch.index import segment_build
 from elasticsearch_tpu_torch.rest.server import ElasticsearchTpuServer
 from elasticsearch_tpu_torch.search.executor_torch import TorchExecutor
+
+from test_torch_multinode import (  # noqa: F401  (cluster_harness: usefixtures)
+    PORT,
+    assert_same_response,
+    cluster_harness,
+    routing_table,
+    twin,
+)
 
 REPO = Path(__file__).resolve().parent.parent
 RTOL = 1e-5
@@ -450,6 +459,81 @@ class TestInMemorySnapshots:
 
 
 # ---------------------------------------------------------------------------
+# tests/test_snapshots.py's TestDistributedSnapshots on the port's nodes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.usefixtures("cluster_harness")
+class TestDistributedSnapshots:
+    """A snapshot of an index whose shards lie on two nodes (the remote
+    shards come over the transport: files from nodes with data paths,
+    docs from diskless ones), then a restore through the master, held
+    to the JAX package's nodes doing the same steps."""
+
+    @staticmethod
+    def _run(p, tmp_path, with_paths):
+        def path(name):
+            return str(tmp_path / p.name / name) if with_paths else None
+
+        a = p.node("node-0", data_path=path("n0"), fd_interval=0.2)
+        b = p.node("node-1", seeds=[a.address], data_path=path("n1"),
+                   fd_interval=0.2)
+        a.create_index("dist", {"settings": {"number_of_shards": 4,
+                                             "number_of_replicas": 0}})
+        for i in range(20):
+            a.index_doc("dist", f"d{i}", {"body": f"distributed doc {i}"})
+        a.refresh("dist")
+        a.cluster.put_repository("r", repo_body(tmp_path, f"repo-{p.name}"))
+        payloads = a.indices["dist"].snapshot_shards()
+        out = a.cluster.create_snapshot("r", "s", {"indices": "dist"})
+        assert out["snapshot"]["state"] == "SUCCESS"
+        before = a.search("dist", {"query": {"match": {"body": "distributed"}},
+                                   "size": 30})
+        a.delete_index("dist")
+        a.cluster.restore_snapshot("r", "s")
+        a.refresh("dist")
+        resp = a.search("dist", {"query": {"match": {"body": "distributed"}},
+                                 "size": 30})
+        assert resp["hits"]["total"]["value"] == 20
+        owners = {e["primary"]
+                  for e in a.state["indices"]["dist"]["routing"].values()}
+        assert owners == {"node-0", "node-1"}
+        return {
+            "modes": {sid: sorted(pl) for sid, pl in payloads.items()},
+            "shards": out["snapshot"]["shards"],
+            "before": before,
+            "after": resp,
+            "routing": routing_table(a, "dist"),
+            "devices": {n.name: sorted({str(getattr(e, "device", None))
+                                        for e in n.indices["dist"].shards})
+                        for n in (a, b)},
+        }
+
+    def _check(self, ref, got):
+        assert got["modes"] == ref["modes"]
+        assert got["shards"] == ref["shards"]
+        assert got["routing"] == ref["routing"]
+        assert_same_response(got["before"], ref["before"])
+        assert_same_response(got["after"], ref["after"])
+        # the restored pages are the pages served before the snapshot
+        assert_same_response(got["after"], got["before"])
+
+    def test_snapshot_and_restore_across_nodes(self, tmp_path):
+        ref, got = twin(self._run, tmp_path, True)
+        assert set(map(tuple, got["modes"].values())) == {("files",)}
+        self._check(ref, got)
+
+    def test_diskless_nodes_snapshot_docs_across_nodes(self, tmp_path):
+        ref, got = twin(self._run, tmp_path, False)
+        assert set(map(tuple, got["modes"].values())) == {("docs",)}
+        self._check(ref, got)
+
+    def test_restored_shards_serve_on_each_node_device(self, tmp_path):
+        got = self._run(PORT, tmp_path, True)
+        assert got["devices"] == {"node-0": ["cpu"], "node-1": ["cpu"]}
+
+
+# ---------------------------------------------------------------------------
 # the CLI in a subprocess
 # ---------------------------------------------------------------------------
 
@@ -494,6 +578,17 @@ class TestCli:
         data = json.loads(out.stdout)
         assert data["checks_passed"] is False
         assert any("CUDA" in f for f in data["failures"])
+
+    @pytest.mark.skipif(__import__("torch").cuda.is_available(), reason="a CUDA device is present")
+    def test_serve_node_mode_fails_without_cuda(self, tmp_path):
+        """`serve --node-name ... --seeds ...` starts a `TpuNode` on the
+        card: with no CUDA device it exits non-zero naming it, and never
+        serves from the CPU instead."""
+        out = run_cli("serve", "--node-name", "node-1", "--seeds", "127.0.0.1:1",
+                      "--transport-port", "0", "--port", "0", "--data-path", str(tmp_path / "n"))
+        assert out.returncode != 0, (out.stdout, out.stderr)
+        assert "no CUDA device" in out.stderr and "TpuNode [node-1]" in out.stderr
+        assert "http://" not in out.stdout
 
     def test_unknown_command(self):
         out = run_cli("frobnicate")

@@ -505,13 +505,30 @@ def test_scan_covers_the_durable_modules(rel):
     assert not [m for m in _imports(path) if m.split(".")[0] in ("jax", "jaxlib", "elasticsearch_tpu")]
 
 
+MULTINODE_MODULES = (
+    "transport/__init__.py", "transport/service.py", "cluster/node.py",
+    "cluster/allocation.py",
+)
+
+
+@pytest.mark.parametrize("rel", MULTINODE_MODULES)
+def test_scan_covers_the_multinode_modules(rel):
+    """The transport, the node and the allocation deciders are port files
+    the scan above reads, each its own copy under the same relative path."""
+    path = REPO / "elasticsearch_tpu_torch" / rel
+    assert path in PORT_FILES
+    assert (REPO / "elasticsearch_tpu" / rel).is_file()
+    assert not [m for m in _imports(path) if m.split(".")[0] in ("jax", "jaxlib", "elasticsearch_tpu")]
+
+
 def test_only_the_mesh_cut_is_left():
-    """On-disk shards are ported: `cuts.DISK` is gone and `MESH` (the mesh
-    and multi-node mode) is the only cut."""
+    """On-disk shards and multi-node clusters are ported: `cuts.DISK` is
+    gone and `MESH` names only the serving mesh (item 12b)."""
     from elasticsearch_tpu_torch import cuts
 
     assert not hasattr(cuts, "DISK")
     assert [k for k in vars(cuts) if k.isupper()] == ["MESH"]
+    assert "12b" in cuts.MESH and "multi-node" not in cuts.MESH
 
 
 def _module_exists(base: Path, dotted: str) -> bool:
