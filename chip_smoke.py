@@ -4454,6 +4454,11 @@ def cluster_full_width(segs: list, owner: np.ndarray, seg, dims: int, seed: int,
             }, device)
             out["peak_device_bytes"] = torch.cuda.max_memory_allocated(device)
         log(f"(n1) placement {out['placement']}, hybrids {modes}")
+        # route (o): the forced mesh over /local8 before it closes
+        t = time.perf_counter()
+        out["o"] = route_mesh(local, lh, procs[1], match_bodies, knn_bodies, served, out["rows"], seg, dims,
+                              seed, device)
+        out["o"]["s"] = time.perf_counter() - t
         return out
     finally:
         for proc in procs:
@@ -4461,6 +4466,238 @@ def cluster_full_width(segs: list, owner: np.ndarray, seg, dims: int, seed: int,
         close_cluster(nodes, servers)
         if local is not None:
             local.close()
+
+
+MESH_AGG_BODIES = 8  # route (o)'s cold_agg bodies
+MESH_SMALL_DOCS = 4000  # route (o2): docs of each 4-shard index
+
+
+class MeshEnv:
+    """ES_TPU_MESH set for one route and restored after it."""
+
+    def __init__(self, mode: str):
+        self.mode = mode
+
+    def __enter__(self):
+        self.old = os.environ.get("ES_TPU_MESH")
+        os.environ["ES_TPU_MESH"] = self.mode
+        return self
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            os.environ.pop("ES_TPU_MESH", None)
+        else:
+            os.environ["ES_TPU_MESH"] = self.old
+        return False
+
+
+def mesh_counts(mex) -> dict:
+    return {k: mex.stats[k] for k in ("routed", "launches", "jobs", "fallbacks", "degraded")}
+
+
+def route_mesh(local, lh: Http, proc: ClientProcess, match_bodies: list, knn_bodies: list, served: dict,
+               n1_rows: dict, seg, dims: int, seed: int, device) -> dict:
+    """Route (o), the forced serving mesh on the card over (n1)'s own
+    `/local8` (8 shards of the 1M-doc corpus, 768-d vectors) and
+    `/local8_oracle`: ES_TPU_MESH=force for this route only. (n1)'s 32
+    `match` and 32 exact `knn` from 8 clients then 1, 32 `bool` and 32
+    `multi_match` (text_hybrid_bodies), 32 int8 `sparse_vector` and 8
+    `cold_agg` bodies with the request cache opted out. Checked: every
+    request is mesh-routed (the `routed` delta is the requests sent), no
+    fallback and no degrade, totals equal and pages equal `/local8`'s
+    fan-out pages of the same run (ids position by position, tie runs
+    as sets, scores within RTOL; where the fan-out's sparse family
+    pruned and reports a lower bound, the mesh's exact total reaches
+    it), 8 of each family held to the oracle
+    (int8 sparse by recall@10 >= 0.95 as phase 4 does), aggregations
+    equal the oracle's. Printed, not checked: latency and QPS beside
+    (n1)'s `/local8` rows, the server's CPU per request, the card's busy
+    time for a profiled 1-client group, launches and jobs per group, the
+    snapshot's build wall and bytes, the route's peak device memory."""
+    import torch
+
+    idx = local.cluster.get_index("local8")
+    mex = idx.mesh_executor()
+    tb = text_hybrid_bodies(seg.postings["body"].term_df, seg.postings["title"].term_df, dims, seed + 107)
+    sa = sparse_agg_bodies(seg.postings["body"].term_df, seed + 113)
+    fam = {"bool": tb["bool"], "multi_match": tb["multi_match"],
+           "sparse": sa["sparse_retrieval"], "cold_agg": sa["cold_agg"][:MESH_AGG_BODIES]}
+    out = {"rows": {}}
+    # the fan-out pages of the same run for the families (n1) did not drive
+    t = time.perf_counter()
+    fanout = {r: [lh.ok("POST", "/local8/_search", b) for b in bodies] for r, bodies in fam.items()}
+    out["fanout_pages_s"] = time.perf_counter() - t
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    with MeshEnv("force"):
+        check(mex.available(), "(o) the forced mesh is not available on /local8")
+        c0 = mesh_counts(mex)
+        sent = 0
+        # the snapshot and its stacked views are built before serving
+        t = time.perf_counter()
+        snap = mex.ensure_snapshot()
+        out["snapshot_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        for f in ("body", "title"):
+            mex._text_view(snap, f)
+        mex._knn_view(snap, "vec")
+        mex._sparse_view(snap, "ml", True)
+        sync(device)
+        out["views_s"] = time.perf_counter() - t
+        out["stack_bytes"] = snap.nbytes
+        out["entries"] = len(snap.entries)
+        out["fold"] = snap.fold
+        log(f"(o) snapshot of {len(snap.entries)} entries (fold {snap.fold}) in {out['snapshot_s']:.3f}s, "
+            f"views in {out['views_s']:.2f}s, {snap.nbytes} bytes")
+        # the first request of each family builds its steps: set-up
+        t = time.perf_counter()
+        for bodies in (match_bodies, knn_bodies, *fam.values()):
+            lh.ok("POST", "/local8/_search", bodies[0])
+            sent += 1
+        out["first_requests_s"] = time.perf_counter() - t
+        meshed = {}
+        c1 = mesh_counts(mex)
+        for clients in (CLIENTS, 1):
+            for route, bodies in (("match", match_bodies), ("knn", knn_bodies)):
+                pages, row = drive_measured(proc, "/local8/_search", bodies, clients)
+                meshed[(route, clients)] = pages
+                sent += len(bodies)
+                # (n1)'s /local8 fan-out row of the same run, beside it
+                row["fanout_local8"] = n1_rows.get(f"local8_{route}_{clients}_clients")
+                out["rows"][f"mesh_{route}_{clients}_clients"] = row
+                log(f"(o) mesh {route} from {clients} clients: {row}")
+        c2 = mesh_counts(mex)
+        out["per_group"] = {
+            "launches": c2["launches"] - c1["launches"],
+            "jobs": c2["jobs"] - c1["jobs"],
+            "jobs_per_launch": (c2["jobs"] - c1["jobs"]) / max(1, c2["launches"] - c1["launches"]),
+        }
+        for route, bodies in fam.items():
+            pages, row = drive_measured(proc, "/local8/_search", bodies, CLIENTS)
+            meshed[(route, CLIENTS)] = pages
+            sent += len(bodies)
+            out["rows"][f"mesh_{route}_{CLIENTS}_clients"] = row
+        if device.type == "cuda":
+            out["profile"] = profile_routes({
+                "o_mesh_match_1_client_8": lambda: proc.drive("/local8/_search", match_bodies[:CLIENTS], 1),
+                "o_mesh_knn_1_client_8": lambda: proc.drive("/local8/_search", knn_bodies[:CLIENTS], 1),
+            }, device)
+            sent += 4 * CLIENTS  # two routes, each run twice (warm + traced)
+            out["peak_device_bytes"] = torch.cuda.max_memory_allocated(device)
+        c3 = mesh_counts(mex)
+        out["counts"] = {k: c3[k] - c0[k] for k in c3}
+        out["requests_sent"] = sent
+        log(f"(o) counts {out['counts']} for {sent} requests")
+        check(out["counts"]["routed"] == sent, f"(o) {out['counts']['routed']} of {sent} requests mesh-routed")
+        check(out["counts"]["fallbacks"] == 0 and out["counts"]["degraded"] == 0,
+              f"(o) the mesh fell back or degraded: {out['counts']}")
+    # ---- held to the fan-out pages of the same run and to the oracle ----
+    t = time.perf_counter()
+    for (route, clients), pages in meshed.items():
+        refs = served[("/local8", route, clients)] if route in ("match", "knn") else fanout[route]
+        for i, got in enumerate(pages):
+            if route == "cold_agg":
+                check(got["aggregations"] == refs[i]["aggregations"], f"(o) cold_agg {i}: aggregations differ")
+                check(got["hits"]["total"] == refs[i]["hits"]["total"], f"(o) cold_agg {i}: total differs")
+            elif route == "sparse":
+                # the fan-out's sparse family prunes impact tiles and
+                # then reports a lower bound ("gte"); the mesh scores
+                # every tile, so its exact total must reach that bound
+                same_page(got, refs[i], f"(o) mesh sparse body {i} against /local8's pruned fan-out")
+            else:
+                same_served(refs[i], got, f"(o) mesh {route} body {i} ({clients} clients) against /local8")
+    recalls = []
+    for route in ("match", "knn", *fam):
+        for i in range(ORACLE_QUERIES):
+            body = (match_bodies if route == "match" else knn_bodies if route == "knn" else fam[route])[i]
+            got = meshed[(route, CLIENTS)][i]
+            if route == "sparse":
+                ref = lh.ok("POST", "/local8_oracle/_search", {**body, "size": K + 20})
+                recalls.append(recall_at(ref, got))
+                continue
+            ref = lh.ok("POST", "/local8_oracle/_search", body)
+            if route == "cold_agg":
+                check(got["aggregations"] == ref["aggregations"], f"(o) cold_agg {i}: differs from the oracle")
+                check(got["hits"]["total"] == ref["hits"]["total"], f"(o) cold_agg {i}: oracle total differs")
+            else:
+                same_served(ref, got, f"(o) mesh {route} body {i} against the oracle")
+    out["sparse_int8_recall_at_10"] = float(np.mean(recalls))
+    check(np.mean(recalls) >= 0.95, f"(o) mesh sparse int8 recall@{K} {np.mean(recalls):.4f} < 0.95")
+    out["checks_s"] = time.perf_counter() - t
+    log(f"(o) held to /local8 and the oracle in {out['checks_s']:.1f}s")
+    return out
+
+
+def route_mesh_small(seed: int, device) -> dict:
+    """Route (o2), at small scale: a 4-shard torch index of
+    MESH_SMALL_DOCS docs with a `rank_vectors` column and an IVF
+    `dense_vector` (f32 rerank + f32 IVF, then int8 rerank + int8 IVF),
+    one segment per shard (the mesh rescore's precondition). 8 `match`
+    bodies with a rescore of window 20 and 8 IVF `knn` bodies go through
+    the forced mesh on the card and are held to the same index with the
+    mesh off (ids with tie runs as sets, scores within RTOL). Every
+    request is mesh-routed, none falls back."""
+    from elasticsearch_tpu_torch.cluster.indices import IndexService
+    from elasticsearch_tpu_torch.search import ann as ann_mod
+
+    rng = np.random.default_rng(seed + 127)
+    words = ["ant", "bee", "cat", "dog", "eel", "fox"]
+    centers = rng.normal(size=(24, 32))
+    mapping = {"properties": {"body": {"type": "text"},
+                              "vec": {"type": "dense_vector", "dims": 32, "similarity": "cosine"},
+                              "toks": {"type": "rank_vectors", "dims": 16, "similarity": "dot_product"}}}
+    docs = []
+    for i in range(MESH_SMALL_DOCS):
+        v = centers[i % 24] + 0.5 * rng.normal(size=32)
+        docs.append((f"m{i}", {"body": " ".join(rng.choice(words, int(rng.integers(2, 8)))),
+                               "vec": [float(x) for x in v / np.linalg.norm(v)],
+                               "toks": rng.normal(size=(1 + i % 5, 16)).round(3).tolist()}))
+    out = {}
+    old_floor = os.environ.get(ann_mod.ANN_MIN_DOCS_ENV)
+    os.environ[ann_mod.ANN_MIN_DOCS_ENV] = "64"
+    try:
+        for quant in ("none", "int8"):
+            svc = IndexService(f"o2-{quant}", mappings_json=mapping, device=device, settings={
+                "number_of_shards": 4, "refresh_interval": "-1", "knn.type": "ivf", "knn.nlist": 16,
+                "knn.nprobe": 4, "knn.quantization": quant, "rerank.quantization": quant})
+            try:
+                for doc_id, src in docs:
+                    svc.index_doc(doc_id, src)
+                svc.refresh()
+                bodies = []
+                for i in range(8):
+                    resc = {"window_size": 20, "query": {"rescore_query": {"rank_vectors": {
+                        "field": "toks", "query_vectors": rng.normal(size=(3, 16)).round(3).tolist()}},
+                        "query_weight": 0.5, "rescore_query_weight": 2.0}}
+                    bodies.append({"query": {"match": {"body": words[i % 6]}}, "size": K, "rescore": resc})
+                    q = docs[int(rng.integers(0, len(docs)))][1]["vec"]
+                    bodies.append({"knn": {"field": "vec", "query_vector": q, "k": K, "num_candidates": 100},
+                                   "size": K})
+                mex = svc.mesh_executor()
+                with MeshEnv("off"):
+                    refs = [svc.search(json.loads(json.dumps(b))) for b in bodies]
+                with MeshEnv("force"):
+                    c0 = mesh_counts(mex)
+                    t = time.perf_counter()
+                    got = [svc.search(json.loads(json.dumps(b))) for b in bodies]
+                    wall = time.perf_counter() - t
+                    c1 = mesh_counts(mex)
+                d = {k: c1[k] - c0[k] for k in c1}
+                check(d["routed"] == len(bodies) and d["fallbacks"] == 0 and d["degraded"] == 0,
+                      f"(o2) {quant}: {d} for {len(bodies)} bodies")
+                for i, (ref, g) in enumerate(zip(refs, got)):
+                    same_served(ref, g, f"(o2) {quant} body {i} ({'rescore' if i % 2 == 0 else 'ivf'})")
+                out[quant] = {"counts": d, "bodies": len(bodies), "wall_s": wall}
+                log(f"(o2) {quant}: {out[quant]}")
+            finally:
+                svc.close()
+    finally:
+        if old_floor is None:
+            os.environ.pop(ann_mod.ANN_MIN_DOCS_ENV, None)
+        else:
+            os.environ[ann_mod.ANN_MIN_DOCS_ENV] = old_floor
+    return out
 
 
 def acked_ids(res: dict) -> list:
@@ -4757,6 +4994,11 @@ def route_cluster(raw: dict, seg, dims: int, vocab: int, seed: int, device) -> d
     t = time.perf_counter()
     out["n1"] = cluster_full_width(segs, owner, seg, dims, seed, device)
     out["n1"]["s"] = time.perf_counter() - t
+    out["o"] = out["n1"].pop("o")
+    out["n1"]["s"] -= out["o"]["s"]
+    t = time.perf_counter()
+    out["o2"] = route_mesh_small(seed, device)
+    out["o2"]["s"] = time.perf_counter() - t
     del segs
     root = tempfile.mkdtemp(prefix="es-torch-cluster-")
     try:

@@ -42,7 +42,8 @@ finds each counterpart under the same relative path:
                        _build/), fs snapshots and restore
   cli.py, __main__.py  `python -m elasticsearch_tpu_torch
                        {serve,version,check,plugin}`
-  cuts.py              what is not ported yet, and which slice brings it
+  parallel/            the serving mesh: MeshExecutor, one stacked launch
+                       over every (shard, segment) entry of an index
   convert.py           carries segments / quantized corpora across
 
 Nothing here imports `jax` or `elasticsearch_tpu`. Entry points run on

@@ -36,8 +36,10 @@ card through the batcher's `rerank` family for a shard's page or a
 one-shard index's fused candidates, else through the host oracle. With
 a ``base_path`` each shard is an on-disk engine (flush, crash recovery,
 file snapshots, peer recovery); a reopened shard's segments upload to
-the device when its executor is first built. The serving mesh raises,
-naming the slice that brings it (see cuts.py).
+the device when its executor is first built. With `ES_TPU_MESH=force`
+(or `auto` on two or more devices) the hot flat-plan bodies serve
+through the index's MeshExecutor (parallel/mesh_executor.py): one
+stacked launch over every (shard, segment) entry per batcher group.
 """
 
 from __future__ import annotations
@@ -53,7 +55,6 @@ from ..analysis import AnalysisRegistry
 from ..common.faults import faults
 from ..common.slowlog import FETCH_ACC, SearchSlowLog
 from ..common.tracing import OPAQUE_ID_CTX, TRACE_CTX
-from ..cuts import MESH, not_ported
 from ..index.engine import OpResult, ShardEngine, VersionConflictError
 from ..index.mapping import Mappings
 from ..search import dsl
@@ -117,10 +118,7 @@ def _request_scoped_error(e: BaseException) -> bool:
 
     if isinstance(
         e, (dsl.QueryParseError, EsRejectedExecutionError,
-            CircuitBreakingException, EsOverloadedError,
-            # a path the port does not have yet (cuts.py): no replica
-            # can serve it either
-            NotImplementedError),
+            CircuitBreakingException, EsOverloadedError),
     ):
         return True
     try:
@@ -486,6 +484,9 @@ class IndexService:
         from ..search.batcher import QueryBatcher
 
         self._batcher = QueryBatcher()
+        # whole-index serving engine (parallel/mesh_executor.py),
+        # created on first use
+        self._mesh = None
         # SearchStats (per-index totals; query_current omitted)
         self.search_stats = {
             "query_total": 0,
@@ -1097,6 +1098,22 @@ class IndexService:
                     prewarm(self.settings)
             except Exception:
                 pass
+        mesh_err = None
+        if refreshed and self._mesh is not None:
+            # the new generation's stack is built with it, not inside its
+            # first request; a stack that cannot be built (budget, no
+            # live segment) leaves the next request to degrade. Any other
+            # error fails the tick after its waiters are woken, and the
+            # next request meets it again
+            from ..parallel.mesh_executor import MeshUnavailable
+
+            try:
+                if self._mesh.available():
+                    self._mesh.ensure_snapshot()
+            except MeshUnavailable:
+                pass
+            except Exception as e:
+                mesh_err = e
         if refreshed:
             segment_build.note(
                 "prewarm_ms", (time.perf_counter() - t0) * 1000.0
@@ -1104,6 +1121,8 @@ class IndexService:
         with self._refresh_cond:
             self._refresh_ticks += 1
             self._refresh_cond.notify_all()
+        if mesh_err is not None:
+            raise mesh_err
 
     def wait_for_refresh(self, timeout: float = 30.0) -> None:
         """`?refresh=wait_for` semantics: block until the change is
@@ -1192,6 +1211,8 @@ class IndexService:
             r.join(timeout=5.0)
             self._refresher = None
         self._batcher.close()
+        if self._mesh is not None:
+            self._mesh.close()
         with self._executor_lock:
             execs, self._executors = dict(self._executors), {}
         for _gen, ex in execs.values():
@@ -2394,19 +2415,340 @@ class IndexService:
                 except Exception:
                     pass  # best-effort (context TTL reaps it anyway)
 
-    # ---- mesh-parallel serving: the reference runs whole-index SPMD
-    # programs here (parallel/mesh_executor.py); the port serves every
-    # request through the per-shard fan-out ----
+    # ---- whole-index serving (parallel/mesh_executor.py): one stacked
+    # launch over every (shard, segment) entry replaces the per-shard
+    # fan-out for the hot flat-plan request shapes ----
+
+    # body keys the mesh fetch path can serve; anything else (aggs,
+    # sort, highlight, profile, timeout, …) takes the per-shard path
+    _MESH_BODY_KEYS = frozenset(
+        {
+            "query", "knn", "size", "from", "_source",
+            "track_total_hits", "allow_partial_search_results",
+            "allow_degraded", "rescore", "exact", "profile",
+        }
+    )
+
+    def mesh_executor(self):
+        mex = self._mesh
+        if mex is None:
+            with self._executor_lock:
+                if self._mesh is None:
+                    from ..parallel.mesh_executor import MeshExecutor
+
+                    self._mesh = MeshExecutor(self)
+                mex = self._mesh
+        return mex
+
+    def _mesh_fallback_ok(self, e: BaseException) -> bool:
+        """The errors a routed mesh request may degrade on, besides
+        MeshUnavailable: an injected fault (the `batcher.dispatch` /
+        `batcher.collect` sites and the family sites with mesh=1) and a
+        closed batcher. A real device, shape or parse error is not among
+        them."""
+        from ..common.faults import InjectedFault
+
+        return isinstance(e, InjectedFault) or bool(
+            getattr(self._batcher, "_closed", False)
+        )
 
     def _mesh_search(self, body: dict, task=None) -> Optional[dict]:
-        """None: the request takes the per-shard coordinator, as the
-        reference does when its mesh is unavailable. `ES_TPU_MESH=force`
-        asks for the mesh, which the port does not have yet."""
-        from ..common.settings import mesh_mode
+        """Whole-index execution of one request: B concurrent same-plan
+        requests × all shards run as ONE stacked launch (batched through
+        the QueryBatcher's mesh job kinds) — per-entry scoring and local
+        top-k, the k-way merge and the totals in the same step — instead
+        of S per-shard jobs, S launches and S host round trips. Returns
+        the wire response, or None to fall through to the per-shard
+        coordinator (ineligible body, mesh off, `MeshUnavailable`, an
+        injected fault or a closed batcher). Any other error raises to
+        the caller: no fallback hides the device. Results are the
+        per-shard path's — same scoring formula, same (score desc, shard
+        asc, segment asc, doc asc) merge order."""
+        mesh = self.mesh_executor()
+        if not mesh.available():
+            return None
+        if "aggs" in body or "aggregations" in body:
+            # size:0 agg bodies execute as ONE stacked launch (bucket
+            # accumulators summed across the entries) when eligible
+            return self._mesh_agg_search(body, mesh, task)
+        if any(k not in self._MESH_BODY_KEYS for k in body):
+            return None
+        if deadline_from(body) is not None:
+            return None  # cooperative timeouts stay on the shard path
+        has_q = "query" in body
+        has_knn = "knn" in body
+        if has_q == has_knn:  # hybrid or match_all: shard path
+            return None
+        size = int(body.get("size", 10))
+        from_ = int(body.get("from", 0))
+        if size <= 0 or from_ < 0:
+            return None
+        tth = body.get("track_total_hits", 10_000)
+        from ..search.batcher import (
+            QueryBatcher,
+            extract_knn_plan,
+            extract_match_plan,
+            extract_serve_plan,
+        )
 
-        if mesh_mode() == "force":
-            raise not_ported("the serving mesh (ES_TPU_MESH=force)", MESH)
-        return None
+        kind = None
+        if has_q:
+            query = dsl.parse_query(body["query"])  # parse errors are
+            # request-scoped: surface them exactly like the shard path
+            if isinstance(query, dsl.SparseVectorQuery):
+                from ..search import sparse as sparse_mod
+                from ..search.batcher import extract_sparse_plan
+
+                query.sparse = sparse_mod.resolve(
+                    self.settings, bool(body.get("exact"))
+                )
+                plan = extract_sparse_plan(query, self.mappings)
+                kind = "mesh_sparse"
+            else:
+                plan = extract_match_plan(
+                    query, self.mappings, self.analysis, tth
+                )
+                kind = "mesh_match"
+                if plan is None:
+                    plan = extract_serve_plan(
+                        query, self.mappings, self.analysis
+                    )
+                    kind = "mesh_serve"
+        else:
+            knn_body = body["knn"]
+            knn = [
+                dsl.parse_knn(kb)
+                for kb in (knn_body if isinstance(knn_body, list) else [knn_body])
+            ]
+            from ..search import ann as ann_mod
+
+            ann_mod.annotate(knn, self.settings, body)
+            plan = extract_knn_plan(knn, self.mappings)
+            kind = "mesh_knn"
+        if plan is None:
+            return None
+        if "rescore" in body:
+            # fused mesh rescore: only flat match plans carry it (knn +
+            # rescore stays on the shard path), and only when the
+            # reranker is actually on (mode off = the escape hatch)
+            from ..common.settings import rerank_mode
+            from ..models import rerank as rerank_model
+            from ..search import rescorer
+
+            if kind != "mesh_match":
+                return None
+            spec = rescorer.parse_rescore(body, validate_size=False)
+            if spec is not None:
+                model = rerank_model.resolve_model(
+                    self.mappings, self.settings, spec.field
+                )
+                if model is None:
+                    raise dsl.QueryParseError(
+                        f"[rescore] field [{spec.field}] is not mapped "
+                        "as [rank_vectors]"
+                    )
+                if rerank_mode() == "off":
+                    rerank_model.note("skipped")
+                else:
+                    # rides the MatchPlan into the batcher group key:
+                    # different specs / page sizes never share a launch
+                    # (MatchPlan is frozen — attach out-of-band)
+                    object.__setattr__(plan, "rescore", (model, spec))
+                    object.__setattr__(
+                        plan, "rescore_sig", (model, spec, from_ + size)
+                    )
+        from ..parallel.mesh_executor import MeshUnavailable
+
+        t0 = time.perf_counter()
+        tns0 = time.perf_counter_ns()
+        mesh_prof = {"families": {}} if body.get("profile") else None
+        try:
+            job = self._batcher.submit_nowait(
+                mesh, plan, from_ + size, kind=kind, prof=mesh_prof,
+            )
+            td = QueryBatcher.wait(job)
+        except MeshUnavailable as e:
+            if e.budget:
+                mesh.note_degraded()
+            mesh.note_fallback()
+            return None
+        except BaseException as e:
+            if not self._mesh_fallback_ok(e):
+                raise
+            mesh.note_fallback()
+            return None
+        from ..search.executor import filter_source
+
+        source_spec = body.get("_source", True)
+        snap = td.snapshot
+        out_hits = []
+        for h in td.hits[from_ : from_ + size]:
+            entry: dict = {
+                "_index": self.name,
+                "_id": h.doc_id,
+                "_score": float(h.score),
+            }
+            src = snap.readers[h.shard].segments[h.segment].sources[h.local_doc]
+            filtered = filter_source(src, source_spec)
+            if filtered is not None and source_spec is not False:
+                entry["_source"] = filtered
+            out_hits.append(entry)
+        hits_obj: dict = {"max_score": td.max_score, "hits": out_hits}
+        if tth is True:
+            hits_obj["total"] = {"value": td.total, "relation": "eq"}
+        elif tth is not False:
+            limit = int(tth)
+            hits_obj["total"] = {
+                "value": min(td.total, limit),
+                "relation": "gte" if td.total > limit else "eq",
+            }
+        took = int((time.perf_counter() - t0) * 1000)
+        self.search_stats["query_total"] += 1
+        self.search_stats["query_time_in_millis"] += took
+        self.search_stats["fetch_total"] += 1
+        mesh.note_routed()
+        tr = TRACE_CTX.get()
+        if tr is not None:
+            tr.add_span(
+                "mesh_search", tns0, time.perf_counter_ns(),
+                index=self.name, shards=self.num_shards, took_ms=took,
+            )
+        n = self.num_shards
+        resp = {
+            "took": took,
+            "timed_out": False,
+            "_shards": {"total": n, "successful": n, "skipped": 0,
+                        "failed": 0},
+            "hits": hits_obj,
+        }
+        if mesh_prof is not None:
+            resp["profile"] = {
+                "coordinator": {
+                    "phases": {"mesh_ns": int(
+                        (time.perf_counter() - t0) * 1e9
+                    )},
+                    "took_ns": int((time.perf_counter() - t0) * 1e9),
+                    "mesh": True,
+                },
+                "families": dict(mesh_prof.get("families", {})),
+                "shards": [],
+            }
+        return resp
+
+    # body keys the mesh AGG path can serve (size:0, so no fetch keys)
+    _MESH_AGG_BODY_KEYS = frozenset(
+        {
+            "query", "size", "aggs", "aggregations", "track_total_hits",
+            "_source", "allow_partial_search_results", "allow_degraded",
+            "request_cache", "profile",
+        }
+    )
+
+    def _mesh_agg_search(self, body: dict, mesh, task=None) -> Optional[dict]:
+        """Whole-index execution of one size:0 agg body: per-entry
+        segment-sum bucket accumulators reduce across the entry axis
+        with sum/amin/amax (ordinal tables unioned at stack build), one
+        launch and one compact download for the whole index. Returns the wire response or None to fall through to the
+        per-shard coordinator (whose shard-level device-agg engine and
+        request cache then serve the request).
+
+        Routing note: the per-shard path owns the shard request cache,
+        so in ``auto`` mesh mode only cache-opted-out bodies ride the
+        mesh; ``ES_TPU_MESH=force`` routes every eligible body (bench /
+        mesh tests)."""
+        from ..common.settings import device_aggs_mode, mesh_mode
+
+        if device_aggs_mode() == "off":
+            return None
+        if any(k not in self._MESH_AGG_BODY_KEYS for k in body):
+            return None
+        if int(body.get("size", 10)) != 0:
+            return None
+        if deadline_from(body) is not None:
+            return None  # cooperative timeouts stay on the shard path
+        if mesh_mode() != "force" and body.get("request_cache") is not False:
+            return None
+        mplan = None
+        if "query" in body:
+            query = dsl.parse_query(body["query"])
+            if not isinstance(query, dsl.MatchAllQuery):
+                from ..search.batcher import extract_match_plan
+
+                mplan = extract_match_plan(
+                    query, self.mappings, self.analysis,
+                    body.get("track_total_hits", 10_000),
+                )
+                if mplan is None:
+                    return None
+        try:
+            from ..search.aggs import parse_aggs, reduce_aggs
+
+            agg_nodes = parse_aggs(
+                body.get("aggs") or body.get("aggregations")
+            )
+        except Exception:
+            return None  # the shard path raises the user-facing error
+        from ..parallel.mesh_executor import MeshUnavailable
+        from ..search import aggs_device
+        from ..search.batcher import QueryBatcher
+
+        t0 = time.perf_counter()
+        mesh_prof = {"families": {}} if body.get("profile") else None
+        try:
+            plan = mesh.compile_agg(agg_nodes, mplan, self.mappings)
+            job = self._batcher.submit_nowait(
+                mesh, plan, 0, kind="mesh_agg", prof=mesh_prof,
+            )
+            got = QueryBatcher.wait(job)
+        except MeshUnavailable as e:
+            if e.budget:
+                mesh.note_degraded()
+            mesh.note_fallback()
+            return None
+        except BaseException as e:
+            if not self._mesh_fallback_ok(e):
+                raise
+            mesh.note_fallback()
+            return None
+        tth = body.get("track_total_hits", 10_000)
+        hits_obj: dict = {"max_score": got["max_score"], "hits": []}
+        total = got["total"]
+        if tth is True:
+            hits_obj["total"] = {"value": total, "relation": "eq"}
+        elif tth is not False:
+            limit = int(tth)
+            hits_obj["total"] = {
+                "value": min(total, limit),
+                "relation": "gte" if total > limit else "eq",
+            }
+        took = int((time.perf_counter() - t0) * 1000)
+        self.search_stats["query_total"] += 1
+        self.search_stats["query_time_in_millis"] += took
+        mesh.note_routed()
+        aggs_device.note_mesh_routed()
+        aggs_device.note_kernel_ms((time.perf_counter() - t0) * 1000.0)
+        n = self.num_shards
+        resp = {
+            "took": took,
+            "timed_out": False,
+            "_shards": {"total": n, "successful": n, "skipped": 0,
+                        "failed": 0},
+            "hits": hits_obj,
+            "aggregations": reduce_aggs(agg_nodes, [got["partials"]]),
+        }
+        if mesh_prof is not None:
+            resp["profile"] = {
+                "coordinator": {
+                    "phases": {"mesh_ns": int(
+                        (time.perf_counter() - t0) * 1e9
+                    )},
+                    "took_ns": int((time.perf_counter() - t0) * 1e9),
+                    "mesh": True,
+                },
+                "families": dict(mesh_prof.get("families", {})),
+                "shards": [],
+            }
+        return resp
 
     def search(
         self,
@@ -2554,7 +2896,7 @@ class IndexService:
                 **body,
                 "query": {"bool": {"must": [inner], "filter": [extra_filter]}},
             }
-        # mesh-parallel fast path: whole-index SPMD launch for the hot
+        # mesh fast path: one whole-index stacked launch for the hot
         # flat-plan shapes (pinned contexts stay on the shard path — a
         # point-in-time reader must not see a rebuilt stack)
         if pinned_executors is None:

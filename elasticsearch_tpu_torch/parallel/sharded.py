@@ -1,0 +1,918 @@
+"""Whole-index search steps over a stack of shards, in PyTorch.
+
+Counterpart of `elasticsearch_tpu/parallel/sharded.py` (the JAX
+package). The coordinator's scatter/gather (per-shard query phase, then
+the reduce that merges shard responses) collapses into ONE program over
+a stack of every shard:
+
+  - every entry's tiled postings live stacked along a leading entry
+    axis (`doc_ids[E, T, 128]`);
+  - per-entry scoring runs as one batched tensor operation over that
+    axis (the reference's `vmap` inside `shard_map`);
+  - the reference's `all_gather` over the ``shards`` axis is the entry
+    axis that is already there, and its `psum`/`pmin`/`pmax` are a
+    `sum`/`amin`/`amax` over it;
+  - every `lax.top_k` is `ops/scoring.topk_desc`, which keeps the lowest
+    index among equal scores, so the merge's (score desc, slot asc)
+    order is the coordinator's (score desc, shard asc, segment asc, doc
+    asc) order.
+
+The port's mesh spans one device (parallel/mesh.py): the whole stack
+lives on it and ``fold`` is the number of entries. A step takes host
+numpy plans (uploaded in one asynchronous pinned copy each) and returns
+device tensors; nothing here waits for the device.
+
+Two families of step builders live here:
+
+  * ``build_sharded_bm25_step`` / ``build_sharded_knn_step`` — the
+    ShardedIndex steps (whole shards, one segment each);
+  * ``build_mesh_*_step`` — the SERVING steps behind
+    `parallel/mesh_executor.MeshExecutor`: stacked entries are (shard,
+    segment) pairs so per-entry scoring is the same computation as the
+    per-segment serving scorers (same tile plans in the same scatter
+    order, the same `w - w/(1 + tf·inv)` formula, the same live and
+    count masks), and only the merge moves from the host into the step.
+
+On a CUDA device `scatter_add_` and `index_add_` sum with float atomics,
+so a doc's last ulp can change from run to run (and from the per-shard
+path's); on the CPU the additions run in slot order and the pages are
+bit for bit the per-shard path's.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..index.segment import INVALID_DOC, TILE, Segment
+from ..models import bm25
+from ..ops.scoring import TCHUNK, next_bucket, topk_desc, upload
+from .mesh import SHARD_AXIS, Mesh, fold_factor, mesh_device
+
+
+class ShardedTopK(NamedTuple):
+    scores: torch.Tensor  # float32[B, k] merged, score desc
+    global_docs: torch.Tensor  # int32[B, k] doc_base[shard] + local doc (-1 pad)
+    totals: torch.Tensor  # int32[B] total matching docs across shards
+
+
+def _up(device, a, dtype=None) -> torch.Tensor:
+    """A host array (or a tensor already there) on `device`."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=dtype)
+    t = upload(np.ascontiguousarray(a), device)
+    return t if dtype is None else t.to(dtype)
+
+
+def _up_plan(device, ti, tw, tv):
+    """(ti int64, tw f32, tv bool) device tensors of one [E, B, T] tile
+    plan, uploaded as ONE packed int32 buffer."""
+    ti = np.asarray(ti)
+    packed = np.empty((3,) + ti.shape, np.int32)
+    packed[0] = ti
+    packed[1] = np.asarray(tw, np.float32).view(np.int32)
+    packed[2] = np.asarray(tv, bool)
+    dev = upload(packed, device)
+    return dev[0].long(), dev[1].view(torch.float32), dev[2] != 0
+
+
+class ShardedIndex:
+    """Stacks S single-shard segments into one device's entry stack.
+
+    The ES analog of an index with `number_of_shards: S` (each shard an
+    independent Segment with its own term dictionary, norms and stats,
+    exactly like an ES shard is a full Lucene index); this class pads
+    them to a common dense shape along the leading entry axis. The stack
+    is padded to ``axis * fold`` rows (mesh.py fold_factor)."""
+
+    def __init__(
+        self,
+        mesh: Mesh,
+        segments: Sequence[Segment],
+        field: str,
+        k1: float = bm25.DEFAULT_K1,
+        b: float = bm25.DEFAULT_B,
+        vector_field: Optional[str] = None,
+    ):
+        g = mesh.shape[SHARD_AXIS]
+        self.fold = fold_factor(mesh, len(segments))
+        if g * self.fold < len(segments):
+            raise ValueError(
+                f"{len(segments)} shards but mesh '{SHARD_AXIS}' axis is "
+                f"{g} (fold {self.fold})"
+            )
+        self.mesh = mesh
+        self.device = mesh_device(mesh)
+        self.segments = list(segments)
+        self.field = field
+        self.n_shards = len(segments)
+        # stacked rows: shards padded to an equal fold per device
+        self.n_stack = g * self.fold
+        self.k1 = k1
+        self.b = b
+
+        # ---- per-shard BM25 term weights (each shard uses ITS OWN stats,
+        # like per-shard IDF without the optional DFS phase) ----
+        self._weights: List[Dict[str, float]] = []
+        self._inv_norms: List[np.ndarray] = []
+        n_tiles_max = 1
+        n_docs_max = 1
+        for seg in self.segments:
+            pf = seg.postings.get(field)
+            if pf is None or pf.n_tiles == 0:
+                self._weights.append({})
+                self._inv_norms.append(np.zeros(max(seg.num_docs, 1), np.float32))
+                n_docs_max = max(n_docs_max, max(seg.num_docs, 1))
+                continue
+            st = pf.stats
+            doc_count = st.doc_count or 1
+            avgdl = bm25.avg_field_length(st.sum_total_term_freq, doc_count)
+            cache = bm25.norm_inverse_cache(avgdl, k1, b)
+            self._weights.append(
+                {
+                    t: float(bm25.idf(doc_count, int(pf.term_df[i])))
+                    for i, t in enumerate(pf.terms)
+                }
+            )
+            self._inv_norms.append(cache[pf.norms.astype(np.int64)])
+            n_tiles_max = max(n_tiles_max, pf.n_tiles)
+            n_docs_max = max(n_docs_max, seg.num_docs)
+        self.n_docs_max = n_docs_max
+        self.n_tiles_max = n_tiles_max
+
+        # ---- stacked, padded device arrays ----
+        S = self.n_stack
+        doc_ids = np.full((S, n_tiles_max, TILE), INVALID_DOC, np.int32)
+        tfs = np.zeros((S, n_tiles_max, TILE), np.int32)
+        inv_norm = np.zeros((S, n_docs_max), np.float32)
+        doc_base = np.zeros(S, np.int32)
+        base = 0
+        for si, seg in enumerate(self.segments):
+            pf = seg.postings.get(field)
+            if pf is not None and pf.n_tiles:
+                doc_ids[si, : pf.n_tiles] = pf.doc_ids
+                tfs[si, : pf.n_tiles] = pf.tfs
+            inv_norm[si, : len(self._inv_norms[si])] = self._inv_norms[si]
+            doc_base[si] = base
+            base += seg.num_docs
+        self.total_docs = base
+        self.doc_ids = _up(self.device, doc_ids)
+        self.tfs = _up(self.device, tfs)
+        self.inv_norm = _up(self.device, inv_norm)
+        self.doc_base = _up(self.device, doc_base)
+        # every slot below a shard's num_docs is a real doc (no deletes)
+        live = np.zeros((S, n_docs_max), bool)
+        for si, seg in enumerate(self.segments):
+            live[si, : seg.num_docs] = True
+        self.live = _up(self.device, live)
+
+        # ---- optional dense-vector shard stack ----
+        self.vector_field = vector_field
+        self.vectors = None
+        self.vec_exists = None
+        if vector_field is not None:
+            dims = None
+            for seg in self.segments:
+                vf = seg.vectors.get(vector_field)
+                if vf is not None:
+                    dims = vf.vectors.shape[1]
+                    break
+            if dims is not None:
+                vecs = np.zeros((S, n_docs_max, dims), np.float32)
+                exists = np.zeros((S, n_docs_max), bool)
+                for si, seg in enumerate(self.segments):
+                    vf = seg.vectors.get(vector_field)
+                    if vf is None:
+                        continue
+                    mat = (
+                        vf.unit_vectors
+                        if vf.similarity == "cosine" and vf.unit_vectors is not None
+                        else vf.vectors
+                    )
+                    vecs[si, : seg.num_docs] = mat
+                    exists[si, : seg.num_docs] = vf.exists
+                self.vectors = _up(self.device, vecs)
+                self.vec_exists = _up(self.device, exists)
+
+    # ---- host-side query compilation (the per-shard Weight creation) ----
+
+    def compile_queries(
+        self,
+        term_lists: Sequence[Sequence[str]],
+        operators: Optional[Sequence[str]] = None,
+        bucket: Optional[int] = None,
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """Queries → per-(shard, query) padded tile plans.
+
+        Returns (tile_idx[S,B,T], tile_w[S,B,T], tile_v[S,B,T], msm[B]).
+        Each shard resolves the same terms against its own dictionary and
+        stats — the analog of per-shard `Weight` creation in
+        `SearchService.executeQueryPhase`. S is the padded stack size
+        (padding rows score all-invalid to -inf).
+        """
+        B = len(term_lists)
+        plans: List[List[Tuple[List[int], List[float]]]] = []
+        t_max = 1
+        for si, seg in enumerate(self.segments):
+            pf = seg.postings.get(self.field)
+            shard_plans: List[Tuple[List[int], List[float]]] = []
+            for terms in term_lists:
+                idxs: List[int] = []
+                ws: List[float] = []
+                if pf is not None:
+                    for t in terms:
+                        tid = pf.term_id(t)
+                        if tid < 0:
+                            continue
+                        start = int(pf.term_tile_start[tid])
+                        cnt = int(pf.term_tile_count[tid])
+                        w = self._weights[si].get(t, 0.0)
+                        idxs.extend(range(start, start + cnt))
+                        ws.extend([w] * cnt)
+                t_max = max(t_max, len(idxs))
+                shard_plans.append((idxs, ws))
+            plans.append(shard_plans)
+        T = bucket or next_bucket(t_max)
+        S = self.n_stack
+        tile_idx = np.zeros((S, B, T), np.int32)
+        tile_w = np.zeros((S, B, T), np.float32)
+        tile_v = np.zeros((S, B, T), bool)
+        for si in range(self.n_shards):
+            for bi, (idxs, ws) in enumerate(plans[si]):
+                t = len(idxs)
+                tile_idx[si, bi, :t] = idxs
+                tile_w[si, bi, :t] = ws
+                tile_v[si, bi, :t] = True
+        msm = np.ones(B, np.int32)
+        if operators is not None:
+            for bi, op in enumerate(operators):
+                if op == "and":
+                    msm[bi] = len(term_lists[bi])
+        return tile_idx, tile_w, tile_v, msm
+
+
+# ---------------------------------------------------------------------------
+# Per-entry scoring primitives, batched over the leading entry axis.
+# ---------------------------------------------------------------------------
+
+
+def _entry_offsets(n_entries: int, width: int, device) -> torch.Tensor:
+    """int64[E, 1, 1, 1]: the flat offset of each entry's row block."""
+    return (torch.arange(n_entries, dtype=torch.int64, device=device) * width).view(
+        -1, 1, 1, 1
+    )
+
+
+def _gather_tiles(planes, ti, nt: int):
+    """[E, B, TC, 128] rows of each stacked [E, nt, 128] plane at the
+    per-entry tile ids `ti` [E, B, TC] (clipped into range, as the
+    reference's `clip` does; invalid slots are masked by the caller)."""
+    E = ti.shape[0]
+    flat = (ti.clamp(0, nt - 1) + _entry_offsets(E, nt, ti.device)[:, :, :, 0])
+    return [p.reshape(E * nt, TILE)[flat] for p in planes]
+
+
+def _bm25_into(acc, cnt, dids, tfs, inv, ti, tw, tv, count_signed: bool):
+    """acc[E*B, n+1] (+ cnt) += the BM25 contributions of one field's
+    [E, B, T] tile plan, TCHUNK tiles per row at a time, in place. Per
+    posting: w - w / (1 + tf * inv_norm[doc]) (ops/scoring._chunk_scores
+    term for term); invalid slots add exactly 0 to the overflow column
+    n. `count_signed` (the ServePlan families): |w| scores and only
+    w > 0 counts toward msm (the MultiFusedScorer convention)."""
+    E, B, T = ti.shape
+    n_docs = inv.shape[1]
+    nt = dids.shape[1]
+    rows = E * B
+    inv_flat = inv.reshape(-1)
+    doc_off = _entry_offsets(E, n_docs, ti.device)
+    for c0 in range(0, T, TCHUNK):
+        tic = ti[:, :, c0 : c0 + TCHUNK]
+        twc = tw[:, :, c0 : c0 + TCHUNK]
+        rows_d, rows_t = _gather_tiles((dids, tfs), tic, nt)
+        valid = (rows_d >= 0) & tv[:, :, c0 : c0 + TCHUNK, None]
+        tgt = torch.where(valid, rows_d, n_docs).long().reshape(rows, -1)
+        invg = inv_flat[rows_d.clamp(0, max(n_docs - 1, 0)).long() + doc_off]
+        w = (twc.abs() if count_signed else twc)[:, :, :, None]
+        s = w - w / (1.0 + rows_t.to(torch.float32) * invg)
+        s = torch.where(valid, s, 0.0)
+        acc.scatter_add_(1, tgt, s.reshape(rows, -1))
+        if cnt is not None:
+            counted = valid & (twc > 0)[:, :, :, None] if count_signed else valid
+            cnt.scatter_add_(1, tgt, counted.reshape(rows, -1).to(torch.int32))
+
+
+def _match_mask(acc, cnt, live, msm):
+    """bool [E, B, n]: the finalize mask of ops/scoring._finalize per
+    entry (count >= msm, or acc > 0 without counts), AND live ∧
+    in-range."""
+    E, n = live.shape
+    if cnt is None:
+        mask = acc.view(E, -1, n + 1)[:, :, :n] > 0
+    else:
+        mask = cnt.view(E, -1, n + 1)[:, :, :n] >= torch.clamp(msm, min=1)[None, :, None]
+    return mask & live[:, None, :]
+
+
+def _entry_topk(scores, mask, k: int):
+    """Per-(entry, row) top-k: (s [E, B, k], d [E, B, k] int64, totals
+    [E, B] int32)."""
+    E, B, n = mask.shape
+    masked = torch.where(mask, scores, -torch.inf)
+    s, d = topk_desc(masked.reshape(E * B, n), min(k, n))
+    return (
+        s.view(E, B, -1),
+        d.view(E, B, -1),
+        mask.sum(dim=2, dtype=torch.int32),
+    )
+
+
+def _gather_slots(s, d):
+    """[E, B, kk] per-entry pages → entry-major [B, E*kk] slots (the
+    reference's all_gather + transpose)."""
+    E, B, kk = s.shape
+    return (
+        s.permute(1, 0, 2).reshape(B, E * kk),
+        d.permute(1, 0, 2).reshape(B, E * kk),
+    )
+
+
+def _merge_gathered(s, d, k: int):
+    """Merge epilogue of the steps that cut at k: per-entry pages [E, B,
+    kk] → (scores[B, K], entry[B, K], doc[B, K]) with K = min(k, E·kk).
+    Slots are laid out entry-major (shard/segment asc) with per-entry
+    ranks already doc-ascending among ties, and topk_desc keeps the
+    lowest slot among equals — the coordinator's (score desc, shard
+    asc, rank asc) merge order."""
+    kk = s.shape[2]
+    gs, gd = _gather_slots(s, d)
+    K = min(k, gs.shape[1])
+    ms, mi = topk_desc(gs, K)
+    me = (mi // kk).to(torch.int32)
+    md = torch.gather(gd, 1, mi).to(torch.int32)
+    return ms, me, md
+
+
+def pack_page(ms, me, md, tail):
+    """One int32 [B, 3K + w] buffer (scores' bits, entries, docs, then
+    the step's per-row tail: totals [B] or counts [B, E]) for the ONE
+    packed download."""
+    tail = tail.to(torch.int32)
+    if tail.dim() == 1:
+        tail = tail[:, None]
+    return torch.cat([ms.contiguous().view(torch.int32), me, md, tail], dim=1)
+
+
+def unpack_page(packed: torch.Tensor, k: int):
+    """The ONE download: (scores f32[B, k], entries i32, docs i32, tail
+    i32[B, w])."""
+    out = packed.cpu().numpy()
+    return (
+        out[:, :k].copy().view(np.float32),
+        out[:, k : 2 * k],
+        out[:, 2 * k : 3 * k],
+        out[:, 3 * k :],
+    )
+
+
+def _entry_dots(q, mats, rows=None):
+    """[E, B, N] products of q [B, d] with every entry's rows mats
+    [E, N, d]. With `rows` (each entry's real row count) entry e's block
+    is q @ mats[e, :rows[e]].T — the very [B, d] x [d, n] product the
+    per-segment path computes, so on the CPU its bits are that path's (a
+    batched or wider product reduces in another order); the padded
+    columns are 0."""
+    E, N, d = mats.shape
+    if rows is None:
+        rows = [N] * E
+    out = torch.zeros((E, q.shape[0], N), dtype=torch.float32, device=q.device)
+    for e in range(E):
+        n = int(rows[e])
+        if n:
+            out[e, :, :n] = q @ mats[e, :n].T
+    return out
+
+
+def _similarity_scores(q, vectors, similarity: str, rows=None):
+    """Dense [E, B, N] scores of queries q [B, d] (already unit rows for
+    cosine) against stacked vectors [E, N, d]: ops/scoring.knn_scores'
+    matmul and Lucene transform, the transform batched over the
+    entries."""
+    vectors = vectors.to(torch.float32)
+    dots = _entry_dots(q, vectors, rows)
+    if similarity in ("cosine", "dot_product"):
+        return (1.0 + dots) / 2.0
+    if similarity == "l2_norm":
+        q2 = torch.sum(q * q, dim=1, keepdim=True)[None, :, :]
+        v2 = torch.sum(vectors * vectors, dim=2)[:, None, :]
+        return 1.0 / (1.0 + torch.clamp(q2 + v2 - 2.0 * dots, min=0.0))
+    if similarity == "max_inner_product":
+        return torch.where(dots < 0, 1.0 / (1.0 - dots), dots + 1.0)
+    raise ValueError(f"unknown similarity [{similarity}]")
+
+
+def _unit_rows(q):
+    qn = torch.linalg.norm(q, dim=1, keepdim=True)
+    return q / torch.where(qn == 0, 1.0, qn)
+
+
+def _nc_cut_merge(s, d, nc):
+    """The kNN merge: per-entry pages [E, B, kk], per-(entry, job)
+    num_candidates caps nc [E, B] → the FULLY ordered stream (scores
+    [B, slots], entry, doc) plus surviving candidates per entry counts
+    [B, E]. A slot survives when its within-entry rank is below the
+    cap and it scored a real candidate."""
+    E, B, kk = s.shape
+    gs, gd = _gather_slots(s, d)
+    slots = E * kk
+    dev = s.device
+    entry_of_slot = torch.arange(slots, dtype=torch.int64, device=dev) // kk
+    rank_of_slot = torch.arange(slots, dtype=torch.int64, device=dev) % kk
+    nc_slot = nc.t()[:, entry_of_slot]  # [B, slots]
+    valid = torch.isfinite(gs) & (rank_of_slot[None, :] < nc_slot)
+    masked = torch.where(valid, gs, -torch.inf)
+    ms, mi = topk_desc(masked, slots)
+    me = entry_of_slot[mi].to(torch.int32)
+    md = torch.gather(gd, 1, mi).to(torch.int32)
+    counts = valid.view(B, E, kk).sum(dim=2, dtype=torch.int32)
+    return ms, me, md, counts
+
+
+# ---------------------------------------------------------------------------
+# ShardedIndex steps
+# ---------------------------------------------------------------------------
+
+
+def build_sharded_bm25_step(index: ShardedIndex, k: int):
+    """Search step over a ShardedIndex: per-shard score + top-k, then
+    the merge. fn(tile_idx[S,B,T], tile_w, tile_v, msm[B]) ->
+    ShardedTopK (device tensors) with global docs doc_base[shard] +
+    local doc (-1 past the real hits)."""
+    dev = index.device
+    n_docs = index.n_docs_max
+
+    def step(tile_idx, tile_w, tile_v, msm):
+        ti, tw, tv = _up_plan(dev, tile_idx, tile_w, tile_v)
+        E, B, _ = ti.shape
+        acc = torch.zeros(E * B, n_docs + 1, dtype=torch.float32, device=dev)
+        cnt = torch.zeros(E * B, n_docs + 1, dtype=torch.int32, device=dev)
+        _bm25_into(acc, cnt, index.doc_ids, index.tfs, index.inv_norm, ti, tw, tv, False)
+        mask = _match_mask(acc, cnt, index.live, _up(dev, msm, torch.int32))
+        s, d, t = _entry_topk(acc.view(E, B, -1)[:, :, :n_docs], mask, k)
+        gdoc = torch.where(s > -torch.inf, d + index.doc_base[:, None, None], -1)
+        ms, _, md = _merge_gathered(s, gdoc, k)
+        return ShardedTopK(ms, md, t.sum(dim=0, dtype=torch.int32))
+
+    return step
+
+
+def build_sharded_knn_step(index: ShardedIndex, k: int, similarity: str = "cosine"):
+    """Brute-force kNN over a ShardedIndex: one batched matmul + top-k
+    per shard, then the merge. fn(queries[B, d]) -> ShardedTopK."""
+    if index.vectors is None:
+        raise ValueError(f"index has no vector field [{index.vector_field}]")
+    dev = index.device
+
+    def step(queries):
+        q = _up(dev, np.asarray(queries, np.float32))
+        if similarity == "cosine":
+            q = _unit_rows(q)
+        scores = _similarity_scores(q, index.vectors, similarity)
+        mask = index.vec_exists[:, None, :].expand_as(scores)
+        s, d, t = _entry_topk(scores.to(torch.float32), mask, k)
+        gdoc = torch.where(s > -torch.inf, d + index.doc_base[:, None, None], -1)
+        ms, _, md = _merge_gathered(s, gdoc, k)
+        return ShardedTopK(ms, md, t.sum(dim=0, dtype=torch.int32))
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Serving steps — the production mesh path (MeshExecutor).
+#
+# The stacked axis carries (shard, segment) ENTRIES, not whole shards:
+# the per-shard serving path scores per segment, so keeping the
+# per-entry granularity makes the step reproduce the per-segment
+# scorers value for value, and only the cross-segment + cross-shard
+# merge moves from S host round trips into the step. Entry order is
+# (shard asc, segment asc).
+# ---------------------------------------------------------------------------
+
+
+def build_mesh_text_step(
+    mesh: Mesh,
+    doc_ids_f: Sequence[torch.Tensor],  # per field: [E, Tmax_f, TILE] stacked
+    tfs_f: Sequence[torch.Tensor],
+    inv_norm_f: Sequence[torch.Tensor],  # per field: [E, Nmax]
+    live: torch.Tensor,  # bool[E, Nmax] (live docs ∧ in-range padding mask)
+    k: int,
+    *,
+    with_cnt: bool,
+    count_signed: bool,
+    combine: str = "sum",
+    tie: float = 0.0,
+):
+    """One text-scoring step over stacked (shard, segment) entries.
+
+    fn(ti_f, tw_f, tv_f, msm[B]) → packed int32 [B, 3K + 1] (scores,
+    entries, docs, totals; `unpack_page`) with per-field plans ti/tw/tv
+    of shape [E, B, T_f].
+
+    * ``count_signed`` (the ServePlan families): |w| scores, w > 0
+      counts toward msm — the MultiFusedScorer weight-sign convention.
+    * ``with_cnt`` False (pure-disjunction match groups): the match mask
+      is ``acc > 0`` exactly like ops/scoring._finalize with cnt=None.
+    * ``combine``: "sum" (bool / most_fields) or "max_tie"
+      (best_fields: max + tie·(sum − max)).
+    """
+    dev = mesh_device(mesh)
+    n_docs = int(inv_norm_f[0].shape[1])
+
+    def step(ti_f, tw_f, tv_f, msm):
+        cnt = None
+        accs = []
+        E = int(live.shape[0])
+        for fi in range(len(doc_ids_f)):
+            ti, tw, tv = _up_plan(dev, ti_f[fi], tw_f[fi], tv_f[fi])
+            B = ti.shape[1]
+            if with_cnt and cnt is None:
+                cnt = torch.zeros(E * B, n_docs + 1, dtype=torch.int32, device=dev)
+            acc = torch.zeros(E * B, n_docs + 1, dtype=torch.float32, device=dev)
+            _bm25_into(acc, cnt, doc_ids_f[fi], tfs_f[fi], inv_norm_f[fi], ti, tw, tv,
+                       count_signed)
+            accs.append(acc.view(E, B, -1)[:, :, :n_docs])
+        if len(accs) == 1:
+            combined = accs[0]
+        elif combine == "sum":
+            combined = accs[0]
+            for a in accs[1:]:
+                combined = combined + a
+        else:  # max_tie (DisjunctionMaxQuery)
+            stack = torch.stack(accs)
+            best = stack.amax(dim=0)
+            combined = best + tie * (stack.sum(dim=0) - best)
+        msm_d = _up(dev, np.asarray(msm, np.int32))
+        if cnt is None:
+            mask = (combined > 0) & live[:, None, :]
+        else:
+            mask = _match_mask(None, cnt, live, msm_d)
+        s, d, t = _entry_topk(combined, mask, k)
+        ms, me, md = _merge_gathered(s, d, k)
+        return pack_page(ms, me, md, t.sum(dim=0, dtype=torch.int32))
+
+    return step
+
+
+def build_mesh_sparse_step(
+    mesh: Mesh,
+    doc_ids: torch.Tensor,  # [E, Tmax, TILE] stacked impact-ordered tiles
+    values: torch.Tensor,  # [E, Tmax, TILE] stored dtype (int8 or f32)
+    live: torch.Tensor,  # bool[E, Nmax] (live docs ∧ in-range padding mask)
+    k: int,
+):
+    """One learned-sparse scoring step over stacked (shard, segment)
+    entries.
+
+    fn(ti, tw, tv) → packed int32 [B, 3K + 1] (`unpack_page`) with the
+    per-(entry, job) tile plan ti/tw/tv of shape [E, B, T].
+
+    The contribution is ops/impact.impact_tile_contrib — the expression
+    the per-segment ImpactScorer runs — and the tile lists arrive
+    term-ordered with every tile present (no pruning on the mesh path,
+    which keeps the totals exact). `tw` carries the query weight with
+    each ENTRY's per-term dequant scale pre-folded, so one step serves
+    int8 and fp32 columns alike."""
+    from ..ops.impact import impact_tile_contrib
+
+    dev = mesh_device(mesh)
+    n_docs = int(live.shape[1])
+    E = int(live.shape[0])
+    nt = int(doc_ids.shape[1])
+
+    def step(ti_h, tw_h, tv_h):
+        ti, tw, tv = _up_plan(dev, ti_h, tw_h, tv_h)
+        B, T = ti.shape[1], ti.shape[2]
+        rows = E * B
+        acc = torch.zeros(rows * (n_docs + 1), dtype=torch.float32, device=dev)
+        cnt = torch.zeros(rows * (n_docs + 1), dtype=torch.int32, device=dev)
+        row_off = (torch.arange(rows, device=dev) * (n_docs + 1)).view(E, B, 1, 1)
+        for c0 in range(0, T, TCHUNK):
+            tic = ti[:, :, c0 : c0 + TCHUNK]
+            rows_d, rows_v = _gather_tiles((doc_ids, values), tic, nt)
+            valid = (rows_d >= 0) & tv[:, :, c0 : c0 + TCHUNK, None]
+            tgt, s = impact_tile_contrib(
+                rows_d, rows_v, tw[:, :, c0 : c0 + TCHUNK, None], valid, n_docs
+            )
+            flat = (tgt + row_off).reshape(-1)
+            acc.index_add_(0, flat, s.reshape(-1))
+            cnt.index_add_(0, flat, valid.reshape(-1).to(torch.int32))
+        acc = acc.view(E, B, n_docs + 1)[:, :, :n_docs]
+        # every query term is optional: the sparse match mask is
+        # cnt > 0, exactly ops/scoring._finalize at msm=1
+        mask = (cnt.view(E, B, n_docs + 1)[:, :, :n_docs] >= 1) & live[:, None, :]
+        s, d, t = _entry_topk(acc, mask, k)
+        ms, me, md = _merge_gathered(s, d, k)
+        return pack_page(ms, me, md, t.sum(dim=0, dtype=torch.int32))
+
+    return step
+
+
+def build_mesh_rerank_step(
+    mesh: Mesh,
+    doc_ids: torch.Tensor,  # [E, Tmax, TILE] stacked postings tiles
+    tfs: torch.Tensor,
+    inv_norm: torch.Tensor,  # [E, Nmax]
+    live: torch.Tensor,  # bool[E, Nmax]
+    rr_starts: torch.Tensor,  # i32 [E, Nmax] local doc → flat token row
+    rr_counts: torch.Tensor,  # i32 [E, Nmax]
+    rr_toks: torch.Tensor,  # [E, Fmax, d] f32 (or int8 with scales)
+    rr_scales: Optional[torch.Tensor],  # f32 [E, Fmax] or None
+    kb: int,  # local candidate page (compile bucket >= k_req)
+    k_req: int,  # the request page (from + size): per-entry page cut
+    window: int,  # rescore window, already clamped to k_req
+    tmax: int,  # max tokens per doc (gather width)
+    *,
+    with_cnt: bool,
+):
+    """One first-stage + RERANK step: per-entry BM25 scoring and local
+    top-k exactly like build_mesh_text_step (single field), then the
+    maxsim rescore runs per entry over that entry's own rank_vectors
+    tokens, so the merge sees already-reranked candidates. With one
+    live segment per shard (the routing precondition), each entry's
+    local stream equals the per-shard path's post-rescore page:
+    positions < window are re-sorted by blended score, positions
+    [window, k_req) keep first stage, positions >= k_req are dropped
+    (the shard page cut).
+
+    fn(ti, tw, tv, msm[B], qtoks[B, Qt, d], qvalid[B, Qt], weights[2])
+    → packed int32 [B, 3·slots + 1]: the merged stream FULLY ordered
+    (score desc, slot asc = (entry, post-rescore rank) asc — the
+    coordinator's (-score, shard, rank) tie-break) rather than cut at a
+    global k, mirroring build_mesh_knn_step."""
+    from ..ops.rerank import blend_and_sort, maxsim_candidates
+
+    dev = mesh_device(mesh)
+    E, n_docs = int(live.shape[0]), int(inv_norm.shape[1])
+    kk = min(kb, n_docs)
+    wc = min(window, k_req, kk)
+    fmax = int(rr_toks.shape[1])
+    # the per-entry CSR bounds as one flat column over [E * Fmax] token
+    # rows: entry e's doc i starts at e * Fmax + starts[e, i]
+    flat_starts = (
+        rr_starts.to(torch.int64)
+        + (torch.arange(E, dtype=torch.int64, device=dev) * fmax)[:, None]
+    ).reshape(-1)
+    flat_counts = rr_counts.reshape(-1)
+    flat_toks = rr_toks.reshape(E * fmax, -1)
+    flat_scales = None if rr_scales is None else rr_scales.reshape(-1)
+
+    def step(ti_h, tw_h, tv_h, msm, qtoks, qvalid, weights):
+        ti, tw, tv = _up_plan(dev, ti_h, tw_h, tv_h)
+        B = ti.shape[1]
+        acc = torch.zeros(E * B, n_docs + 1, dtype=torch.float32, device=dev)
+        cnt = (
+            torch.zeros(E * B, n_docs + 1, dtype=torch.int32, device=dev)
+            if with_cnt else None
+        )
+        _bm25_into(acc, cnt, doc_ids, tfs, inv_norm, ti, tw, tv, False)
+        mask = _match_mask(acc, cnt, live, _up(dev, np.asarray(msm, np.int32)))
+        s_e, d_e, t = _entry_topk(acc.view(E, B, -1)[:, :, :n_docs], mask, kk)
+        # ---- local rescore, before the merge: page cut at k_req,
+        # maxsim over this entry's token block, window re-sort ----
+        pos = torch.arange(kk, dtype=torch.int64, device=dev)
+        keep = torch.isfinite(s_e) & (pos[None, None, :] < k_req)  # [E, B, kk]
+        docs = torch.where(keep, d_e, 0) + (
+            torch.arange(E, dtype=torch.int64, device=dev) * n_docs
+        )[:, None, None]
+        qt = _up(dev, np.asarray(qtoks, np.float32))
+        qv = _up(dev, np.asarray(qvalid, bool))
+        msim = maxsim_candidates(
+            qt[None].expand(E, *qt.shape).reshape(E * B, *qt.shape[1:]),
+            qv[None].expand(E, *qv.shape).reshape(E * B, -1),
+            flat_starts, flat_counts, flat_toks, flat_scales,
+            docs.reshape(E * B, kk), tmax,
+        )
+        first = torch.where(keep, s_e, -torch.inf)
+        scores, perm = blend_and_sort(
+            msim, first.reshape(E * B, kk), keep.reshape(E * B, kk),
+            _up(dev, np.asarray(weights, np.float32)), wc,
+        )
+        d_sorted = torch.gather(d_e.reshape(E * B, kk), 1, perm.long())
+        gs, gd = _gather_slots(scores.view(E, B, kk), d_sorted.view(E, B, kk))
+        slots = E * kk
+        ms, mi = topk_desc(gs, slots)
+        me = (mi // kk).to(torch.int32)
+        md = torch.gather(gd, 1, mi).to(torch.int32)
+        return pack_page(ms, me, md, t.sum(dim=0, dtype=torch.int32))
+
+    return step
+
+
+def build_mesh_knn_step(
+    mesh: Mesh,
+    vectors: torch.Tensor,  # [E, Nmax, dims] stacked (original dtype)
+    cand: torch.Tensor,  # bool[E, Nmax] exists ∧ live ∧ in-range
+    similarity: str,
+    kc: int,  # per-entry candidate page (≥ every job's num_candidates)
+    n_per_entry: Optional[Sequence[int]] = None,  # real rows per entry
+):
+    """One brute-force kNN step over stacked (shard, segment) entries
+    with the per-shard path's per-(job, entry) num_candidates rank cut
+    applied on the device.
+
+    fn(queries[B, d], nc[E, B]) → packed int32 [B, 3·slots + E]
+    (scores, entries, docs, then counts [B, E]; `unpack_page`).
+    The merged stream comes back FULLY ordered (score desc, slot asc —
+    slots = E · kk) rather than cut at a global k, because the per-shard
+    coordinator's knn semantics cut at k PER SHARD before the global
+    page: the collector walks the ordered stream applying per-shard rank
+    caps, which a global top-k could starve (one dominant shard would
+    evict other shards' in-page ranks). counts = surviving candidates
+    PER ENTRY, for the per-shard totals."""
+    dev = mesh_device(mesh)
+    n_docs = int(vectors.shape[1])
+    kk = min(kc, n_docs)
+
+    def step(queries, nc):
+        q = _up(dev, np.asarray(queries, np.float32))
+        if similarity == "cosine":
+            q = _unit_rows(q)
+        scores = _similarity_scores(q, vectors, similarity, n_per_entry).to(torch.float32)
+        s, d, _ = _entry_topk(scores, cand[:, None, :].expand_as(scores), kk)
+        ms, me, md, counts = _nc_cut_merge(s, d, _up(dev, np.asarray(nc, np.int64)))
+        return pack_page(ms, me, md, counts)
+
+    return step
+
+
+def build_mesh_ann_step(
+    mesh: Mesh,
+    centroids: torch.Tensor,  # f32 [E, nlist_max, d] (zero-padded entries)
+    starts: torch.Tensor,  # i32 [E, nlist_max]
+    counts: torch.Tensor,  # i32 [E, nlist_max]
+    perm: torch.Tensor,  # i32 [E, Fmax] flat cluster-major slot → doc
+    vecs: torch.Tensor,  # [E, Fmax, d] permuted block (f32/f16, or int8)
+    scales: Optional[torch.Tensor],  # f32 [E, Fmax] int8 twin, or None
+    v2: Optional[torch.Tensor],  # f32 [E, Fmax] (l2 only), or None
+    cand: torch.Tensor,  # bool [E, Nmax] exists ∧ live in DOC order
+    similarity: str,
+    nprobe: int,
+    kc: int,
+    layout: Sequence[Tuple[int, int, int, int]],  # per entry (n, nlist, F, cmax)
+):
+    """One IVF-probed kNN step over the stacked cluster-major blocks.
+    Each entry probes its own slice of the stack through
+    ops/ivf.ann_topk_batch — the centroid scan, the cluster gather, the
+    product, the int8 scale and the transform of the per-segment probe,
+    at that entry's own nlist and cmax, so the per-entry pages are the
+    per-shard path's — and the merge is the SAME per-(job, entry)
+    num_candidates rank cut as build_mesh_knn_step, so the collector
+    (MeshExecutor.collect_knn) is shared verbatim. The entries are
+    probed one after the other inside the step (the reference's vmap
+    over entries of unequal cluster layouts): a batched probe reduces in
+    another order on the CPU.
+
+    fn(queries[B, d], nc[E, B]) → packed int32 [B, 3·slots + E]."""
+    from types import SimpleNamespace
+
+    from ..ops.ivf import ann_topk_batch
+
+    dev = mesh_device(mesh)
+    quant = scales is not None
+    entries = []
+    for e, (n, nl, F, cm) in enumerate(layout):
+        entries.append(SimpleNamespace(
+            similarity=similarity, n=n, nlist=nl, cmax=cm,
+            centroids=centroids[e, :nl], starts=starts[e, :nl],
+            counts=counts[e, :nl], perm=perm[e, :F],
+            vecs_flat=None if quant else vecs[e, :F],
+            qvecs_flat=vecs[e, :F] if quant else None,
+            scales_flat=scales[e, :F] if quant else None,
+            v2_flat=None if v2 is None else v2[e, :F],
+        ))
+    kk = max(min(kc, min(nprobe, x.nlist) * x.cmax) for x in entries)
+
+    def step(queries, nc):
+        q = _up(dev, np.asarray(queries, np.float32))
+        B = q.shape[0]
+        valid = torch.ones(B, dtype=torch.bool, device=dev)
+        sk = torch.full((len(entries), B, kk), -torch.inf, device=dev)
+        dk = torch.zeros((len(entries), B, kk), dtype=torch.int64, device=dev)
+        for e, idx in enumerate(entries):
+            s, d = ann_topk_batch(
+                idx, q, valid, cand[e, : idx.n], nprobe, kc, quantized=quant,
+            )
+            sk[e, :, : s.shape[1]] = s
+            dk[e, :, : d.shape[1]] = d
+        ms, me, md, cnts = _nc_cut_merge(sk, dk, _up(dev, np.asarray(nc, np.int64)))
+        return pack_page(ms, me, md, cnts)
+
+    return step
+
+
+def build_mesh_agg_step(
+    mesh: Mesh,
+    live: torch.Tensor,  # bool[E, Nmax] (live docs ∧ in-range padding mask)
+    node_descs: Sequence[tuple],
+    text: Optional[tuple],  # None | (doc_ids[E,T,128], tfs, inv[E,Nmax])
+    with_cnt: bool,
+):
+    """One aggregation step over stacked (shard, segment) entries:
+    per-entry bucket accumulators (segment-sum scatters over the stacked
+    doc-value / ordinal columns) reduce across the entry axis with
+    ``sum`` (counts, sums) / ``amin`` / ``amax`` — the coordinator's agg
+    reduce collapsed into the step, one launch for the whole index.
+
+    ``node_descs`` (arrays stacked [E, …]): ("metric", values, ivalues,
+    exists) → per-row (count, sum, min, max): float64 values for min/max
+    (the doc-value dtype the per-shard engine keeps), the exact int32
+    copy for sums; ("counts_doc", ids, exists, nbpad) → per-row
+    int32[nbpad] bucket counts (histogram family — ids are host-
+    precomputed exact relative bucket ids); ("counts_entry", gords,
+    edocs, evalid, nbpad) → the same over the multi-value ordinal CSR
+    mapped to a GLOBAL ordinal table (keyword terms).
+
+    ``text`` carries one match-plan field's stacked postings (the query
+    mask is the same per-entry BM25 accumulation the serving text step
+    runs); None serves match_all (mask = live).
+
+    fn(ti[E,B,T], tw, tv, msm[B]) → float64 [B, width]: totals,
+    max_scores, then each node's columns (4 for a metric, nbpad for a
+    bucket node), packed for one download."""
+    dev = mesh_device(mesh)
+    E, n_docs = int(live.shape[0]), int(live.shape[1])
+
+    def scatter_rows(ids_e, sel, nbpad):
+        # [E, B, L] selection of [E, L] ids → [E, B, nbpad] counts;
+        # unselected slots land in a trash bucket that is cut off
+        B = sel.shape[1]
+        safe = torch.where(sel, ids_e[:, None, :].long(), nbpad)
+        out = torch.zeros(E, B, nbpad + 1, dtype=torch.int32, device=dev)
+        out.scatter_add_(2, safe, torch.ones_like(safe, dtype=torch.int32))
+        return out[:, :, :nbpad]
+
+    def step(ti_h, tw_h, tv_h, msm):
+        B = int(np.asarray(msm).shape[0])
+        if text is not None:
+            dids, tfs_, inv = text
+            ti, tw, tv = _up_plan(dev, ti_h, tw_h, tv_h)
+            acc = torch.zeros(E * B, n_docs + 1, dtype=torch.float32, device=dev)
+            cnt = (
+                torch.zeros(E * B, n_docs + 1, dtype=torch.int32, device=dev)
+                if with_cnt else None
+            )
+            _bm25_into(acc, cnt, dids, tfs_, inv, ti, tw, tv, False)
+            scores = acc.view(E, B, -1)[:, :, :n_docs]
+            mask = _match_mask(acc, cnt, live, _up(dev, np.asarray(msm, np.int32)))
+        else:
+            scores = torch.ones(E, B, n_docs, dtype=torch.float32, device=dev)
+            mask = live[:, None, :].expand(E, B, n_docs)
+        totals = mask.sum(dim=2, dtype=torch.int32).sum(dim=0, dtype=torch.int32)
+        maxs = torch.where(mask, scores, -torch.inf).amax(dim=2).amax(dim=0)
+        outs: list = [totals, maxs]
+        for desc in node_descs:
+            kind = desc[0]
+            if kind == "metric":
+                _, vals, ivals, exists = desc
+                sel = mask & exists[:, None, :]
+                v = vals[:, None, :]
+                outs.extend([
+                    sel.sum(dim=2, dtype=torch.int32).sum(dim=0, dtype=torch.int32),
+                    torch.where(sel, ivals[:, None, :], 0)
+                    .sum(dim=2, dtype=torch.int32).sum(dim=0, dtype=torch.int32),
+                    torch.where(sel, v, torch.inf).amin(dim=2).amin(dim=0),
+                    torch.where(sel, v, -torch.inf).amax(dim=2).amax(dim=0),
+                ])
+            elif kind == "counts_doc":
+                _, ids, exists, nbpad = desc
+                sel = mask & exists[:, None, :]
+                outs.append(scatter_rows(ids, sel, nbpad).sum(dim=0, dtype=torch.int32))
+            else:  # counts_entry
+                _, gords, edocs, evalid, nbpad = desc
+                sel = torch.gather(
+                    mask, 2, edocs.long()[:, None, :].expand(E, B, edocs.shape[1])
+                ) & evalid[:, None, :]
+                outs.append(scatter_rows(gords, sel, nbpad).sum(dim=0, dtype=torch.int32))
+        # one float64 [B, width] buffer for the ONE download: int32
+        # counts and sums, float32 maxima and float64 extrema all keep
+        # their values exactly in float64
+        return torch.cat([o.reshape(B, -1).to(torch.float64) for o in outs], dim=1)
+
+    return step
+
+
+def rrf_fuse(
+    lex: ShardedTopK, vec: ShardedTopK, k: int, rank_constant: int = 60
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Reciprocal-rank fusion of two ranked lists (x-pack rank-rrf:
+    score = Σ 1/(rank_constant + rank)) through the serving path's fuser
+    (ops/fusion.py): exact-doc dedup over the union of both lists, top-k
+    with ascending-global-doc tie-break. Returns device tensors
+    (scores[B,k], global_docs[B,k])."""
+    from ..ops.fusion import rrf_fuse_device
+
+    return rrf_fuse_device(
+        (lex.global_docs.cpu().numpy(), vec.global_docs.cpu().numpy()),
+        k, rank_constant, device=lex.global_docs.device,
+    )

@@ -612,7 +612,17 @@ class RestActions:
         # per-device roofline rows (straggler visibility): busy time and
         # flops merged by device id across every index's batcher
         dev_agg: dict = {}
+        # whole-index serving counters (parallel/mesh_executor.py),
+        # summed across every index's MeshExecutor
+        mesh_stats = {
+            "routed": 0, "launches": 0, "jobs": 0, "rebuilds": 0,
+            "degraded": 0, "fallbacks": 0,
+        }
         for idx in self.cluster.indices.values():
+            mex = getattr(idx, "_mesh", None)
+            if mex is not None:
+                for k in mesh_stats:
+                    mesh_stats[k] += mex.stats.get(k, 0)
             b = getattr(idx, "_batcher", None)
             if b is not None:
                 for k in batch:
@@ -679,6 +689,7 @@ class RestActions:
 
             batching["buckets"] = list(batch_buckets(BPAD))
         pipeline["batching"] = batching
+        pipeline["mesh"] = mesh_stats
         if queue_capacity == 0:
             from ..search.batcher import QUEUE_CAPACITY
 

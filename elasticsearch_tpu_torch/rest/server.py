@@ -153,12 +153,6 @@ class ElasticHandler(BaseHTTPRequestHandler):
             )
         except EngineError as e:
             status, payload = 500, error_body(500, "engine_exception", str(e))
-        except NotImplementedError as e:
-            # a path the port does not have yet (cuts.py): the reason
-            # names the slice that brings it
-            status, payload = 501, error_body(
-                501, "not_implemented_exception", str(e)
-            )
         except json.JSONDecodeError as e:
             status, payload = 400, error_body(
                 400, "json_parse_exception", f"invalid JSON: {e}"

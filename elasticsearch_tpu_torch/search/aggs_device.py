@@ -121,7 +121,7 @@ AGG_STATS = {
     "device_routed": 0,  # shard agg collections served by this engine
     "host_routed": 0,  # shard agg collections on the host AggCollector
     "fallbacks": 0,  # injected fault / breaker mid-flight → host rerun
-    "mesh_routed": 0,  # whole-index SPMD agg launches (the mesh is not ported)
+    "mesh_routed": 0,  # whole-index agg launches (parallel/mesh_executor.py)
     "kernel_ms": 0.0,  # device dispatch+download wall time
 }
 

@@ -53,8 +53,11 @@ over a window of first-stage candidates, ops/rerank.py: one launch and
 one packed download per group). Group inputs reach the card through
 asynchronous pinned uploads (ops/scoring.upload), and per-doc masks are
 the executor's device-resident live ∧ exists tensors, so a dispatch
-never waits for the device. The reference's `mesh_*` families are not
-ported yet (ROADMAP queue 1 item 12b, the serving mesh).
+never waits for the device. The `mesh_*` families (`mesh_match`,
+`mesh_serve`, `mesh_knn`, `mesh_sparse`, `mesh_agg`) group whole-index
+query batches on the index's MeshExecutor (parallel/mesh_executor.py):
+B queries × every (shard, segment) entry in one stacked launch and one
+packed download; a mesh group picks its own rows, with no bucket ladder.
 """
 
 from __future__ import annotations
@@ -82,6 +85,15 @@ from .executor import Hit, TopDocs
 from .failures import SearchTimeoutError
 
 MAX_BATCH = BPAD
+
+# job kinds a batcher takes: the per-shard families, then the
+# whole-index mesh families (parallel/mesh_executor.py)
+_JOB_KINDS = (
+    "match", "serve", "knn", "sparse", "agg", "rerank",
+    "mesh_match", "mesh_serve", "mesh_knn", "mesh_sparse", "mesh_agg",
+)
+# mesh group keys: the executor is the index's MeshExecutor
+_MESH_KEYS = ("Mm", "Ms", "Mk", "Ma", "Mv")
 
 # every live QueryBatcher (tier-1 leak fixture: a CLOSED batcher must
 # leave no worker threads behind)
@@ -660,9 +672,7 @@ class QueryBatcher:
         at dequeue instead of dispatched dead."""
         if self._closed:
             raise RuntimeError("query batcher closed")
-        if kind not in ("match", "serve", "knn", "sparse", "agg", "rerank"):
-            # the reference's other families are not ported (see the
-            # module docstring); their plans never reach a port batcher
+        if kind not in _JOB_KINDS:
             raise ValueError(f"unknown batcher job kind [{kind}]")
         job = _Job(executor, plan, k, kind=kind, query=query,
                    deadline=deadline, prof=prof)
@@ -863,7 +873,9 @@ class QueryBatcher:
                     self.stats["max_batch_seen"], len(batch)
                 )
             # group jobs that can share launches (same reader
-            # generation, plan family, and top-k compile bucket)
+            # generation, plan family, and top-k compile bucket);
+            # mesh_* families group whole-index query batches on the
+            # MeshExecutor (B queries × every entry in one launch)
             groups: Dict[Tuple, List[_Job]] = {}
             for j in batch:
                 kb = 16 if j.k <= 16 else scoring.next_bucket(j.k, 16)
@@ -874,6 +886,28 @@ class QueryBatcher:
                         id(j.executor), "s", j.plan.fields,
                         j.plan.combine, j.plan.tie, kb,
                     )
+                elif j.kind == "mesh_match":
+                    # a fused mesh rescore rides the plan (rescore_sig
+                    # None for plain match): different specs / page
+                    # sizes never share a launch
+                    key = (
+                        id(j.executor), "Mm", j.plan.field,
+                        getattr(j.plan, "rescore_sig", None), kb,
+                    )
+                elif j.kind == "mesh_serve":
+                    key = (
+                        id(j.executor), "Ms", j.plan.fields,
+                        j.plan.combine, j.plan.tie, kb,
+                    )
+                elif j.kind == "mesh_knn":
+                    key = (id(j.executor), "Mk", j.plan.field, j.plan.ann, kb)
+                elif j.kind == "mesh_sparse":
+                    # the SparseSpec in the key keeps int8 and fp32 apart
+                    key = (
+                        id(j.executor), "Mv", j.plan.field, j.plan.spec, kb,
+                    )
+                elif j.kind == "mesh_agg":
+                    key = (id(j.executor), "Ma", j.plan.sig, kb)
                 elif j.kind == "agg":
                     # device-aggregations family: jobs group by the
                     # compiled plan's structural signature so identical
@@ -898,10 +932,16 @@ class QueryBatcher:
             )
             for key, jobs in ordered:
                 kind, kb = key[1], key[-1]
-                fam = {"k": "knn", "a": "agg", "v": "sparse", "r": "rerank"}.get(kind, "text")
+                mesh = kind in _MESH_KEYS
+                fam = {
+                    "k": "knn", "Mk": "knn", "a": "agg", "Ma": "agg",
+                    "v": "sparse", "Mv": "sparse", "r": "rerank",
+                }.get(kind, "text")
                 # pad-bucket ladder: the group's launch width is the
-                # smallest bucket covering its occupancy
-                rows = bucket_for(len(jobs), self.buckets)
+                # smallest bucket covering its occupancy — mesh groups
+                # pick theirs internally (the data-axis divisibility
+                # constraint lives there)
+                rows = None if mesh else bucket_for(len(jobs), self.buckets)
                 dev_ids: Tuple[int, ...] = (0,)
                 dev_entered = False
                 self._enter_kind(fam)
@@ -914,13 +954,14 @@ class QueryBatcher:
                     self._tl.group_flops = 0
                     t_prof = time.perf_counter_ns()
                 try:
-                    self._dev_enter(dev_ids)
-                    dev_entered = True
+                    if not mesh:
+                        self._dev_enter(dev_ids)
+                        dev_entered = True
                     # fault site: an injected dispatch failure surfaces
                     # to exactly this group's waiters, not the batch
                     faults.check(
                         "batcher.dispatch", family=fam, jobs=len(jobs),
-                        mesh=0,
+                        mesh=int(mesh),
                     )
                     if kind == "m":
                         # record BEFORE dispatch: match groups complete
@@ -983,7 +1024,7 @@ class QueryBatcher:
                         if prof_on:
                             self._prof_mark(jobs, rows, t_prof, now,
                                             express)
-                    else:  # "k"
+                    elif kind == "k":
                         self._record_bucket(rows, len(jobs))
                         ctx.pending.append(
                             (key, jobs, fam,
@@ -995,6 +1036,35 @@ class QueryBatcher:
                             self._prof_mark(jobs, rows, t_prof, now,
                                             express)
                         self._maybe_warm(key, jobs, kb, rows)
+                    else:  # a mesh family: one launch on the MeshExecutor
+                        mex = jobs[0].executor
+                        if kind == "Mm":
+                            pend = mex.dispatch_match(jobs, kb)
+                        elif kind == "Ms":
+                            pend = mex.dispatch_serve(jobs, kb)
+                        elif kind == "Ma":
+                            pend = mex.dispatch_agg(jobs)
+                        elif kind == "Mv":
+                            pend = mex.dispatch_sparse(jobs, kb)
+                        else:
+                            pend = mex.dispatch_knn(jobs, kb)
+                        # the busy window opens on the devices the
+                        # snapshot actually spans
+                        dev_ids = mex.device_ids
+                        self._dev_enter(dev_ids)
+                        dev_entered = True
+                        with self._lock:
+                            self.stats["launches"] += 1
+                            self.stats["fused_jobs"] += len(jobs)
+                        self._add_flops(pend["flops"], dev_ids)
+                        self._record_bucket(pend.get("rows", BPAD), len(jobs))
+                        ctx.pending.append((key, jobs, fam, pend, dev_ids))
+                        dispatched = True
+                        if prof_on:
+                            self._prof_mark(
+                                jobs, pend.get("rows", BPAD), t_prof,
+                                now, express,
+                            )
                 except BaseException as e:  # surface to waiters
                     for j in jobs:
                         if not j.event.is_set():
@@ -1029,10 +1099,11 @@ class QueryBatcher:
                 try:
                     # fault site: a collect-phase failure (device→host
                     # transfer) fails this group's waiters only
-                    faults.check(
-                        "batcher.collect", family=fam, jobs=len(jobs), mesh=0,
-                    )
                     kind = key[1]
+                    faults.check(
+                        "batcher.collect", family=fam, jobs=len(jobs),
+                        mesh=int(kind in _MESH_KEYS),
+                    )
                     if kind == "s":
                         self._collect_serve_group(jobs, key[-1], pend)
                     elif kind == "a":
@@ -1041,6 +1112,18 @@ class QueryBatcher:
                         self._collect_sparse_group(jobs, key[-1], pend)
                     elif kind == "r":
                         self._collect_rerank_group(jobs, pend)
+                    elif kind in _MESH_KEYS:
+                        mex = jobs[0].executor
+                        t0 = time.perf_counter()
+                        if kind in ("Mm", "Ms"):
+                            mex.collect_match(jobs, pend)
+                        elif kind == "Mk":
+                            mex.collect_knn(jobs, pend)
+                        elif kind == "Ma":
+                            mex.collect_agg(jobs, pend)
+                        else:
+                            mex.collect_sparse(jobs, pend)
+                        self._add_stall(time.perf_counter() - t0)
                     else:
                         self._collect_knn_group(jobs, pend)
                     if prof_on:

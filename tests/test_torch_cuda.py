@@ -778,3 +778,72 @@ def test_check_passes_on_card(cuda):
     assert out.returncode == 0, (out.stdout, out.stderr)
     data = json.loads(out.stdout)
     assert data["checks_passed"] is True and data["hbm_budget_bytes"] > 0
+
+
+# ---- the serving mesh on the card (parallel/mesh_executor.py) ----
+
+
+def _mesh_vs_fanout(monkeypatch, svc, body):
+    """(forced mesh response, per-shard fan-out response) of one body on
+    the same index; the first one must be mesh-routed."""
+    mex = svc.mesh_executor()
+    monkeypatch.setenv("ES_TPU_MESH", "force")
+    routed0 = mex.stats["routed"]
+    got = svc.search(dict(body))
+    assert mex.stats["routed"] == routed0 + 1, body
+    monkeypatch.setenv("ES_TPU_MESH", "off")
+    return got, svc.search(dict(body))
+
+
+def test_mesh_on_card_matches_fanout(cuda, monkeypatch):
+    """`ES_TPU_MESH=force` on the card: match, bool, multi_match and
+    exact kNN pages equal the same index's per-shard fan-out (ids with
+    tie runs within rtol 1e-5 as sets, scores within rtol 1e-5: the
+    card's scatter-adds sum in a run-dependent order), one launch per
+    group, no fallback."""
+    svc, oracle = _served_pair(monkeypatch, cuda)
+    try:
+        rng = np.random.default_rng(13)
+        bodies = [{"query": {"match": {"body": q}}} for q in ("ant bee", "cat", "dog eel fox")]
+        bodies += TEXT_BODIES["bool"] + TEXT_BODIES["multi_match"]
+        bodies += [{"knn": {"field": "vec", "query_vector": [float(x) for x in rng.normal(size=16)],
+                            "k": 5, "num_candidates": 25}} for _ in range(3)]
+        mex = svc.mesh_executor()
+        for body in bodies:
+            got, ref = _mesh_vs_fanout(monkeypatch, svc, body)
+            _same_served(ref, got)
+            _same_served(oracle.search(dict(body)), got)
+        assert mex.stats["fallbacks"] == 0 and mex.stats["degraded"] == 0
+        assert mex.stats["launches"] == len(bodies)
+        snap = mex.ensure_snapshot()
+        assert snap.device.type == "cuda" and snap.fold == len(snap.entries)
+    finally:
+        svc.close()
+        oracle.close()
+
+
+@pytest.mark.parametrize("quant", ["int8", "none"])
+def test_mesh_sparse_and_aggs_on_card(cuda, monkeypatch, quant):
+    """The forced mesh's `sparse_vector` pages equal the fan-out's on the
+    card, and its size-0 aggregations equal the numpy backend's."""
+    (svc, oracle), vocab, rng = _sparse_pair(cuda, quant)
+    try:
+        for _ in range(6):
+            qv = {str(t): float(np.round(rng.random() * 2 + 0.1, 4))
+                  for t in rng.choice(vocab, size=int(rng.integers(2, 5)), replace=False)}
+            body = {"query": {"sparse_vector": {"field": "ml", "query_vector": qv}}, "size": 10}
+            got, ref = _mesh_vs_fanout(monkeypatch, svc, {**body, "track_total_hits": True})
+            _same_served(ref, got)
+        q = {"match_all": {}}
+        for body in ({"size": 0, "request_cache": False, "query": q,
+                      "aggs": {"by_day": {"date_histogram": {"field": "day", "fixed_interval": "1d"}},
+                               "cats": {"terms": {"field": "cat"}}, "pop": {"stats": {"field": "qty"}}}},
+                     {"size": 0, "request_cache": False, "aggs": {"a": {"avg": {"field": "qty"}}}}):
+            got, ref = _mesh_vs_fanout(monkeypatch, svc, body)
+            assert got["aggregations"] == ref["aggregations"] == oracle.search(dict(body))["aggregations"]
+            assert got["hits"]["total"] == ref["hits"]["total"]
+        mex = svc.mesh_executor()
+        assert mex.stats["fallbacks"] == 0 and mex.stats["degraded"] == 0
+    finally:
+        svc.close()
+        oracle.close()

@@ -522,13 +522,37 @@ def test_scan_covers_the_multinode_modules(rel):
 
 
 def test_only_the_mesh_cut_is_left():
-    """On-disk shards and multi-node clusters are ported: `cuts.DISK` is
-    gone and `MESH` names only the serving mesh (item 12b)."""
-    from elasticsearch_tpu_torch import cuts
+    """The serving mesh (item 12b), the last cut, is ported: `cuts.py`
+    is gone and no module of the port (nor chip_smoke.py) imports it."""
+    assert not (REPO / "elasticsearch_tpu_torch" / "cuts.py").exists()
+    bad = {}
+    for path in PORT_FILES:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] + [a.name for a in node.names]
+            elif isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            if any(n == "cuts" or n.endswith(".cuts") for n in names):
+                bad.setdefault(str(path.relative_to(REPO)), []).append(names)
+    assert not bad, bad
 
-    assert not hasattr(cuts, "DISK")
-    assert [k for k in vars(cuts) if k.isupper()] == ["MESH"]
-    assert "12b" in cuts.MESH and "multi-node" not in cuts.MESH
+
+MESH_MODULES = (
+    "parallel/__init__.py", "parallel/mesh.py", "parallel/sharded.py",
+    "parallel/mesh_executor.py",
+)
+
+
+@pytest.mark.parametrize("rel", MESH_MODULES)
+def test_scan_covers_the_mesh_modules(rel):
+    """The serving mesh's modules are port files the scan above reads,
+    each its own copy under the reference's relative path."""
+    path = REPO / "elasticsearch_tpu_torch" / rel
+    assert path in PORT_FILES
+    assert (REPO / "elasticsearch_tpu" / rel).is_file()
+    assert not [m for m in _imports(path) if m.split(".")[0] in ("jax", "jaxlib", "elasticsearch_tpu")]
 
 
 def _module_exists(base: Path, dotted: str) -> bool:

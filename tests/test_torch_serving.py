@@ -522,9 +522,16 @@ def test_batcher_pipeline_depth_matches_reference(serving_pair, depth):
 
 
 def test_batcher_refuses_families_it_does_not_have(serving_pair):
+    """The mesh families are the batcher's own since the serving mesh is
+    ported; a kind no package has is still refused at submit."""
+    from elasticsearch_tpu_torch.search import batcher as batcher_mod
+
+    assert {"mesh_match", "mesh_serve", "mesh_knn", "mesh_sparse", "mesh_agg"} <= set(
+        batcher_mod._JOB_KINDS
+    )
     b = QueryBatcher(workers=1)
     try:
-        for kind in ("mesh_serve", "mesh_sparse", "mesh_agg"):
+        for kind in ("mesh_hnsw", "phrase"):
             with pytest.raises(ValueError, match=kind):
                 b.submit_nowait(None, None, 10, kind=kind)
     finally:
@@ -816,10 +823,22 @@ def test_ivf_index_serves_and_exact_escape_serves(small_torch_index, monkeypatch
         svc.close()
 
 
-def test_mesh_force_raises(small_torch_index, monkeypatch):
+def test_mesh_force_serves(small_torch_index, monkeypatch):
+    """`ES_TPU_MESH=force` raised naming ROADMAP queue 1 item 12b while
+    the serving mesh was cut; since it is ported the same body is
+    mesh-routed and equals the per-shard fan-out bit for bit."""
+    body = {"query": {"match": {"body": "alpha"}}}
+    mex = small_torch_index.mesh_executor()
     monkeypatch.setenv("ES_TPU_MESH", "force")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
-        small_torch_index.search({"query": {"match": {"body": "alpha"}}})
+    routed0 = mex.stats["routed"]
+    got = small_torch_index.search(copy.deepcopy(body))
+    assert mex.stats["routed"] == routed0 + 1
+    monkeypatch.setenv("ES_TPU_MESH", "off")
+    ref = small_torch_index.search(copy.deepcopy(body))
+    assert got["hits"]["total"] == ref["hits"]["total"]
+    assert [(h["_id"], h["_score"]) for h in got["hits"]["hits"]] == [
+        (h["_id"], h["_score"]) for h in ref["hits"]["hits"]
+    ]
 
 
 def test_device_build_force_raises(monkeypatch):
