@@ -163,7 +163,18 @@ any failure:
      `python -m elasticsearch_tpu_torch serve --node-name ... --seeds
      ...` processes sharing the card, the one holding a primary
      SIGKILLed, every acknowledged doc answered by the other, the node
-     restarted as an in-sync replica; `_nodes/stats` must show batched launches, a bucket wider
+     restarted as an in-sync replica; route (o), the serving mesh on
+     one slot (`ES_TPU_MESH=force`) over (n1)'s one-node 8-shard index:
+     `match`, `knn`, `bool`, `multi_match`, int8 `sparse_vector` and
+     `cold_agg` bodies, every request mesh-routed, pages held to the
+     fan-out's of the same run and to the numpy index; route (p), the
+     same bodies on a grid of several slots (every card when there are
+     two or more, else 4 slots on the one card), held to route (o)'s
+     pages, the fan-out's and the oracle's aggregations, with a line
+     naming the grid's slots and distinct devices; (o2) and (p2), a
+     4-shard index's mesh rescore and IVF probe (f32 and int8) on one
+     slot and on a 2 x 2 (data x shards) grid, held to the fan-out;
+     `_nodes/stats` must show batched launches, a bucket wider
      than 1, the chunked path, serve launches, filter cache hits, every
      sparse body on the batcher's sparse family, every `cold_agg` body
      on the device plan, request-cache hits on repeated aggs; every
@@ -4459,6 +4470,12 @@ def cluster_full_width(segs: list, owner: np.ndarray, seg, dims: int, seed: int,
         out["o"] = route_mesh(local, lh, procs[1], match_bodies, knn_bodies, served, out["rows"], seg, dims,
                               seed, device)
         out["o"]["s"] = time.perf_counter() - t
+        # route (p): the same forced mesh over a grid of several slots
+        t = time.perf_counter()
+        out["p"] = route_mesh_grid(local, lh, procs[1], match_bodies, knn_bodies, out["o"], device)
+        out["p"]["s"] = time.perf_counter() - t
+        for key in ("_fam", "_pages", "_fanout", "_oracle_aggs"):
+            del out["o"][key]
         return out
     finally:
         for proc in procs:
@@ -4497,8 +4514,8 @@ def mesh_counts(mex) -> dict:
 
 def route_mesh(local, lh: Http, proc: ClientProcess, match_bodies: list, knn_bodies: list, served: dict,
                n1_rows: dict, seg, dims: int, seed: int, device) -> dict:
-    """Route (o), the forced serving mesh on the card over (n1)'s own
-    `/local8` (8 shards of the 1M-doc corpus, 768-d vectors) and
+    """Route (o), the forced serving mesh on one slot of the card over
+    (n1)'s own `/local8` (8 shards of the 1M-doc corpus, 768-d vectors) and
     `/local8_oracle`: ES_TPU_MESH=force for this route only. (n1)'s 32
     `match` and 32 exact `knn` from 8 clients then 1, 32 `bool` and 32
     `multi_match` (text_hybrid_bodies), 32 int8 `sparse_vector` and 8
@@ -4530,7 +4547,8 @@ def route_mesh(local, lh: Http, proc: ClientProcess, match_bodies: list, knn_bod
     if device.type == "cuda":
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
-    with MeshEnv("force"):
+    # one slot on the index's card, however many cards the machine has
+    with mesh_grid(mex, [device]), MeshEnv("force"):
         check(mex.available(), "(o) the forced mesh is not available on /local8")
         c0 = mesh_counts(mex)
         sent = 0
@@ -4608,6 +4626,7 @@ def route_mesh(local, lh: Http, proc: ClientProcess, match_bodies: list, knn_bod
             else:
                 same_served(refs[i], got, f"(o) mesh {route} body {i} ({clients} clients) against /local8")
     recalls = []
+    oracle_aggs = []
     for route in ("match", "knn", *fam):
         for i in range(ORACLE_QUERIES):
             body = (match_bodies if route == "match" else knn_bodies if route == "knn" else fam[route])[i]
@@ -4618,6 +4637,7 @@ def route_mesh(local, lh: Http, proc: ClientProcess, match_bodies: list, knn_bod
                 continue
             ref = lh.ok("POST", "/local8_oracle/_search", body)
             if route == "cold_agg":
+                oracle_aggs.append(ref)
                 check(got["aggregations"] == ref["aggregations"], f"(o) cold_agg {i}: differs from the oracle")
                 check(got["hits"]["total"] == ref["hits"]["total"], f"(o) cold_agg {i}: oracle total differs")
             else:
@@ -4626,6 +4646,209 @@ def route_mesh(local, lh: Http, proc: ClientProcess, match_bodies: list, knn_bod
     check(np.mean(recalls) >= 0.95, f"(o) mesh sparse int8 recall@{K} {np.mean(recalls):.4f} < 0.95")
     out["checks_s"] = time.perf_counter() - t
     log(f"(o) held to /local8 and the oracle in {out['checks_s']:.1f}s")
+    # for route (p), not printed: the families, route (o)'s pages, the
+    # fan-out's pages of the same run and the oracle's cold_agg pages
+    out["_fam"] = fam
+    out["_pages"] = meshed
+    out["_fanout"] = {
+        (route, clients): served[("/local8", route, clients)] if route in ("match", "knn") else fanout[route]
+        for route, clients in meshed
+    }
+    out["_oracle_aggs"] = oracle_aggs
+    return out
+
+
+def grid_cards(device) -> int:
+    import torch
+
+    return torch.cuda.device_count() if device.type == "cuda" else 1
+
+
+def p_grid(device):
+    """Route (p)'s slots: None (the executor's own list, every visible
+    card) with 2+ cards, else 4 slots on the one card (fold 2 of 8)."""
+    return None if grid_cards(device) >= 2 else [device] * 4
+
+
+def p2_grid(device) -> list:
+    """Route (p2)'s 4 slots of a 2 x 2 (data x shards) grid: the index's
+    card first, then the other cards in turn, repeated to fill 4."""
+    import torch
+
+    n = min(grid_cards(device), 4)
+    if n == 1:
+        return [device] * 4
+    cards = [device] + [torch.device("cuda", i) for i in range(grid_cards(device)) if i != device.index]
+    return [cards[i % n] for i in range(4)]
+
+
+@contextlib.contextmanager
+def mesh_grid(mex, slots, n_data: int = 1):
+    """The executor's mesh over `slots` (None: its own device list) with
+    a data axis of `n_data`, for one route; the snapshot is dropped
+    before and after, so the route's grid is built from nothing."""
+    old_data = os.environ.get("ES_TPU_MESH_DATA")
+    if slots is not None:
+        mex._devices = lambda: list(slots)
+    if n_data > 1:
+        os.environ["ES_TPU_MESH_DATA"] = str(n_data)
+    mex.close()
+    try:
+        yield
+    finally:
+        if slots is not None:
+            del mex._devices
+        if old_data is None:
+            os.environ.pop("ES_TPU_MESH_DATA", None)
+        else:
+            os.environ["ES_TPU_MESH_DATA"] = old_data
+        mex.close()
+
+
+def grid_line(route: str, snap) -> dict:
+    """The grid a route's snapshot spans, printed on a line of its own."""
+    devs = [str(d) for d in snap.mesh.devices.ravel()]
+    grid = {"shape": dict(snap.mesh.shape), "fold": snap.fold, "e_pad": snap.e_pad,
+            "entries": len(snap.entries), "slots": len(devs), "distinct_devices": sorted(set(devs))}
+    print(f"({route}) mesh grid {grid['shape']} (fold {snap.fold}, e_pad {snap.e_pad}): "
+          f"{len(devs)} slots on {len(set(devs))} distinct device(s) {grid['distinct_devices']}", flush=True)
+    return grid
+
+
+def slot_bytes(snap) -> list:
+    """Bytes each slot holds of the snapshot's stacked views."""
+    from elasticsearch_tpu_torch.parallel.sharded import Stacked
+
+    n_data, g = snap.mesh.devices.shape
+    out = [0] * (n_data * g)
+    stacks = [snap.live]
+    for views in (snap.text, snap.knn, snap.aggs):
+        for view in views.values():
+            stacks.extend(v for v in view.values() if isinstance(v, Stacked))
+    for st in stacks:
+        for r in range(n_data):
+            for c in range(g):
+                p = st.at(r, c)
+                out[r * g + c] += p.numel() * p.element_size()
+    return out
+
+
+def route_mesh_grid(local, lh: Http, proc: ClientProcess, match_bodies: list, knn_bodies: list, o: dict,
+                    device) -> dict:
+    """Route (p), the forced serving mesh over a grid of several slots on
+    (n1)'s `/local8` (8 shards of the 1M-doc corpus, 768-d), right after
+    route (o): every visible card when there are 2+ (`shards` = min(8,
+    cards)), else 4 slots on the one card (fold 2). The same `match`,
+    `knn` (8 clients, then 1), `bool`, `multi_match`, int8 `sparse` and
+    `cold_agg` bodies as route (o). Checked: the grid's shape, every
+    request mesh-routed with no fallback and no degrade, every page equal
+    to route (o)'s one-slot mesh page and to `/local8`'s fan-out page of
+    the same run under route (o)'s rules, the aggregations equal to the
+    oracle's. Printed, not checked: latency and QPS beside route (o)'s,
+    the card's busy time for a profiled 1-client group, stack bytes per
+    slot and the build wall, the route's peak device memory, and the
+    page bytes gathered from the other slots and copied between devices
+    per request."""
+    import torch
+
+    from elasticsearch_tpu_torch.parallel import sharded
+
+    mex = local.cluster.get_index("local8").mesh_executor()
+    fam = o["_fam"]
+    cards = grid_cards(device)
+    want_shards = min(8, cards) if cards >= 2 else 4
+    out = {"rows": {}, "cards": cards}
+    with mesh_grid(mex, p_grid(device)), MeshEnv("force"):
+        if device.type == "cuda":
+            for i in range(cards):
+                torch.cuda.synchronize(i)
+                torch.cuda.reset_peak_memory_stats(i)
+        check(mex.available(), "(p) the forced mesh is not available on /local8")
+        c0 = mesh_counts(mex)
+        g0 = sharded.gather_stats()
+        sent = 0
+        t = time.perf_counter()
+        snap = mex.ensure_snapshot()
+        out["snapshot_s"] = time.perf_counter() - t
+        out["grid"] = grid_line("p", snap)
+        check(out["grid"]["shape"] == {"data": 1, "shards": want_shards}
+              and snap.fold == -(-len(snap.entries) // want_shards),
+              f"(p) grid {out['grid']} on {cards} card(s)")
+        t = time.perf_counter()
+        for f in ("body", "title"):
+            mex._text_view(snap, f)
+        mex._knn_view(snap, "vec")
+        mex._sparse_view(snap, "ml", True)
+        sync(device)
+        out["views_s"] = time.perf_counter() - t
+        out["stack_bytes"] = snap.nbytes
+        out["stack_bytes_per_slot"] = slot_bytes(snap)
+        log(f"(p) views in {out['views_s']:.2f}s, {snap.nbytes} bytes, per slot {out['stack_bytes_per_slot']}")
+        t = time.perf_counter()
+        for bodies in (match_bodies, knn_bodies, *fam.values()):
+            lh.ok("POST", "/local8/_search", bodies[0])
+            sent += 1
+        out["first_requests_s"] = time.perf_counter() - t
+        meshed = {}
+        for clients in (CLIENTS, 1):
+            for route, bodies in (("match", match_bodies), ("knn", knn_bodies)):
+                pages, row = drive_measured(proc, "/local8/_search", bodies, clients)
+                meshed[(route, clients)] = pages
+                sent += len(bodies)
+                row["route_o"] = o["rows"].get(f"mesh_{route}_{clients}_clients")
+                out["rows"][f"grid_{route}_{clients}_clients"] = row
+                log(f"(p) grid {route} from {clients} clients: {row}")
+        for route, bodies in fam.items():
+            pages, row = drive_measured(proc, "/local8/_search", bodies, CLIENTS)
+            meshed[(route, CLIENTS)] = pages
+            sent += len(bodies)
+            row["route_o"] = o["rows"].get(f"mesh_{route}_{CLIENTS}_clients")
+            out["rows"][f"grid_{route}_{CLIENTS}_clients"] = row
+        g1 = sharded.gather_stats()
+        gathered = sent
+        if device.type == "cuda":
+            out["profile"] = profile_routes({
+                "p_grid_match_1_client_8": lambda: proc.drive("/local8/_search", match_bodies[:CLIENTS], 1),
+                "p_grid_knn_1_client_8": lambda: proc.drive("/local8/_search", knn_bodies[:CLIENTS], 1),
+            }, device)
+            sent += 4 * CLIENTS  # two routes, each run twice (warm + traced)
+            out["peak_device_bytes"] = torch.cuda.max_memory_allocated(device)
+            out["peak_device_bytes_by_card"] = [torch.cuda.max_memory_allocated(i) for i in range(cards)]
+        c1 = mesh_counts(mex)
+        out["counts"] = {k: c1[k] - c0[k] for k in c1}
+        out["requests_sent"] = sent
+        out["gather_per_request"] = {
+            "pages": (g1["pages"] - g0["pages"]) / gathered,
+            "slot_bytes": (g1["slot_bytes"] - g0["slot_bytes"]) / gathered,
+            "peer_bytes": (g1["peer_bytes"] - g0["peer_bytes"]) / gathered,
+        }
+        log(f"(p) counts {out['counts']} for {sent} requests; gathered per request {out['gather_per_request']}")
+        check(out["counts"]["routed"] == sent, f"(p) {out['counts']['routed']} of {sent} requests mesh-routed")
+        check(out["counts"]["fallbacks"] == 0 and out["counts"]["degraded"] == 0,
+              f"(p) the mesh fell back or degraded: {out['counts']}")
+    # ---- held to route (o)'s pages, the fan-out's and the oracle's ----
+    t = time.perf_counter()
+    for key, pages in meshed.items():
+        route, clients = key
+        one_slot, fan = o["_pages"][key], o["_fanout"][key]
+        for i, got in enumerate(pages):
+            what = f"(p) grid {route} body {i} ({clients} clients)"
+            if route == "cold_agg":
+                for ref in (one_slot[i], fan[i]):
+                    check(got["aggregations"] == ref["aggregations"], f"{what}: aggregations differ")
+                    check(got["hits"]["total"] == ref["hits"]["total"], f"{what}: total differs")
+                continue
+            same_served(one_slot[i], got, f"{what} against route (o)")
+            if route == "sparse":
+                same_page(got, fan[i], f"{what} against /local8's pruned fan-out")
+            else:
+                same_served(fan[i], got, f"{what} against /local8")
+    for i, ref in enumerate(o["_oracle_aggs"]):
+        got = meshed[("cold_agg", CLIENTS)][i]
+        check(got["aggregations"] == ref["aggregations"], f"(p) cold_agg {i}: differs from the oracle")
+        check(got["hits"]["total"] == ref["hits"]["total"], f"(p) cold_agg {i}: oracle total differs")
+    out["checks_s"] = time.perf_counter() - t
+    log(f"(p) held to route (o), /local8 and the oracle in {out['checks_s']:.1f}s")
     return out
 
 
@@ -4637,7 +4860,10 @@ def route_mesh_small(seed: int, device) -> dict:
     bodies with a rescore of window 20 and 8 IVF `knn` bodies go through
     the forced mesh on the card and are held to the same index with the
     mesh off (ids with tie runs as sets, scores within RTOL). Every
-    request is mesh-routed, none falls back."""
+    request is mesh-routed, none falls back. Then route (p2): the same
+    bodies on a 2 x 2 (data x shards) grid (`p2_grid`), held to the
+    fan-out and to route (o2)'s pages by the same rule, under the same
+    checks; its result is `out["p2"]`."""
     from elasticsearch_tpu_torch.cluster.indices import IndexService
     from elasticsearch_tpu_torch.search import ann as ann_mod
 
@@ -4654,6 +4880,7 @@ def route_mesh_small(seed: int, device) -> dict:
                                "vec": [float(x) for x in v / np.linalg.norm(v)],
                                "toks": rng.normal(size=(1 + i % 5, 16)).round(3).tolist()}))
     out = {}
+    p2 = {}
     old_floor = os.environ.get(ann_mod.ANN_MIN_DOCS_ENV)
     os.environ[ann_mod.ANN_MIN_DOCS_ENV] = "64"
     try:
@@ -4677,7 +4904,7 @@ def route_mesh_small(seed: int, device) -> dict:
                 mex = svc.mesh_executor()
                 with MeshEnv("off"):
                     refs = [svc.search(json.loads(json.dumps(b))) for b in bodies]
-                with MeshEnv("force"):
+                with mesh_grid(mex, [device]), MeshEnv("force"):
                     c0 = mesh_counts(mex)
                     t = time.perf_counter()
                     got = [svc.search(json.loads(json.dumps(b))) for b in bodies]
@@ -4690,6 +4917,29 @@ def route_mesh_small(seed: int, device) -> dict:
                     same_served(ref, g, f"(o2) {quant} body {i} ({'rescore' if i % 2 == 0 else 'ivf'})")
                 out[quant] = {"counts": d, "bodies": len(bodies), "wall_s": wall}
                 log(f"(o2) {quant}: {out[quant]}")
+                # route (p2): the same index on a 2 x 2 (data x shards) grid
+                with mesh_grid(mex, p2_grid(device), n_data=2), MeshEnv("force"):
+                    t = time.perf_counter()
+                    snap = mex.ensure_snapshot()
+                    build_s = time.perf_counter() - t
+                    grid = grid_line("p2", snap)
+                    check(grid["shape"] == {"data": 2, "shards": 2} and snap.fold == 2,
+                          f"(p2) {quant}: grid {grid}")
+                    c0 = mesh_counts(mex)
+                    t = time.perf_counter()
+                    got2 = [svc.search(json.loads(json.dumps(b))) for b in bodies]
+                    wall = time.perf_counter() - t
+                    c1 = mesh_counts(mex)
+                d = {k: c1[k] - c0[k] for k in c1}
+                check(d["routed"] == len(bodies) and d["fallbacks"] == 0 and d["degraded"] == 0,
+                      f"(p2) {quant}: {d} for {len(bodies)} bodies")
+                for i, (ref, one, g) in enumerate(zip(refs, got, got2)):
+                    what = f"(p2) {quant} body {i} ({'rescore' if i % 2 == 0 else 'ivf'})"
+                    same_served(ref, g, f"{what} against the fan-out")
+                    same_served(one, g, f"{what} against route (o2)")
+                p2[quant] = {"counts": d, "bodies": len(bodies), "wall_s": wall, "snapshot_s": build_s,
+                             "grid": grid}
+                log(f"(p2) {quant}: {p2[quant]}")
             finally:
                 svc.close()
     finally:
@@ -4697,6 +4947,7 @@ def route_mesh_small(seed: int, device) -> dict:
             os.environ.pop(ann_mod.ANN_MIN_DOCS_ENV, None)
         else:
             os.environ[ann_mod.ANN_MIN_DOCS_ENV] = old_floor
+    out["p2"] = p2
     return out
 
 
@@ -4992,13 +5243,18 @@ def route_cluster(raw: dict, seg, dims: int, vocab: int, seed: int, device) -> d
     out["split_s"] = time.perf_counter() - t
     log(f"(n) {CLUSTER_SHARDS} shard segments in {out['split_s']:.1f}s: {[s.num_docs for s in segs]}")
     t = time.perf_counter()
-    out["n1"] = cluster_full_width(segs, owner, seg, dims, seed, device)
+    # the fan-out wherever (n1) and route (o) read it: on 2+ cards
+    # `auto` would take the mesh; routes (o) and (p) force it inside
+    with MeshEnv("off"):
+        out["n1"] = cluster_full_width(segs, owner, seg, dims, seed, device)
     out["n1"]["s"] = time.perf_counter() - t
     out["o"] = out["n1"].pop("o")
-    out["n1"]["s"] -= out["o"]["s"]
+    out["p"] = out["n1"].pop("p")
+    out["n1"]["s"] -= out["o"]["s"] + out["p"]["s"]
     t = time.perf_counter()
     out["o2"] = route_mesh_small(seed, device)
     out["o2"]["s"] = time.perf_counter() - t
+    out["p2"] = out["o2"].pop("p2")
     del segs
     root = tempfile.mkdtemp(prefix="es-torch-cluster-")
     try:

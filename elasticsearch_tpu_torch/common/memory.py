@@ -17,9 +17,10 @@ query-operand buffers, sized to workers × (pipeline_depth + 1), charged
 once at first use and released with the executor) — and `mesh`, the
 mesh-parallel serving stacks (parallel/mesh_executor.py: per-snapshot
 device views of an index's live (shard, segment) entries, charged at
-build and released on generation rebuild/close; a stack that cannot fit
-DEGRADES the request to the single-device path instead of tripping the
-breaker). `rerank` holds the second-stage reranker's shard-level
+build — once for the whole stack, as the reference charges it, however
+many slots and ``data`` copies hold it — and released on generation
+rebuild/close; a stack that cannot fit DEGRADES the request to the
+per-shard path instead of tripping the breaker). `rerank` holds the second-stage reranker's shard-level
 `rank_vectors` token columns (search/rescorer.py; a column that cannot
 fit DEGRADES TO SKIP — the request keeps its first-stage ranking).
 `impacts` holds the learned-sparse impact-tile columns

@@ -9,12 +9,18 @@ axis.
 
 The reference hands the grid to `jax.sharding.Mesh` and lets
 `shard_map` place one fold of the stack per device. Here a `Mesh` is a
-small record of the same grid (a numpy array of `torch.device`s) and the
-axis names. The port's mesh spans exactly one device, the index's own:
-its ``shards`` axis is 1 wide, so the whole stack folds onto it
-(``fold = E``, the number of entries) and every per-entry step is a
-batched tensor operation over the entry axis. Spreading the stack over
-several cards is ROADMAP item 12c.
+small record of the same grid (a numpy array of `torch.device`s, one per
+slot) and the axis names, and parallel/sharded.py does the placing: slot
+(r, c) holds fold c of the stack (``fold_factor`` entries) on its
+device, every ``data`` row r holds a full copy of the stack and takes
+its share of the query rows, and a step launches each slot's part on
+that slot's device before the pages come to the coordinating device
+(`coord_device`, the first slot's: the index's own) for the merge.
+
+A grid may name one device more than once: each slot still holds its
+own fold. That is the port's counterpart of the reference's forced host
+device count, which the CPU tests and a one-card run use; serving builds
+its grid from distinct devices only (MeshExecutor._devices).
 
 Layouts need not be square or even divisible: when there are fewer
 devices than shards the ``shards`` axis is narrower and entries fold
@@ -94,15 +100,7 @@ def mesh_shape(mesh: Mesh) -> Tuple[int, int]:
     return mesh.shape[DATA_AXIS], mesh.shape[SHARD_AXIS]
 
 
-def mesh_device(mesh: Mesh) -> torch.device:
-    """The one device a mesh's program runs on. A grid of several
-    distinct devices is the multi-card mesh (ROADMAP item 12c), which
-    the port does not have: it raises instead of quietly running the
-    stack on one of them."""
-    devs = {str(d) for d in mesh.devices.ravel()}
-    if len(devs) != 1:
-        raise ValueError(
-            f"the mesh spans {len(devs)} devices; the port runs a mesh on "
-            "one device (several cards are ROADMAP queue 1 item 12c)"
-        )
-    return mesh.devices.ravel()[0]
+def coord_device(mesh: Mesh) -> torch.device:
+    """The device a step merges on and returns its page from: the first
+    slot's, which MeshExecutor makes the index's own device."""
+    return mesh.devices[0, 0]

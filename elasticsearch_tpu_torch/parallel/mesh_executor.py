@@ -4,14 +4,22 @@ Counterpart of `elasticsearch_tpu/parallel/mesh_executor.py` (the JAX
 package). A `MeshExecutor` materializes a stacked device-resident view
 of an index's LIVE shards (every (shard, segment) pair is one entry of
 the stack) and executes whole same-plan query groups as ONE step —
-per-entry scoring + local top-k batched over the entry axis, the merge
-and the totals in the same step — replacing S per-shard batcher jobs, S
-launches and S host round trips with one packed download.
+per-entry scoring + local top-k, the merge and the totals in the same
+step — replacing S per-shard batcher jobs, S launches and S host round
+trips with one packed download.
 
-The port's mesh spans one device, the index's own (parallel/mesh.py):
-the ``shards`` axis is 1 wide and the whole stack folds onto it. On one
-device `auto` keeps the per-shard fan-out, as the reference does on one
-device; `ES_TPU_MESH=force` takes the mesh.
+The mesh spans the devices `_devices` lists: the index's own device
+first, then every other visible card, capped by ES_TPU_MESH_DEVICES (an
+index on the CPU gets the CPU alone). `make_mesh` lays them out as a
+(data, shards) grid of slots (parallel/mesh.py): slot (r, c) holds fold
+c of every stacked view on its device (`sharded.Stacked`), each
+``data`` row holds a full copy and takes its share of the query rows,
+and a step launches each slot's part on its slot's device, then brings
+the slots' pages to the index's device for the merge (parallel/
+sharded.py). One process drives every slot, as the reference's single
+controller does: no `torch.distributed`, no extra process. `auto`
+engages with 2+ devices and 2+ shards, as the reference does;
+`ES_TPU_MESH=force` takes the mesh on one device too.
 
 Design contract (float-exactness with the per-shard path):
 
@@ -23,29 +31,40 @@ Design contract (float-exactness with the per-shard path):
     tile order, same live-doc masking — and the merge's (score desc,
     slot asc) order equals the coordinator's (score desc, shard asc,
     segment asc, doc asc) tie-break. On the CPU the pages are bit for
-    bit the per-shard path's; on a card `scatter_add_` sums in a
-    run-dependent order (the pages agree within rtol 1e-5).
+    bit the per-shard path's, whatever the grid, but for the kNN
+    product on a ``data`` axis of 2+: the BLAS picks its kernel by the
+    row count, so a score may move in its last ulp; on a card
+    `scatter_add_` sums in a run-dependent order (the pages agree
+    within rtol 1e-5).
   * no pruning on the mesh path: totals come out exact (relation "eq"),
     which is the per-shard path's behavior whenever its capped-total
     proof does not fire.
+  * a slot that fails to build or launch raises; nothing serves the
+    stack on fewer slots than the grid has.
 
 Lifecycle: the stacked view is rebuilt when any shard's engine
 `change_generation` moves (refresh/merge/delete); stale snapshots keep
 serving in-flight launches until the references die. A rebuild builds
 again every view the previous snapshot had, copying the rows of
-unchanged entries device to device from the previous stack (a one-shard
-refresh re-extracts only that shard's rows), then lets the previous
-stack go. Every other row is a device-to-device copy from the owning
-executor's resident tensors, or one pinned asynchronous upload. Every
-stacked allocation charges the device-memory ledger's ``mesh`` category
-first and the build DEGRADES to the per-shard path (`MeshUnavailable`)
-instead of tripping the breaker when the budget cannot fit it.
+unchanged entries device to device from the previous stack (an entry
+that now lands on another slot is copied to that slot's device; a
+one-shard refresh re-extracts only that shard's rows), then lets the
+previous stack go. Every other row is a device-to-device copy from the
+owning executor's resident tensors, or one pinned asynchronous upload.
+Every stacked view charges the device-memory ledger's ``mesh`` category
+first, once for the whole stack as the reference does (not per slot or
+per ``data`` copy), and the build DEGRADES to the per-shard path
+(`MeshUnavailable`) instead of tripping the breaker when the budget
+cannot fit it.
 
-The reference's `_LAUNCH_LOCK` is dropped: it orders the collectives'
-rendezvous across devices (two workers enqueueing per-device programs
-in different orders would deadlock), and one device has no rendezvous;
-PyTorch enqueues from several threads on one stream safely. The mesh
-over several cards (ROADMAP item 12c) brings it back.
+The reference's `_LAUNCH_LOCK` is not needed. It orders the
+collectives' rendezvous across devices (two workers enqueueing
+per-device programs in different orders would deadlock). The port has
+no rendezvous: a slot's part is queued on its device's current stream,
+and the copy of its pages to the coordinating device is stream-ordered
+after it (PyTorch makes the destination stream wait on an event of the
+source stream), so two workers' steps interleave freely and each merge
+reads only its own step's pages.
 
 Knobs (common/settings.py): ES_TPU_MESH (auto|force|off),
 ES_TPU_MESH_DEVICES, ES_TPU_MESH_DATA, ES_TPU_MESH_T_MAX.
@@ -72,6 +91,7 @@ from ..ops import scoring
 from ..ops.scoring import upload
 from .mesh import DATA_AXIS, SHARD_AXIS, fold_factor, make_mesh
 from .sharded import (
+    Stacked,
     build_mesh_agg_step,
     build_mesh_ann_step,
     build_mesh_knn_step,
@@ -141,7 +161,7 @@ class _MeshSnapshot:
             default=1,
         )
         self.charges: List[Tuple[str, int]] = []
-        self.live = None  # bool[E_pad, Nmax] device (live ∧ in-range)
+        self.live: Optional[Stacked] = None  # bool[E_pad, Nmax] (live ∧ in-range)
         self.text: Dict[object, dict] = {}  # field -> stacked text arrays
         self.knn: Dict[object, dict] = {}  # field -> stacked vector arrays
         self.aggs: Dict[tuple, dict] = {}  # stacked agg column views
@@ -165,10 +185,20 @@ class _MeshSnapshot:
 
     @property
     def device_ids(self) -> Tuple[int, ...]:
+        """One id per slot: a card's index (a card holding several
+        slots repeats), a slot's position for the CPU."""
         return tuple(
             d.index if d.index is not None else i
             for i, d in enumerate(self.mesh.devices.ravel())
         )
+
+    def alloc(self, tail, dtype, fill=0) -> Stacked:
+        """A [E_pad, *tail] stack filled with `fill`, one fold per slot."""
+        return Stacked.full(self.mesh, self.fold, tail, dtype, fill)
+
+    def put(self, host: np.ndarray) -> Stacked:
+        """A host [E_pad, ...] array, each slot's fold uploaded to it."""
+        return Stacked.put(self.mesh, self.fold, host)
 
     @property
     def nbytes(self) -> int:
@@ -281,9 +311,20 @@ class MeshExecutor:
         return True
 
     def _devices(self) -> List[torch.device]:
-        """The devices the mesh may span: the index's own device (the
-        port's mesh is one device; several cards are ROADMAP item 12c)."""
-        devs = [torch.device(self.service.device)]
+        """The devices the mesh may span: the index's own device first
+        (the coordinating device), then every other visible card,
+        capped by ES_TPU_MESH_DEVICES. An index on the CPU gets the CPU
+        alone."""
+        own = torch.device(self.service.device)
+        if own.type != "cuda":
+            return [own]
+        if own.index is None:
+            own = torch.device("cuda", torch.cuda.current_device())
+        devs = [own] + [
+            torch.device("cuda", i)
+            for i in range(torch.cuda.device_count())
+            if i != own.index
+        ]
         cap = mesh_devices_cap()
         return devs[:cap] if cap else devs
 
@@ -376,7 +417,7 @@ class MeshExecutor:
             lv = readers[sid].live_docs[si]
             live[e, :n] = True if lv is None else lv
         snap.charge(live.nbytes)
-        snap.live = upload(live, snap.device)
+        snap.live = snap.put(live)
         try:
             if old is not None and not old.closed:
                 # every view the previous generation served is built
@@ -395,7 +436,8 @@ class MeshExecutor:
         return snap
 
     def _fill_stack(self, snap, key, arrays, fill_entry) -> int:
-        """Fills the leading-entry-axis rows of a stacked device view:
+        """Fills the leading-entry-axis rows of a stacked view (row 0's
+        copy, then `replicate` to the other ``data`` rows):
         entries whose (sid, shard-generation, si) key is unchanged from
         the previous snapshot copy their previous row device to device
         (same row envelope required); everything else fills through
@@ -425,11 +467,15 @@ class MeshExecutor:
                 else None
             )
             if pi is not None:
+                # the previous stack's row may sit on another slot's
+                # device: copy_ moves it device to device
                 for name, arr in arrays.items():
                     arr[e].copy_(prev_arrays[name][pi])
                 reused += 1
             else:
                 fill_entry(e)
+        for arr in arrays.values():
+            arr.replicate()
         if reused:
             self.stats["entries_reused"] += reused
             if not getattr(snap, "_counted_incremental", False):
@@ -454,7 +500,6 @@ class MeshExecutor:
             view = snap.text.get(field)
             if view is not None:
                 return view
-            dev = snap.device
             bmxs = []
             t_max = 1
             for sid, si in snap.entries:
@@ -464,13 +509,14 @@ class MeshExecutor:
                     t_max = max(t_max, int(bmx.tiling.doc_ids.shape[0]))
             E, n_max = snap.e_pad, snap.n_docs_max
             snap.charge(E * t_max * TILE * 8 + E * n_max * 4)
-            doc_ids = torch.full((E, t_max, TILE), INVALID_DOC, dtype=torch.int32, device=dev)
-            tfs = torch.zeros((E, t_max, TILE), dtype=torch.int32, device=dev)
-            inv = torch.zeros((E, n_max), dtype=torch.float32, device=dev)
+            doc_ids = snap.alloc((t_max, TILE), torch.int32, INVALID_DOC)
+            tfs = snap.alloc((t_max, TILE), torch.int32)
+            inv = snap.alloc((n_max,), torch.float32)
 
             def _fill_text(e: int) -> None:
                 sid, si = snap.entries[e]
                 bmx = bmxs[e]
+                dev = doc_ids[e].device
                 if bmx is not None:
                     nt = int(bmx.tiling.doc_ids.shape[0])
                     doc_ids[e, :nt].copy_(_on(dev, bmx.tiling.doc_ids))
@@ -504,7 +550,6 @@ class MeshExecutor:
             view = snap.knn.get(field)
             if view is not None:
                 return view
-            dev = snap.device
             mats = []
             for sid, si in snap.entries:
                 vf = snap.readers[sid].segments[si].vectors.get(field)
@@ -537,8 +582,8 @@ class MeshExecutor:
             E, n_max = snap.e_pad, snap.n_docs_max
             tdtype = torch.from_numpy(np.zeros(0, dtype)).dtype
             snap.charge(E * n_max * dims * np.dtype(dtype).itemsize + E * n_max)
-            vectors = torch.zeros((E, n_max, dims), dtype=tdtype, device=dev)
-            cand = torch.zeros((E, n_max), dtype=torch.bool, device=dev)
+            vectors = snap.alloc((n_max, dims), tdtype)
+            cand = snap.alloc((n_max,), torch.bool)
 
             def _fill_knn(e: int) -> None:
                 if mats[e] is None:
@@ -546,6 +591,7 @@ class MeshExecutor:
                 sid, si = snap.entries[e]
                 ex = snap.executors[sid]
                 n = int(n_per_entry[e])
+                dev = vectors[e].device
                 # the executor's resident column (uploaded once per
                 # generation): a device-to-device copy
                 mat_dev, _exists = ex.device_segments[si].vectors[field]
@@ -586,7 +632,6 @@ class MeshExecutor:
             view = snap.text.get(key)
             if view is not None:
                 return view
-            dev = snap.device
             sfs = []
             t_max = 1
             for sid, si in snap.entries:
@@ -604,8 +649,8 @@ class MeshExecutor:
             vdtype = torch.int8 if quantized else torch.float32
             E = snap.e_pad
             snap.charge(E * t_max * TILE * (4 + (1 if quantized else 4)))
-            doc_ids = torch.full((E, t_max, TILE), INVALID_DOC, dtype=torch.int32, device=dev)
-            values = torch.zeros((E, t_max, TILE), dtype=vdtype, device=dev)
+            doc_ids = snap.alloc((t_max, TILE), torch.int32, INVALID_DOC)
+            values = snap.alloc((t_max, TILE), vdtype)
 
             def _fill_sparse(e: int) -> None:
                 sf = sfs[e]
@@ -619,6 +664,7 @@ class MeshExecutor:
                 src_v = sc.values if sc is not None else (
                     sf.qweights if quantized else sf.weights
                 )
+                dev = doc_ids[e].device
                 doc_ids[e, :nt].copy_(_on(dev, src_d))
                 values[e, :nt].copy_(_on(dev, src_v))
 
@@ -647,7 +693,6 @@ class MeshExecutor:
             view = snap.knn.get(key)
             if view is not None:
                 return view
-            dev = snap.device
             idxs = []
             for sid, si in snap.entries:
                 idx = snap.executors[sid].ann_index(si, field, spec)
@@ -682,14 +727,14 @@ class MeshExecutor:
                 + E * n_max
                 + (E * fmax * 4 if quant else 0) + (E * fmax * 4 if l2 else 0)
             )
-            cents = torch.zeros((E, nlist_max, dims), dtype=torch.float32, device=dev)
-            starts = torch.zeros((E, nlist_max), dtype=torch.int32, device=dev)
-            counts = torch.zeros((E, nlist_max), dtype=torch.int32, device=dev)
-            perm = torch.zeros((E, fmax), dtype=torch.int32, device=dev)
-            vecs = torch.zeros((E, fmax, dims), dtype=vdt, device=dev)
-            scales = torch.zeros((E, fmax), dtype=torch.float32, device=dev) if quant else None
-            v2 = torch.zeros((E, fmax), dtype=torch.float32, device=dev) if l2 else None
-            cand = torch.zeros((E, n_max), dtype=torch.bool, device=dev)
+            cents = snap.alloc((nlist_max, dims), torch.float32)
+            starts = snap.alloc((nlist_max,), torch.int32)
+            counts = snap.alloc((nlist_max,), torch.int32)
+            perm = snap.alloc((fmax,), torch.int32)
+            vecs = snap.alloc((fmax, dims), vdt)
+            scales = snap.alloc((fmax,), torch.float32) if quant else None
+            v2 = snap.alloc((fmax,), torch.float32) if l2 else None
+            cand = snap.alloc((n_max,), torch.bool)
             n_per_entry = np.zeros(E, np.int64)
             layout = []
             for e, ((sid, si), idx) in enumerate(zip(snap.entries, idxs)):
@@ -710,6 +755,9 @@ class MeshExecutor:
                 cand[e, :n].copy_(snap.executors[sid].knn_candidates(si, field))
                 n_per_entry[e] = n
                 layout.append((int(idx.n), nl, F, int(idx.cmax)))
+            for arr in (cents, starts, counts, perm, vecs, scales, v2, cand):
+                if arr is not None:
+                    arr.replicate()
             view = {
                 "centroids": cents,
                 "starts": starts,
@@ -791,9 +839,9 @@ class MeshExecutor:
                     ivals[e, :n] = col
             snap.charge(vals.nbytes + ivals.nbytes + exists.nbytes)
             view = {
-                "values": upload(vals, snap.device),
-                "ivalues": upload(ivals, snap.device),
-                "exists": upload(exists, snap.device),
+                "values": snap.put(vals),
+                "ivalues": snap.put(ivals),
+                "exists": snap.put(exists),
             }
             snap.aggs[key] = view
             snap.recipes[("agg",) + key] = ("_agg_num_view", (field,))
@@ -840,9 +888,9 @@ class MeshExecutor:
             snap.charge(gords.nbytes + edocs.nbytes + evalid.nbytes)
             view = {
                 "gterms": gterms,
-                "gords": upload(gords, snap.device),
-                "edocs": upload(edocs, snap.device),
-                "evalid": upload(evalid, snap.device),
+                "gords": snap.put(gords),
+                "edocs": snap.put(edocs),
+                "evalid": snap.put(evalid),
             }
             snap.aggs[key] = view
             snap.recipes[("agg",) + key] = ("_agg_ord_view", (field,))
@@ -895,8 +943,8 @@ class MeshExecutor:
                 "qmin": qmin,
                 "nb": nb,
                 "nbpad": scoring.next_bucket(nb, 16),
-                "ids": upload(ids, snap.device),
-                "exists": upload(exists, snap.device),
+                "ids": snap.put(ids),
+                "exists": snap.put(exists),
             }
             snap.aggs[key] = view
             snap.recipes[("agg",) + key] = (
@@ -985,14 +1033,14 @@ class MeshExecutor:
                 toks_q = qv.reshape(snap.e_pad, fmax, dims)
                 scales = scales.reshape(snap.e_pad, fmax)
                 snap.charge(starts.nbytes + counts.nbytes + toks_q.nbytes + scales.nbytes)
-                toks_dev = upload(toks_q, snap.device)
-                scales_dev = upload(scales, snap.device)
+                toks_dev = snap.put(toks_q)
+                scales_dev = snap.put(scales)
             else:
                 snap.charge(starts.nbytes + counts.nbytes + toks.nbytes)
-                toks_dev = upload(toks, snap.device)
+                toks_dev = snap.put(toks)
             view = {
-                "starts": upload(starts, snap.device),
-                "counts": upload(counts, snap.device),
+                "starts": snap.put(starts),
+                "counts": snap.put(counts),
                 "toks": toks_dev,
                 "scales": scales_dev,
                 "tmax": int(tmax),

@@ -3,24 +3,34 @@
 Counterpart of `elasticsearch_tpu/parallel/sharded.py` (the JAX
 package). The coordinator's scatter/gather (per-shard query phase, then
 the reduce that merges shard responses) collapses into ONE program over
-a stack of every shard:
+a stack of every shard, spread over a mesh's grid of slots
+(parallel/mesh.py):
 
   - every entry's tiled postings live stacked along a leading entry
-    axis (`doc_ids[E, T, 128]`);
-  - per-entry scoring runs as one batched tensor operation over that
-    axis (the reference's `vmap` inside `shard_map`);
-  - the reference's `all_gather` over the ``shards`` axis is the entry
-    axis that is already there, and its `psum`/`pmin`/`pmax` are a
-    `sum`/`amin`/`amax` over it;
+    axis (`doc_ids[E, T, 128]`), padded to ``shards * fold`` entries;
+    slot (r, c) holds fold c of each stack on its device (`Stacked`),
+    and every ``data`` row r holds its own copy of the stack;
+  - a step splits the query rows over the ``data`` axis and launches
+    each slot's part — per-entry scoring and the local top-k, batched
+    over the slot's fold (the reference's `vmap` inside `shard_map`) —
+    on that slot's device;
+  - the slots' pages `[fold, Bd, kk]` then come to the coordinating
+    device (the first slot's, the index's own) with asynchronous
+    stream-ordered copies and are laid out entry-major there (the
+    reference's `all_gather` over ``shards``), where the merge runs;
+    totals and agg columns combine with `sum`/`amin`/`amax` over the
+    slots (its `psum`/`pmin`/`pmax`);
   - every `lax.top_k` is `ops/scoring.topk_desc`, which keeps the lowest
     index among equal scores, so the merge's (score desc, slot asc)
     order is the coordinator's (score desc, shard asc, segment asc, doc
     asc) order.
 
-The port's mesh spans one device (parallel/mesh.py): the whole stack
-lives on it and ``fold`` is the number of entries. A step takes host
-numpy plans (uploaded in one asynchronous pinned copy each) and returns
-device tensors; nothing here waits for the device.
+Per-entry arithmetic is the same whatever the grid: a slot computes its
+entries' rows exactly as a one-slot mesh computes them, and the merge
+sees the same [E, B, kk] pages. A step takes host numpy plans (each
+slot's share uploaded in one asynchronous pinned copy) and returns
+device tensors on the coordinating device; nothing here waits for a
+device.
 
 Two families of step builders live here:
 
@@ -36,11 +46,15 @@ Two families of step builders live here:
 On a CUDA device `scatter_add_` and `index_add_` sum with float atomics,
 so a doc's last ulp can change from run to run (and from the per-shard
 path's); on the CPU the additions run in slot order and the pages are
-bit for bit the per-shard path's.
+bit for bit the per-shard path's. A dense product (`q @ v.T`) is the
+exception on a ``data`` axis of 2+: a slot multiplies its share of the
+query rows, and the BLAS picks its kernel by the row count (one row
+takes a matrix-vector kernel), so a kNN score may move in its last ulp.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -49,7 +63,7 @@ import torch
 from ..index.segment import INVALID_DOC, TILE, Segment
 from ..models import bm25
 from ..ops.scoring import TCHUNK, next_bucket, topk_desc, upload
-from .mesh import SHARD_AXIS, Mesh, fold_factor, mesh_device
+from .mesh import SHARD_AXIS, Mesh, coord_device, fold_factor
 
 
 class ShardedTopK(NamedTuple):
@@ -78,14 +92,162 @@ def _up_plan(device, ti, tw, tv):
     return dev[0].long(), dev[1].view(torch.float32), dev[2] != 0
 
 
+class Stacked:
+    """One stacked [E_pad, ...] array as a mesh's grid holds it:
+    `parts[r][c]` is fold c (entries [c·fold, (c+1)·fold)) on slot (r,
+    c)'s device. Every ``data`` row holds its own copy. Writes go to row
+    0 (`stacked[e, ...]` is entry e's rows there) and `replicate` copies
+    row 0 to the other rows, device to device."""
+
+    def __init__(self, parts: List[List[torch.Tensor]], fold: int):
+        self.parts = parts
+        self.fold = fold
+
+    @classmethod
+    def full(cls, mesh: Mesh, fold: int, tail, dtype, fill=0) -> "Stacked":
+        return cls(
+            [[torch.full((fold,) + tuple(tail), fill, dtype=dtype, device=d) for d in row]
+             for row in mesh.devices],
+            fold,
+        )
+
+    @classmethod
+    def put(cls, mesh: Mesh, fold: int, host) -> "Stacked":
+        """A host [E_pad, ...] array, each slot's fold uploaded to it."""
+        host = np.asarray(host)
+        return cls(
+            [[upload(host[c * fold : (c + 1) * fold], d) for c, d in enumerate(row)]
+             for row in mesh.devices],
+            fold,
+        )
+
+    @property
+    def shape(self) -> tuple:
+        p = self.parts[0][0]
+        return (self.fold * len(self.parts[0]),) + tuple(p.shape[1:])
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.parts[0][0].dtype
+
+    def at(self, r: int, c: int) -> torch.Tensor:
+        return self.parts[r][c]
+
+    def entry(self, e: int, r: int = 0) -> torch.Tensor:
+        return self.parts[r][e // self.fold][e % self.fold]
+
+    def __getitem__(self, key):
+        if isinstance(key, tuple):
+            return self.entry(key[0])[key[1:]]
+        return self.entry(key)
+
+    def replicate(self) -> None:
+        for row in self.parts[1:]:
+            for c, p in enumerate(row):
+                p.copy_(self.parts[0][c])
+
+
+_GATHER_LOCK = threading.Lock()
+_GATHER = {"pages": 0, "slot_bytes": 0, "peer_bytes": 0}
+
+
+def gather_stats() -> dict:
+    """Process-wide page traffic into the coordinating device:
+    `slot_bytes` gathered from slots other than the first, `peer_bytes`
+    of those that crossed from another device."""
+    with _GATHER_LOCK:
+        return dict(_GATHER)
+
+
+def _bring(x: torch.Tensor, coord, first: bool, tally: list) -> torch.Tensor:
+    if not first:
+        n = x.numel() * x.element_size()
+        tally[0] += n
+        if x.device != torch.device(coord):
+            tally[1] += n
+    return x.to(coord, non_blocking=True)
+
+
+def _note_gather(tally: list) -> None:
+    with _GATHER_LOCK:
+        _GATHER["pages"] += 1
+        _GATHER["slot_bytes"] += tally[0]
+        _GATHER["peer_bytes"] += tally[1]
+
+
+def _launch_slots(mesh: Mesh, fold: int, n_rows: int, part) -> list:
+    """outs[r][c] = part(r, c, ents, rows): slot (r, c)'s part launched
+    on its device for the entries `ents` (its fold) and the query rows
+    `rows` (its ``data`` row's share), slices of the host plans."""
+    n_data, g = mesh.devices.shape
+    bd = n_rows // n_data
+    return [
+        [part(r, c, slice(c * fold, (c + 1) * fold), slice(r * bd, (r + 1) * bd))
+         for c in range(g)]
+        for r in range(n_data)
+    ]
+
+
+def _run_slots(mesh: Mesh, fold: int, n_rows: int, part):
+    """Each slot's `part` (`_launch_slots`) returns a tuple of [fold, Bd,
+    ...] tensors; returns the tuple laid out as [E_pad, B, ...] tensors
+    on the coordinating device: entry-major over the ``shards`` axis
+    (the reference's all_gather), row-major over ``data`` (its
+    data-sharded out_specs)."""
+    outs = _launch_slots(mesh, fold, n_rows, part)
+    if len(outs) * len(outs[0]) == 1:
+        return outs[0][0]
+    coord = coord_device(mesh)
+    tally = [0, 0]
+    res = []
+    for i in range(len(outs[0][0])):
+        rows = [
+            torch.cat([_bring(o[i], coord, r == c == 0, tally) for c, o in enumerate(row)], 0)
+            for r, row in enumerate(outs)
+        ]
+        res.append(torch.cat(rows, 1))
+    _note_gather(tally)
+    return tuple(res)
+
+
+_REDUCE = {
+    "sum": lambda x: x.sum(dim=0, dtype=x.dtype),
+    "min": lambda x: x.amin(dim=0),
+    "max": lambda x: x.amax(dim=0),
+}
+
+
+def _combine_slots(mesh: Mesh, fold: int, n_rows: int, part, ops: Sequence[str]):
+    """Each slot's `part` (`_launch_slots`) returns a list of [Bd, ...]
+    partials already reduced over its fold; returns each partial
+    combined over the ``shards`` slots with its op in `ops`
+    ("sum"/"min"/"max": the reference's psum/pmin/pmax) on the
+    coordinating device, rows concatenated over ``data``."""
+    outs = _launch_slots(mesh, fold, n_rows, part)
+    if len(outs) * len(outs[0]) == 1:
+        return outs[0][0]
+    coord = coord_device(mesh)
+    tally = [0, 0]
+    res = []
+    for i, op in enumerate(ops):
+        rows = []
+        for r, row in enumerate(outs):
+            xs = [_bring(o[i], coord, r == c == 0, tally) for c, o in enumerate(row)]
+            rows.append(xs[0] if len(xs) == 1 else _REDUCE[op](torch.stack(xs)))
+        res.append(torch.cat(rows, 0))
+    _note_gather(tally)
+    return res
+
+
 class ShardedIndex:
-    """Stacks S single-shard segments into one device's entry stack.
+    """Stacks S single-shard segments over a mesh's slots.
 
     The ES analog of an index with `number_of_shards: S` (each shard an
     independent Segment with its own term dictionary, norms and stats,
     exactly like an ES shard is a full Lucene index); this class pads
-    them to a common dense shape along the leading entry axis. The stack
-    is padded to ``axis * fold`` rows (mesh.py fold_factor)."""
+    them to a common dense shape along the leading entry axis and lays
+    the stack out over the ``shards`` slots (`Stacked`). The stack is
+    padded to ``axis * fold`` rows (mesh.py fold_factor)."""
 
     def __init__(
         self,
@@ -104,7 +266,7 @@ class ShardedIndex:
                 f"{g} (fold {self.fold})"
             )
         self.mesh = mesh
-        self.device = mesh_device(mesh)
+        self.device = coord_device(mesh)
         self.segments = list(segments)
         self.field = field
         self.n_shards = len(segments)
@@ -158,15 +320,16 @@ class ShardedIndex:
             doc_base[si] = base
             base += seg.num_docs
         self.total_docs = base
-        self.doc_ids = _up(self.device, doc_ids)
-        self.tfs = _up(self.device, tfs)
-        self.inv_norm = _up(self.device, inv_norm)
-        self.doc_base = _up(self.device, doc_base)
+        put = lambda a: Stacked.put(mesh, self.fold, a)  # noqa: E731
+        self.doc_ids = put(doc_ids)
+        self.tfs = put(tfs)
+        self.inv_norm = put(inv_norm)
+        self.doc_base = put(doc_base)
         # every slot below a shard's num_docs is a real doc (no deletes)
         live = np.zeros((S, n_docs_max), bool)
         for si, seg in enumerate(self.segments):
             live[si, : seg.num_docs] = True
-        self.live = _up(self.device, live)
+        self.live = put(live)
 
         # ---- optional dense-vector shard stack ----
         self.vector_field = vector_field
@@ -193,8 +356,8 @@ class ShardedIndex:
                     )
                     vecs[si, : seg.num_docs] = mat
                     exists[si, : seg.num_docs] = vf.exists
-                self.vectors = _up(self.device, vecs)
-                self.vec_exists = _up(self.device, exists)
+                self.vectors = put(vecs)
+                self.vec_exists = put(exists)
 
     # ---- host-side query compilation (the per-shard Weight creation) ----
 
@@ -445,22 +608,33 @@ def _nc_cut_merge(s, d, nc):
 
 
 def build_sharded_bm25_step(index: ShardedIndex, k: int):
-    """Search step over a ShardedIndex: per-shard score + top-k, then
-    the merge. fn(tile_idx[S,B,T], tile_w, tile_v, msm[B]) ->
+    """Search step over a ShardedIndex: per-shard score + top-k on each
+    slot, then the merge. fn(tile_idx[S,B,T], tile_w, tile_v, msm[B]) ->
     ShardedTopK (device tensors) with global docs doc_base[shard] +
     local doc (-1 past the real hits)."""
-    dev = index.device
     n_docs = index.n_docs_max
 
-    def step(tile_idx, tile_w, tile_v, msm):
-        ti, tw, tv = _up_plan(dev, tile_idx, tile_w, tile_v)
+    def part(r, c, ti_h, tw_h, tv_h, msm):
+        dev = index.live.at(r, c).device
+        ti, tw, tv = _up_plan(dev, ti_h, tw_h, tv_h)
         E, B, _ = ti.shape
         acc = torch.zeros(E * B, n_docs + 1, dtype=torch.float32, device=dev)
         cnt = torch.zeros(E * B, n_docs + 1, dtype=torch.int32, device=dev)
-        _bm25_into(acc, cnt, index.doc_ids, index.tfs, index.inv_norm, ti, tw, tv, False)
-        mask = _match_mask(acc, cnt, index.live, _up(dev, msm, torch.int32))
+        _bm25_into(acc, cnt, index.doc_ids.at(r, c), index.tfs.at(r, c),
+                   index.inv_norm.at(r, c), ti, tw, tv, False)
+        mask = _match_mask(acc, cnt, index.live.at(r, c), _up(dev, msm, torch.int32))
         s, d, t = _entry_topk(acc.view(E, B, -1)[:, :, :n_docs], mask, k)
-        gdoc = torch.where(s > -torch.inf, d + index.doc_base[:, None, None], -1)
+        gdoc = torch.where(s > -torch.inf, d + index.doc_base.at(r, c)[:, None, None], -1)
+        return s, gdoc, t
+
+    def step(tile_idx, tile_w, tile_v, msm):
+        msm = np.asarray(msm)
+        s, gdoc, t = _run_slots(
+            index.mesh, index.fold, len(msm),
+            lambda r, c, ents, rows: part(
+                r, c, tile_idx[ents, rows], tile_w[ents, rows], tile_v[ents, rows], msm[rows]
+            ),
+        )
         ms, _, md = _merge_gathered(s, gdoc, k)
         return ShardedTopK(ms, md, t.sum(dim=0, dtype=torch.int32))
 
@@ -469,19 +643,28 @@ def build_sharded_bm25_step(index: ShardedIndex, k: int):
 
 def build_sharded_knn_step(index: ShardedIndex, k: int, similarity: str = "cosine"):
     """Brute-force kNN over a ShardedIndex: one batched matmul + top-k
-    per shard, then the merge. fn(queries[B, d]) -> ShardedTopK."""
+    per shard on each slot, then the merge. fn(queries[B, d]) ->
+    ShardedTopK."""
     if index.vectors is None:
         raise ValueError(f"index has no vector field [{index.vector_field}]")
-    dev = index.device
 
-    def step(queries):
-        q = _up(dev, np.asarray(queries, np.float32))
+    def part(r, c, queries):
+        dev = index.live.at(r, c).device
+        q = _up(dev, queries)
         if similarity == "cosine":
             q = _unit_rows(q)
-        scores = _similarity_scores(q, index.vectors, similarity)
-        mask = index.vec_exists[:, None, :].expand_as(scores)
+        scores = _similarity_scores(q, index.vectors.at(r, c), similarity)
+        mask = index.vec_exists.at(r, c)[:, None, :].expand_as(scores)
         s, d, t = _entry_topk(scores.to(torch.float32), mask, k)
-        gdoc = torch.where(s > -torch.inf, d + index.doc_base[:, None, None], -1)
+        gdoc = torch.where(s > -torch.inf, d + index.doc_base.at(r, c)[:, None, None], -1)
+        return s, gdoc, t
+
+    def step(queries):
+        queries = np.asarray(queries, np.float32)
+        s, gdoc, t = _run_slots(
+            index.mesh, index.fold, len(queries),
+            lambda r, c, ents, rows: part(r, c, queries[rows]),
+        )
         ms, _, md = _merge_gathered(s, gdoc, k)
         return ShardedTopK(ms, md, t.sum(dim=0, dtype=torch.int32))
 
@@ -502,10 +685,10 @@ def build_sharded_knn_step(index: ShardedIndex, k: int, similarity: str = "cosin
 
 def build_mesh_text_step(
     mesh: Mesh,
-    doc_ids_f: Sequence[torch.Tensor],  # per field: [E, Tmax_f, TILE] stacked
-    tfs_f: Sequence[torch.Tensor],
-    inv_norm_f: Sequence[torch.Tensor],  # per field: [E, Nmax]
-    live: torch.Tensor,  # bool[E, Nmax] (live docs ∧ in-range padding mask)
+    doc_ids_f: Sequence[Stacked],  # per field: [E, Tmax_f, TILE] stacked
+    tfs_f: Sequence[Stacked],
+    inv_norm_f: Sequence[Stacked],  # per field: [E, Nmax]
+    live: Stacked,  # bool[E, Nmax] (live docs ∧ in-range padding mask)
     k: int,
     *,
     with_cnt: bool,
@@ -526,21 +709,22 @@ def build_mesh_text_step(
     * ``combine``: "sum" (bool / most_fields) or "max_tie"
       (best_fields: max + tie·(sum − max)).
     """
-    dev = mesh_device(mesh)
     n_docs = int(inv_norm_f[0].shape[1])
 
-    def step(ti_f, tw_f, tv_f, msm):
+    def part(r, c, ti_f, tw_f, tv_f, msm):
+        lv = live.at(r, c)
+        dev = lv.device
+        E = int(lv.shape[0])
         cnt = None
         accs = []
-        E = int(live.shape[0])
         for fi in range(len(doc_ids_f)):
             ti, tw, tv = _up_plan(dev, ti_f[fi], tw_f[fi], tv_f[fi])
             B = ti.shape[1]
             if with_cnt and cnt is None:
                 cnt = torch.zeros(E * B, n_docs + 1, dtype=torch.int32, device=dev)
             acc = torch.zeros(E * B, n_docs + 1, dtype=torch.float32, device=dev)
-            _bm25_into(acc, cnt, doc_ids_f[fi], tfs_f[fi], inv_norm_f[fi], ti, tw, tv,
-                       count_signed)
+            _bm25_into(acc, cnt, doc_ids_f[fi].at(r, c), tfs_f[fi].at(r, c),
+                       inv_norm_f[fi].at(r, c), ti, tw, tv, count_signed)
             accs.append(acc.view(E, B, -1)[:, :, :n_docs])
         if len(accs) == 1:
             combined = accs[0]
@@ -552,12 +736,22 @@ def build_mesh_text_step(
             stack = torch.stack(accs)
             best = stack.amax(dim=0)
             combined = best + tie * (stack.sum(dim=0) - best)
-        msm_d = _up(dev, np.asarray(msm, np.int32))
         if cnt is None:
-            mask = (combined > 0) & live[:, None, :]
+            mask = (combined > 0) & lv[:, None, :]
         else:
-            mask = _match_mask(None, cnt, live, msm_d)
-        s, d, t = _entry_topk(combined, mask, k)
+            mask = _match_mask(None, cnt, lv, _up(dev, msm))
+        return _entry_topk(combined, mask, k)
+
+    def step(ti_f, tw_f, tv_f, msm):
+        msm = np.asarray(msm, np.int32)
+        s, d, t = _run_slots(
+            mesh, live.fold, len(msm),
+            lambda r, c, ents, rows: part(
+                r, c,
+                [a[ents, rows] for a in ti_f], [a[ents, rows] for a in tw_f],
+                [a[ents, rows] for a in tv_f], msm[rows],
+            ),
+        )
         ms, me, md = _merge_gathered(s, d, k)
         return pack_page(ms, me, md, t.sum(dim=0, dtype=torch.int32))
 
@@ -566,9 +760,9 @@ def build_mesh_text_step(
 
 def build_mesh_sparse_step(
     mesh: Mesh,
-    doc_ids: torch.Tensor,  # [E, Tmax, TILE] stacked impact-ordered tiles
-    values: torch.Tensor,  # [E, Tmax, TILE] stored dtype (int8 or f32)
-    live: torch.Tensor,  # bool[E, Nmax] (live docs ∧ in-range padding mask)
+    doc_ids: Stacked,  # [E, Tmax, TILE] stacked impact-ordered tiles
+    values: Stacked,  # [E, Tmax, TILE] stored dtype (int8 or f32)
+    live: Stacked,  # bool[E, Nmax] (live docs ∧ in-range padding mask)
     k: int,
 ):
     """One learned-sparse scoring step over stacked (shard, segment)
@@ -585,12 +779,13 @@ def build_mesh_sparse_step(
     int8 and fp32 columns alike."""
     from ..ops.impact import impact_tile_contrib
 
-    dev = mesh_device(mesh)
     n_docs = int(live.shape[1])
-    E = int(live.shape[0])
     nt = int(doc_ids.shape[1])
 
-    def step(ti_h, tw_h, tv_h):
+    def part(r, c, ti_h, tw_h, tv_h):
+        lv = live.at(r, c)
+        dev = lv.device
+        E = int(lv.shape[0])
         ti, tw, tv = _up_plan(dev, ti_h, tw_h, tv_h)
         B, T = ti.shape[1], ti.shape[2]
         rows = E * B
@@ -599,7 +794,7 @@ def build_mesh_sparse_step(
         row_off = (torch.arange(rows, device=dev) * (n_docs + 1)).view(E, B, 1, 1)
         for c0 in range(0, T, TCHUNK):
             tic = ti[:, :, c0 : c0 + TCHUNK]
-            rows_d, rows_v = _gather_tiles((doc_ids, values), tic, nt)
+            rows_d, rows_v = _gather_tiles((doc_ids.at(r, c), values.at(r, c)), tic, nt)
             valid = (rows_d >= 0) & tv[:, :, c0 : c0 + TCHUNK, None]
             tgt, s = impact_tile_contrib(
                 rows_d, rows_v, tw[:, :, c0 : c0 + TCHUNK, None], valid, n_docs
@@ -610,8 +805,16 @@ def build_mesh_sparse_step(
         acc = acc.view(E, B, n_docs + 1)[:, :, :n_docs]
         # every query term is optional: the sparse match mask is
         # cnt > 0, exactly ops/scoring._finalize at msm=1
-        mask = (cnt.view(E, B, n_docs + 1)[:, :, :n_docs] >= 1) & live[:, None, :]
-        s, d, t = _entry_topk(acc, mask, k)
+        mask = (cnt.view(E, B, n_docs + 1)[:, :, :n_docs] >= 1) & lv[:, None, :]
+        return _entry_topk(acc, mask, k)
+
+    def step(ti_h, tw_h, tv_h):
+        s, d, t = _run_slots(
+            mesh, live.fold, int(np.asarray(ti_h).shape[1]),
+            lambda r, c, ents, rows: part(
+                r, c, ti_h[ents, rows], tw_h[ents, rows], tv_h[ents, rows]
+            ),
+        )
         ms, me, md = _merge_gathered(s, d, k)
         return pack_page(ms, me, md, t.sum(dim=0, dtype=torch.int32))
 
@@ -620,14 +823,14 @@ def build_mesh_sparse_step(
 
 def build_mesh_rerank_step(
     mesh: Mesh,
-    doc_ids: torch.Tensor,  # [E, Tmax, TILE] stacked postings tiles
-    tfs: torch.Tensor,
-    inv_norm: torch.Tensor,  # [E, Nmax]
-    live: torch.Tensor,  # bool[E, Nmax]
-    rr_starts: torch.Tensor,  # i32 [E, Nmax] local doc → flat token row
-    rr_counts: torch.Tensor,  # i32 [E, Nmax]
-    rr_toks: torch.Tensor,  # [E, Fmax, d] f32 (or int8 with scales)
-    rr_scales: Optional[torch.Tensor],  # f32 [E, Fmax] or None
+    doc_ids: Stacked,  # [E, Tmax, TILE] stacked postings tiles
+    tfs: Stacked,
+    inv_norm: Stacked,  # [E, Nmax]
+    live: Stacked,  # bool[E, Nmax]
+    rr_starts: Stacked,  # i32 [E, Nmax] local doc → flat token row
+    rr_counts: Stacked,  # i32 [E, Nmax]
+    rr_toks: Stacked,  # [E, Fmax, d] f32 (or int8 with scales)
+    rr_scales: Optional[Stacked],  # f32 [E, Fmax] or None
     kb: int,  # local candidate page (compile bucket >= k_req)
     k_req: int,  # the request page (from + size): per-entry page cut
     window: int,  # rescore window, already clamped to k_req
@@ -638,12 +841,12 @@ def build_mesh_rerank_step(
     """One first-stage + RERANK step: per-entry BM25 scoring and local
     top-k exactly like build_mesh_text_step (single field), then the
     maxsim rescore runs per entry over that entry's own rank_vectors
-    tokens, so the merge sees already-reranked candidates. With one
-    live segment per shard (the routing precondition), each entry's
-    local stream equals the per-shard path's post-rescore page:
-    positions < window are re-sorted by blended score, positions
-    [window, k_req) keep first stage, positions >= k_req are dropped
-    (the shard page cut).
+    tokens (on the entry's slot), so the merge sees already-reranked
+    candidates. With one live segment per shard (the routing
+    precondition), each entry's local stream equals the per-shard
+    path's post-rescore page: positions < window are re-sorted by
+    blended score, positions [window, k_req) keep first stage, positions
+    >= k_req are dropped (the shard page cut).
 
     fn(ti, tw, tv, msm[B], qtoks[B, Qt, d], qvalid[B, Qt], weights[2])
     → packed int32 [B, 3·slots + 1]: the merged stream FULLY ordered
@@ -652,22 +855,33 @@ def build_mesh_rerank_step(
     global k, mirroring build_mesh_knn_step."""
     from ..ops.rerank import blend_and_sort, maxsim_candidates
 
-    dev = mesh_device(mesh)
-    E, n_docs = int(live.shape[0]), int(inv_norm.shape[1])
+    n_docs = int(inv_norm.shape[1])
     kk = min(kb, n_docs)
     wc = min(window, k_req, kk)
     fmax = int(rr_toks.shape[1])
-    # the per-entry CSR bounds as one flat column over [E * Fmax] token
-    # rows: entry e's doc i starts at e * Fmax + starts[e, i]
-    flat_starts = (
-        rr_starts.to(torch.int64)
-        + (torch.arange(E, dtype=torch.int64, device=dev) * fmax)[:, None]
-    ).reshape(-1)
-    flat_counts = rr_counts.reshape(-1)
-    flat_toks = rr_toks.reshape(E * fmax, -1)
-    flat_scales = None if rr_scales is None else rr_scales.reshape(-1)
+    fold = live.fold
 
-    def step(ti_h, tw_h, tv_h, msm, qtoks, qvalid, weights):
+    def flat_csr(r, c):
+        # the slot's CSR bounds as one flat column over its [fold * Fmax]
+        # token rows: local entry i's doc starts at i * Fmax + starts[i]
+        dev = live.at(r, c).device
+        starts = (
+            rr_starts.at(r, c).to(torch.int64)
+            + (torch.arange(fold, dtype=torch.int64, device=dev) * fmax)[:, None]
+        ).reshape(-1)
+        return (
+            starts,
+            rr_counts.at(r, c).reshape(-1),
+            rr_toks.at(r, c).reshape(fold * fmax, -1),
+            None if rr_scales is None else rr_scales.at(r, c).reshape(-1),
+        )
+
+    csr = [[flat_csr(r, c) for c in range(len(row))] for r, row in enumerate(mesh.devices)]
+
+    def part(r, c, ti_h, tw_h, tv_h, msm, qtoks, qvalid, weights):
+        lv = live.at(r, c)
+        dev = lv.device
+        E = fold
         ti, tw, tv = _up_plan(dev, ti_h, tw_h, tv_h)
         B = ti.shape[1]
         acc = torch.zeros(E * B, n_docs + 1, dtype=torch.float32, device=dev)
@@ -675,8 +889,9 @@ def build_mesh_rerank_step(
             torch.zeros(E * B, n_docs + 1, dtype=torch.int32, device=dev)
             if with_cnt else None
         )
-        _bm25_into(acc, cnt, doc_ids, tfs, inv_norm, ti, tw, tv, False)
-        mask = _match_mask(acc, cnt, live, _up(dev, np.asarray(msm, np.int32)))
+        _bm25_into(acc, cnt, doc_ids.at(r, c), tfs.at(r, c), inv_norm.at(r, c),
+                   ti, tw, tv, False)
+        mask = _match_mask(acc, cnt, lv, _up(dev, msm))
         s_e, d_e, t = _entry_topk(acc.view(E, B, -1)[:, :, :n_docs], mask, kk)
         # ---- local rescore, before the merge: page cut at k_req,
         # maxsim over this entry's token block, window re-sort ----
@@ -685,8 +900,9 @@ def build_mesh_rerank_step(
         docs = torch.where(keep, d_e, 0) + (
             torch.arange(E, dtype=torch.int64, device=dev) * n_docs
         )[:, None, None]
-        qt = _up(dev, np.asarray(qtoks, np.float32))
-        qv = _up(dev, np.asarray(qvalid, bool))
+        qt = _up(dev, qtoks)
+        qv = _up(dev, qvalid)
+        flat_starts, flat_counts, flat_toks, flat_scales = csr[r][c]
         msim = maxsim_candidates(
             qt[None].expand(E, *qt.shape).reshape(E * B, *qt.shape[1:]),
             qv[None].expand(E, *qv.shape).reshape(E * B, -1),
@@ -696,11 +912,25 @@ def build_mesh_rerank_step(
         first = torch.where(keep, s_e, -torch.inf)
         scores, perm = blend_and_sort(
             msim, first.reshape(E * B, kk), keep.reshape(E * B, kk),
-            _up(dev, np.asarray(weights, np.float32)), wc,
+            _up(dev, weights), wc,
         )
         d_sorted = torch.gather(d_e.reshape(E * B, kk), 1, perm.long())
-        gs, gd = _gather_slots(scores.view(E, B, kk), d_sorted.view(E, B, kk))
-        slots = E * kk
+        return scores.view(E, B, kk), d_sorted.view(E, B, kk), t
+
+    def step(ti_h, tw_h, tv_h, msm, qtoks, qvalid, weights):
+        msm = np.asarray(msm, np.int32)
+        qtoks = np.asarray(qtoks, np.float32)
+        qvalid = np.asarray(qvalid, bool)
+        weights = np.asarray(weights, np.float32)
+        s, d, t = _run_slots(
+            mesh, fold, len(msm),
+            lambda r, c, ents, rows: part(
+                r, c, ti_h[ents, rows], tw_h[ents, rows], tv_h[ents, rows],
+                msm[rows], qtoks[rows], qvalid[rows], weights,
+            ),
+        )
+        gs, gd = _gather_slots(s, d)
+        slots = gs.shape[1]
         ms, mi = topk_desc(gs, slots)
         me = (mi // kk).to(torch.int32)
         md = torch.gather(gd, 1, mi).to(torch.int32)
@@ -711,15 +941,15 @@ def build_mesh_rerank_step(
 
 def build_mesh_knn_step(
     mesh: Mesh,
-    vectors: torch.Tensor,  # [E, Nmax, dims] stacked (original dtype)
-    cand: torch.Tensor,  # bool[E, Nmax] exists ∧ live ∧ in-range
+    vectors: Stacked,  # [E, Nmax, dims] stacked (original dtype)
+    cand: Stacked,  # bool[E, Nmax] exists ∧ live ∧ in-range
     similarity: str,
     kc: int,  # per-entry candidate page (≥ every job's num_candidates)
     n_per_entry: Optional[Sequence[int]] = None,  # real rows per entry
 ):
     """One brute-force kNN step over stacked (shard, segment) entries
     with the per-shard path's per-(job, entry) num_candidates rank cut
-    applied on the device.
+    applied on the coordinating device.
 
     fn(queries[B, d], nc[E, B]) → packed int32 [B, 3·slots + E]
     (scores, entries, docs, then counts [B, E]; `unpack_page`).
@@ -730,17 +960,27 @@ def build_mesh_knn_step(
     caps, which a global top-k could starve (one dominant shard would
     evict other shards' in-page ranks). counts = surviving candidates
     PER ENTRY, for the per-shard totals."""
-    dev = mesh_device(mesh)
+    coord = coord_device(mesh)
     n_docs = int(vectors.shape[1])
     kk = min(kc, n_docs)
 
-    def step(queries, nc):
-        q = _up(dev, np.asarray(queries, np.float32))
+    def part(r, c, ents, queries):
+        vecs = vectors.at(r, c)
+        q = _up(vecs.device, queries)
         if similarity == "cosine":
             q = _unit_rows(q)
-        scores = _similarity_scores(q, vectors, similarity, n_per_entry).to(torch.float32)
-        s, d, _ = _entry_topk(scores, cand[:, None, :].expand_as(scores), kk)
-        ms, me, md, counts = _nc_cut_merge(s, d, _up(dev, np.asarray(nc, np.int64)))
+        rows = None if n_per_entry is None else n_per_entry[ents]
+        scores = _similarity_scores(q, vecs, similarity, rows).to(torch.float32)
+        s, d, _ = _entry_topk(scores, cand.at(r, c)[:, None, :].expand_as(scores), kk)
+        return s, d
+
+    def step(queries, nc):
+        queries = np.asarray(queries, np.float32)
+        s, d = _run_slots(
+            mesh, vectors.fold, len(queries),
+            lambda r, c, ents, rows: part(r, c, ents, queries[rows]),
+        )
+        ms, me, md, counts = _nc_cut_merge(s, d, _up(coord, np.asarray(nc, np.int64)))
         return pack_page(ms, me, md, counts)
 
     return step
@@ -748,64 +988,82 @@ def build_mesh_knn_step(
 
 def build_mesh_ann_step(
     mesh: Mesh,
-    centroids: torch.Tensor,  # f32 [E, nlist_max, d] (zero-padded entries)
-    starts: torch.Tensor,  # i32 [E, nlist_max]
-    counts: torch.Tensor,  # i32 [E, nlist_max]
-    perm: torch.Tensor,  # i32 [E, Fmax] flat cluster-major slot → doc
-    vecs: torch.Tensor,  # [E, Fmax, d] permuted block (f32/f16, or int8)
-    scales: Optional[torch.Tensor],  # f32 [E, Fmax] int8 twin, or None
-    v2: Optional[torch.Tensor],  # f32 [E, Fmax] (l2 only), or None
-    cand: torch.Tensor,  # bool [E, Nmax] exists ∧ live in DOC order
+    centroids: Stacked,  # f32 [E, nlist_max, d] (zero-padded entries)
+    starts: Stacked,  # i32 [E, nlist_max]
+    counts: Stacked,  # i32 [E, nlist_max]
+    perm: Stacked,  # i32 [E, Fmax] flat cluster-major slot → doc
+    vecs: Stacked,  # [E, Fmax, d] permuted block (f32/f16, or int8)
+    scales: Optional[Stacked],  # f32 [E, Fmax] int8 twin, or None
+    v2: Optional[Stacked],  # f32 [E, Fmax] (l2 only), or None
+    cand: Stacked,  # bool [E, Nmax] exists ∧ live in DOC order
     similarity: str,
     nprobe: int,
     kc: int,
     layout: Sequence[Tuple[int, int, int, int]],  # per entry (n, nlist, F, cmax)
 ):
     """One IVF-probed kNN step over the stacked cluster-major blocks.
-    Each entry probes its own slice of the stack through
+    Each entry probes its own slice of the stack, on its slot, through
     ops/ivf.ann_topk_batch — the centroid scan, the cluster gather, the
     product, the int8 scale and the transform of the per-segment probe,
     at that entry's own nlist and cmax, so the per-entry pages are the
     per-shard path's — and the merge is the SAME per-(job, entry)
     num_candidates rank cut as build_mesh_knn_step, so the collector
-    (MeshExecutor.collect_knn) is shared verbatim. The entries are
-    probed one after the other inside the step (the reference's vmap
-    over entries of unequal cluster layouts): a batched probe reduces in
-    another order on the CPU.
+    (MeshExecutor.collect_knn) is shared verbatim. A slot probes its
+    entries one after the other (the reference's vmap over entries of
+    unequal cluster layouts): a batched probe reduces in another order
+    on the CPU.
 
     fn(queries[B, d], nc[E, B]) → packed int32 [B, 3·slots + E]."""
     from types import SimpleNamespace
 
     from ..ops.ivf import ann_topk_batch
 
-    dev = mesh_device(mesh)
+    coord = coord_device(mesh)
     quant = scales is not None
-    entries = []
-    for e, (n, nl, F, cm) in enumerate(layout):
-        entries.append(SimpleNamespace(
-            similarity=similarity, n=n, nlist=nl, cmax=cm,
-            centroids=centroids[e, :nl], starts=starts[e, :nl],
-            counts=counts[e, :nl], perm=perm[e, :F],
-            vecs_flat=None if quant else vecs[e, :F],
-            qvecs_flat=vecs[e, :F] if quant else None,
-            scales_flat=scales[e, :F] if quant else None,
-            v2_flat=None if v2 is None else v2[e, :F],
-        ))
-    kk = max(min(kc, min(nprobe, x.nlist) * x.cmax) for x in entries)
+    fold = cand.fold
 
-    def step(queries, nc):
-        q = _up(dev, np.asarray(queries, np.float32))
+    def entry_index(e, r):
+        n, nl, F, cm = layout[e]
+        return SimpleNamespace(
+            similarity=similarity, n=n, nlist=nl, cmax=cm,
+            centroids=centroids.entry(e, r)[:nl], starts=starts.entry(e, r)[:nl],
+            counts=counts.entry(e, r)[:nl], perm=perm.entry(e, r)[:F],
+            vecs_flat=None if quant else vecs.entry(e, r)[:F],
+            qvecs_flat=vecs.entry(e, r)[:F] if quant else None,
+            scales_flat=scales.entry(e, r)[:F] if quant else None,
+            v2_flat=None if v2 is None else v2.entry(e, r)[:F],
+        )
+
+    # per data row: each real entry's probe handle over that row's copy
+    entries = [
+        [entry_index(e, r) for e in range(len(layout))]
+        for r in range(mesh.devices.shape[0])
+    ]
+    kk = max(min(kc, min(nprobe, x.nlist) * x.cmax) for x in entries[0])
+
+    def part(r, c, ents, queries):
+        dev = cand.at(r, c).device
+        q = _up(dev, queries)
         B = q.shape[0]
         valid = torch.ones(B, dtype=torch.bool, device=dev)
-        sk = torch.full((len(entries), B, kk), -torch.inf, device=dev)
-        dk = torch.zeros((len(entries), B, kk), dtype=torch.int64, device=dev)
-        for e, idx in enumerate(entries):
+        sk = torch.full((fold, B, kk), -torch.inf, device=dev)
+        dk = torch.zeros((fold, B, kk), dtype=torch.int64, device=dev)
+        for i, e in enumerate(range(ents.start, min(ents.stop, len(layout)))):
+            idx = entries[r][e]
             s, d = ann_topk_batch(
-                idx, q, valid, cand[e, : idx.n], nprobe, kc, quantized=quant,
+                idx, q, valid, cand.entry(e, r)[: idx.n], nprobe, kc, quantized=quant,
             )
-            sk[e, :, : s.shape[1]] = s
-            dk[e, :, : d.shape[1]] = d
-        ms, me, md, cnts = _nc_cut_merge(sk, dk, _up(dev, np.asarray(nc, np.int64)))
+            sk[i, :, : s.shape[1]] = s
+            dk[i, :, : d.shape[1]] = d
+        return sk, dk
+
+    def step(queries, nc):
+        queries = np.asarray(queries, np.float32)
+        sk, dk = _run_slots(
+            mesh, fold, len(queries),
+            lambda r, c, ents, rows: part(r, c, ents, queries[rows]),
+        )
+        ms, me, md, cnts = _nc_cut_merge(sk, dk, _up(coord, np.asarray(nc, np.int64)))
         return pack_page(ms, me, md, cnts)
 
     return step
@@ -813,22 +1071,24 @@ def build_mesh_ann_step(
 
 def build_mesh_agg_step(
     mesh: Mesh,
-    live: torch.Tensor,  # bool[E, Nmax] (live docs ∧ in-range padding mask)
+    live: Stacked,  # bool[E, Nmax] (live docs ∧ in-range padding mask)
     node_descs: Sequence[tuple],
     text: Optional[tuple],  # None | (doc_ids[E,T,128], tfs, inv[E,Nmax])
     with_cnt: bool,
 ):
-    """One aggregation step over stacked (shard, segment) entries:
-    per-entry bucket accumulators (segment-sum scatters over the stacked
-    doc-value / ordinal columns) reduce across the entry axis with
-    ``sum`` (counts, sums) / ``amin`` / ``amax`` — the coordinator's agg
-    reduce collapsed into the step, one launch for the whole index.
+    """One aggregation step over stacked (shard, segment) entries: each
+    slot's bucket accumulators (segment-sum scatters over its fold of
+    the stacked doc-value / ordinal columns) reduce across its entries,
+    then across the slots with ``sum`` (counts, sums) / ``amin`` /
+    ``amax`` — the coordinator's agg reduce collapsed into the step (the
+    reference's psum/pmin/pmax), one launch per slot for the whole
+    index.
 
-    ``node_descs`` (arrays stacked [E, …]): ("metric", values, ivalues,
-    exists) → per-row (count, sum, min, max): float64 values for min/max
-    (the doc-value dtype the per-shard engine keeps), the exact int32
-    copy for sums; ("counts_doc", ids, exists, nbpad) → per-row
-    int32[nbpad] bucket counts (histogram family — ids are host-
+    ``node_descs`` (`Stacked` arrays [E, …]): ("metric", values,
+    ivalues, exists) → per-row (count, sum, min, max): float64 values
+    for min/max (the doc-value dtype the per-shard engine keeps), the
+    exact int32 copy for sums; ("counts_doc", ids, exists, nbpad) →
+    per-row int32[nbpad] bucket counts (histogram family — ids are host-
     precomputed exact relative bucket ids); ("counts_entry", gords,
     edocs, evalid, nbpad) → the same over the multi-value ordinal CSR
     mapped to a GLOBAL ordinal table (keyword terms).
@@ -840,20 +1100,25 @@ def build_mesh_agg_step(
     fn(ti[E,B,T], tw, tv, msm[B]) → float64 [B, width]: totals,
     max_scores, then each node's columns (4 for a metric, nbpad for a
     bucket node), packed for one download."""
-    dev = mesh_device(mesh)
-    E, n_docs = int(live.shape[0]), int(live.shape[1])
+    n_docs = int(live.shape[1])
+    ops = ["sum", "max"]
+    for desc in node_descs:
+        ops.extend(["sum", "sum", "min", "max"] if desc[0] == "metric" else ["sum"])
 
     def scatter_rows(ids_e, sel, nbpad):
         # [E, B, L] selection of [E, L] ids → [E, B, nbpad] counts;
         # unselected slots land in a trash bucket that is cut off
-        B = sel.shape[1]
+        E, B = sel.shape[:2]
         safe = torch.where(sel, ids_e[:, None, :].long(), nbpad)
-        out = torch.zeros(E, B, nbpad + 1, dtype=torch.int32, device=dev)
+        out = torch.zeros(E, B, nbpad + 1, dtype=torch.int32, device=sel.device)
         out.scatter_add_(2, safe, torch.ones_like(safe, dtype=torch.int32))
         return out[:, :, :nbpad]
 
-    def step(ti_h, tw_h, tv_h, msm):
-        B = int(np.asarray(msm).shape[0])
+    def part(r, c, ti_h, tw_h, tv_h, msm):
+        lv = live.at(r, c)
+        dev = lv.device
+        E = int(lv.shape[0])
+        B = int(msm.shape[0])
         if text is not None:
             dids, tfs_, inv = text
             ti, tw, tv = _up_plan(dev, ti_h, tw_h, tv_h)
@@ -862,12 +1127,13 @@ def build_mesh_agg_step(
                 torch.zeros(E * B, n_docs + 1, dtype=torch.int32, device=dev)
                 if with_cnt else None
             )
-            _bm25_into(acc, cnt, dids, tfs_, inv, ti, tw, tv, False)
+            _bm25_into(acc, cnt, dids.at(r, c), tfs_.at(r, c), inv.at(r, c),
+                       ti, tw, tv, False)
             scores = acc.view(E, B, -1)[:, :, :n_docs]
-            mask = _match_mask(acc, cnt, live, _up(dev, np.asarray(msm, np.int32)))
+            mask = _match_mask(acc, cnt, lv, _up(dev, msm))
         else:
             scores = torch.ones(E, B, n_docs, dtype=torch.float32, device=dev)
-            mask = live[:, None, :].expand(E, B, n_docs)
+            mask = lv[:, None, :].expand(E, B, n_docs)
         totals = mask.sum(dim=2, dtype=torch.int32).sum(dim=0, dtype=torch.int32)
         maxs = torch.where(mask, scores, -torch.inf).amax(dim=2).amax(dim=0)
         outs: list = [totals, maxs]
@@ -875,25 +1141,38 @@ def build_mesh_agg_step(
             kind = desc[0]
             if kind == "metric":
                 _, vals, ivals, exists = desc
-                sel = mask & exists[:, None, :]
-                v = vals[:, None, :]
+                sel = mask & exists.at(r, c)[:, None, :]
+                v = vals.at(r, c)[:, None, :]
                 outs.extend([
                     sel.sum(dim=2, dtype=torch.int32).sum(dim=0, dtype=torch.int32),
-                    torch.where(sel, ivals[:, None, :], 0)
+                    torch.where(sel, ivals.at(r, c)[:, None, :], 0)
                     .sum(dim=2, dtype=torch.int32).sum(dim=0, dtype=torch.int32),
                     torch.where(sel, v, torch.inf).amin(dim=2).amin(dim=0),
                     torch.where(sel, v, -torch.inf).amax(dim=2).amax(dim=0),
                 ])
             elif kind == "counts_doc":
                 _, ids, exists, nbpad = desc
-                sel = mask & exists[:, None, :]
-                outs.append(scatter_rows(ids, sel, nbpad).sum(dim=0, dtype=torch.int32))
+                sel = mask & exists.at(r, c)[:, None, :]
+                outs.append(scatter_rows(ids.at(r, c), sel, nbpad).sum(dim=0, dtype=torch.int32))
             else:  # counts_entry
                 _, gords, edocs, evalid, nbpad = desc
+                ed = edocs.at(r, c)
                 sel = torch.gather(
-                    mask, 2, edocs.long()[:, None, :].expand(E, B, edocs.shape[1])
-                ) & evalid[:, None, :]
-                outs.append(scatter_rows(gords, sel, nbpad).sum(dim=0, dtype=torch.int32))
+                    mask, 2, ed.long()[:, None, :].expand(E, B, ed.shape[1])
+                ) & evalid.at(r, c)[:, None, :]
+                outs.append(scatter_rows(gords.at(r, c), sel, nbpad).sum(dim=0, dtype=torch.int32))
+        return outs
+
+    def step(ti_h, tw_h, tv_h, msm):
+        msm = np.asarray(msm, np.int32)
+        B = int(msm.shape[0])
+        outs = _combine_slots(
+            mesh, live.fold, B,
+            lambda r, c, ents, rows: part(
+                r, c, ti_h[ents, rows], tw_h[ents, rows], tv_h[ents, rows], msm[rows]
+            ),
+            ops,
+        )
         # one float64 [B, width] buffer for the ONE download: int32
         # counts and sums, float32 maxima and float64 extrema all keep
         # their values exactly in float64

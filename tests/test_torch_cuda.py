@@ -816,8 +816,49 @@ def test_mesh_on_card_matches_fanout(cuda, monkeypatch):
         assert mex.stats["fallbacks"] == 0 and mex.stats["degraded"] == 0
         assert mex.stats["launches"] == len(bodies)
         snap = mex.ensure_snapshot()
-        assert snap.device.type == "cuda" and snap.fold == len(snap.entries)
+        # every visible card is a slot: one card folds every entry
+        assert snap.device.type == "cuda"
+        assert snap.mesh.shape["shards"] == min(len(snap.entries), torch.cuda.device_count())
+        assert snap.fold == -(-len(snap.entries) // snap.mesh.shape["shards"])
     finally:
+        svc.close()
+        oracle.close()
+
+
+@pytest.mark.parametrize("n_data", [1, 2])
+def test_mesh_grid_on_card_matches_fanout(cuda, monkeypatch, n_data):
+    """The forced mesh over a grid of 4 slots (every card in turn, on a
+    machine with one card 4 slots on it; `data` 1 or 2): each slot holds
+    its fold of the stack on its card, and match, bool, multi_match and
+    exact kNN pages equal the fan-out's and the numpy backend's (ids
+    with tie runs as sets, scores within rtol 1e-5)."""
+    svc, oracle = _served_pair(monkeypatch, cuda)
+    try:
+        n = torch.cuda.device_count()
+        slots = [torch.device("cuda", i % n) for i in range(4)]
+        mex = svc.mesh_executor()
+        monkeypatch.setattr(mex, "_devices", lambda: slots)
+        if n_data > 1:
+            monkeypatch.setenv("ES_TPU_MESH_DATA", str(n_data))
+        mex.close()
+        rng = np.random.default_rng(17)
+        bodies = [{"query": {"match": {"body": q}}} for q in ("ant bee", "cat", "dog eel fox")]
+        bodies += TEXT_BODIES["bool"][:2] + TEXT_BODIES["multi_match"][:2]
+        bodies += [{"knn": {"field": "vec", "query_vector": [float(x) for x in rng.normal(size=16)],
+                            "k": 5, "num_candidates": 25}} for _ in range(3)]
+        for body in bodies:
+            got, ref = _mesh_vs_fanout(monkeypatch, svc, body)
+            _same_served(ref, got)
+            _same_served(oracle.search(dict(body)), got)
+        snap = mex.ensure_snapshot()
+        assert snap.mesh.shape == {"data": n_data, "shards": 4 // n_data}
+        view = mex._text_view(snap, "body")
+        for r, row in enumerate(snap.mesh.devices):
+            for c, dev in enumerate(row):
+                assert view["doc_ids"].at(r, c).device == dev
+        assert mex.stats["fallbacks"] == 0 and mex.stats["degraded"] == 0
+    finally:
+        svc.mesh_executor().close()
         svc.close()
         oracle.close()
 

@@ -617,14 +617,26 @@ def test_one_device_folds_every_entry(pair):
     assert (mex.stats["launches"], mex.stats["jobs"]) == (l0 + 1, j0 + 1)
 
 
-def test_multi_device_mesh_is_refused():
-    """A grid of several distinct devices is the multi-card mesh, which
-    the port does not have: a step over it raises."""
-    from elasticsearch_tpu_torch.parallel.mesh import make_mesh, mesh_device
-
-    with pytest.raises(ValueError, match="12c"):
-        mesh_device(make_mesh(2, devices=[torch.device("cuda", 0), torch.device("cuda", 1)]))
-    assert str(mesh_device(make_mesh(3, devices=["cpu"]))) == "cpu"
+def test_two_device_grid_builds_and_serves(pair, monkeypatch):
+    """A grid of two slots builds (one fold of the stack on each) and
+    serves the same pages as the fan-out; tests/test_torch_mesh_multi.py
+    holds every family and layout to the JAX package's mesh."""
+    psvc = pair[1]
+    mex = psvc.mesh_executor()
+    monkeypatch.setattr(mex, "_devices", lambda: [torch.device("cpu")] * 2)
+    mex.close()
+    try:
+        os.environ["ES_TPU_MESH"] = "force"
+        snap = mex.ensure_snapshot()
+        assert snap.mesh.shape == {"data": 1, "shards": 2}
+        assert snap.fold == 4 and snap.e_pad == 8
+        view = mex._text_view(snap, "body")
+        assert [tuple(p.shape[:1]) for p in view["doc_ids"].parts[0]] == [(4,), (4,)]
+        for body in (TEXT_BODIES[0], TEXT_BODIES[5]):
+            rm, rs = mesh_vs_seq(psvc, body)
+            assert_parity(rm, rs)
+    finally:
+        mex.close()
 
 
 def test_real_error_in_mesh_dispatch_raises(pair, monkeypatch):

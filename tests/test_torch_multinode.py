@@ -518,11 +518,18 @@ class TestPersistence:
             b.close()
             b2 = p.node("node-1", seeds=[a.address],
                         data_path=str(tmp_path / p.name / "node-1"))
+            # the node may rejoin before failure detection removed it: its
+            # copies are then demoted and peer-recover in background
+            # threads, so count its docs only once the table is green and
+            # no recovery is in flight
+            wait_until(
+                lambda: a.cluster.health()["status"] == "green"
+                and not b2._recovering,
+                msg="green with no recovery in flight",
+            )
             assert sum(e.num_docs for e in b2.indices["pers"].shards) == b_docs
             resp = a.search("pers", {"query": {"match": {"body": "doc"}}})
             assert resp["hits"]["total"]["value"] == 6
-            # the restarted replica's peer recovery settles the table
-            wait_until(lambda: a.cluster.health()["status"] == "green")
             return {"b_docs": b_docs, "resp": resp,
                     "routing": routing_table(a, "pers")}
 
