@@ -174,6 +174,13 @@ any failure:
      naming the grid's slots and distinct devices; (o2) and (p2), a
      4-shard index's mesh rescore and IVF probe (f32 and int8) on one
      slot and on a 2 x 2 (data x shards) grid, held to the fan-out;
+     route (q), the JAX package's own test suites replayed against the
+     port on the card (scripts/torch_reference_suites.py --device cuda
+     in a process of its own, `elasticsearch_tpu.*` resolved to the
+     port's module objects): the REST-, service- and node-level suites
+     and the op-level ones, the device build on; any failure, a guard
+     hit (a module of the JAX package or `jax` loaded) or a nonzero
+     exit fails the smoke;
      `_nodes/stats` must show batched launches, a bucket wider
      than 1, the chunked path, serve launches, filter cache hits, every
      sparse body on the batcher's sparse family, every `cold_agg` body
@@ -186,7 +193,8 @@ any failure:
      interpreter switch intervals, and once under a host stack sampler
      (measured, not checked);
   5. a `durable` JSON line (route (m)), a `cluster` JSON line (route
-     (n)), a `kernels` JSON line and per-phase wall times.
+     (n)), a `replay` JSON line (route (q)), a `kernels` JSON line and
+     per-phase wall times.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device,
 or without the rest of the repository beside it, the script exits
@@ -5269,6 +5277,44 @@ def route_cluster(raw: dict, seg, dims: int, vocab: int, seed: int, device) -> d
     return out
 
 
+REPLAY_WORKERS = 4  # pytest-xdist workers of route (q), where installed
+REPLAY_TIMEOUT_S = 600
+
+
+def route_replay(device) -> dict:
+    """Route (q): the JAX package's own test suites replayed against the
+    port on `device` by scripts/torch_reference_suites.py in a process of
+    its own, with none of this process's `ES_TPU_*` settings. Every
+    failure, a guard hit or a nonzero exit fails the smoke. Returns the
+    runner's JSON line with the route's wall."""
+    import importlib.util
+
+    import torch
+
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, str(root / "scripts" / "torch_reference_suites.py"), "--device", device.type]
+    if importlib.util.find_spec("xdist") is not None:
+        cmd += ["-n", str(REPLAY_WORKERS)]
+    env = {k: v for k, v in os.environ.items() if not k.startswith("ES_TPU_")}
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True, timeout=REPLAY_TIMEOUT_S)
+    wall = time.perf_counter() - t
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith('{"replay"')]
+    if proc.returncode != 0 or not lines:
+        sys.stderr.write(proc.stdout[-20000:] + proc.stderr[-4000:])
+    check(proc.returncode == 0 and bool(lines), f"(q) the replay exited {proc.returncode}")
+    out = json.loads(lines[-1])
+    check(out["failed"] == 0 and not out["guard"] and not out["stale_deselections"],
+          f"(q) failed {out['failed']}, guard {out['guard']}, stale {out['stale_deselections']}")
+    check(out["passed"] > 0 and out["replay"] == device.type, f"(q) {out['passed']} passed on {out['replay']}")
+    out["wall_s"] = wall
+    log(f"(q) replay on {device.type}: {out['suites']} suites, {out['passed']} passed of "
+        f"{out['collected']}, deselected {out['deselected']}, {wall:.1f}s")
+    return out
+
+
 def gpu_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5352,6 +5398,9 @@ def run(device, seed: int, n_docs: int, vocab: int, dims: int, card: str) -> dic
     cluster = route_cluster(raw, reader.segments[0], dims, vocab, seed, device)
     phases["4n_cluster_s"] = time.perf_counter() - t
     peaks["route_n"] = cluster["n1"].get("peak_device_bytes")
+    t = time.perf_counter()
+    replay = route_replay(device)
+    phases["4q_replay_s"] = time.perf_counter() - t
     peak = max(peaks.values()) if device.type == "cuda" else None
     log(f"peak device bytes {peaks}")
     return {
@@ -5363,6 +5412,7 @@ def run(device, seed: int, n_docs: int, vocab: int, dims: int, card: str) -> dic
         "ingest": ingest,
         "durable": durable,
         "cluster": cluster,
+        "replay": replay,
         "peak_device_bytes": peak,
         "peak_device_bytes_by_phase": peaks,
         "kernels": kernels,
@@ -5401,6 +5451,8 @@ def main(argv=None) -> int:
     print(json.dumps({"card": card, "cluster": result["cluster"]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"card": card, "serve": result["serve"]}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"card": card, "replay": result["replay"]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": result["kernels"]}), flush=True)
     print(json.dumps({

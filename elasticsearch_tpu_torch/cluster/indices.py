@@ -3342,8 +3342,11 @@ class IndexService:
             except KeyError:
                 pins = None
         window = max(from_ + size, 10)
+        # the new kwargs ride only on profiled requests so external
+        # wrappers of the original signatures keep working
         ranked = self._run_retriever(
-            body["retriever"], window, size, extra_filter, pins, prof_out=prof
+            body["retriever"], window, size, extra_filter, pins,
+            **({"prof_out": prof} if prof is not None else {}),
         )
         m_retr = time.perf_counter_ns()
         if "rescore" in body and ranked:
@@ -3354,7 +3357,10 @@ class IndexService:
                 # second stage over the FUSED candidates (the RAG shape:
                 # filtered hybrid retrieval → rerank → fetch); sources
                 # are fetched below, after the window re-sort
-                ranked = self._rescore_ranked(rescore_spec, ranked, pins, prof=prof)
+                ranked = self._rescore_ranked(
+                    rescore_spec, ranked, pins,
+                    **({"prof": prof} if prof is not None else {}),
+                )
         m_resc = time.perf_counter_ns()
         page = ranked[from_ : from_ + size]
         from ..search.executor import filter_source

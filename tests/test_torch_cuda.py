@@ -5,8 +5,11 @@ remaining query nodes, rescore) against the numpy backend, segments
 built on the card (ops/index_build.py) against the host build, a node
 with a data path reopened after a crash (its tail replayed into a build
 on the card) against the numpy backend, and `python -m
-elasticsearch_tpu_torch check`, and a two-node cluster (replication,
-failover, peer recovery) against the numpy backend, on the card. Every test here carries the `cuda` marker, needs an NVIDIA GPU and
+elasticsearch_tpu_torch check`, a two-node cluster (replication,
+failover, peer recovery) against the numpy backend, and the JAX
+package's tests of exact float equality that the card's summation order
+breaks (scripts/torch_reference_suites.py's `order` entries) on the same
+bodies within rtol 1e-5, on the card. Every test here carries the `cuda` marker, needs an NVIDIA GPU and
 nvcc, decides so inside its fixture and skips without them. The module
 imports neither jax nor the JAX package, so on a machine with the card
 it also runs where only PyTorch is installed:
@@ -888,3 +891,182 @@ def test_mesh_sparse_and_aggs_on_card(cuda, monkeypatch, quant):
     finally:
         svc.close()
         oracle.close()
+
+
+# ---- the card's accumulation order: reference tests of exact float
+# equality that the card's summation order breaks, held here on the same
+# bodies within rtol 1e-5 (scripts/torch_reference_suites.py's `order`
+# entries); each reports its largest relative difference ----
+
+ORDER_RTOL = 1e-5
+SPARSE_VOCAB = [f"tok{i:02d}" for i in range(40)]
+SPARSE_MAPPINGS = {"properties": {"ml": {"type": "sparse_vector"}, "body": {"type": "text"},
+                                  "vec": {"type": "dense_vector", "dims": 4, "similarity": "cosine"}}}
+
+
+def _order_pages(ref, got, what):
+    """`ref` and `got` are lists of (id, score) in rank order: the ids
+    equal position by position outside runs of scores tied within the
+    rtol (a run's ids as a set), the scores within rtol. Returns the
+    largest relative difference of a score."""
+    assert len(got) == len(ref), what
+    rs = np.array([s for _, s in ref], np.float64)
+    gs = np.array([s for _, s in got], np.float64)
+    np.testing.assert_allclose(gs, rs, rtol=ORDER_RTOL, atol=0, err_msg=what)
+    i = 0
+    while i < len(ref):
+        j = i + 1
+        while j < len(ref) and np.isclose(rs[j], rs[j - 1], rtol=ORDER_RTOL, atol=0):
+            j += 1
+        assert {d for d, _ in got[i:j]} == {d for d, _ in ref[i:j]}, what
+        i = j
+    nz = rs != 0
+    return float(np.max(np.abs(gs[nz] - rs[nz]) / np.abs(rs[nz]), initial=0.0))
+
+
+def _report(record_property, name, worst):
+    record_property("max_rel_diff", worst)
+    print(f"order {name} max_rel_diff={worst!r}")
+
+
+def _sparse_docs(n=300, seed=3):
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        toks = [str(t) for t in rng.choice(SPARSE_VOCAB, size=int(rng.integers(2, 9)), replace=False)]
+        out.append((str(i), {"ml": {t: float(np.round(rng.random() * 3 + 0.05, 4)) for t in toks},
+                             "body": " ".join(toks), "vec": [float(x) for x in rng.normal(size=4)]}))
+    return out
+
+
+def _sparse_qbody(seed, size=10, exact=False):
+    rng = np.random.default_rng(seed)
+    toks = [str(t) for t in rng.choice(SPARSE_VOCAB, size=int(rng.integers(2, 6)), replace=False)]
+    b = {"query": {"sparse_vector": {"field": "ml", "query_vector": {
+        t: float(np.round(rng.random() * 2 + 0.1, 4)) for t in toks}}}, "size": size}
+    return {**b, "exact": True} if exact else b
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("k", [5, 16, 40])
+def test_impact_scorer_on_card(cuda, record_property, quantized, k):
+    """tests/test_sparse.py::TestImpactKernel::test_scorer_matches_oracle
+    on the card: `ImpactScorer` against the term-at-a-time fp32 oracle."""
+    from elasticsearch_tpu_torch.analysis import AnalysisRegistry
+    from elasticsearch_tpu_torch.index.mapping import DocumentParser, Mappings
+    from elasticsearch_tpu_torch.index.segment import SegmentBuilder
+    from elasticsearch_tpu_torch.ops import impact as impact_ops
+
+    maps = Mappings({"properties": {"ml": {"type": "sparse_vector"}}})
+    parser = DocumentParser(maps, AnalysisRegistry())
+    b = SegmentBuilder(maps)
+    for i, s in _sparse_docs():
+        b.add(parser.parse(i, {"ml": s["ml"]}))
+    seg = b.build()
+    sf = seg.sparse["ml"]
+    plane = sf.qweights if quantized else sf.weights
+    sc = impact_ops.ImpactScorer(sf.doc_ids, plane, seg.num_docs, device=cuda)
+    rng = np.random.default_rng(17)
+    tile_lists, weight_lists, oracles = [], [], []
+    for _ in range(6):
+        toks = [str(t) for t in rng.choice(SPARSE_VOCAB, size=4, replace=False)]
+        ws = [float(np.round(rng.random() * 2 + 0.1, 4)) for _ in toks]
+        tids, tws, _bws, starts, counts = impact_ops.impact_tile_lists(sf, toks, ws, quantized)
+        tile_lists.append(np.concatenate([np.arange(s, s + c, dtype=np.int64) for s, c in zip(starts, counts)])
+                          if len(tids) else np.zeros(0, np.int64))
+        weight_lists.append(np.concatenate([np.full(int(c), tw, np.float32) for tw, c in zip(tws, counts)])
+                            if len(tids) else np.zeros(0, np.float32))
+        acc = np.zeros(seg.num_docs, np.float32)
+        for tid, tw in zip(tids, tws):
+            start, count = int(sf.term_tile_start[tid]), int(sf.term_tile_count[tid])
+            d = sf.doc_ids[start : start + count].ravel()
+            v = plane[start : start + count].ravel()
+            m = d >= 0
+            np.add.at(acc, d[m], np.float32(tw) * v[m].astype(np.float32))
+        oracles.append(acc)
+    acc, cnt = sc.new_acc()
+    acc, cnt = sc.score_into(acc, cnt, tile_lists, weight_lists)
+    scores, docs, totals = sc.finalize(acc, cnt, k)
+    worst = 0.0
+    for ji, oracle in enumerate(oracles):
+        matched = np.flatnonzero(oracle != 0.0)
+        want = sorted(matched, key=lambda d: (-oracle[d], d))[: min(k, seg.num_docs)]
+        finite = np.isfinite(scores[ji])
+        got = [(int(d), float(s)) for d, s in zip(docs[ji][finite], scores[ji][finite])]
+        worst = max(worst, _order_pages([(int(d), float(oracle[d])) for d in want], got, ji))
+        assert int(totals[ji]) == len(matched)
+    _report(record_property, f"impact_scorer[{k}-{quantized}]", worst)
+
+
+@pytest.mark.parametrize("case", ["fp32", "exact"])
+def test_sparse_serving_on_card(cuda, monkeypatch, record_property, case):
+    """tests/test_sparse.py::TestServingParity's fp32 and exact-escape
+    bodies on the card against the numpy backend."""
+    from elasticsearch_tpu_torch.cluster.indices import IndexService
+
+    monkeypatch.setenv("ES_TPU_BG_REFRESH", "off")
+    quant = "none" if case == "fp32" else "int8"
+    pair = []
+    for backend, device in (("torch", cuda), ("numpy", "cpu")):
+        svc = IndexService(f"order-sp-{case}-{backend}", mappings_json=SPARSE_MAPPINGS, device=device,
+                           settings={"number_of_shards": 1, "search.backend": backend,
+                                     "sparse.quantization": quant})
+        for i, s in _sparse_docs():
+            svc.index_doc(i, s)
+        svc.refresh()
+        pair.append(svc)
+    bodies = ([_sparse_qbody(s, size=z) for s in range(12) for z in (5, 16, 40)] if case == "fp32"
+              else [_sparse_qbody(s, exact=True) for s in range(8)])
+    worst = 0.0
+    try:
+        for i, b in enumerate(bodies):
+            got, ref = (svc.search(dict(b)) for svc in pair)
+            pages = [[(h["_id"], h["_score"]) for h in r["hits"]["hits"]] for r in (ref, got)]
+            worst = max(worst, _order_pages(*pages, i))
+    finally:
+        for svc in pair:
+            svc.close()
+    _report(record_property, f"sparse_serving[{case}]", worst)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_mesh_rescore_on_card(cuda, monkeypatch, record_property, quantized):
+    """tests/test_rerank.py::TestMeshRerank::test_mesh_rescore_bit_exact_vs_per_shard
+    on the card: the forced mesh's fused rescore against the per-shard
+    path of the same 4-shard index."""
+    from elasticsearch_tpu_torch.cluster.indices import IndexService
+
+    monkeypatch.setenv("ES_TPU_BG_REFRESH", "off")
+    dims = 8
+    mapping = {"properties": {"body": {"type": "text"},
+                              "vec": {"type": "dense_vector", "dims": dims, "similarity": "cosine"},
+                              "toks": {"type": "rank_vectors", "dims": dims, "similarity": "dot_product"}}}
+    words = ["alpha beta", "alpha gamma", "beta gamma", "alpha beta gamma"]
+    settings = {"number_of_shards": 4, "search.backend": "torch"}
+    if quantized:
+        settings["rerank.quantization"] = "int8"
+    svc = IndexService(f"order-rr-{int(quantized)}", settings=settings, mappings_json=mapping, device=cuda)
+    try:
+        rng = np.random.default_rng(3)
+        for i in range(120):
+            v = rng.normal(size=dims)
+            svc.index_doc(str(i), {"body": words[i % 4], "vec": [float(x) for x in v / np.linalg.norm(v)],
+                                   "toks": rng.normal(size=(1 + i % 4, dims)).round(3).tolist()})
+        svc.refresh()
+        bodies = [{"query": {"match": {"body": w.split()[0]}}, "size": 10,
+                   "rescore": {"window_size": 20, "query": {
+                       "rescore_query": {"rank_vectors": {
+                           "field": "toks",
+                           "query_vectors": np.random.default_rng(s).normal(size=(3, dims)).round(3).tolist()}},
+                       "query_weight": 0.5, "rescore_query_weight": 2.0}}}
+                  for s, w in enumerate(words[:3])]
+        worst = 0.0
+        for i, body in enumerate(bodies):
+            got, ref = _mesh_vs_fanout(monkeypatch, svc, body)
+            pages = [[(h["_id"], h["_score"]) for h in r["hits"]["hits"]] for r in (ref, got)]
+            worst = max(worst, _order_pages(*pages, i))
+        mex = svc.mesh_executor()
+        assert mex.stats["fallbacks"] == 0 and mex.stats["degraded"] == 0
+    finally:
+        svc.close()
+    _report(record_property, f"mesh_rescore[{quantized}]", worst)

@@ -514,6 +514,32 @@ def test_rescore_matches_reference(kind, shards, quantized):
         close_all(pair)
 
 
+@pytest.mark.parametrize("profile", [False, True], ids=["plain", "profiled"])
+def test_retriever_hooks_keep_the_references_signatures(small_pair, monkeypatch, profile):
+    """A wrapper of `_run_retriever` / `_rescore_ranked` written against
+    the reference's signatures keeps working: the profiler's kwargs ride
+    only on profiled requests, in both packages."""
+    seen = {}
+    for cls, name in ((JIndexService, "_run_retriever"), (IndexService, "_run_retriever"),
+                      (JIndexService, "_rescore_ranked"), (IndexService, "_rescore_ranked")):
+        orig = getattr(cls, name)
+
+        def hooked(self_svc, *args, _orig=orig, _key=(cls, name), **kw):
+            seen[_key] = sorted(kw)
+            return _orig(self_svc, *args, **kw)
+
+        monkeypatch.setattr(cls, name, hooked)
+    body = hybrid_body(np.random.default_rng(5), 0)
+    if profile:
+        body["profile"] = True
+    ref = small_pair[0].search(copy.deepcopy(body))
+    got = small_pair[1].search(copy.deepcopy(body))
+    same_page(ref, got)
+    for name in ("_run_retriever", "_rescore_ranked"):
+        assert seen[(IndexService, name)] == seen[(JIndexService, name)], name
+    assert seen[(IndexService, "_run_retriever")] == (["prof_out"] if profile else [])
+
+
 def test_rescore_changes_the_page_and_keeps_totals(small_pair):
     rng = np.random.default_rng(21)
     body = {"query": {"match": {"body": "alpha"}}, "size": 10}
