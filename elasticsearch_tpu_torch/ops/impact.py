@@ -9,7 +9,8 @@ and a weighted sum:
   [n_tiles, 128] planes, int8 or f32 (the cast to f32 comes AFTER the
   gather, so the int8 column keeps its 4x memory saving)
   → contribution = query_weight * impact
-  → `index_add_` into a dense per-doc accumulator (term-at-a-time)
+  → ops/ordered_scatter.ordered_scatter_add into a dense per-doc
+    accumulator (term-at-a-time)
   → ops/scoring.topk_desc (doc asc among equal scores).
 
 `ImpactScorer` mirrors ops/scoring.ChunkedScorer: tile lists of any
@@ -32,10 +33,9 @@ doc's TOTAL score: dropped docs score strictly below theta and cannot
 displace the top-k (totals become lower bounds when tiles were
 dropped, and callers report relation "gte").
 
-On the CPU the f32 path sums each doc's contributions in query-term
-order and matches the numpy oracle bit for bit; on a CUDA device
-`index_add_` adds with float atomics, so a doc's last ulp may change
-from run to run (parity is held at rtol 1e-5 there).
+The f32 path sums each doc's contributions in query-term order and
+matches the numpy oracle bit for bit, on the CPU and on the card alike,
+run after run (ops/ordered_scatter.py).
 """
 
 from __future__ import annotations
@@ -45,6 +45,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .ordered_scatter import ordered_scatter_add
 from .scoring import BPAD, TCHUNK, _finalize, _threshold, upload
 
 TILE_WIDTH = 128
@@ -66,8 +67,8 @@ def impact_tile_contrib(rows_d, rows_v, tw, valid, n_docs):
     contribution = tw * f32(value). `tw` carries the query-term weight
     (with the per-term dequant scale folded in ON THE HOST for int8
     columns, so the same code serves both storage modes); invalid slots
-    score exactly 0 and target the n_docs overflow column."""
-    tgt = torch.where(valid, rows_d, n_docs).long()
+    score exactly 0 and target the n_docs overflow column (int32)."""
+    tgt = torch.where(valid, rows_d, n_docs).int()
     s = tw * rows_v.to(torch.float32)
     return tgt, torch.where(valid, s, 0.0)
 
@@ -85,17 +86,11 @@ def _impact_chunk_add(doc_ids, values, acc, cnt, ti, tw, tv):
     place; cnt counts matching postings per doc (one per term — the
     sparse match mask is cnt > 0)."""
     n_docs = acc.shape[1] - 1
-    b = acc.shape[0]
     rows_d = doc_ids[ti]  # [B, TC, 128]
     rows_v = values[ti]  # stored dtype; cast after the gather
     valid = (rows_d >= 0) & tv[:, :, None]
     tgt, s = impact_tile_contrib(rows_d, rows_v, tw[:, :, None], valid, n_docs)
-    # flat per-row offsets: one index_add_ over [B * (n+1)] cells keeps
-    # each row's additions in slot order
-    flat = (tgt + (torch.arange(b, device=acc.device) * (n_docs + 1))[:, None, None]).reshape(-1)
-    acc.view(-1).index_add_(0, flat, s.reshape(-1))
-    cnt.view(-1).index_add_(0, flat, valid.reshape(-1).to(torch.int32))
-    return acc, cnt
+    return ordered_scatter_add(acc, tgt, s, cnt, valid.to(torch.int32))
 
 
 class ImpactScorer:

@@ -24,28 +24,21 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Tuple
 
 import numpy as np
 import torch
 
+from . import nvcc
 from .scoring import topk_desc, upload
 
 LANE = 128
 DOC_BLOCK = 512  # the reference pads N to its grid block; kept for layout parity
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "int8_knn.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-]
+SOURCE = nvcc.CSRC / "int8_knn.cu"
+BUILD_DIR = nvcc.BUILD_DIR
+NVCC_FLAGS = nvcc.NVCC_FLAGS
 K_CHUNK = 64  # the kernel pads d to whole 64-wide chunks in shared memory
 QUERY_CHUNKS = (8, 16, 32)  # queries per block: the kernel's three variants
 SMEM_LIMIT = 232_448  # dynamic shared memory one Hopper block may use
@@ -68,43 +61,10 @@ def quantize_int8(vectors: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return q, scales
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(cuda_home) / "bin" / "nvcc"
-    if not path.exists():
-        raise RuntimeError(
-            "nvcc not found (PATH or $CUDA_HOME/bin): the int8 kNN kernel "
-            "is compiled from csrc/int8_knn.cu on the machine with the card"
-        )
-    return str(path)
-
-
 def build() -> Tuple[Path, str]:
     """Compiles csrc/int8_knn.cu into _build/ unless a library built from
-    the same source and flags is already there. Returns (library path,
-    the compiler's output; empty when nothing was compiled)."""
-    digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    lib = BUILD_DIR / f"libint8_knn_{digest}.so"
-    if lib.exists():
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".{lib.name}.{os.getpid()}.tmp"
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) on {SOURCE}:\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, lib)  # atomic: a concurrent builder sees old or new
-    return lib, proc.stdout + proc.stderr
+    the same source and flags is already there (ops/nvcc.build)."""
+    return nvcc.build(SOURCE)
 
 
 @functools.lru_cache(maxsize=None)

@@ -7,7 +7,8 @@ chunked scorer for small ones, the cross-segment merges):
 
   gather tile rows ([n_tiles, 128] int32 tensors on the device)
   → elementwise BM25
-  → scatter-add into a dense per-doc accumulator (term-at-a-time)
+  → ordered scatter-add into a dense per-doc accumulator
+    (term-at-a-time; ops/ordered_scatter.py)
   → a top-k that keeps the lowest index among equal scores (doc asc,
     matching Lucene and `lax.top_k`).
 
@@ -16,9 +17,13 @@ tensors, on whatever device the tensors live on. Shapes, constants and
 the packed int32 plan/result layouts of `FusedScorer` are unchanged, so
 a plan packed for one package is a plan for the other.
 
-Scores are float32 end to end. On a CUDA device `scatter_add_` sums
-with float atomics, so the order of a doc's additions (and its last
-ulp) can change from run to run; the parity tests state rtol 1e-5.
+Scores are float32 end to end. Every float accumulation goes through
+ops/ordered_scatter.ordered_scatter_add, which adds a doc's
+contributions in tile order on the CPU and on the card alike (the
+order of the reference's `.at[].add`), so a score's bits do not change
+from run to run. The parity tests against the JAX package state rtol
+1e-5: XLA on the CPU contracts `1 + tf * inv_norm` into one fused
+multiply-add, PyTorch rounds the product first.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from .ordered_scatter import ordered_scatter_add
 
 
 def next_bucket(n: int, minimum: int = 8) -> int:
@@ -98,7 +105,7 @@ def score_tiles(
     into a dense per-doc array).
     """
     valid = (doc_rows >= 0) & tile_valid[:, None]
-    docs = torch.where(valid, doc_rows, n_docs).long()
+    docs = torch.where(valid, doc_rows, n_docs).int()
     safe = doc_rows.clamp(0, max(n_docs - 1, 0)).long()
     inv = inv_norm[safe]
     tf = tf_rows.to(torch.float32)
@@ -107,9 +114,8 @@ def score_tiles(
     s = torch.where(valid, s, 0.0)
     dev = inv_norm.device
     acc = torch.zeros(n_docs + 1, dtype=torch.float32, device=dev)
-    acc.scatter_add_(0, docs.reshape(-1), s.reshape(-1))
     cnt = torch.zeros(n_docs + 1, dtype=torch.int32, device=dev)
-    cnt.scatter_add_(0, docs.reshape(-1), valid.reshape(-1).to(torch.int32))
+    ordered_scatter_add(acc, docs, s, cnt, valid.to(torch.int32))
     return acc[:n_docs], cnt[:n_docs]
 
 
@@ -161,14 +167,14 @@ TCHUNK = 512  # tiles per query row per launch
 
 
 def _chunk_scores(doc_ids, tfs, inv_norm, ti, tw, tv):
-    """(scatter targets [B, TC, 128], BM25 contributions, valid mask)
+    """(scatter targets int32 [B, TC, 128], BM25 contributions, valid mask)
     for one [B, TC] chunk of tile ids `ti` with weights `tw`; invalid
     slots score exactly 0 and target the overflow column n_docs."""
     n_docs = inv_norm.shape[0]
     rows_d = doc_ids[ti]  # [B, TC, 128]
     rows_t = tfs[ti]
     valid = (rows_d >= 0) & tv[:, :, None]
-    tgt = torch.where(valid, rows_d, n_docs).long()
+    tgt = torch.where(valid, rows_d, n_docs).int()
     inv = inv_norm[rows_d.clamp(0, max(n_docs - 1, 0)).long()]
     w = tw[:, :, None]
     s = w - w / (1.0 + rows_t.to(torch.float32) * inv)
@@ -178,8 +184,7 @@ def _chunk_scores(doc_ids, tfs, inv_norm, ti, tw, tv):
 def _chunk_add(doc_ids, tfs, inv_norm, acc, ti, tw, tv):
     """acc[B, n+1] += BM25 contributions of one [B, TCHUNK] tile chunk."""
     tgt, s, _ = _chunk_scores(doc_ids, tfs, inv_norm, ti, tw, tv)
-    b = acc.shape[0]
-    acc.scatter_add_(1, tgt.reshape(b, -1), s.reshape(b, -1))
+    ordered_scatter_add(acc, tgt, s)
     return acc
 
 
@@ -187,11 +192,7 @@ def _chunk_add_cnt(doc_ids, tfs, inv_norm, acc, cnt, ti, tw, tv):
     """Like _chunk_add but also counts matching terms per doc (for
     minimum_should_match / operator=and semantics)."""
     tgt, s, valid = _chunk_scores(doc_ids, tfs, inv_norm, ti, tw, tv)
-    b = acc.shape[0]
-    tgt = tgt.reshape(b, -1)
-    acc.scatter_add_(1, tgt, s.reshape(b, -1))
-    cnt.scatter_add_(1, tgt, valid.reshape(b, -1).to(torch.int32))
-    return acc, cnt
+    return ordered_scatter_add(acc, tgt, s, cnt, valid.to(torch.int32))
 
 
 def _threshold(acc, live, k: int, block_size: int):
@@ -492,17 +493,16 @@ def _fused_query(doc_ids, tfs, inv_norm, live, dense, plan, t_rare, n_hot, k, wi
     rows_d = doc_ids[ti]  # [B,T,128]
     rows_t = tfs[ti]
     valid = (rows_d >= 0) & tile_ok[:, :, None]
-    tgt = torch.where(valid, rows_d, n).long().reshape(B, -1)
+    tgt = torch.where(valid, rows_d, n).int()
     inv = inv_norm[rows_d.clamp(0, n - 1).long()]
     w = rare_tw[:, :, None]
     s = w - w / (1.0 + rows_t.to(torch.float32) * inv)
     s = torch.where(valid, s, 0.0)
     acc = torch.zeros(B, n + 1, dtype=torch.float32, device=plan.device)
-    acc.scatter_add_(1, tgt, s.reshape(B, -1))
+    cnt = torch.zeros(B, n + 1, dtype=torch.int32, device=plan.device) if with_cnt else None
+    ordered_scatter_add(acc, tgt, s, cnt, valid.to(torch.int32) if with_cnt else None)
     acc = acc[:, :n]
     if with_cnt:
-        cnt = torch.zeros(B, n + 1, dtype=torch.int32, device=plan.device)
-        cnt.scatter_add_(1, tgt, valid.reshape(B, -1).to(torch.int32))
         cnt = cnt[:, :n]
 
     # ---- hot terms: dense per-doc tf rows, pure vector math ----
@@ -657,15 +657,14 @@ def _fused_query_mf(doc_ids_f, tfs_f, inv_norm_f, dense_f, live, plan, tie,
         rows_d = doc_ids[ti]  # [B,T,128]
         rows_t = tfs[ti]
         valid = (rows_d >= 0) & tile_ok[:, :, None]
-        tgt = torch.where(valid, rows_d, n).long().reshape(B, -1)
+        tgt = torch.where(valid, rows_d, n).int()
         inv = inv_norm[rows_d.clamp(0, n - 1).long()]
         w = rare_tw.abs()[:, :, None]
         s = w - w / (1.0 + rows_t.to(torch.float32) * inv)
         s = torch.where(valid, s, 0.0)
         acc = torch.zeros(B, n + 1, dtype=torch.float32, device=dev)
-        acc.scatter_add_(1, tgt, s.reshape(B, -1))
         counted = valid & (rare_tw > 0)[:, :, None]
-        cnt.scatter_add_(1, tgt, counted.reshape(B, -1).to(torch.int32))
+        ordered_scatter_add(acc, tgt, s, cnt, counted.to(torch.int32))
         acc = acc[:, :n]
         # hot terms: dense rows
         if dense is not None and dense.shape[0] > 0:

@@ -30,12 +30,13 @@ Design contract (float-exactness with the per-shard path):
     BlockMaxIndex), same `w - w/(1 + tf·inv)` accumulation in the same
     tile order, same live-doc masking — and the merge's (score desc,
     slot asc) order equals the coordinator's (score desc, shard asc,
-    segment asc, doc asc) tie-break. On the CPU the pages are bit for
-    bit the per-shard path's, whatever the grid, but for the kNN
-    product on a ``data`` axis of 2+: the BLAS picks its kernel by the
-    row count, so a score may move in its last ulp; on a card
-    `scatter_add_` sums in a run-dependent order (the pages agree
-    within rtol 1e-5).
+    segment asc, doc asc) tie-break. The pages are bit for bit the
+    per-shard path's, whatever the grid, on the CPU and the card alike
+    (every float accumulation is the ordered scatter-add of
+    ops/ordered_scatter.py, and the rescore multiplies each entry in the
+    per-shard path's shapes), but for the kNN product on a ``data`` axis
+    of 2+: the BLAS picks its kernel by the row count, so a score may
+    move in its last ulp.
   * no pruning on the mesh path: totals come out exact (relation "eq"),
     which is the per-shard path's behavior whenever its capped-total
     proof does not fire.
@@ -997,15 +998,18 @@ class MeshExecutor:
             from ..models import rerank as rerank_model
 
             n_max = snap.n_docs_max
-            tmax = 1
+            # per entry, the per-shard column's gather width (one live
+            # segment per shard: the segment's own max tokens per doc)
+            entry_tmax = [1] * snap.e_pad
             flat_max = 1
             mvfs = []
-            for sid, si in snap.entries:
+            for e, (sid, si) in enumerate(snap.entries):
                 mvf = snap.readers[sid].segments[si].multi_vectors.get(model.field)
                 mvfs.append(mvf)
                 if mvf is not None and len(mvf.tok_vectors):
-                    tmax = max(tmax, mvf.max_tokens)
+                    entry_tmax[e] = max(1, mvf.max_tokens)
                     flat_max = max(flat_max, int(len(mvf.tok_vectors)))
+            tmax = max(entry_tmax)
             dims = int(model.dims) or next(
                 (
                     int(m.tok_vectors.shape[1])
@@ -1044,6 +1048,7 @@ class MeshExecutor:
                 "toks": toks_dev,
                 "scales": scales_dev,
                 "tmax": int(tmax),
+                "entry_tmax": tuple(entry_tmax),
                 "dims": dims,
             }
             snap.text[key] = view
@@ -1074,7 +1079,7 @@ class MeshExecutor:
                         kb,
                         k_req,
                         window,
-                        rview["tmax"],
+                        rview["entry_tmax"],
                         with_cnt=with_cnt,
                     )
                     snap.steps[key] = step

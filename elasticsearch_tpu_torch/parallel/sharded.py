@@ -43,13 +43,14 @@ Two families of step builders live here:
     order, the same `w - w/(1 + tf·inv)` formula, the same live and
     count masks), and only the merge moves from the host into the step.
 
-On a CUDA device `scatter_add_` and `index_add_` sum with float atomics,
-so a doc's last ulp can change from run to run (and from the per-shard
-path's); on the CPU the additions run in slot order and the pages are
-bit for bit the per-shard path's. A dense product (`q @ v.T`) is the
-exception on a ``data`` axis of 2+: a slot multiplies its share of the
-query rows, and the BLAS picks its kernel by the row count (one row
-takes a matrix-vector kernel), so a kNN score may move in its last ulp.
+Every float accumulation is ops/ordered_scatter.ordered_scatter_add,
+which adds in slot order on the CPU and on the card alike, so the pages
+are bit for bit the per-shard path's, run after run; the rescore
+multiplies each entry in the per-shard path's shapes (see
+build_mesh_rerank_step). A dense product (`q @ v.T`) is the exception
+on a ``data`` axis of 2+: a slot multiplies its share of the query
+rows, and the BLAS picks its kernel by the row count (one row takes a
+matrix-vector kernel), so a kNN score may move in its last ulp.
 """
 
 from __future__ import annotations
@@ -62,6 +63,7 @@ import torch
 
 from ..index.segment import INVALID_DOC, TILE, Segment
 from ..models import bm25
+from ..ops.ordered_scatter import ordered_scatter_add
 from ..ops.scoring import TCHUNK, next_bucket, topk_desc, upload
 from .mesh import SHARD_AXIS, Mesh, coord_device, fold_factor
 
@@ -447,7 +449,6 @@ def _bm25_into(acc, cnt, dids, tfs, inv, ti, tw, tv, count_signed: bool):
     E, B, T = ti.shape
     n_docs = inv.shape[1]
     nt = dids.shape[1]
-    rows = E * B
     inv_flat = inv.reshape(-1)
     doc_off = _entry_offsets(E, n_docs, ti.device)
     for c0 in range(0, T, TCHUNK):
@@ -455,15 +456,15 @@ def _bm25_into(acc, cnt, dids, tfs, inv, ti, tw, tv, count_signed: bool):
         twc = tw[:, :, c0 : c0 + TCHUNK]
         rows_d, rows_t = _gather_tiles((dids, tfs), tic, nt)
         valid = (rows_d >= 0) & tv[:, :, c0 : c0 + TCHUNK, None]
-        tgt = torch.where(valid, rows_d, n_docs).long().reshape(rows, -1)
+        tgt = torch.where(valid, rows_d, n_docs).int()
         invg = inv_flat[rows_d.clamp(0, max(n_docs - 1, 0)).long() + doc_off]
         w = (twc.abs() if count_signed else twc)[:, :, :, None]
         s = w - w / (1.0 + rows_t.to(torch.float32) * invg)
         s = torch.where(valid, s, 0.0)
-        acc.scatter_add_(1, tgt, s.reshape(rows, -1))
+        counted = None
         if cnt is not None:
-            counted = valid & (twc > 0)[:, :, :, None] if count_signed else valid
-            cnt.scatter_add_(1, tgt, counted.reshape(rows, -1).to(torch.int32))
+            counted = (valid & (twc > 0)[:, :, :, None] if count_signed else valid).to(torch.int32)
+        ordered_scatter_add(acc, tgt, s, cnt, counted)
 
 
 def _match_mask(acc, cnt, live, msm):
@@ -789,9 +790,8 @@ def build_mesh_sparse_step(
         ti, tw, tv = _up_plan(dev, ti_h, tw_h, tv_h)
         B, T = ti.shape[1], ti.shape[2]
         rows = E * B
-        acc = torch.zeros(rows * (n_docs + 1), dtype=torch.float32, device=dev)
-        cnt = torch.zeros(rows * (n_docs + 1), dtype=torch.int32, device=dev)
-        row_off = (torch.arange(rows, device=dev) * (n_docs + 1)).view(E, B, 1, 1)
+        acc = torch.zeros(rows, n_docs + 1, dtype=torch.float32, device=dev)
+        cnt = torch.zeros(rows, n_docs + 1, dtype=torch.int32, device=dev)
         for c0 in range(0, T, TCHUNK):
             tic = ti[:, :, c0 : c0 + TCHUNK]
             rows_d, rows_v = _gather_tiles((doc_ids.at(r, c), values.at(r, c)), tic, nt)
@@ -799,9 +799,7 @@ def build_mesh_sparse_step(
             tgt, s = impact_tile_contrib(
                 rows_d, rows_v, tw[:, :, c0 : c0 + TCHUNK, None], valid, n_docs
             )
-            flat = (tgt + row_off).reshape(-1)
-            acc.index_add_(0, flat, s.reshape(-1))
-            cnt.index_add_(0, flat, valid.reshape(-1).to(torch.int32))
+            ordered_scatter_add(acc, tgt, s, cnt, valid.to(torch.int32))
         acc = acc.view(E, B, n_docs + 1)[:, :, :n_docs]
         # every query term is optional: the sparse match mask is
         # cnt > 0, exactly ops/scoring._finalize at msm=1
@@ -834,7 +832,7 @@ def build_mesh_rerank_step(
     kb: int,  # local candidate page (compile bucket >= k_req)
     k_req: int,  # the request page (from + size): per-entry page cut
     window: int,  # rescore window, already clamped to k_req
-    tmax: int,  # max tokens per doc (gather width)
+    tmax: Sequence[int],  # per entry: max tokens per doc (its gather width)
     *,
     with_cnt: bool,
 ):
@@ -846,7 +844,11 @@ def build_mesh_rerank_step(
     precondition), each entry's local stream equals the per-shard
     path's post-rescore page: positions < window are re-sorted by
     blended score, positions [window, k_req) keep first stage, positions
-    >= k_req are dropped (the shard page cut).
+    >= k_req are dropped (the shard page cut). Each entry's maxsim runs
+    in the shapes of the per-shard path's rerank group (B rows, the
+    window bucket `wb` of a full page, the entry's own `tmax`): the
+    product's reduction order on the card follows its shapes, so the
+    scores are bit for bit the per-shard path's.
 
     fn(ti, tw, tv, msm[B], qtoks[B, Qt, d], qvalid[B, Qt], weights[2])
     → packed int32 [B, 3·slots + 1]: the merged stream FULLY ordered
@@ -858,6 +860,8 @@ def build_mesh_rerank_step(
     n_docs = int(inv_norm.shape[1])
     kk = min(kb, n_docs)
     wc = min(window, k_req, kk)
+    # search/rescorer.RerankPlan.wb of a full per-shard page
+    wb = max(16, next_bucket(min(k_req, kk), 16))
     fmax = int(rr_toks.shape[1])
     fold = live.fold
 
@@ -903,12 +907,16 @@ def build_mesh_rerank_step(
         qt = _up(dev, qtoks)
         qv = _up(dev, qvalid)
         flat_starts, flat_counts, flat_toks, flat_scales = csr[r][c]
-        msim = maxsim_candidates(
-            qt[None].expand(E, *qt.shape).reshape(E * B, *qt.shape[1:]),
-            qv[None].expand(E, *qv.shape).reshape(E * B, -1),
-            flat_starts, flat_counts, flat_toks, flat_scales,
-            docs.reshape(E * B, kk), tmax,
-        )
+        msim = []
+        for e in range(E):
+            # [B, wb] candidates, padded with the entry's doc 0 as the
+            # per-shard group pads with the shard's
+            de = torch.nn.functional.pad(docs[e, :, :wb], (0, max(wb - kk, 0)), value=e * n_docs)
+            m = maxsim_candidates(
+                qt, qv, flat_starts, flat_counts, flat_toks, flat_scales, de, tmax[c * fold + e]
+            )
+            msim.append(torch.nn.functional.pad(m[:, :kk], (0, max(kk - wb, 0))))
+        msim = torch.stack(msim).reshape(E * B, kk)
         first = torch.where(keep, s_e, -torch.inf)
         scores, perm = blend_and_sort(
             msim, first.reshape(E * B, kk), keep.reshape(E * B, kk),

@@ -33,10 +33,7 @@ A test leaves the replay only through `DESELECT`, with one of three
 reasons: (a) it probes JAX/XLA itself; (b) it is a known failure of the
 reference; (c) it calls an op with the reference's signature or return
 type, which the port changed by design, and a `tests/test_torch_*.py`
-twin holds that op against the reference. On the card a fourth,
-`order`, names a test of exact float equality that only the card's
-accumulation order breaks; its twin in `tests/test_torch_cuda.py` holds
-the same body within rtol 1e-5. The run prints one JSON line: the
+twin holds that op against the reference. The run prints one JSON line: the
 suites, and per suite the tests collected, passed, failed, skipped and
 deselected by reason, any entry of `DESELECT` that matched no test, the
 guard's findings and the seconds. It exits with pytest's code, else 3
@@ -186,22 +183,6 @@ _deselect("c", CPU, f"{_DEVICE} (twin: tests/test_torch_serving.py)",
           "test_wand_pallas.py::TestBlockMaxWand::test_pruning_happens",
           "test_wand_pallas.py::TestBlockMaxWand::test_pure_rare_query_no_phase_b",
           "test_wand_pallas.py::TestBlockMaxWand::test_pruning_exact_with_deleted_docs")
-
-# `order`, on the card only: a test of exact float equality that only
-# the card's accumulation order breaks (index_add_'s atomics, or a
-# product whose reduction order moves with the launch's shape); the twin
-# holds the same body within rtol 1e-5 there and reports the largest
-# relative difference (ROADMAP queue 3)
-for _test, _twin in (
-    ("test_sparse.py::TestImpactKernel::test_scorer_matches_oracle", "test_impact_scorer_on_card"),
-    ("test_sparse.py::TestServingParity::test_fp32_serving_float_identical_to_oracle",
-     "test_sparse_serving_on_card"),
-    ("test_sparse.py::TestServingParity::test_exact_escape_hatch_on_quantized_index",
-     "test_sparse_serving_on_card"),
-    ("test_rerank.py::TestMeshRerank::test_mesh_rescore_bit_exact_vs_per_shard",
-     "test_mesh_rescore_on_card"),
-):
-    _deselect("order", CUDA, f"accumulation order (twin: tests/test_torch_cuda.py::{_twin})", _test)
 
 
 def _port_name(fullname: str) -> str:
@@ -537,7 +518,7 @@ def main(argv=None) -> int:
         "skipped": total("skipped"),
         "deselected": {
             k: sum(r["deselected"].get(k, 0) for r in per_suite.values())
-            for k in ("a", "b", "c", "order")
+            for k in ("a", "b", "c")
         },
         "stale_deselections": collection["stale"],
         "guard": bad,

@@ -7,9 +7,9 @@ with a data path reopened after a crash (its tail replayed into a build
 on the card) against the numpy backend, and `python -m
 elasticsearch_tpu_torch check`, a two-node cluster (replication,
 failover, peer recovery) against the numpy backend, and the JAX
-package's tests of exact float equality that the card's summation order
-breaks (scripts/torch_reference_suites.py's `order` entries) on the same
-bodies within rtol 1e-5, on the card. Every test here carries the `cuda` marker, needs an NVIDIA GPU and
+package's tests of exact float equality that the card's float atomics
+used to break, on the same bodies bit for bit and twice over, on the
+card. Every test here carries the `cuda` marker, needs an NVIDIA GPU and
 nvcc, decides so inside its fixture and skips without them. The module
 imports neither jax nor the JAX package, so on a machine with the card
 it also runs where only PyTorch is installed:
@@ -117,6 +117,107 @@ def test_kernel_checks_its_inputs(cuda):
         int8_knn.int8_dot_scores(q.t().contiguous().t(), v, s)
     with pytest.raises(ValueError, match="aligned"):
         int8_knn.int8_dot_scores(q[:, :16].contiguous(), v.reshape(-1)[1:1 + 64 * 16].reshape(64, 16), s)
+
+
+def _scatter_inputs(R, C, n_tiles, seed):
+    """int32 targets [R, n_tiles*128], distinct within each tile (invalid
+    slots aim at the overflow column C-1 with +0.0 and inc 0; tile 2
+    repeats tile 0, tile 1 is empty), f32 values of mixed signs and
+    magnitudes, int32 increments, nonzero starting acc and cnt."""
+    rng = np.random.default_rng(seed)
+    S = n_tiles * 128
+    tgt = np.full((R, S), C - 1, np.int32)
+    src = np.zeros((R, S), np.float32)
+    for r in range(R):
+        for ti in range(n_tiles):
+            if ti == 1:
+                continue
+            n_valid = int(rng.integers(1, min(128, C - 1) + 1))
+            slots = rng.choice(128, size=n_valid, replace=False)
+            tgt[r, ti * 128 + slots] = rng.choice(C - 1, size=n_valid, replace=False)
+            src[r, ti * 128 + slots] = rng.standard_normal(n_valid) * 10.0 ** rng.integers(-3, 4, n_valid)
+        if n_tiles > 2:
+            tgt[r, 256:384], src[r, 256:384] = tgt[r, :128], src[r, :128]
+    inc = (tgt != C - 1).astype(np.int32)
+    acc = rng.standard_normal((R, C)).astype(np.float32)
+    acc[:, C - 1] = 0.0
+    cnt = rng.integers(0, 5, size=(R, C)).astype(np.int32)
+    cnt[:, C - 1] = 0
+    return [torch.from_numpy(x) for x in (acc, cnt, tgt, src, inc)]
+
+
+@pytest.mark.parametrize(
+    "R,C,n_tiles,with_cnt",
+    [
+        (1, 300, 4, False), (1, 300, 4, True), (3, 129, 6, True), (32, 701, 3, True),
+        # several ranges a row, rows whose starts are not 16-byte aligned
+        (2, 200_003, 40, True), (5, 130_001, 12, False), (1, 1_000_001, 64, True),
+    ],
+)
+def test_ordered_scatter_matches_plain_bit_for_bit(cuda, R, C, n_tiles, with_cnt):
+    """csrc/ordered_scatter.cu against its plain version on the CPU
+    (scatter_add_, slot order): equal bits, twice, one launch each."""
+    from elasticsearch_tpu_torch.ops import ordered_scatter as osc
+
+    acc, cnt, tgt, src, inc = _scatter_inputs(R, C, n_tiles, R * 1000 + C)
+    want, want_cnt = osc.ordered_scatter_add_plain(acc.clone(), tgt, src, cnt.clone(), inc)
+    for _ in range(2):
+        a, c = acc.to(cuda), cnt.to(cuda)
+        before = osc.ordered_scatter_add.launches
+        if with_cnt:
+            osc.ordered_scatter_add(a, tgt.to(cuda), src.to(cuda), c, inc.to(cuda))
+        else:
+            osc.ordered_scatter_add(a, tgt.to(cuda), src.to(cuda))
+        torch.cuda.synchronize(cuda)
+        assert osc.ordered_scatter_add.launches == before + 1
+        np.testing.assert_array_equal(a.cpu().numpy().view(np.int32), want.numpy().view(np.int32))
+        np.testing.assert_array_equal(c.cpu().numpy(), (want_cnt if with_cnt else cnt).numpy())
+
+
+def test_ordered_scatter_concurrent_launches_of_other_widths(cuda):
+    """Threads launching at once with slices of other sizes, as a
+    fan-out over segments of different sizes does: every launch is
+    accepted (the kernel's shared-memory limit is not set per launch,
+    where one thread's smaller limit could refuse another's launch) and
+    every result is the plain version's."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from elasticsearch_tpu_torch.ops import ordered_scatter as osc
+
+    shapes = [(1, 300, 4), (2, 200_003, 8), (4, 5_001, 6), (1, 1_000_001, 4)]
+    cases = [_scatter_inputs(R, C, nt, seed) for seed, (R, C, nt) in enumerate(shapes)]
+    wants = [osc.ordered_scatter_add_plain(acc.clone(), tgt, src, cnt.clone(), inc)[0].view(torch.int32)
+             for acc, cnt, tgt, src, inc in cases]
+    on_card = [[x.to(cuda) for x in c] for c in cases]
+    wants = [w.to(cuda) for w in wants]
+
+    def run(i):
+        acc, cnt, tgt, src, inc = on_card[i % len(cases)]
+        same = []
+        for _ in range(25):
+            a, c = acc.clone(), cnt.clone()
+            osc.ordered_scatter_add(a, tgt, src, c, inc)
+            same.append(torch.equal(a.view(torch.int32), wants[i % len(cases)]))
+        return same
+
+    with ThreadPoolExecutor(8) as pool:
+        results = list(pool.map(run, range(8)))
+    torch.cuda.synchronize(cuda)
+    assert all(all(r) for r in results)
+
+
+def test_ordered_scatter_checks_its_inputs(cuda):
+    from elasticsearch_tpu_torch.ops import ordered_scatter as osc
+
+    acc, cnt, tgt, src, inc = (x.to(cuda) for x in _scatter_inputs(2, 300, 3, 5))
+    with pytest.raises(TypeError):
+        osc.ordered_scatter_add(acc, tgt.long(), src)
+    with pytest.raises(ValueError, match="whole 128-slot tiles"):
+        osc.ordered_scatter_add(acc, tgt[:, :200].contiguous(), src[:, :200].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        osc.ordered_scatter_add(acc, tgt.t().contiguous().t(), src)
+    with pytest.raises(ValueError, match="several devices"):
+        osc.ordered_scatter_add(acc, tgt.cpu(), src)
 
 
 def test_quantized_search_on_card_matches_cpu(cuda):
@@ -801,9 +902,8 @@ def _mesh_vs_fanout(monkeypatch, svc, body):
 def test_mesh_on_card_matches_fanout(cuda, monkeypatch):
     """`ES_TPU_MESH=force` on the card: match, bool, multi_match and
     exact kNN pages equal the same index's per-shard fan-out (ids with
-    tie runs within rtol 1e-5 as sets, scores within rtol 1e-5: the
-    card's scatter-adds sum in a run-dependent order), one launch per
-    group, no fallback."""
+    tie runs within rtol 1e-5 as sets, scores within rtol 1e-5, as
+    against the numpy backend), one launch per group, no fallback."""
     svc, oracle = _served_pair(monkeypatch, cuda)
     try:
         rng = np.random.default_rng(13)
@@ -893,40 +993,24 @@ def test_mesh_sparse_and_aggs_on_card(cuda, monkeypatch, quant):
         oracle.close()
 
 
-# ---- the card's accumulation order: reference tests of exact float
-# equality that the card's summation order breaks, held here on the same
-# bodies within rtol 1e-5 (scripts/torch_reference_suites.py's `order`
-# entries); each reports its largest relative difference ----
+# ---- the card's accumulation order: the reference tests of exact float
+# equality that the card's float atomics broke (tests/test_sparse.py's
+# TestImpactKernel and TestServingParity, tests/test_rerank.py's
+# TestMeshRerank), on the same bodies bit for bit, each body run twice
+# and the two runs' bits compared ----
 
-ORDER_RTOL = 1e-5
 SPARSE_VOCAB = [f"tok{i:02d}" for i in range(40)]
 SPARSE_MAPPINGS = {"properties": {"ml": {"type": "sparse_vector"}, "body": {"type": "text"},
                                   "vec": {"type": "dense_vector", "dims": 4, "similarity": "cosine"}}}
 
 
-def _order_pages(ref, got, what):
-    """`ref` and `got` are lists of (id, score) in rank order: the ids
-    equal position by position outside runs of scores tied within the
-    rtol (a run's ids as a set), the scores within rtol. Returns the
-    largest relative difference of a score."""
-    assert len(got) == len(ref), what
-    rs = np.array([s for _, s in ref], np.float64)
-    gs = np.array([s for _, s in got], np.float64)
-    np.testing.assert_allclose(gs, rs, rtol=ORDER_RTOL, atol=0, err_msg=what)
-    i = 0
-    while i < len(ref):
-        j = i + 1
-        while j < len(ref) and np.isclose(rs[j], rs[j - 1], rtol=ORDER_RTOL, atol=0):
-            j += 1
-        assert {d for d, _ in got[i:j]} == {d for d, _ in ref[i:j]}, what
-        i = j
-    nz = rs != 0
-    return float(np.max(np.abs(gs[nz] - rs[nz]) / np.abs(rs[nz]), initial=0.0))
-
-
-def _report(record_property, name, worst):
-    record_property("max_rel_diff", worst)
-    print(f"order {name} max_rel_diff={worst!r}")
+def _exact_pages(ref, got, what):
+    """`ref` and `got` are lists of (id, score) in rank order: the same
+    ids position by position and the same float32 score bits."""
+    assert [d for d, _ in got] == [d for d, _ in ref], what
+    rb = np.asarray([s for _, s in ref], np.float32).view(np.int32)
+    gb = np.asarray([s for _, s in got], np.float32).view(np.int32)
+    np.testing.assert_array_equal(gb, rb, err_msg=what)
 
 
 def _sparse_docs(n=300, seed=3):
@@ -949,9 +1033,10 @@ def _sparse_qbody(seed, size=10, exact=False):
 
 @pytest.mark.parametrize("quantized", [False, True])
 @pytest.mark.parametrize("k", [5, 16, 40])
-def test_impact_scorer_on_card(cuda, record_property, quantized, k):
+def test_impact_scorer_on_card(cuda, quantized, k):
     """tests/test_sparse.py::TestImpactKernel::test_scorer_matches_oracle
-    on the card: `ImpactScorer` against the term-at-a-time fp32 oracle."""
+    on the card: `ImpactScorer` against the term-at-a-time fp32 oracle,
+    bit for bit, twice."""
     from elasticsearch_tpu_torch.analysis import AnalysisRegistry
     from elasticsearch_tpu_torch.index.mapping import DocumentParser, Mappings
     from elasticsearch_tpu_torch.index.segment import SegmentBuilder
@@ -984,24 +1069,29 @@ def test_impact_scorer_on_card(cuda, record_property, quantized, k):
             m = d >= 0
             np.add.at(acc, d[m], np.float32(tw) * v[m].astype(np.float32))
         oracles.append(acc)
-    acc, cnt = sc.new_acc()
-    acc, cnt = sc.score_into(acc, cnt, tile_lists, weight_lists)
-    scores, docs, totals = sc.finalize(acc, cnt, k)
-    worst = 0.0
-    for ji, oracle in enumerate(oracles):
-        matched = np.flatnonzero(oracle != 0.0)
-        want = sorted(matched, key=lambda d: (-oracle[d], d))[: min(k, seg.num_docs)]
-        finite = np.isfinite(scores[ji])
-        got = [(int(d), float(s)) for d, s in zip(docs[ji][finite], scores[ji][finite])]
-        worst = max(worst, _order_pages([(int(d), float(oracle[d])) for d in want], got, ji))
-        assert int(totals[ji]) == len(matched)
-    _report(record_property, f"impact_scorer[{k}-{quantized}]", worst)
+    runs = []
+    for _ in range(2):
+        acc, cnt = sc.new_acc()
+        acc, cnt = sc.score_into(acc, cnt, tile_lists, weight_lists)
+        runs.append((acc[:len(oracles), :-1].cpu().numpy(), *sc.finalize(acc, cnt, k)))
+    for acc, scores, docs, totals in runs:
+        for ji, oracle in enumerate(oracles):
+            np.testing.assert_array_equal(acc[ji].view(np.int32), oracle.view(np.int32), err_msg=str(ji))
+            matched = np.flatnonzero(oracle != 0.0)
+            want = sorted(matched, key=lambda d: (-oracle[d], d))[: min(k, seg.num_docs)]
+            finite = np.isfinite(scores[ji])
+            got = [(int(d), s) for d, s in zip(docs[ji][finite], scores[ji][finite])]
+            _exact_pages([(int(d), oracle[d]) for d in want], got, ji)
+            assert int(totals[ji]) == len(matched)
+    for a, b in zip(*runs):
+        np.testing.assert_array_equal(np.asarray(a).view(np.int32), np.asarray(b).view(np.int32))
 
 
 @pytest.mark.parametrize("case", ["fp32", "exact"])
-def test_sparse_serving_on_card(cuda, monkeypatch, record_property, case):
+def test_sparse_serving_on_card(cuda, monkeypatch, case):
     """tests/test_sparse.py::TestServingParity's fp32 and exact-escape
-    bodies on the card against the numpy backend."""
+    bodies on the card against the numpy backend, bit for bit, each body
+    twice."""
     from elasticsearch_tpu_torch.cluster.indices import IndexService
 
     monkeypatch.setenv("ES_TPU_BG_REFRESH", "off")
@@ -1017,23 +1107,22 @@ def test_sparse_serving_on_card(cuda, monkeypatch, record_property, case):
         pair.append(svc)
     bodies = ([_sparse_qbody(s, size=z) for s in range(12) for z in (5, 16, 40)] if case == "fp32"
               else [_sparse_qbody(s, exact=True) for s in range(8)])
-    worst = 0.0
     try:
         for i, b in enumerate(bodies):
-            got, ref = (svc.search(dict(b)) for svc in pair)
-            pages = [[(h["_id"], h["_score"]) for h in r["hits"]["hits"]] for r in (ref, got)]
-            worst = max(worst, _order_pages(*pages, i))
+            got, ref, again = (svc.search(dict(b)) for svc in (pair[0], pair[1], pair[0]))
+            ref, got, again = ([(h["_id"], h["_score"]) for h in r["hits"]["hits"]] for r in (ref, got, again))
+            _exact_pages(ref, got, i)
+            _exact_pages(got, again, i)
     finally:
         for svc in pair:
             svc.close()
-    _report(record_property, f"sparse_serving[{case}]", worst)
 
 
 @pytest.mark.parametrize("quantized", [False, True])
-def test_mesh_rescore_on_card(cuda, monkeypatch, record_property, quantized):
+def test_mesh_rescore_on_card(cuda, monkeypatch, quantized):
     """tests/test_rerank.py::TestMeshRerank::test_mesh_rescore_bit_exact_vs_per_shard
     on the card: the forced mesh's fused rescore against the per-shard
-    path of the same 4-shard index."""
+    path of the same 4-shard index, bit for bit, each body twice."""
     from elasticsearch_tpu_torch.cluster.indices import IndexService
 
     monkeypatch.setenv("ES_TPU_BG_REFRESH", "off")
@@ -1060,13 +1149,15 @@ def test_mesh_rescore_on_card(cuda, monkeypatch, record_property, quantized):
                            "query_vectors": np.random.default_rng(s).normal(size=(3, dims)).round(3).tolist()}},
                        "query_weight": 0.5, "rescore_query_weight": 2.0}}}
                   for s, w in enumerate(words[:3])]
-        worst = 0.0
         for i, body in enumerate(bodies):
-            got, ref = _mesh_vs_fanout(monkeypatch, svc, body)
-            pages = [[(h["_id"], h["_score"]) for h in r["hits"]["hits"]] for r in (ref, got)]
-            worst = max(worst, _order_pages(*pages, i))
+            runs = [_mesh_vs_fanout(monkeypatch, svc, body) for _ in range(2)]
+            (got, ref), (got2, ref2) = (
+                [[(h["_id"], h["_score"]) for h in r["hits"]["hits"]] for r in run] for run in runs
+            )
+            _exact_pages(ref, got, i)
+            _exact_pages(got, got2, i)
+            _exact_pages(ref, ref2, i)
         mex = svc.mesh_executor()
         assert mex.stats["fallbacks"] == 0 and mex.stats["degraded"] == 0
     finally:
         svc.close()
-    _report(record_property, f"mesh_rescore[{quantized}]", worst)

@@ -1,0 +1,506 @@
+"""The port's float accumulator, ops/ordered_scatter.py, on the CPU.
+
+`ordered_scatter_add_plain` (what the wrapper runs for CPU tensors, and
+what the CUDA kernel is held to on the card) against `scatter_add_`,
+`index_add_`, numpy's `np.add.at` and the JAX package's `.at[].add`, bit
+for bit; the invariant the kernel relies on (valid targets distinct
+within each 128-slot tile) at every call the served paths make; each
+rewired site against the JAX package's counterpart bit for bit; and the
+mesh rescore, multiplied in the per-shard path's shapes, against the
+per-shard path.
+
+The BM25 sites take dyadic `inv_norm` values (multiples of 1/64): XLA
+on the CPU contracts `1 + tf * inv` into one fused multiply-add and
+PyTorch rounds the product first, and with a dyadic `inv` the product
+is exact, so both packages make the same contributions and the
+comparison holds the accumulation order alone. `tests/test_torch_scoring.py`
+holds the same sites at any `inv` within rtol 1e-5.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from elasticsearch_tpu.ops import impact as jimpact
+from elasticsearch_tpu.ops import scoring as jscoring
+from elasticsearch_tpu_torch.ops import impact as timpact
+from elasticsearch_tpu_torch.ops import ordered_scatter as osc
+from elasticsearch_tpu_torch.ops import scoring as tscoring
+from elasticsearch_tpu_torch.parallel import sharded as tsharded
+
+torch.set_num_threads(1)
+
+TILE = 128
+
+
+def t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def bits(x):
+    return np.asarray(x, np.float32).view(np.int32)
+
+
+def scatter_inputs(R, C, n_tiles, seed, repeat=False, empty_tiles=()):
+    """tgt int32 [R, n_tiles*128] with distinct valid targets in each
+    tile (invalid slots aim at the overflow column C-1 with +0.0 and inc
+    0), src f32 of mixed signs and magnitudes (so the order shows), inc
+    int32, and a nonzero starting acc/cnt. `repeat`: tile 2 repeats tile
+    0 (a query token given twice); `empty_tiles`: tiles with no valid
+    slot."""
+    rng = np.random.default_rng(seed)
+    S = n_tiles * TILE
+    tgt = np.full((R, S), C - 1, np.int32)
+    src = np.zeros((R, S), np.float32)
+    for r in range(R):
+        for ti in range(n_tiles):
+            if ti in empty_tiles:
+                continue
+            n_valid = int(rng.integers(1, min(TILE, C - 1) + 1))
+            slots = rng.choice(TILE, size=n_valid, replace=False)
+            docs = rng.choice(C - 1, size=n_valid, replace=False)
+            tgt[r, ti * TILE + slots] = docs
+            src[r, ti * TILE + slots] = (
+                rng.standard_normal(n_valid) * 10.0 ** rng.integers(-3, 4, n_valid)
+            ).astype(np.float32)
+        if repeat and n_tiles > 2:
+            tgt[r, 2 * TILE : 3 * TILE] = tgt[r, :TILE]
+            src[r, 2 * TILE : 3 * TILE] = src[r, :TILE]
+    inc = (tgt != C - 1).astype(np.int32)
+    acc0 = rng.standard_normal((R, C)).astype(np.float32)
+    acc0[:, C - 1] = 0.0
+    cnt0 = rng.integers(0, 5, size=(R, C)).astype(np.int32)
+    cnt0[:, C - 1] = 0
+    return tgt, src, inc, acc0, cnt0
+
+
+def sequential(acc0, tgt, src):
+    """The reference order: one addition after another, slot order."""
+    out = acc0.copy()
+    for r in range(out.shape[0]):
+        np.add.at(out[r], tgt[r], src[r])
+    return out
+
+
+CASES = [
+    # (R, C, n_tiles, repeat, empty tiles)
+    (1, 300, 4, True, ()),
+    (1, 1000, 9, False, (3, 4)),
+    (32, 200, 5, True, (1,)),
+    (32, 700, 3, False, ()),
+    (3, 129, 6, True, (0, 5)),
+]
+
+
+@pytest.mark.parametrize("R,C,n_tiles,repeat,empty", CASES)
+def test_plain_matches_scatter_index_add_numpy_and_jax(R, C, n_tiles, repeat, empty):
+    tgt, src, inc, acc0, cnt0 = scatter_inputs(R, C, n_tiles, R * 100 + C, repeat, empty)
+    want = sequential(acc0, tgt, src)
+    acc, cnt = t(acc0.copy()), t(cnt0.copy())
+    out, cout = osc.ordered_scatter_add(acc, t(tgt), t(src), cnt, t(inc))
+    assert out is acc and cout is cnt
+    np.testing.assert_array_equal(bits(acc.numpy()), bits(want))
+    want_cnt = cnt0.copy()
+    for r in range(R):
+        np.add.at(want_cnt[r], tgt[r], inc[r])
+    np.testing.assert_array_equal(cnt.numpy(), want_cnt)
+    # scatter_add_ along rows, and index_add_ over the flat [R*C] view
+    sa = t(acc0.copy()).scatter_add_(1, t(tgt).long(), t(src))
+    flat = (t(tgt).long() + torch.arange(R)[:, None] * C).reshape(-1)
+    ia = t(acc0.copy()).view(-1).index_add_(0, flat, t(src).reshape(-1)).view(R, C)
+    np.testing.assert_array_equal(bits(sa.numpy()), bits(want))
+    np.testing.assert_array_equal(bits(ia.numpy()), bits(want))
+    # the JAX package's accumulation, `.at[].add` row by row
+    ja = jax.vmap(lambda a, d, v: a.at[d].add(v))(jnp.asarray(acc0), jnp.asarray(tgt), jnp.asarray(src))
+    np.testing.assert_array_equal(bits(ja), bits(want))
+
+
+@pytest.mark.parametrize("C,n_tiles", [(300, 4), (2000, 12)])
+def test_plain_one_dimensional_acc_from_zero(C, n_tiles):
+    """score_tiles' shape: one row, acc a [C] vector of zeros, against
+    `jnp.zeros(C).at[tgt].add(src)`; the int plane is optional."""
+    tgt, src, _, _, _ = scatter_inputs(1, C, n_tiles, C, repeat=True, empty_tiles=(1,))
+    acc = torch.zeros(C)
+    out, cnt = osc.ordered_scatter_add(acc, t(tgt[0]), t(src[0]))
+    assert out is acc and cnt is None
+    ja = jnp.zeros(C, jnp.float32).at[jnp.asarray(tgt[0])].add(jnp.asarray(src[0]))
+    np.testing.assert_array_equal(bits(acc.numpy()), bits(ja))
+    np.testing.assert_array_equal(bits(acc.numpy()), bits(sequential(np.zeros((1, C), np.float32), tgt, src)[0]))
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    tgt, src, inc, acc0, cnt0 = scatter_inputs(2, 50, 2, 0)
+    with pytest.raises(ValueError, match="go together"):
+        osc.ordered_scatter_add(t(acc0), t(tgt), t(src), cnt=t(cnt0))
+    with pytest.raises(ValueError, match="no kernel for device"):
+        osc.ordered_scatter_add(t(acc0).to("meta"), t(tgt).to("meta"), t(src).to("meta"))
+    before = osc.ordered_scatter_add.launches
+    osc.ordered_scatter_add(t(acc0.copy()), t(tgt), t(src), t(cnt0.copy()), t(inc))
+    assert osc.ordered_scatter_add.launches == before  # the CPU launches nothing
+
+
+@pytest.mark.parametrize("rows,cells,sms", [(32, 1_000_000, 132), (1, 1_000_000, 132), (1, 300, 132),
+                                            (4, 120_000, 132), (256, 50, 132), (8, 58_108, 132)])
+def test_ranges_cover_every_cell_within_shared_memory(rows, cells, sms):
+    span = osc.span_for(rows, cells, sms)
+    ranges = -(-cells // span)
+    assert 1 <= span <= osc.SPAN_MAX
+    assert (span + 4) * 4 <= osc.SMEM_LIMIT
+    assert (ranges - 1) * span < cells <= ranges * span
+    assert rows * ranges >= min(sms, rows * -(-cells // osc.SPAN_MIN))
+
+
+def test_kernel_source_and_build_flags():
+    src = osc.SOURCE.read_text()
+    assert "extern \"C\" int es_ordered_scatter_add(" in src
+    assert "atomicAdd(crow" in src and "atomicAdd(acc" not in src  # no float atomics
+    from elasticsearch_tpu_torch.ops import nvcc
+
+    assert "arch=compute_90a,code=sm_90a" in nvcc.NVCC_FLAGS
+    assert osc.SOURCE.parent == nvcc.CSRC
+
+
+# ---- the tile invariant at every call the served paths make ----
+
+MAPPING = {"properties": {"body": {"type": "text"}, "title": {"type": "text"},
+                          "ml": {"type": "sparse_vector"}}}
+WORDS = [f"w{i}" for i in range(30)]
+
+
+def _docs(n, seed):
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        body = " ".join(rng.choice(WORDS, size=int(rng.integers(3, 12))))
+        title = " ".join(rng.choice(WORDS[:10], size=int(rng.integers(1, 4))))
+        toks = rng.choice(WORDS, size=int(rng.integers(1, 6)), replace=False)
+        ml = {str(w): float(np.round(rng.random() * 3 + 0.05, 3)) for w in toks}
+        yield str(i), {"body": body, "title": title, "ml": ml}
+
+
+def _check_tiles(tgt, acc):
+    C = acc.shape[-1]
+    tiles = tgt.reshape(-1, TILE).numpy()
+    for row in tiles:
+        valid = row[row != C - 1]
+        assert len(np.unique(valid)) == len(valid), "a doc twice in one tile"
+        assert ((valid >= 0) & (valid < C - 1)).all()
+
+
+def test_every_served_scatter_keeps_targets_distinct_within_a_tile(monkeypatch):
+    """match, bool (counted), multi_match and sparse_vector through the
+    fan-out and through the forced mesh, and the fused scorers: every
+    target plane handed to the accumulator holds distinct valid targets
+    in each 128-slot tile."""
+    from elasticsearch_tpu_torch.cluster.indices import IndexService
+    from elasticsearch_tpu_torch.parallel import sharded
+
+    seen = {}
+    real = osc.ordered_scatter_add
+
+    def checked(module):
+        def fn(acc, tgt, src, cnt=None, inc=None):
+            _check_tiles(tgt, acc)
+            seen[module] = seen.get(module, 0) + 1
+            return real(acc, tgt, src, cnt, inc)
+        return fn
+
+    for mod, name in ((tscoring, "scoring"), (timpact, "impact"), (sharded, "sharded")):
+        monkeypatch.setattr(mod, "ordered_scatter_add", checked(name))
+    svc = IndexService("osc-invariant", settings={"number_of_shards": 2, "search.backend": "torch"},
+                       mappings_json=MAPPING, device="cpu")
+    try:
+        for i, src in _docs(400, 1):
+            svc.index_doc(i, src)
+        svc.refresh()
+        bodies = [
+            {"query": {"match": {"body": "w1 w2 w3 w1"}}},
+            {"query": {"bool": {"must": [{"match": {"body": "w4"}}],
+                                "should": [{"match": {"title": "w2 w5"}}]}}},
+            {"query": {"match": {"body": {"query": "w6 w7 w8", "minimum_should_match": 2}}}},
+            {"query": {"multi_match": {"query": "w1 w3", "fields": ["title^2", "body"]}}},
+            {"query": {"sparse_vector": {"field": "ml", "query_vector": {"w1": 1.5, "w9": 0.7, "w2": 0.1}}}},
+        ]
+        for mode in ("off", "force"):
+            monkeypatch.setenv("ES_TPU_MESH", mode)
+            for b in bodies:
+                assert svc.search(dict(b))["hits"]["total"]["value"] > 0, b
+    finally:
+        svc.close()
+    jfs, tfs_, plans = fused_inputs(3)
+    tfs_.search(plans, 10, True, rows=8)
+    mfs = multi_fused(4)[1]
+    mfs.search(multi_plans(4, mfs), 10, "max_tie", 0.5, rows=8)
+    assert seen.get("scoring", 0) >= 3 and seen.get("impact", 0) >= 1 and seen.get("sharded", 0) >= 2, seen
+
+
+# ---- each rewired site against the JAX package's, bit for bit ----
+
+
+def dyadic_inv(rng, n):
+    return (rng.integers(8, 40, size=n) / 64).astype(np.float32)
+
+
+def postings(rng, n_docs, n_terms, max_df, max_tf=6):
+    docs_rows, tf_rows = [], []
+    for _ in range(n_terms):
+        df = int(rng.integers(1, max_df))
+        d = np.sort(rng.choice(n_docs, size=df, replace=False)).astype(np.int32)
+        tf = rng.integers(1, max_tf + 1, size=df).astype(np.int32)
+        nt = -(-df // TILE)
+        dp = np.full(nt * TILE, -1, np.int32)
+        tp = np.zeros(nt * TILE, np.int32)
+        dp[:df], tp[:df] = d, tf
+        docs_rows.append(dp.reshape(nt, TILE))
+        tf_rows.append(tp.reshape(nt, TILE))
+    return np.concatenate(docs_rows), np.concatenate(tf_rows)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_score_tiles_bits_match_reference(seed):
+    rng = np.random.default_rng(seed)
+    n = 700
+    doc_ids, tfs = postings(rng, n, 12, 300)
+    idx = rng.integers(0, len(doc_ids), size=24)
+    idx[5] = idx[1]  # one tile twice
+    w = (rng.random(24) * 3).astype(np.float32)
+    v = rng.random(24) > 0.2
+    inv = dyadic_inv(rng, n)
+    js, jc = jscoring.score_tiles(jnp.asarray(doc_ids[idx]), jnp.asarray(tfs[idx]), jnp.asarray(w),
+                                  jnp.asarray(v), jnp.asarray(inv), n)
+    ts, tc = tscoring.score_tiles(t(doc_ids[idx]), t(tfs[idx]), t(w), t(v), t(inv), n)
+    np.testing.assert_array_equal(bits(ts.numpy()), bits(js))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+
+
+@pytest.mark.parametrize("with_cnt", [False, True])
+def test_chunk_add_bits_match_reference(with_cnt):
+    rng = np.random.default_rng(7 + with_cnt)
+    n, B, TC = 900, 4, 16
+    doc_ids, tfs = postings(rng, n, 20, 500)
+    inv = dyadic_inv(rng, n)
+    acc0 = rng.random((B, n + 1)).astype(np.float32)
+    acc0[:, n] = 0
+    cnt0 = rng.integers(0, 3, size=(B, n + 1)).astype(np.int32)
+    cnt0[:, n] = 0
+    for step in range(2):  # two chunks into the same accumulators
+        ti = rng.integers(0, len(doc_ids), size=(B, TC)).astype(np.int32)
+        ti[:, 3] = ti[:, 0]
+        tw = (rng.random((B, TC)) * 2).astype(np.float32)
+        tv = rng.random((B, TC)) > 0.3
+        args_j = (jnp.asarray(ti), jnp.asarray(tw), jnp.asarray(tv))
+        args_t = (t(ti).long(), t(tw), t(tv))
+        if with_cnt:
+            ja, jc = jscoring._chunk_add_cnt(jnp.asarray(doc_ids), jnp.asarray(tfs), jnp.asarray(inv),
+                                             jnp.asarray(acc0), jnp.asarray(cnt0), *args_j)
+            ta, tc = tscoring._chunk_add_cnt(t(doc_ids), t(tfs), t(inv), t(acc0.copy()), t(cnt0.copy()),
+                                             *args_t)
+            np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+            cnt0 = np.asarray(jc)
+        else:
+            ja = jscoring._chunk_add(jnp.asarray(doc_ids), jnp.asarray(tfs), jnp.asarray(inv),
+                                     jnp.asarray(acc0), *args_j)
+            ta = tscoring._chunk_add(t(doc_ids), t(tfs), t(inv), t(acc0.copy()), *args_t)
+        np.testing.assert_array_equal(bits(ta.numpy()), bits(ja))
+        acc0 = np.asarray(ja)
+
+
+def fused_inputs(seed, with_live=False):
+    rng = np.random.default_rng(seed)
+    n = 1500
+    doc_ids, tfs = postings(rng, n, 30, 400)
+    inv = dyadic_inv(rng, n)
+    dense = rng.integers(0, 4, size=(5, n)).astype(np.uint8)
+    live = rng.random(n) > 0.25 if with_live else None
+    plans = []
+    for _ in range(7):
+        nt = int(rng.integers(1, 20))
+        rt = rng.choice(len(doc_ids), size=nt, replace=False).astype(np.int64)
+        rt = np.concatenate([rt, rt[:1]])  # a query token given twice
+        rw = (rng.random(nt + 1) * 2 + 0.1).astype(np.float32)
+        nh = int(rng.integers(0, 4))
+        hr = rng.choice(5, size=nh, replace=False).astype(np.int64)
+        hw = (rng.random(nh) * 2 + 0.1).astype(np.float32)
+        plans.append((rt, rw, hr, hw, int(rng.integers(1, 3))))
+    jfs = jscoring.FusedScorer(jnp.asarray(doc_ids), jnp.asarray(tfs), inv, live, jnp.asarray(dense),
+                               t_rare=32, n_hot_slots=4)
+    tfs_ = tscoring.FusedScorer(t(doc_ids), t(tfs), inv, live, t(dense), t_rare=32, n_hot_slots=4)
+    return jfs, tfs_, plans
+
+
+@pytest.mark.parametrize("with_cnt,with_live", [(False, False), (True, False), (True, True)])
+def test_fused_query_bits_match_reference(with_cnt, with_live):
+    jfs, tfs_, plans = fused_inputs(11 + with_cnt, with_live)
+    js, jd, jt = jfs.search(plans, 40, with_cnt, rows=8)
+    ts, td, tt = tfs_.search(plans, 40, with_cnt, rows=8)
+    np.testing.assert_array_equal(bits(ts), bits(js))
+    np.testing.assert_array_equal(td, jd)
+    np.testing.assert_array_equal(tt, jt)
+
+
+def multi_fused(seed):
+    rng = np.random.default_rng(seed)
+    n = 1200
+    jparts, tparts = [], []
+    for _ in range(2):
+        doc_ids, tfs = postings(rng, n, 25, 400)
+        inv = dyadic_inv(rng, n)
+        dense = rng.integers(0, 4, size=(3, n)).astype(np.uint8)
+        jparts.append({"doc_ids": jnp.asarray(doc_ids), "tfs": jnp.asarray(tfs), "inv_norm": jnp.asarray(inv),
+                       "dense": jnp.asarray(dense), "hot_rank": None})
+        tparts.append({"doc_ids": t(doc_ids), "tfs": t(tfs), "inv_norm": t(inv), "dense": t(dense),
+                       "hot_rank": None})
+    live = rng.random(n) > 0.2
+    jm = jscoring.MultiFusedScorer(("title", "body"), jparts, jnp.asarray(live), t_rare=32, n_hot_slots=4)
+    tm = tscoring.MultiFusedScorer(("title", "body"), tparts, live, t_rare=32, n_hot_slots=4)
+    return jm, tm
+
+
+def multi_plans(seed, scorer):
+    rng = np.random.default_rng(seed + 100)
+    plans = []
+    for _ in range(6):
+        fields = []
+        for p in scorer.parts:
+            nt = int(rng.integers(1, 12))
+            rt = rng.choice(int(p["doc_ids"].shape[0]), size=nt, replace=False).astype(np.int64)
+            rt = np.concatenate([rt, rt[-1:]])
+            rw = ((rng.random(nt + 1) * 2 + 0.1) * rng.choice([-1, 1], size=nt + 1)).astype(np.float32)
+            nh = int(rng.integers(0, 3))
+            hr = rng.choice(3, size=nh, replace=False).astype(np.int64)
+            hw = ((rng.random(nh) * 2 + 0.1) * rng.choice([-1, 1], size=nh)).astype(np.float32)
+            fields.append((rt, rw, hr, hw))
+        plans.append((fields, int(rng.integers(1, 3))))
+    return plans
+
+
+@pytest.mark.parametrize("combine,tie", [("sum", 0.0), ("max_tie", 0.5)])
+def test_fused_query_mf_bits_match_reference(combine, tie):
+    jm, tm = multi_fused(21)
+    plans = multi_plans(21, tm)
+    js, jd, jt = jm.search(plans, 30, combine, tie, rows=8)
+    ts, td, tt = tm.search(plans, 30, combine, tie, rows=8)
+    np.testing.assert_array_equal(bits(ts), bits(js))
+    np.testing.assert_array_equal(td, jd)
+    np.testing.assert_array_equal(tt, jt)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_impact_chunk_add_bits_match_reference(quantized):
+    rng = np.random.default_rng(31 + quantized)
+    n, B, TC = 800, 5, 24
+    doc_ids, _ = postings(rng, n, 15, 600)
+    if quantized:
+        values = rng.integers(-127, 128, size=doc_ids.shape).astype(np.int8)
+    else:
+        values = rng.standard_normal(doc_ids.shape).astype(np.float32)
+    acc0 = rng.random((B, n + 1)).astype(np.float32)
+    acc0[:, n] = 0
+    cnt0 = np.zeros((B, n + 1), np.int32)
+    ti = rng.integers(0, len(doc_ids), size=(B, TC)).astype(np.int32)
+    ti[:, 5] = ti[:, 2]
+    tw = (rng.random((B, TC)) * 0.05).astype(np.float32)
+    tv = rng.random((B, TC)) > 0.25
+    ja, jc = jimpact._impact_chunk_add(jnp.asarray(doc_ids), jnp.asarray(values), jnp.asarray(acc0),
+                                       jnp.asarray(cnt0), jnp.asarray(ti), jnp.asarray(tw), jnp.asarray(tv))
+    ta, tc = timpact._impact_chunk_add(t(doc_ids), t(values), t(acc0.copy()), t(cnt0.copy()),
+                                       t(ti).long(), t(tw), t(tv))
+    np.testing.assert_array_equal(bits(ta.numpy()), bits(ja))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+
+
+@pytest.mark.parametrize("T,count_signed", [(8, False), (8, True), (520, False)])
+def test_bm25_into_bits_match_reference(T, count_signed):
+    """parallel/sharded._bm25_into over stacked entries [E, B, T] (T past
+    TCHUNK runs two chunks) against the reference's per-entry step body:
+    `bm25_tile_contrib` and `.at[].add` row by row."""
+    rng = np.random.default_rng(41 + T + count_signed)
+    E, B, n = 3, 2, 500
+    planes = [postings(rng, n, 10, 400) for _ in range(E)]
+    nt = max(len(p[0]) for p in planes)
+    dids = np.full((E, nt, TILE), -1, np.int32)
+    tfs = np.zeros((E, nt, TILE), np.int32)
+    for e, (d, f) in enumerate(planes):
+        dids[e, : len(d)], tfs[e, : len(f)] = d, f
+    inv = np.stack([dyadic_inv(rng, n) for _ in range(E)])
+    ti = rng.integers(0, nt, size=(E, B, T)).astype(np.int32)
+    ti[:, :, 1] = ti[:, :, 0]
+    tw = ((rng.random((E, B, T)) * 2 + 0.1) * (rng.choice([-1, 1], size=(E, B, T)) if count_signed else 1))
+    tw = tw.astype(np.float32)
+    tv = rng.random((E, B, T)) > 0.2
+    acc = torch.zeros(E * B, n + 1)
+    cnt = torch.zeros(E * B, n + 1, dtype=torch.int32)
+    tsharded._bm25_into(acc, cnt, t(dids), t(tfs), t(inv), t(ti), t(tw), t(tv), count_signed)
+    for e in range(E):
+        rows_d = jnp.asarray(dids[e])[jnp.clip(jnp.asarray(ti[e]), 0, nt - 1)]
+        rows_t = jnp.asarray(tfs[e])[jnp.clip(jnp.asarray(ti[e]), 0, nt - 1)]
+        valid = (rows_d >= 0) & jnp.asarray(tv[e])[:, :, None]
+        w = (jnp.abs(tw[e]) if count_signed else jnp.asarray(tw[e]))[:, :, None]
+        tgt, s = jscoring.bm25_tile_contrib(rows_d, rows_t, w, valid, jnp.asarray(inv[e]), n)
+        ja = jax.vmap(lambda a, d, v: a.at[d.ravel()].add(v.ravel()))(jnp.zeros((B, n + 1), jnp.float32), tgt, s)
+        counted = valid & (jnp.asarray(tw[e]) > 0)[:, :, None] if count_signed else valid
+        jc = jax.vmap(lambda c, d, v: c.at[d.ravel()].add(v.ravel().astype(jnp.int32)))(
+            jnp.zeros((B, n + 1), jnp.int32), tgt, counted)
+        np.testing.assert_array_equal(bits(acc[e * B : (e + 1) * B].numpy()), bits(ja))
+        np.testing.assert_array_equal(cnt[e * B : (e + 1) * B].numpy(), np.asarray(jc))
+
+
+# ---- the mesh rescore, in the per-shard path's shapes ----
+
+RR_MAPPING = {"properties": {"body": {"type": "text"},
+                             "toks": {"type": "rank_vectors", "dims": 8, "similarity": "dot_product"}}}
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_mesh_rescore_runs_per_shard_shapes_and_bits(monkeypatch, quantized):
+    """The forced mesh's fused rescore on a 4-shard index against the
+    per-shard path of the same index: every maxsim product the mesh
+    runs has the shapes (rows, query tokens, window bucket, gather
+    width) of one the per-shard path runs, and the pages are equal bit
+    for bit."""
+    from elasticsearch_tpu_torch.cluster.indices import IndexService
+    from elasticsearch_tpu_torch.ops import rerank as trerank
+
+    shapes = {"mesh": set(), "shard": set()}
+    real = trerank.maxsim_candidates
+    path = ["mesh"]
+
+    def spy(qtoks, qvalid, starts, counts, toks, scales, docs, tmax):
+        shapes[path[0]].add((tuple(qtoks.shape), tuple(docs.shape), int(tmax)))
+        return real(qtoks, qvalid, starts, counts, toks, scales, docs, tmax)
+
+    monkeypatch.setattr(trerank, "maxsim_candidates", spy)
+    settings = {"number_of_shards": 4, "search.backend": "torch"}
+    if quantized:
+        settings["rerank.quantization"] = "int8"
+    svc = IndexService(f"osc-rr-{int(quantized)}", settings=settings, mappings_json=RR_MAPPING, device="cpu")
+    words = ["alpha beta", "alpha gamma", "beta gamma", "alpha beta gamma"]
+    try:
+        rng = np.random.default_rng(3)
+        for i in range(120):
+            svc.index_doc(str(i), {"body": words[i % 4],
+                                   "toks": rng.normal(size=(1 + i % 4, 8)).round(3).tolist()})
+        svc.refresh()
+        for s, w in enumerate(words[:3]):
+            body = {"query": {"match": {"body": w.split()[0]}}, "size": 10,
+                    "rescore": {"window_size": 20, "query": {
+                        "rescore_query": {"rank_vectors": {
+                            "field": "toks",
+                            "query_vectors": np.random.default_rng(s).normal(size=(3, 8)).round(3).tolist()}},
+                        "query_weight": 0.5, "rescore_query_weight": 2.0}}}
+            mex = svc.mesh_executor()
+            routed = mex.stats["routed"]
+            path[0] = "mesh"
+            monkeypatch.setenv("ES_TPU_MESH", "force")
+            got = svc.search(dict(body))
+            assert mex.stats["routed"] == routed + 1
+            path[0] = "shard"
+            monkeypatch.setenv("ES_TPU_MESH", "off")
+            ref = svc.search(dict(body))
+            pages = [[(h["_id"], np.float32(h["_score"]).view(np.int32)) for h in r["hits"]["hits"]]
+                     for r in (got, ref)]
+            assert pages[0] == pages[1] and len(pages[0]) == 10
+        assert shapes["mesh"] and shapes["mesh"] <= shapes["shard"], shapes
+    finally:
+        svc.close()

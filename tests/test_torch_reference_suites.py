@@ -152,11 +152,9 @@ def test_every_deselection_names_a_reason_and_its_twin():
         assert test.split("::")[0][:-3] in suites, test
         assert (ROOT / "tests" / test.split("::")[0]).exists(), test
         for device, (reason, why) in by_device.items():
-            assert device in ("cpu", "cuda") and reason in ("a", "b", "c", "order"), test
+            assert device in ("cpu", "cuda") and reason in ("a", "b", "c"), test
             assert why, test
-            if reason == "order":
-                assert device == "cuda", test
-            if reason in ("c", "order"):
+            if reason == "c":
                 twins = re.findall(r"tests/(test_torch_\w+\.py)(?:::(\w+))?", why)
                 assert twins, (test, why)
                 for path, name in twins:
