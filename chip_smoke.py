@@ -838,18 +838,22 @@ def sparse_pages(res: list) -> list:
              np.asarray([h.score for h in td.hits], np.float32)) for td in res]
 
 
-def capture_scatter(fn):
+def capture_scatter(fn, densest: bool = False):
     """Runs `fn` once with ops/ordered_scatter.ordered_scatter_add wrapped
-    where the scorers call it; returns the inputs of its first call (acc
-    and cnt as they were before it)."""
+    where the scorers call it; returns the inputs of its first call, or
+    of the call with the most valid slots (acc and cnt as they were
+    before it)."""
     from elasticsearch_tpu_torch.ops import impact, ordered_scatter, scoring
 
     real = ordered_scatter.ordered_scatter_add
     first = []
+    most = [-1]
 
     def spy(acc, tgt, src, cnt=None, inc=None):
-        if not first:
-            first.append([None if x is None else x.clone() for x in (acc, tgt, src, cnt, inc)])
+        valid = int((tgt != acc.shape[-1] - 1).sum()) if densest else 0
+        if not first or valid > most[0]:
+            most[0] = valid
+            first[:] = [[None if x is None else x.clone() for x in (acc, tgt, src, cnt, inc)]]
         return real(acc, tgt, src, cnt, inc)
 
     scoring.ordered_scatter_add = impact.ordered_scatter_add = spy
@@ -903,13 +907,14 @@ def scatter_kernel_row(args, device) -> dict:
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = adds / PEAK_F32_FLOPS * 1e3
     bound_ms = max(bytes_ms, ops_ms)
-    row = {"launches": None, "shape": {"R": R, "C": C, "S": S, "cnt": cnt is not None},
+    path = "row_kernel" if osc.layout(R, C, S, cnt is not None).chunks == 0 else "chunk_kernel + apply_kernel"
+    row = {"launches": None, "shape": {"R": R, "C": C, "S": S, "cnt": cnt is not None}, "path": path,
            "max_abs_err": max_abs, "cells_differing": differ, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": bound_ms, "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
            "bound_share": bound_ms / ms, "library_ms": library_ms,
            "library": "scatter_add_" if cnt is None else "scatter_add_ f32 + scatter_add_ int32",
            "bytes": nbytes, "valid_slots": int(valid.sum()), "touched_cells": cells}
-    log(f"ordered_scatter_add [{R}, {C}] x {S} (cnt {cnt is not None}): 0 cells differ, {ms:.4f} ms, "
+    log(f"ordered_scatter_add [{R}, {C}] x {S} (cnt {cnt is not None}, {path}): 0 cells differ, {ms:.4f} ms, "
         f"plain {plain_ms:.4f}, library {library_ms:.4f}, bound {bound_ms:.4f} ({nbytes} B)")
     return row
 
@@ -1054,14 +1059,21 @@ def phase_main(reader, oracle, vecs, qv, seed: int, device) -> dict:
         same_bits(sparse_pages(fg[f"f_{name}_res"]), sparse_pages(again[f"f_{name}"]), f"(f) {name} run twice")
     kernel_b = scatter_kernel_row(capture_scatter(route_b), device)
     kernel_f = scatter_kernel_row(capture_scatter(f_runs["int8"]), device)
-    kernel_f["launches"] = None  # the main path's count is the entry's
+    kernel_f_dense = scatter_kernel_row(capture_scatter(f_runs["int8"], densest=True), device)
+    q_a = dsl.parse_query({"match": {"body": texts[0]}})
+    kernel_a = scatter_kernel_row(capture_scatter(lambda: tex.search(q_a, size=K)), device)
+    for row in (kernel_f, kernel_f_dense, kernel_a):
+        row["launches"] = None  # the main path's count is the entry's
     scatter_row = {"name": "ordered_scatter_add", "route": "cuda",
                    "source": "elasticsearch_tpu_torch/csrc/ordered_scatter.cu",
                    "replaces": "none: the order of elasticsearch_tpu's `.at[].add` scatters "
                                "(elasticsearch_tpu/ops/scoring.py:549, ops/impact.py:94)",
-                   **kernel_b, "at_route_f": kernel_f, "launches_by_route": route_scatters}
+                   **kernel_b, "at_route_f": kernel_f, "at_route_f_densest": kernel_f_dense,
+                   "at_route_a": kernel_a,
+                   "launches_by_route": route_scatters}
     times["ordered_scatter_checks_s"] = time.perf_counter() - t
-    log(f"ordered scatter-add: bit for bit at (b) and (f), (b)/(e)/(f) twice the same bits, "
+    log(f"ordered scatter-add: bit for bit at (a), (b) and (f) (first and densest), (b)/(e)/(f) twice "
+        f"the same bits, "
         f"{times['ordered_scatter_checks_s']:.2f}s")
 
     # ---- correctness against the oracle ----

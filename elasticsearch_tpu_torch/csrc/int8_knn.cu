@@ -89,6 +89,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <atomic>
 
 namespace {
 
@@ -98,6 +99,10 @@ constexpr int KC = 64;          // k per chunk: one 16-byte load a row a thread
 constexpr int MT = 4;           // m16 tiles per warp: 64 docs
 constexpr int DOCS_PER_WARP = 16 * MT;
 constexpr int ROW_PAD = 8;      // bf16 elements (16 bytes) after each query row
+// the dynamic shared memory a Hopper block may use; each variant's limit is
+// set to it once per device, since a limit set to each launch's own size
+// would race with another thread's launch of a wider query chunk
+constexpr int SMEM_MAX = 232448;
 
 __device__ __forceinline__ uint32_t bf16_bits(float x) {
   return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(x)));
@@ -310,14 +315,30 @@ int8_dot_scores_kernel(const float* __restrict__ q,
   }
 }
 
+// Sets variant NT's dynamic shared-memory limit to SMEM_MAX, once per
+// device. Every caller sets the same value, so two threads doing it at once
+// agree.
+template <int NT>
+cudaError_t smem_limit_once() {
+  static std::atomic<unsigned long long> done{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (bit && (done.load() & bit)) return cudaSuccess;
+  err = cudaFuncSetAttribute(int8_dot_scores_kernel<NT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return err;
+}
+
 template <int NT>
 int launch(const float* q, const int8_t* v, const float* scales, float* out,
            int B, int N, int D, int num_sms, cudaStream_t stream) {
   const int dpad = (D + KC - 1) / KC * KC;
   const size_t smem = (size_t)3 * 8 * NT * (dpad + ROW_PAD) * sizeof(uint16_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      int8_dot_scores_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = smem_limit_once<NT>();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int ntiles = (N + DOCS_PER_WARP - 1) / DOCS_PER_WARP;
   const int blocks = std::min(num_sms, (ntiles + WARPS - 1) / WARPS);

@@ -1,4 +1,4 @@
-// Ordered tile scatter-add for NVIDIA Hopper (sm_90a).
+// Ordered scatter-add for NVIDIA Hopper (sm_90a).
 //
 //     for s in 0 .. S-1:  acc[r, tgt[r, s]] += src[r, s]     (every row r)
 //     and, when cnt is given, cnt[r, tgt[r, s]] += inc[r, s] in the same pass
@@ -8,156 +8,468 @@
 // of `ops/ordered_scatter.py:ordered_scatter_add_plain` on the CPU, of the
 // JAX package's `.at[].add` on the CPU and of the numpy oracle's `np.add.at`.
 // `scatter_add_` / `index_add_` on the card sum with float atomics instead, so
-// a doc's last ulp changed from run to run; this kernel has no float atomics
-// and its result does not depend on timing.
+// a doc's last ulp changed from run to run; this code has no float atomics,
+// no atomics at all, and its result does not depend on timing.
 //
 // Replaces no TPU kernel: the JAX package leaves every BM25 and sparse
 // accumulation to XLA's scatter (`.at[].add`). It exists for that order.
 //
-// The invariant it relies on. The slots come in tiles of 128 (one postings
-// tile: `ops/scoring.py` TILE_WIDTH, `ops/impact.py` TILE_WIDTH) and within
-// one tile the valid targets are distinct, because a doc occurs at most once
-// in a term's postings. Invalid slots target the overflow column C-1 with
-// +0.0 and inc 0; they are not applied (the column keeps its value, which
-// adding +0.0 to a +0.0 column would not change either). Targets outside
-// [0, C-1) are not applied.
-//
-// Design (a simple kernel that is right):
-//  - grid (doc ranges, rows); a block owns the cells [lo, hi) of its row, so
-//    no other block ever touches them;
-//  - the block copies acc[r, lo:hi) into shared memory (cp.async, 16 bytes a
-//    thread where the row is aligned), walks the row's tiles in order, and
-//    each of its 128 threads applies the one slot of the tile whose target
-//    falls in [lo, hi). Targets are distinct within a tile, so no two threads
-//    write one cell; a __syncthreads() between tiles keeps the tile order;
-//  - the int32 plane needs no order (integer sums are exact in any order):
-//    its adds go straight to global memory as integer atomics on the block's
-//    own cells;
-//  - the next BATCH tiles' slots are loaded into registers while the current
-//    ones are applied, then the block writes its slice back.
+// Slots whose target lies outside [0, C-1) are not applied: the last column
+// C-1 is the callers' overflow column, where padding slots aim with +0.0 and
+// inc 0, and it keeps its value.
 //
 // What bounds it on an H100 SXM (3.35 TB/s, 700 W). The function must read
-// tgt and src (and inc) once and read and write each cell it touches: at
-// route (f)'s chunk (32 rows, 65,536 slots a row, 1M docs) that is some
-// 25-40 MB, 8-12 us, so it is bound by bytes. This design moves more: every
-// range re-reads its row's slots (from L2: R x ranges x S x 8 bytes) and
-// copies its whole slice in and out (2 x R x C x 4 bytes, 256 MB at 32 x 1M),
-// and a tile costs a barrier. The wrapper sizes the ranges to the largest
-// shared slice a block may hold (232,448 bytes), which balances the slice
-// copy against the slot re-reads at the main path's shapes. PERF.md holds its
-// measured times; making it faster is later work.
+// the slots (tgt, src and inc) once and read and write each cell it touches:
+// at route (f)'s chunk (32 rows, 65,536 slots a row, 1M docs) some 25 MB,
+// 8 us, when few slots are valid; almost every slot is padding there. When
+// most are valid (a group's later chunks carry whole tiles of frequent
+// terms), the touched cells lie scattered over the [R, C] planes, and each
+// costs a 32-byte sector read and written on each plane: that traffic bounds
+// it then. A row of at most CAP slots (route (a)'s one-query launches) is
+// bound by launch latency.
+//
+// Design: the valid slots grouped by cell range, no block copies a slice of
+// acc, every touched cell read and written once.
+//  1. chunk_kernel, grid (chunks, rows): a block reads CAP slots of its row's
+//     targets (16 bytes a thread), keeps the valid ones and loads their
+//     values (and increments) only for the 16-byte groups that hold one.
+//     A block-wide prefix sum of the per-thread counts compacts them into
+//     shared memory in slot order. The block sorts them stably by bucket (a
+//     range of `width` cells of the row), so each bucket's slots stay in slot
+//     order. It writes them to its own fixed place in the scratch staging
+//     area (chunk c of row r at (r * chunks + c) * CAP) and writes, for each
+//     bucket of its row, its start and count (packed) to the count table.
+//  2. apply_kernel, grid (rows x buckets): a block owns the cells of one
+//     bucket, which no other block touches. A prefix sum over its row's
+//     chunks' counts tells where each of its slots lies; blocks whose bucket
+//     received nothing exit. It gathers its slots in chunk order, so in slot
+//     order, in pieces of CAP, sorts each piece stably by cell, which gives
+//     (cell, slot) order, and the first thread of each cell's run loads the
+//     cell, adds the run's values left to right with __fadd_rn (no
+//     contraction, no reordering, no tree), adds the run's increments to the
+//     count cell, and writes both once. A bucket of more than CAP slots takes
+//     several pieces, one after another.
+// The apply block keeps two ints a chunk in shared memory, so a row of more
+// than MAX_CHUNKS chunks is taken in windows of MAX_CHUNKS chunks, one after
+// another on the stream, which keeps each cell's additions in slot order.
+// Rows of at most CAP slots take one launch instead: row_kernel, grid
+// (buckets, rows); a block reads its row's slots, keeps those of its bucket in
+// slot order, sorts them by cell and adds the runs. Each block re-reads the
+// row's few slots (from L2) so that the card is filled from the buckets.
+//
+// Scratch and grids come from the shapes alone (the wrapper's `layout`), the
+// worst case of every slot valid; nothing is read back by the host. The
+// wrapper also passes its layout constants at build time (ES_CHUNK,
+// ES_MAX_BUCKETS, ES_MAX_WIDTH_BITS, ES_MAX_CHUNKS); the static_asserts below
+// hold them to the kernels' shared memory. A sort of up to RANKED keys a
+// 4-bit radix pass (at most one key a thread) ranks the keys; a larger one is
+// cub's BlockRadixSort over the key's bits only. The kernels use dynamic
+// shared memory only, and each kernel's limit is set once per device to the
+// card's maximum, never to a launch's own size (which races with another
+// thread's larger launch). PERF.md holds the measured times.
 
-#include <cuda_pipeline.h>
+#include <cub/block/block_radix_sort.cuh>
+#include <cub/block/block_scan.cuh>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
+#if !defined(ES_CHUNK) || !defined(ES_MAX_BUCKETS) || !defined(ES_MAX_WIDTH_BITS) || !defined(ES_MAX_CHUNKS)
+#error "built by ops/ordered_scatter.py, which passes its layout constants"
+#endif
+
 namespace {
 
-constexpr int TILE = 128;  // slots per postings tile = threads per block
-constexpr int BATCH = 8;   // tiles whose slots are in flight ahead of their turn
-// the dynamic shared memory a Hopper block may use; the kernel's limit is
-// set to it once for all, since a limit set to each launch's own size
-// would race with another thread's launch of a larger slice
+constexpr int THREADS = 256;
+constexpr int CAP = ES_CHUNK;             // slots a chunk = slots a piece
+constexpr int ITEMS = CAP / THREADS;      // keys a thread holds in the radix sort
+constexpr int RANKED = 64;                // keys a radix pass is worth in ranking (O(n^2))
+constexpr int MAX_BUCKETS = ES_MAX_BUCKETS;        // buckets a row
+constexpr int MAX_WIDTH_BITS = ES_MAX_WIDTH_BITS;  // cells a bucket <= 2^MAX_WIDTH_BITS
+constexpr int MAX_CHUNKS = ES_MAX_CHUNKS;          // chunks a window
+// the dynamic shared memory a Hopper block may use; each kernel's limit is
+// set to it once for all
 constexpr int SMEM_MAX = 232448;
+static_assert(CAP % THREADS == 0 && CAP <= 65536, "a chunk is whole threads' items, 16-bit positions");
+static_assert(CAP % 8 == 0, "a chunk is two rounds of 16 bytes a thread");
 
-struct Slots {
-  int tgt[BATCH];
-  float val[BATCH];
-  int inc[BATCH];
+using Sort = cub::BlockRadixSort<unsigned, THREADS, ITEMS, unsigned>;
+using Scan64 = cub::BlockScan<unsigned long long, THREADS>;
+using Scan32 = cub::BlockScan<int, THREADS>;
+
+struct ChunkSmem {
+  union {
+    Sort::TempStorage sort;
+    Scan64::TempStorage scan;
+  } tmp;
+  unsigned key[CAP];  // bucket
+  unsigned short pos[CAP];  // after the sort: the key's position before it
+  int tgt[CAP];       // the chunk's valid slots in slot order
+  float val[CAP];
+  int inc[CAP];
+  int start[MAX_BUCKETS];
+  unsigned packed[MAX_BUCKETS];  // (start << 16) | count, per bucket
 };
 
-__device__ __forceinline__ void load_slots(Slots& s, const int* __restrict__ trow,
-                                           const float* __restrict__ srow,
-                                           const int* __restrict__ irow, int t0,
-                                           int n_tiles) {
-#pragma unroll
-  for (int u = 0; u < BATCH; ++u) {
-    const int t = t0 + u;
-    if (t < n_tiles) {
-      const size_t i = (size_t)t * TILE + threadIdx.x;
-      s.tgt[u] = __ldg(trow + i);
-      s.val[u] = __ldg(srow + i);
-      s.inc[u] = irow ? __ldg(irow + i) : 0;
-    } else {
-      s.tgt[u] = -1;
-      s.val[u] = 0.f;
-      s.inc[u] = 0;
-    }
-  }
+struct PieceSmem {
+  union {
+    Sort::TempStorage sort;
+    Scan32::TempStorage scan;
+    Scan64::TempStorage scan64;
+  } tmp;
+  unsigned key[CAP];  // cell (- bucket start)
+  unsigned short pos[CAP];  // after the sort: the key's position before it
+  float val[CAP];     // the piece's slots in slot order
+  int inc[CAP];
+  float sval[CAP];    // the same in key order
+  int sinc[CAP];
+};
+// apply_kernel's shared memory: PieceSmem, then int pre[chunks + 1] (the
+// bucket's slots before each chunk) and int first[chunks] (where they start)
+constexpr size_t apply_smem(int chunks) { return sizeof(PieceSmem) + sizeof(int) * (2 * (size_t)chunks + 1); }
+static_assert(sizeof(ChunkSmem) <= SMEM_MAX, "chunk_kernel's shared memory");
+static_assert(apply_smem(MAX_CHUNKS) <= SMEM_MAX, "apply_kernel's shared memory at MAX_CHUNKS");
+
+__host__ __device__ inline int bits_for(unsigned x) {  // bits to hold 0 .. x, at least 1
+  int b = 1;
+  while (x >> b) ++b;
+  return b;
 }
 
-__global__ void __launch_bounds__(TILE)
-ordered_scatter_kernel(float* __restrict__ acc, int* __restrict__ cnt,
-                       const int* __restrict__ tgt, const float* __restrict__ src,
-                       const int* __restrict__ inc, int C, int S, int span) {
-  extern __shared__ __align__(16) float smem[];
-  const int row = blockIdx.y;
-  const int lo = blockIdx.x * span;
-  const int hi = min(lo + span, C - 1);  // the overflow column is never applied
-  const int width = hi - lo;
-  float* arow = acc + (size_t)row * C + lo;
+// Sorts key[0..n) (n <= CAP) ascending by their low `nbits` bits, stably:
+// equal keys keep their order, so (key, position) order. pos[j] gets the
+// position the j-th key had. Ends with the block synchronised.
+__device__ void sort_keys(unsigned* key, unsigned short* pos, int n, int nbits,
+                          Sort::TempStorage& tmp) {
+  const int i = threadIdx.x;
+  if (n <= min(THREADS, RANKED * ((nbits + 3) / 4))) {  // rank: keys below, equal ones before
+    unsigned k = 0;
+    int rank = 0;
+    if (i < n) {
+      k = key[i];
+      for (int j = 0; j < n; ++j) {
+        const unsigned kj = key[j];
+        rank += kj < k || (kj == k && j < i);
+      }
+    }
+    __syncthreads();
+    if (i < n) {
+      key[rank] = k;
+      pos[rank] = (unsigned short)i;
+    }
+    __syncthreads();
+    return;
+  }
+  // cub's radix sort is stable; the padding's low bits are all ones and it
+  // comes after every key, so it sorts last
+  unsigned items[ITEMS], at[ITEMS];
+#pragma unroll
+  for (int u = 0; u < ITEMS; ++u) {
+    const int j = i * ITEMS + u;
+    items[u] = j < n ? key[j] : 0xFFFFFFFFu;
+    at[u] = j;
+  }
+  Sort(tmp).Sort(items, at, 0, nbits);
+#pragma unroll
+  for (int u = 0; u < ITEMS; ++u) {
+    const int j = i * ITEMS + u;
+    if (j < n) {
+      key[j] = items[u];
+      pos[j] = (unsigned short)at[u];
+    }
+  }
+  __syncthreads();
+}
 
-  // slice[i] holds arow[i]; it starts `mis` floats into smem so that the
-  // first 16-byte-aligned element of the row and its shared copy line up
-  const int mis = (int)((reinterpret_cast<uintptr_t>(arow) >> 2) & 3);
-  const int head = min((4 - mis) & 3, width);
-  const int nvec = (width - head) >> 2;
-  float* slice = smem + mis;
-  const float4* gvec = reinterpret_cast<const float4*>(arow + head);
-  float4* svec = reinterpret_cast<float4*>(slice + head);
-  for (int i = threadIdx.x; i < nvec; i += TILE) __pipeline_memcpy_async(svec + i, gvec + i, 16);
-  __pipeline_commit();
-  for (int i = threadIdx.x; i < head; i += TILE) slice[i] = arow[i];
-  for (int i = head + 4 * nvec + threadIdx.x; i < width; i += TILE) slice[i] = arow[i];
-  __pipeline_wait_prior(0);
+// four targets (or values) at p[q .. q+3], -1 / 0 past the row's end
+__device__ __forceinline__ int4 load_int4(const int* __restrict__ p, int q, int S, bool vec) {
+  if (q >= S) return make_int4(-1, -1, -1, -1);
+  if (vec) return __ldg(reinterpret_cast<const int4*>(p + q));
+  return make_int4(__ldg(p + q), __ldg(p + q + 1), __ldg(p + q + 2), __ldg(p + q + 3));
+}
+
+__device__ __forceinline__ float4 load_float4(const float* __restrict__ p, int q, bool vec) {
+  if (vec) return __ldg(reinterpret_cast<const float4*>(p + q));
+  return make_float4(__ldg(p + q), __ldg(p + q + 1), __ldg(p + q + 2), __ldg(p + q + 3));
+}
+
+// Reads the CAP slots of a row from slot q0 on (16 bytes a thread; slots at
+// S and past it are padding), keeps those whose target lies in [lo, lo+lim)
+// and writes them in slot order: key = (target - lo) / div, the target itself
+// to tgt (if given), the value and the increment (0 without `irow`). Returns
+// how many; the block is synchronised. (lo + lim <= C-1 < 2^31, so no
+// negative target passes the unsigned test.)
+__device__ int compact(const int* __restrict__ trow, const float* __restrict__ srow,
+                       const int* __restrict__ irow, int q0, int S, unsigned lo, unsigned lim,
+                       bool vec, int div, unsigned* key, int* tgt, float* val, int* inc,
+                       Scan64::TempStorage& tmp) {
+  // round j holds slots q0 + j*CAP/2 + 4*thread + (0..3)
+  int t[2][4];
+  int q[2];
+  unsigned nvalid[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    q[j] = q0 + j * (CAP / 2) + 4 * threadIdx.x;
+    const int4 v = load_int4(trow, q[j], S, vec);
+    t[j][0] = v.x, t[j][1] = v.y, t[j][2] = v.z, t[j][3] = v.w;
+    nvalid[j] = 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) nvalid[j] += (unsigned)t[j][e] - lo < lim;
+  }
+  // both rounds' prefix sums at once, one in each half of a 64-bit word
+  unsigned long long before, total;
+  Scan64(tmp).ExclusiveSum(nvalid[0] | (unsigned long long)nvalid[1] << 32, before, total);
+  const int n0 = (int)(total & 0xFFFFFFFFu);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    if (!nvalid[j]) continue;
+    int p = j ? n0 + (int)(before >> 32) : (int)(before & 0xFFFFFFFFu);
+    const float4 v = load_float4(srow, q[j], vec);
+    const int4 i = irow ? load_int4(irow, q[j], S, vec) : make_int4(0, 0, 0, 0);
+    const float vs[4] = {v.x, v.y, v.z, v.w};
+    const int is[4] = {i.x, i.y, i.z, i.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if ((unsigned)t[j][e] - lo < lim) {
+        key[p] = ((unsigned)t[j][e] - lo) / (unsigned)div;
+        if (tgt) tgt[p] = t[j][e];
+        val[p] = vs[e];
+        inc[p] = is[e];
+        ++p;
+      }
+    }
+  }
+  __syncthreads();
+  return n0 + (int)(total >> 32);
+}
+
+// After sort_keys over the m slots of sm: the head of each cell's run loads
+// arow[cell], adds the run's values left to right with __fadd_rn (no
+// contraction, no reordering, no tree), adds the run's increments to
+// crow[cell] (if given), and writes both once. Ends synchronised.
+__device__ void add_runs(PieceSmem& sm, float* arow, int* crow, int m) {
+  for (int j = threadIdx.x; j < m; j += THREADS) {
+    const int e = sm.pos[j];
+    sm.sval[j] = sm.val[e];
+    sm.sinc[j] = sm.inc[e];
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < m; j += THREADS) {
+    const unsigned cell = sm.key[j];
+    if (j > 0 && sm.key[j - 1] == cell) continue;
+    float v = arow[cell];
+    int ci = 0;
+    int x = j;
+    do {
+      v = __fadd_rn(v, sm.sval[x]);
+      ci += sm.sinc[x];
+      ++x;
+    } while (x < m && sm.key[x] == cell);
+    arow[cell] = v;
+    if (crow) crow[cell] += ci;
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(THREADS)
+chunk_kernel(const int* __restrict__ tgt, const float* __restrict__ src,
+             const int* __restrict__ inc, int* __restrict__ st_tgt,
+             float* __restrict__ st_val, int* __restrict__ st_inc,
+             unsigned* __restrict__ counts, int C, int S, int ld, int chunks, int nb,
+             int width, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  ChunkSmem& sm = *reinterpret_cast<ChunkSmem*>(smem_raw);
+  const int c = blockIdx.x, r = blockIdx.y;
+  for (int b = threadIdx.x; b < nb; b += THREADS) sm.packed[b] = 0u;
+  const int n = compact(tgt + (size_t)r * ld, src + (size_t)r * ld, inc ? inc + (size_t)r * ld : nullptr,
+                        c * CAP, S, 0u, (unsigned)(C - 1), vec, width, sm.key, sm.tgt, sm.val,
+                        sm.inc, sm.tmp.scan);
+  unsigned* crow = counts + (size_t)r * nb * chunks + c;  // bucket b at crow[b * chunks]
+  if (n == 0) {
+    for (int b = threadIdx.x; b < nb; b += THREADS) crow[(size_t)b * chunks] = 0u;
+    return;
+  }
+  sort_keys(sm.key, sm.pos, n, bits_for(nb - 1), sm.tmp.sort);
+
+  // each bucket's start and count in the sorted chunk
+  for (int j = threadIdx.x; j < n; j += THREADS) {
+    const unsigned b = sm.key[j];
+    if (j == 0 || sm.key[j - 1] != b) sm.start[b] = j;
+  }
+  __syncthreads();
+  int* dt = st_tgt + ((size_t)r * chunks + c) * CAP;
+  float* dv = st_val + ((size_t)r * chunks + c) * CAP;
+  int* di = st_inc ? st_inc + ((size_t)r * chunks + c) * CAP : nullptr;
+  for (int j = threadIdx.x; j < n; j += THREADS) {
+    const unsigned b = sm.key[j];
+    if (j == n - 1 || sm.key[j + 1] != b)
+      sm.packed[b] = (unsigned)sm.start[b] << 16 | (unsigned)(j - sm.start[b] + 1);
+    const int i = sm.pos[j];
+    dt[j] = sm.tgt[i];
+    dv[j] = sm.val[i];
+    if (di) di[j] = sm.inc[i];
+  }
+  __syncthreads();
+  for (int b = threadIdx.x; b < nb; b += THREADS) crow[(size_t)b * chunks] = sm.packed[b];
+}
+
+__global__ void __launch_bounds__(THREADS)
+apply_kernel(float* acc, int* cnt, const int* __restrict__ st_tgt,
+             const float* __restrict__ st_val, const int* __restrict__ st_inc,
+             const unsigned* __restrict__ counts, int C, int chunks, int nb, int width) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  PieceSmem& sm = *reinterpret_cast<PieceSmem*>(smem_raw);
+  int* pre = reinterpret_cast<int*>(smem_raw + sizeof(PieceSmem));
+  int* first = pre + chunks + 1;
+  const int k = blockIdx.x;
+  const int r = k / nb;
+  const int lo = (k - r * nb) * width;
+  const unsigned* cc = counts + (size_t)k * chunks;
+
+  // the bucket's slots before each chunk of its row, and where they start there
+  int n = 0;
+  for (int c0 = 0; c0 < chunks; c0 += THREADS) {
+    const int c = c0 + threadIdx.x;
+    const unsigned p = c < chunks ? cc[c] : 0u;
+    int ex, agg;
+    Scan32(sm.tmp.scan).ExclusiveSum((int)(p & 0xFFFFu), ex, agg);
+    if (c < chunks) {
+      pre[c] = n + ex;
+      first[c] = (int)(p >> 16);
+    }
+    n += agg;
+    __syncthreads();
+  }
+  if (n == 0) return;
+  if (threadIdx.x == 0) pre[chunks] = n;
   __syncthreads();
 
-  const int* trow = tgt + (size_t)row * S;
-  const float* srow = src + (size_t)row * S;
-  const int* irow = inc ? inc + (size_t)row * S : nullptr;
-  int* crow = cnt ? cnt + (size_t)row * C + lo : nullptr;
-  const int n_tiles = S / TILE;
-  Slots cur, next;
-  load_slots(cur, trow, srow, irow, 0, n_tiles);
-  for (int t0 = 0; t0 < n_tiles; t0 += BATCH) {
-    load_slots(next, trow, srow, irow, t0 + BATCH, n_tiles);
-#pragma unroll
-    for (int u = 0; u < BATCH; ++u) {
-      const int d = cur.tgt[u] - lo;
-      if ((unsigned)d < (unsigned)width) {
-        slice[d] += cur.val[u];
-        if (crow) atomicAdd(crow + d, cur.inc[u]);
+  float* arow = acc + (size_t)r * C + lo;
+  int* crow = cnt ? cnt + (size_t)r * C + lo : nullptr;
+  const size_t stage = (size_t)r * chunks * CAP;
+  const int nbits = bits_for(width - 1);
+  for (int p0 = 0; p0 < n; p0 += CAP) {
+    const int m = min(CAP, n - p0);
+    for (int e = threadIdx.x; e < m; e += THREADS) {
+      const int g = p0 + e;
+      int a = 0, b = chunks - 1;  // the last chunk with pre[c] <= g holds slot g
+      while (a < b) {
+        const int mid = (a + b + 1) >> 1;
+        if (pre[mid] <= g) a = mid;
+        else b = mid - 1;
       }
-      __syncthreads();  // tile t's adds land before tile t+1's
+      const size_t at = stage + (size_t)a * CAP + first[a] + (g - pre[a]);
+      sm.key[e] = (unsigned)(st_tgt[at] - lo);
+      sm.val[e] = st_val[at];
+      sm.inc[e] = crow ? st_inc[at] : 0;
     }
-    cur = next;
+    __syncthreads();
+    sort_keys(sm.key, sm.pos, m, nbits, sm.tmp.sort);
+    add_runs(sm, arow, crow, m);  // ends synchronised: the next piece reads after these writes
   }
-
-  for (int i = threadIdx.x; i < nvec; i += TILE) reinterpret_cast<float4*>(arow + head)[i] = svec[i];
-  for (int i = threadIdx.x; i < head; i += TILE) arow[i] = slice[i];
-  for (int i = head + 4 * nvec + threadIdx.x; i < width; i += TILE) arow[i] = slice[i];
 }
+
+__global__ void __launch_bounds__(THREADS)
+row_kernel(float* acc, int* cnt, const int* __restrict__ tgt, const float* __restrict__ src,
+           const int* __restrict__ inc, int C, int S, int width, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  PieceSmem& sm = *reinterpret_cast<PieceSmem*>(smem_raw);
+  const int r = blockIdx.y;
+  const unsigned lo = (unsigned)blockIdx.x * (unsigned)width;
+  const unsigned lim = min((unsigned)width, (unsigned)(C - 1) - lo);
+  const size_t at = (size_t)r * S;
+  const int n = compact(tgt + at, src + at, inc ? inc + at : nullptr, 0, S, lo, lim, vec, 1, sm.key,
+                        nullptr, sm.val, sm.inc, sm.tmp.scan64);
+  if (n == 0) return;
+  sort_keys(sm.key, sm.pos, n, bits_for(lim - 1), sm.tmp.sort);
+  add_runs(sm, acc + (size_t)r * C + lo, cnt ? cnt + (size_t)r * C + lo : nullptr, n);
+}
+
+// Sets `fn`'s dynamic shared-memory limit to SMEM_MAX, once per device.
+// Every caller sets the same value, so two threads doing it at once agree.
+cudaError_t smem_limit_once(const void* fn, std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (bit && (done.load() & bit)) return cudaSuccess;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return err;
+}
+
+std::atomic<unsigned long long> chunk_limit_set{0};
+std::atomic<unsigned long long> apply_limit_set{0};
+std::atomic<unsigned long long> row_limit_set{0};
 
 }  // namespace
 
-// Launches on `stream` (PyTorch's current stream): R rows of C cells (the
-// last one the overflow column), S slots a row (a multiple of 128), ranges of
-// `span` cells, cnt/inc optional (both or neither). Returns the launch's
-// cudaGetLastError() as an int; 0 means the launch was accepted.
+// Launches the kernels on `stream` (PyTorch's current stream): R rows of C
+// cells (the last one the overflow column), S slots a row (a multiple of
+// 128), cnt/inc optional (both or neither). `chunks`, `nb` and `width` are
+// the wrapper's layout (ops/ordered_scatter.py `layout`): CAP-slot chunks a
+// window, buckets a row, cells a bucket; chunks == 0 (rows of at most CAP
+// slots) takes row_kernel alone and no scratch. Otherwise `scratch` holds
+// R*nb*chunks count words and then 2 (3 with cnt) planes of R*chunks*CAP
+// staged slots, used by each window in turn. Returns the first
+// cudaGetLastError() that is not 0 as an int; 0 means every launch was
+// accepted.
 extern "C" int es_ordered_scatter_add(void* acc, void* cnt, const void* tgt,
-                                      const void* src, const void* inc, int R,
-                                      int C, int S, int span, void* stream) {
+                                      const void* src, const void* inc, void* scratch,
+                                      int R, int C, int S, int chunks, int nb,
+                                      int width, void* stream) {
   if (R <= 0 || C <= 1 || S <= 0) return 0;
-  if (S % TILE || span <= 0 || R > 65535 || (cnt == nullptr) != (inc == nullptr))
+  if (S % 128 || (cnt == nullptr) != (inc == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (size_t)(span + 4) * sizeof(float);
-  if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      ordered_scatter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+  auto* a = static_cast<float*>(acc);
+  auto* ci = static_cast<int*>(cnt);
+  auto* t = static_cast<const int*>(tgt);
+  auto* s = static_cast<const float*>(src);
+  auto* i = static_cast<const int*>(inc);
+  const bool vec = !((reinterpret_cast<uintptr_t>(tgt) | reinterpret_cast<uintptr_t>(src) |
+                      reinterpret_cast<uintptr_t>(inc)) & 15);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (R > 65535 || nb <= 0 || nb > MAX_BUCKETS || width <= 0 || width > (1 << MAX_WIDTH_BITS) ||
+      (long long)nb * width < C - 1 || (long long)(nb - 1) * width >= C - 1 ||
+      (long long)R * nb > 0x7FFFFFFFll)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  if (chunks == 0) {
+    if (S > CAP) return static_cast<int>(cudaErrorInvalidValue);
+    err = smem_limit_once(reinterpret_cast<const void*>(row_kernel), row_limit_set);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    row_kernel<<<dim3(nb, R), THREADS, sizeof(PieceSmem), st>>>(a, ci, t, s, i, C, S, width, vec);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (chunks != min((int)(((long long)S + CAP - 1) / CAP), MAX_CHUNKS))
+    return static_cast<int>(cudaErrorInvalidValue);
+  err = smem_limit_once(reinterpret_cast<const void*>(chunk_kernel), chunk_limit_set);
+  if (err == cudaSuccess)
+    err = smem_limit_once(reinterpret_cast<const void*>(apply_kernel), apply_limit_set);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((C - 1 + span - 1) / span, R);
-  ordered_scatter_kernel<<<grid, TILE, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(acc), static_cast<int*>(cnt), static_cast<const int*>(tgt),
-      static_cast<const float*>(src), static_cast<const int*>(inc), C, S, span);
-  return static_cast<int>(cudaGetLastError());
+
+  const size_t n_counts = (size_t)R * nb * chunks;
+  const size_t n_stage = (size_t)R * chunks * CAP;
+  auto* counts = static_cast<unsigned*>(scratch);
+  auto* st_tgt = reinterpret_cast<int*>(counts + n_counts);
+  auto* st_val = reinterpret_cast<float*>(st_tgt + n_stage);
+  auto* st_inc = cnt ? reinterpret_cast<int*>(st_val + n_stage) : nullptr;
+  // windows of `chunks` chunks, one after another on the stream: a window's
+  // additions all land before the next window's begin
+  const int window = chunks * CAP;
+  for (int w0 = 0; w0 < S; w0 += window) {
+    const int sw = min(window, S - w0);
+    const int cw = (sw + CAP - 1) / CAP;
+    chunk_kernel<<<dim3(cw, R), THREADS, sizeof(ChunkSmem), st>>>(
+        t + w0, s + w0, i ? i + w0 : nullptr, st_tgt, st_val, st_inc, counts, C, sw, S, cw, nb,
+        width, vec);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    apply_kernel<<<(unsigned)(R * nb), THREADS, apply_smem(cw), st>>>(
+        a, ci, st_tgt, st_val, st_inc, counts, C, cw, nb, width);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }

@@ -9,8 +9,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
-from typing import Tuple
+from typing import Mapping, Optional, Tuple
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
@@ -35,20 +36,24 @@ def nvcc() -> str:
     return str(path)
 
 
-def build(source: Path) -> Tuple[Path, str]:
+def build(source: Path, defines: Optional[Mapping[str, int]] = None) -> Tuple[Path, str]:
     """Compiles `source` into _build/ unless a library built from the
-    same source and flags is already there. Returns (library path, the
-    compiler's output; empty when nothing was compiled)."""
+    same source and flags is already there; `defines` become `-D` flags
+    (the constants a wrapper shares with its kernel). Returns (library
+    path, the compiler's output; empty when nothing was compiled)."""
+    flags = NVCC_FLAGS + [f"-D{k}={v}" for k, v in sorted((defines or {}).items())]
     digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        source.read_bytes() + " ".join(flags).encode()
     ).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{source.stem}_{digest}.so"
     if lib.exists():
         return lib, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".{lib.name}.{os.getpid()}.tmp"
+    # a temp name of its own per thread: two threads of one process that
+    # build the same library at once each finish their own file
+    tmp = BUILD_DIR / f".{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp"
     proc = subprocess.run(
-        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+        [nvcc(), *flags, "-o", str(tmp), str(source)],
         capture_output=True, text=True,
     )
     if proc.returncode != 0:

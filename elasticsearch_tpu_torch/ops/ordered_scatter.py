@@ -21,9 +21,18 @@ Inputs: `acc` f32 [R, C] (or [C], one row), contiguous, whose last
 column C-1 is the overflow column; `tgt` int32 [R, S] with S a multiple
 of TILE_WIDTH; `src` f32 [R, S]; optionally an int32 plane `cnt`
 [R, C] with its increments `inc` int32 [R, S], added in the same pass
-(integer sums are exact in any order). Within each 128-slot tile the
-valid targets must be distinct (a doc occurs at most once in a term's
-postings); invalid slots target C-1 with +0.0 and inc 0.
+(integer sums are exact in any order). Invalid slots target C-1 with
++0.0 and inc 0; the kernel applies no slot whose target lies outside
+[0, C-1). A target may repeat within a tile (the served paths never
+repeat one: a doc occurs at most once in a term's postings).
+
+The kernel groups the valid slots by cell range in scratch memory that
+the wrapper allocates on the current stream; `layout` sizes it, and
+the grids, from the shapes alone (every slot valid at worst), so a
+launch never waits for the card. Rows of at most CHUNK slots take one
+launch and no scratch; rows of more than MAX_CHUNKS chunks are taken in
+windows, one after another. This module owns the layout: its constants
+reach the CUDA source as `-D` flags at build time (`DEFINES`).
 """
 
 from __future__ import annotations
@@ -31,7 +40,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -39,15 +48,64 @@ from . import nvcc
 
 TILE_WIDTH = 128
 SOURCE = nvcc.CSRC / "ordered_scatter.cu"
-SMEM_LIMIT = 232_448  # dynamic shared memory one Hopper block may use
-SPAN_MAX = SMEM_LIMIT // 4 - 4  # f32 cells of one block's slice
-SPAN_MIN = 1024  # cells a block owns at least when ranges are split to fill the card
+CHUNK = 2048  # slots a chunk, slots a piece (256 threads x 8 keys)
+MAX_BUCKETS = 1024  # buckets a row
+MAX_WIDTH_BITS = 20
+MAX_WIDTH = 1 << MAX_WIDTH_BITS  # cells a bucket
+MAX_CHUNKS = 16_384  # chunks a window (their offsets sit in one apply block's shared memory)
+BUCKETS = 1024  # buckets a call aims at over all its rows: blocks for 132 SMs
+SLOTS_PER_BUCKET = 64  # ... but no more than one per this many slots
+DEFINES = {"ES_CHUNK": CHUNK, "ES_MAX_BUCKETS": MAX_BUCKETS, "ES_MAX_WIDTH_BITS": MAX_WIDTH_BITS,
+           "ES_MAX_CHUNKS": MAX_CHUNKS}
+
+
+class Layout(NamedTuple):
+    """The kernels' scratch for R rows of C cells and S slots. With
+    chunks 0, rows of at most CHUNK slots take one launch, grid (buckets,
+    R), and no scratch; else each window of `chunks` chunks takes two,
+    grids (chunks, R) blocks, then R x buckets, over the same scratch."""
+
+    chunks: int  # CHUNK-slot chunks a window (0: one launch)
+    windows: int  # windows a row, launched one after another
+    buckets: int  # cell ranges a row
+    width: int  # cells a bucket
+    count_words: int  # (start, count) words: R x buckets x chunks
+    stage_slots: int  # staged slots a plane: R x chunks x CHUNK
+    scratch_words: int  # int32 words of scratch in all
+
+
+@functools.lru_cache(maxsize=1024)
+def layout(R: int, C: int, S: int, with_cnt: bool) -> Layout:
+    """Sizes every scratch buffer and grid from the shapes alone, for the
+    worst case of all R x S slots valid: each chunk of a window stages its
+    slots at a fixed place, and a call has about BUCKETS buckets over its
+    rows, so that one row fills the card as 32 rows do, or one per
+    SLOTS_PER_BUCKET slots where that is fewer."""
+    cells = C - 1
+    if cells < 1 or R < 1 or S < 1:
+        raise ValueError(f"ordered_scatter_add: no layout for R={R}, C={C}, S={S}")
+    if cells > MAX_BUCKETS * MAX_WIDTH:
+        raise ValueError(f"ordered_scatter_add: {cells} cells a row exceed {MAX_BUCKETS * MAX_WIDTH}")
+    aim = min(BUCKETS, -(-R * S // SLOTS_PER_BUCKET))
+    buckets = max(min(MAX_BUCKETS, cells, -(-aim // R)), -(-cells // MAX_WIDTH))
+    width = -(-cells // buckets)
+    buckets = -(-cells // width)  # no bucket past the last cell
+    if S <= CHUNK:
+        return Layout(0, 1, buckets, width, 0, 0, 0)
+    chunks = min(-(-S // CHUNK), MAX_CHUNKS)
+    windows = -(-S // (chunks * CHUNK))
+    count_words = R * buckets * chunks
+    stage_slots = R * chunks * CHUNK
+    planes = 3 if with_cnt else 2
+    return Layout(chunks, windows, buckets, width, count_words, stage_slots,
+                  count_words + planes * stage_slots)
 
 
 def build() -> Tuple[Path, str]:
-    """Compiles csrc/ordered_scatter.cu into _build/ unless a library
-    built from the same source and flags is already there."""
-    return nvcc.build(SOURCE)
+    """Compiles csrc/ordered_scatter.cu with this module's layout constants
+    into _build/ unless a library built from the same source and flags is
+    already there."""
+    return nvcc.build(SOURCE, DEFINES)
 
 
 @functools.lru_cache(maxsize=None)
@@ -55,25 +113,9 @@ def _library() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     fn = lib.es_ordered_scatter_add
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _num_sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def span_for(rows: int, cells: int, num_sms: int) -> int:
-    """Cells of one block's range over the `cells` docs of a row (the
-    overflow column excluded): the largest slice a block's shared memory
-    holds, cut smaller only while rows x ranges would leave SMs idle."""
-    cells = max(cells, 1)
-    ranges = -(-cells // SPAN_MAX)
-    if rows * ranges < num_sms:
-        ranges = max(ranges, min(-(-num_sms // rows), -(-cells // SPAN_MIN)))
-    return -(-cells // ranges)
 
 
 def ordered_scatter_add_plain(acc, tgt, src, cnt=None, inc=None):
@@ -134,14 +176,16 @@ def ordered_scatter_add(
         raise ValueError("ordered_scatter_add: tensors must be contiguous")
     if R == 0 or C <= 1 or S == 0:
         return acc, cnt
+    lay = layout(R, C, S, cnt is not None)
     lib = _library()
     with torch.cuda.device(device):
-        span = span_for(R, C - 1, _num_sms(torch.cuda.current_device()))
+        scratch = torch.empty(lay.scratch_words, dtype=torch.int32, device=device) if lay.chunks else None
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.es_ordered_scatter_add(
             acc.data_ptr(), None if cnt is None else cnt.data_ptr(),
             tgt.data_ptr(), src.data_ptr(), None if inc is None else inc.data_ptr(),
-            R, C, S, span, stream,
+            None if scratch is None else scratch.data_ptr(), R, C, S, lay.chunks, lay.buckets,
+            lay.width, stream,
         )
     if rc != 0:
         raise RuntimeError(f"ordered_scatter_add: kernel launch failed (cudaError {rc})")

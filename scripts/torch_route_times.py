@@ -1,8 +1,11 @@
 """Device time of the served routes that sum BM25 and sparse scores, for
-one checkout of the repository: route (b), 32 `match` bodies in one
-fused launch; route (e), 32 `multi_match` bodies in one multi-field
-fused launch; route (f), a batcher `sparse_vector` group of 32, int8 and
-fp32; and a batcher `match` group of 8, as `chip_smoke.py` drives them
+one checkout of the repository: route (a), one `match` body through
+`TorchExecutor.search`; route (b), 32 `match` bodies in one fused
+launch; route (e), 32 `multi_match` bodies in one multi-field fused
+launch; route (f), a batcher `sparse_vector` group of 32, int8 and
+fp32; a batcher `match` group of 8; and route (i), one sorted body's
+first and second page through `execute_sorted_device`, as
+`chip_smoke.py` drives them
 on its corpus (1M docs from `--seed`). Each route runs once to warm,
 then `--repeat` times under `torch.profiler`; the device time is the
 sum over kernels and copies (chip_smoke.profile_routes).
@@ -43,6 +46,7 @@ def main(argv=None) -> int:
     from elasticsearch_tpu_torch.search import dsl
     from elasticsearch_tpu_torch.search.batcher import (
         QueryBatcher, extract_match_plan, extract_serve_plan)
+    from elasticsearch_tpu_torch.search.executor import parse_sort
     from elasticsearch_tpu_torch.search.executor_torch import TorchExecutor
 
     device = torch.device("cuda", 0)
@@ -90,9 +94,19 @@ def main(argv=None) -> int:
         jobs = [gb.submit_nowait(tex, p, cs.K) for p in mplans]
         gb._run_group(jobs, "body", 16, rows=cs.CLIENTS)
 
-    fns = {"b_match_fused_batch32": route_b, "e_multi_match_fused_batch32": route_e,
-           "f_sparse_int8_group32": route_f("int8"), "f_sparse_fp32_group32": route_f("fp32"),
-           "batcher_match_group_8": batcher_match}
+    q_a = dsl.parse_query({"match": {"body": texts[0]}})
+    body_i = cs.sort_bodies(reader.segments[0].postings["body"].term_df, args.seed)["popularity_desc"][0]
+    q_i, specs_i = dsl.parse_query(body_i["query"]), parse_sort(body_i["sort"])
+    after_i = tex.execute_sorted_device(q_i, specs_i, size=cs.K)[1][-1]  # sets up the rank column
+
+    def route_i():
+        tex.execute_sorted_device(q_i, specs_i, size=cs.K)
+        tex.execute_sorted_device(q_i, specs_i, size=cs.K, search_after=after_i)
+
+    fns = {"a_match_one_query": lambda: tex.search(q_a, size=cs.K), "b_match_fused_batch32": route_b,
+           "e_multi_match_fused_batch32": route_e, "f_sparse_int8_group32": route_f("int8"),
+           "f_sparse_fp32_group32": route_f("fp32"), "batcher_match_group_8": batcher_match,
+           "i_sorted_two_pages": route_i}
     runs = [cs.profile_routes(fns, device) for _ in range(args.repeat)]
     gb.close()
     out = {"card": card, "root": str(root), "corpus_s": corpus_s,

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from elasticsearch_tpu_torch.ops import int8_knn
+from scatter_cases import SCATTER_KINDS, applied, hard_scatter_case
 
 torch.set_num_threads(1)
 
@@ -146,21 +147,43 @@ def _scatter_inputs(R, C, n_tiles, seed):
     return [torch.from_numpy(x) for x in (acc, cnt, tgt, src, inc)]
 
 
+def _kind_inputs(kind, R, C, S, seed):
+    acc, cnt, tgt, src, inc = hard_scatter_case(kind, R, C, S, seed)
+    return [torch.from_numpy(x) for x in (acc, cnt, tgt, src, inc)], applied(tgt, src, inc, C)
+
+
 @pytest.mark.parametrize(
-    "R,C,n_tiles,with_cnt",
+    "kind,R,C,S,with_cnt",
     [
-        (1, 300, 4, False), (1, 300, 4, True), (3, 129, 6, True), (32, 701, 3, True),
-        # several ranges a row, rows whose starts are not 16-byte aligned
-        (2, 200_003, 40, True), (5, 130_001, 12, False), (1, 1_000_001, 64, True),
+        ("tiles", 1, 300, 512, False), ("tiles", 1, 300, 512, True), ("tiles", 3, 129, 768, True),
+        ("tiles", 32, 701, 384, True),
+        # several buckets a row, rows whose starts are not 16-byte aligned
+        ("tiles", 2, 200_003, 5120, True), ("tiles", 5, 130_001, 1536, False),
+        ("tiles", 1, 1_000_001, 8192, True),
+        # the hard inputs; a bucket of more slots than one piece (C = 2)
+        *[(k, R, C, S, True) for k in SCATTER_KINDS for R, C, S in ((1, 300, 16_384), (32, 5_003, 4096))],
+        ("all_valid", 1, 2, 10_240, True), ("one_cell_every_tile", 1, 1_000_001, 262_144, False),
+        # one launch (at most 2,048 slots a row), and a row past one window
+        # of 2^25 slots, one cell in every tile of both windows
+        ("repeat_in_tile", 32, 1_000_001, 2048, True), ("all_valid", 1, 2, 1024, False),
+        ("one_cell_every_tile", 1, 1_000_001, (1 << 25) + (1 << 17), True),
+        # route (b)'s and (f)'s full shapes
+        ("sparse", 32, 1_000_001, 32_768, False), ("sparse", 32, 1_000_001, 65_536, True),
     ],
 )
-def test_ordered_scatter_matches_plain_bit_for_bit(cuda, R, C, n_tiles, with_cnt):
+def test_ordered_scatter_matches_plain_bit_for_bit(cuda, kind, R, C, S, with_cnt):
     """csrc/ordered_scatter.cu against its plain version on the CPU
-    (scatter_add_, slot order): equal bits, twice, one launch each."""
+    (scatter_add_, slot order) over the slots it applies: equal bits,
+    twice, one launch each."""
     from elasticsearch_tpu_torch.ops import ordered_scatter as osc
 
-    acc, cnt, tgt, src, inc = _scatter_inputs(R, C, n_tiles, R * 1000 + C)
-    want, want_cnt = osc.ordered_scatter_add_plain(acc.clone(), tgt, src, cnt.clone(), inc)
+    if kind == "tiles":
+        acc, cnt, tgt, src, inc = _scatter_inputs(R, C, S // 128, R * 1000 + C)
+        ref = (tgt, src, inc)
+    else:
+        (acc, cnt, tgt, src, inc), ref = _kind_inputs(kind, R, C, S, R * 1000 + C)
+        ref = [torch.from_numpy(x) for x in ref]
+    want, want_cnt = osc.ordered_scatter_add_plain(acc.clone(), ref[0], ref[1], cnt.clone(), ref[2])
     for _ in range(2):
         a, c = acc.to(cuda), cnt.to(cuda)
         before = osc.ordered_scatter_add.launches
@@ -172,6 +195,30 @@ def test_ordered_scatter_matches_plain_bit_for_bit(cuda, R, C, n_tiles, with_cnt
         assert osc.ordered_scatter_add.launches == before + 1
         np.testing.assert_array_equal(a.cpu().numpy().view(np.int32), want.numpy().view(np.int32))
         np.testing.assert_array_equal(c.cpu().numpy(), (want_cnt if with_cnt else cnt).numpy())
+
+
+def test_ordered_scatter_makes_no_host_sync(cuda):
+    """A launch at route (f)'s shape under torch's sync debug mode "error":
+    the wrapper sizes its scratch and grids from the shapes alone and
+    never waits for the card."""
+    from elasticsearch_tpu_torch.ops import ordered_scatter as osc
+
+    (acc, cnt, tgt, src, inc), ref = _kind_inputs("sparse", 32, 1_000_001, 65_536, 3)
+    a, c, t, s, i = (x.to(cuda) for x in (acc, cnt, tgt, src, inc))
+    torch.cuda.synchronize(cuda)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        osc.ordered_scatter_add(a, t, s, c, i)
+        osc.ordered_scatter_add(a[0], t[0], s[0])  # one row, as score_tiles launches
+        osc.ordered_scatter_add(a[1], t[1, :2048], s[1, :2048])  # one row, one launch
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize(cuda)
+    want = osc.ordered_scatter_add_plain(acc.clone(), *[torch.from_numpy(x) for x in ref[:2]], cnt.clone(),
+                                         torch.from_numpy(ref[2]))[0]
+    osc.ordered_scatter_add_plain(want[0], *[torch.from_numpy(x[0]) for x in ref[:2]])
+    osc.ordered_scatter_add_plain(want[1], *[torch.from_numpy(x[1, :2048].copy()) for x in ref[:2]])
+    assert torch.equal(a.cpu().view(torch.int32), want.view(torch.int32))
 
 
 def test_ordered_scatter_concurrent_launches_of_other_widths(cuda):
@@ -204,6 +251,36 @@ def test_ordered_scatter_concurrent_launches_of_other_widths(cuda):
         results = list(pool.map(run, range(8)))
     torch.cuda.synchronize(cuda)
     assert all(all(r) for r in results)
+
+
+def test_int8_concurrent_launches_of_other_widths(cuda):
+    """Two threads launching the int8 kernel at once with query panels of
+    other sizes (d of 128 and 4096, the same 8-query variant, and a
+    32-query one beside them), several rounds: every launch is accepted
+    (each variant's shared-memory limit is set once to the card's
+    maximum, not to a launch's own size, where one thread's smaller limit
+    could refuse another's launch) and every result is within 1e-5 of
+    max|dots| of the plain version's."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    shapes = [(8, 2000, 128), (8, 700, 4096), (32, 3000, 768), (16, 513, 208)]
+    cases = [_inputs(B, N, d, 500 + i, cuda) if d % 128 == 0 else _raw_inputs(B, N, d, 500 + i, cuda)
+             for i, (B, N, d) in enumerate(shapes)]
+    wants = [int8_knn.int8_dot_scores_plain(*c) for c in cases]
+    torch.cuda.synchronize(cuda)
+
+    def run(i):
+        errs = []
+        for _ in range(20):
+            for j in (i, i + 2):
+                out = int8_knn.int8_dot_scores(*cases[j])
+                errs.append(float((out - wants[j]).abs().max()) / float(wants[j].abs().max()))
+        return errs
+
+    with ThreadPoolExecutor(2) as pool:
+        errs = [e for r in pool.map(run, range(2)) for e in r]
+    torch.cuda.synchronize(cuda)
+    assert len(errs) == 80 and max(errs) <= 1e-5, max(errs)
 
 
 def test_ordered_scatter_checks_its_inputs(cuda):

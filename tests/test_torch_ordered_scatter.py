@@ -17,6 +17,8 @@ comparison holds the accumulation order alone. `tests/test_torch_scoring.py`
 holds the same sites at any `inv` within rtol 1e-5.
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +31,7 @@ from elasticsearch_tpu_torch.ops import impact as timpact
 from elasticsearch_tpu_torch.ops import ordered_scatter as osc
 from elasticsearch_tpu_torch.ops import scoring as tscoring
 from elasticsearch_tpu_torch.parallel import sharded as tsharded
+from scatter_cases import applied, hard_scatter_case
 
 torch.set_num_threads(1)
 
@@ -141,24 +144,238 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     assert osc.ordered_scatter_add.launches == before  # the CPU launches nothing
 
 
-@pytest.mark.parametrize("rows,cells,sms", [(32, 1_000_000, 132), (1, 1_000_000, 132), (1, 300, 132),
-                                            (4, 120_000, 132), (256, 50, 132), (8, 58_108, 132)])
-def test_ranges_cover_every_cell_within_shared_memory(rows, cells, sms):
-    span = osc.span_for(rows, cells, sms)
-    ranges = -(-cells // span)
-    assert 1 <= span <= osc.SPAN_MAX
-    assert (span + 4) * 4 <= osc.SMEM_LIMIT
-    assert (ranges - 1) * span < cells <= ranges * span
-    assert rows * ranges >= min(sms, rows * -(-cells // osc.SPAN_MIN))
+# ---- the kernel's host-side layout, and a CPU mirror of its passes ----
+
+# route (a)'s widest one-row launch: score_tiles over a query's tiles,
+# padded to a power of two; a row past one window (MAX_CHUNKS chunks):
+# score_tiles over an expansion of many terms on a large segment
+ROUTE_A_MAX_S = 1 << 19
+PAST_ONE_WINDOW = (1 << 25) + (1 << 17)
 
 
-def test_kernel_source_and_build_flags():
-    src = osc.SOURCE.read_text()
-    assert "extern \"C\" int es_ordered_scatter_add(" in src
-    assert "atomicAdd(crow" in src and "atomicAdd(acc" not in src  # no float atomics
+@pytest.mark.parametrize("R", [1, 32])
+@pytest.mark.parametrize("C", [2, 129, 300_001, 1_000_001])
+@pytest.mark.parametrize("S", [128, 2048, 65_536, ROUTE_A_MAX_S, PAST_ONE_WINDOW])
+def test_layout_holds_the_worst_case(R, C, S):
+    """`layout` sizes scratch and grids from the shapes alone for every
+    slot valid. The buckets cover the row's cells [0, C-1) without a
+    bucket past them, a sort key (the cell in its bucket) takes at most 20
+    bits and a position in a piece 16, the grids are within the card's
+    limits, and one row has as many buckets as 32 rows of the same slots
+    (the card is filled from the slots, not the rows). A row of at most
+    CHUNK slots takes one launch and no scratch. Otherwise windows of at
+    most MAX_CHUNKS chunks cover the row's slots, every chunk's slots fit
+    its staging place and one sort, and the scratch holds the count table
+    and the staged planes of one window."""
+    for with_cnt in (False, True):
+        lay = osc.layout(R, C, S, with_cnt)
+        cells = C - 1
+        assert R <= 65_535  # the grids' y
+        if S <= osc.CHUNK:
+            assert (lay.chunks, lay.windows, lay.count_words, lay.stage_slots, lay.scratch_words) == (0, 1, 0, 0, 0)
+        else:
+            window = lay.chunks * osc.CHUNK
+            assert 1 <= lay.chunks <= osc.MAX_CHUNKS  # the chunk grid's x
+            assert lay.windows * window >= S > (lay.windows - 1) * window
+            assert lay.windows == 1 or lay.chunks == osc.MAX_CHUNKS
+            assert (lay.windows > 1) == (S > osc.MAX_CHUNKS * osc.CHUNK)
+            assert lay.stage_slots == R * window >= R * min(S, window)
+            assert lay.count_words == R * lay.buckets * lay.chunks
+            assert lay.scratch_words == lay.count_words + (3 if with_cnt else 2) * lay.stage_slots
+        assert lay.buckets * lay.width >= cells > (lay.buckets - 1) * lay.width
+        assert 1 <= lay.buckets <= osc.MAX_BUCKETS and 1 <= lay.width <= osc.MAX_WIDTH
+        assert (lay.width - 1).bit_length() <= 20 and osc.CHUNK <= 1 << 16  # key bits; 16-bit positions
+        assert R * lay.buckets <= 2**31 - 1  # the apply grid's x
+        aim = min(osc.BUCKETS, -(-R * S // osc.SLOTS_PER_BUCKET), R * cells)
+        assert aim // 2 <= R * lay.buckets <= max(aim, R * -(-cells // osc.MAX_WIDTH)) + R
+
+
+def test_layout_refuses_what_the_kernel_cannot_hold():
+    for S in (128, 4096):
+        with pytest.raises(ValueError, match="cells a row"):
+            osc.layout(1, osc.MAX_BUCKETS * osc.MAX_WIDTH + 2, S, False)
+    with pytest.raises(ValueError, match="no layout"):
+        osc.layout(1, 1, 128, False)
+    # a row of any length takes windows
+    assert osc.layout(1, 300, (osc.MAX_CHUNKS + 1) * osc.CHUNK, False).windows == 2
+
+
+def _add_runs(arow, crow, t, v, i):
+    """One sort and its runs: the slots ordered by (cell, position), each
+    cell's run added left to right onto the cell's value, one f32 add at
+    a time, and its increments onto the count."""
+    order = torch.sort(t, stable=True).indices
+    pt, pv = t[order], v[order]
+    cells, runs = torch.unique_consecutive(pt, return_counts=True)
+    starts = torch.cumsum(runs, 0) - runs
+    a = arow[cells].clone()
+    for k in range(int(runs.max())):  # the k-th add of every run longer than k
+        more = runs > k
+        a[more] = a[more] + pv[starts[more] + k]
+    arow[cells] = a
+    if crow is not None:
+        crow.index_add_(0, cells, torch.segment_reduce(i[order].double(), "sum", lengths=runs).to(torch.int32))
+
+
+def scatter_passes(acc, tgt, src, cnt=None, inc=None):
+    """csrc/ordered_scatter.cu's passes in plain torch on the CPU, over
+    the wrapper's `layout` (used only here). One launch (rows of at most
+    CHUNK slots): each bucket keeps the row's slots that aim in it, in
+    slot order, and adds their runs. Otherwise, window after window: each
+    chunk keeps its valid slots in slot order and orders them by (bucket,
+    position); each bucket gathers its slots chunk by chunk, in pieces of
+    CHUNK, and adds each piece's runs."""
+    acc2 = acc.view(1, -1) if acc.dim() == 1 else acc
+    R, C = acc2.shape
+    S = tgt.numel() // R
+    tgt2, src2 = tgt.reshape(R, S), src.reshape(R, S)
+    inc2 = torch.zeros_like(tgt2) if inc is None else inc.reshape(R, S)
+    cnt2 = None if cnt is None else (cnt.view(1, -1) if cnt.dim() == 1 else cnt)
+    lay = osc.layout(R, C, S, cnt is not None)
+    CH = osc.CHUNK
+    for r in range(R):
+        arow, crow = acc2[r], None if cnt2 is None else cnt2[r]
+        if not lay.chunks:
+            t = tgt2[r].long()
+            for lo in range(0, C - 1, lay.width):
+                keep = torch.nonzero((t >= lo) & (t < min(lo + lay.width, C - 1))).flatten()  # slot order
+                if len(keep):
+                    _add_runs(arow, crow, t[keep], src2[r][keep], inc2[r][keep])
+            continue
+        window = lay.chunks * CH
+        for w0 in range(0, S, window):
+            staged = []  # per chunk: (bucket, target, value, inc), ordered by (bucket, position)
+            for c0 in range(w0, min(S, w0 + window), CH):
+                t = tgt2[r, c0:c0 + CH].long()
+                keep = torch.nonzero((t >= 0) & (t < C - 1)).flatten()  # slot order
+                tv = t[keep]
+                order = torch.sort(tv // lay.width, stable=True).indices
+                staged.append(((tv // lay.width)[order], tv[order], src2[r, c0:c0 + CH][keep][order],
+                               inc2[r, c0:c0 + CH][keep][order]))
+            for b in range(lay.buckets):
+                parts = [[x[bk == b] for x in xs] for bk, *xs in staged]
+                t, v, i = (torch.cat([part[j] for part in parts]) for j in range(3))
+                for p0 in range(0, len(t), CH):
+                    _add_runs(arow, crow, t[p0:p0 + CH], v[p0:p0 + CH], i[p0:p0 + CH])
+    return acc, cnt
+
+
+PASS_CASES = [
+    # (kind, R, C, S): hard inputs at small widths; every slot valid and C = 2
+    # puts more slots in one bucket than one piece holds
+    ("sparse", 3, 1_001, 4096),
+    ("all_valid", 2, 300, 2048),
+    ("all_valid", 1, 2, 5120),
+    ("one_cell_every_tile", 1, 20_001, 32_768),
+    ("one_cell_every_tile", 4, 129, 1024),
+    ("repeat_in_tile", 2, 5_003, 2048),
+    ("out_of_range", 3, 700, 2048),
+    ("signed_zero_subnormal", 2, 70, 4096),
+    ("sparse", 1, 1_000_001, 12_800),
+]
+
+
+@pytest.mark.parametrize("kind,R,C,S", PASS_CASES)
+def test_passes_match_plain_and_jax_bit_for_bit(kind, R, C, S):
+    """The kernel's passes (`scatter_passes`) on the slots as given
+    against `ordered_scatter_add_plain`, `np.add.at` and the JAX
+    package's `.at[].add` on the slots the function applies (targets
+    outside [0, C-1) taken to the overflow column with +0.0 and inc 0):
+    the same bits, the same counts. XLA's CPU runtime flushes subnormals
+    to zero, so the JAX comparison of the subnormal case runs on the
+    same inputs with their subnormals flushed; the order is what it
+    holds. Rows of at most CHUNK slots take the one-launch pass."""
+    _hold_passes(kind, R, C, S)
+
+
+@pytest.mark.parametrize("kind,R,C,S", [
+    ("one_cell_every_tile", 1, 3_001, 10_240),
+    ("all_valid", 2, 2, 9_216),
+    ("repeat_in_tile", 3, 501, 8_192),
+])
+def test_passes_in_windows_match_plain_and_jax(kind, R, C, S, monkeypatch):
+    """A row past one window, at a small width: with MAX_CHUNKS lowered to
+    2 a row of a few thousand slots spans several windows, and a cell
+    found in every window (every tile, at C = 2 every slot) gets its adds
+    window after window: the same bits as the plain version and JAX."""
+    osc.layout.cache_clear()
+    monkeypatch.setattr(osc, "MAX_CHUNKS", 2)
+    try:
+        assert osc.layout(R, C, S, True).windows >= 2
+        _hold_passes(kind, R, C, S)
+    finally:
+        osc.layout.cache_clear()
+
+
+def _hold_passes(kind, R, C, S):
+    acc0, cnt0, tgt, src, inc = hard_scatter_case(kind, R, C, S, R * 100 + C + S)
+    at, asrc, ainc = applied(tgt, src, inc, C)
+    got, got_cnt = scatter_passes(t(acc0.copy()), t(tgt), t(src), t(cnt0.copy()), t(inc))
+    want, want_cnt = osc.ordered_scatter_add_plain(t(acc0.copy()), t(at), t(asrc), t(cnt0.copy()), t(ainc))
+    np.testing.assert_array_equal(bits(got.numpy()), bits(want.numpy()))
+    np.testing.assert_array_equal(bits(got.numpy()), bits(sequential(acc0, at, asrc)))
+    np.testing.assert_array_equal(got_cnt.numpy(), want_cnt.numpy())
+    if kind == "signed_zero_subnormal":
+        tiny = np.finfo(np.float32).tiny
+        acc0, src, asrc = (np.where(np.abs(x) < tiny, np.copysign(np.float32(0), x), x).astype(np.float32)
+                           for x in (acc0, src, asrc))
+        got, _ = scatter_passes(t(acc0.copy()), t(tgt), t(src))
+    ja = jax.vmap(lambda a, d, v: a.at[d].add(v))(jnp.asarray(acc0), jnp.asarray(at), jnp.asarray(asrc))
+    np.testing.assert_array_equal(bits(got.numpy()), bits(ja))
+    # and the one-row form, without the count plane
+    one, _ = scatter_passes(t(acc0[0].copy()), t(tgt[0]), t(src[0]))
+    np.testing.assert_array_equal(bits(one.numpy()), bits(np.asarray(ja)[0]))
+
+
+def test_concurrent_builds_of_one_source(tmp_path, monkeypatch):
+    """Threads of one process building the same library at once (the
+    batcher's workers at first use): each compiles into a temp file of
+    its own, and every thread gets the library."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from elasticsearch_tpu_torch.ops import nvcc
 
-    assert "arch=compute_90a,code=sm_90a" in nvcc.NVCC_FLAGS
+    fake = tmp_path / "nvcc"
+    fake.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\nsleep 0.3\necho lib > "$2"\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(nvcc, "nvcc", lambda: str(fake))
+    monkeypatch.setattr(nvcc, "BUILD_DIR", tmp_path / "_build")
+    with ThreadPoolExecutor(4) as pool:
+        built = list(pool.map(lambda _: nvcc.build(osc.SOURCE)[0], range(4)))
+    assert len(set(built)) == 1 and built[0].read_text() == "lib\n"
+    assert sorted(p.name for p in (tmp_path / "_build").iterdir()) == [built[0].name]
+
+
+def test_kernel_source_and_build_flags(tmp_path, monkeypatch):
+    """No float atomics and no claimed places; each shared-memory limit is
+    set to the card's maximum, never to a launch's size; and the layout's
+    constants reach the source only as `-D` flags from this module (the
+    source refuses to build without them and holds them to its shared
+    memory with static_asserts)."""
+    from elasticsearch_tpu_torch.ops import int8_knn, nvcc
+
+    src = osc.SOURCE.read_text()
+    assert "extern \"C\" int es_ordered_scatter_add(" in src
+    assert "atomicAdd" not in src and "atomicCAS" not in src  # no float atomics, no claimed places
+    assert "__fadd_rn(" in src
+    sets = re.findall(r"cudaFuncSetAttribute\(([^;]*);", src, re.S)
+    assert sets and all(re.search(r"MaxDynamicSharedMemorySize,\s*SMEM_MAX\)$", x.strip()) for x in sets)
+    for name in osc.DEFINES:
+        assert f"!defined({name})" in src
+        assert re.search(rf"constexpr int \w+ = {name};", src), name
+    assert "static_assert(apply_smem(MAX_CHUNKS) <= SMEM_MAX" in src
+    int8 = int8_knn.SOURCE.read_text()
+    sets = re.findall(r"cudaFuncSetAttribute\(([^;]*);", int8, re.S)
+    assert sets and all(x.strip().endswith("SMEM_MAX)") for x in sets)
+    # the command line: sm_90a, and this module's constants
+    fake = tmp_path / "nvcc"
+    fake.write_text('#!/bin/sh\nargs="$*"\nwhile [ "$1" != "-o" ]; do shift; done\necho "$args" > "$2"\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(nvcc, "nvcc", lambda: str(fake))
+    monkeypatch.setattr(nvcc, "BUILD_DIR", tmp_path / "_build")
+    line = osc.build()[0].read_text().split()
+    assert "arch=compute_90a,code=sm_90a" in line and str(osc.SOURCE) == line[-1]
+    assert [x for x in line if x.startswith("-D")] == sorted(f"-D{k}={v}" for k, v in osc.DEFINES.items())
     assert osc.SOURCE.parent == nvcc.CSRC
 
 
