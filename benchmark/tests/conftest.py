@@ -1,0 +1,14 @@
+"""The benchmark's own tests: `python -m pytest benchmark/tests -q` from
+the root of the repository (the card's test: `-m cuda`, on the card)."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips inside the test without one")
