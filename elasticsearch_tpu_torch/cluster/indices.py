@@ -54,7 +54,8 @@ from typing import Any, Dict, List, Optional, Tuple
 from ..analysis import AnalysisRegistry
 from ..common.faults import faults
 from ..common.slowlog import FETCH_ACC, SearchSlowLog
-from ..common.tracing import OPAQUE_ID_CTX, TRACE_CTX
+from ..common import tracing
+from ..common.tracing import OPAQUE_ID_CTX, TRACE_CTX, now_ns
 from ..index.engine import OpResult, ShardEngine, VersionConflictError
 from ..index.mapping import Mappings
 from ..search import dsl
@@ -1375,6 +1376,29 @@ class IndexService:
         self, sid: int, body: Optional[dict], pinned_executor=None,
         task=None,
     ) -> dict:
+        """`_shard_search_local`, as the `shard_search` span of the
+        request's trace: its id is reserved up front, so the spans of
+        the batcher jobs it submits parent onto it."""
+        tr = TRACE_CTX.get()
+        if tr is None:
+            return self._shard_search_local(sid, body, pinned_executor, task)
+        ts = now_ns()
+        span = tr.reserve()
+        tok = tracing.set_parent(span)
+        try:
+            return self._shard_search_local(sid, body, pinned_executor, task)
+        finally:
+            tracing.reset_parent(tok)
+            tr.add_span(
+                "shard_search", ts, now_ns(), span_id=span,
+                index=self.name, shard=sid,
+                backend=str(self.settings.get("search.backend")),
+            )
+
+    def _shard_search_local(
+        self, sid: int, body: Optional[dict], pinned_executor=None,
+        task=None,
+    ) -> dict:
         """Full per-shard query phase + folded fetch for ONE locally-held
         shard. Returns a wire-shaped dict:
           {total, relation, max_score,
@@ -1382,7 +1406,7 @@ class IndexService:
            aggs?: partial, profile?: entry}
         `body` arrives with from/size already collapsed to 0/(from+size)
         by the coordinator."""
-        ts = time.perf_counter_ns()
+        ts = now_ns()
         body = body or {}
         # per-shard cooperative timeout (QueryPhase's timer analog): the
         # request's `timeout` rides the wire inside the body and each
@@ -1727,7 +1751,7 @@ class IndexService:
 
             rescore_spec = rescorer.parse_rescore(body, validate_size=False)
             if rescore_spec is not None:
-                t_resc = time.perf_counter_ns()
+                t_resc = now_ns()
                 td = self._apply_rescore(
                     ex, rescore_spec, td, sid, shard_deadline, task,
                     prof=prof_phases,
@@ -1735,13 +1759,13 @@ class IndexService:
                 if prof_phases is not None:
                     prof_phases["rescore_ns"] = (
                         prof_phases.get("rescore_ns", 0)
-                        + time.perf_counter_ns() - t_resc
+                        + now_ns() - t_resc
                     )
 
         # ---- folded fetch phase: sources + highlight for this shard's
         # candidates (FetchPhase, SURVEY.md §3.3) ----
         _check_shard_deadline()
-        t_fetch = time.perf_counter_ns()
+        t_fetch = now_ns()
         highlight_specs = None
         highlight_terms = None
         if "highlight" in body:
@@ -1867,7 +1891,7 @@ class IndexService:
                         raise dsl.QueryParseError(str(e))
                     flds[fname] = v if isinstance(v, list) else [v]
             hits.append(entry)
-        fetch_ns = time.perf_counter_ns() - t_fetch
+        fetch_ns = now_ns() - t_fetch
         acc = FETCH_ACC.get()
         if acc is not None:
             # always-on fetch-phase accumulator: the coordinator's
@@ -1887,13 +1911,6 @@ class IndexService:
             out["aggs"] = agg_partial
         if "suggest" in body:
             out["suggest"] = self._shard_suggest(ex, body["suggest"])
-        tr = TRACE_CTX.get()
-        if tr is not None:
-            tr.add_span(
-                "shard_search", ts, time.perf_counter_ns(),
-                index=self.name, shard=sid,
-                backend=str(self.settings.get("search.backend")),
-            )
         if profile:
             # per-shard query-phase breakdown ("profile": true —
             # Profilers/QueryProfiler response shape). The breakdown
@@ -1901,7 +1918,7 @@ class IndexService:
             # block_until_ready barrier), device→host TRANSFER time, and
             # host merge time (SURVEY §5: "per-kernel device times …
             # in the same response shape").
-            elapsed = time.perf_counter_ns() - ts
+            elapsed = now_ns() - ts
             phases = prof_phases or {}
             device_ns = int(phases.get("device_scoring_ns", 0))
             transfer_ns = int(phases.get("device_transfer_ns", 0))
@@ -2332,8 +2349,24 @@ class IndexService:
             # mutable objects, so writes made in the workers are visible
             # to the coordinator
             cctx = contextvars.copy_context()
+            # in a traced request, the pool's two thread handoffs are
+            # spans under fan_out: submitted → the shard starts on a pool
+            # thread (`fanout.queue`), the shard done → gathered here
+            # (`fanout.wake`)
+            tr = TRACE_CTX.get()
+            done: Dict[int, int] = {}
+
+            def target(sid: int, t_sub: int):
+                if tr is None:
+                    return run(sid)
+                tr.add_span("fanout.queue", t_sub, now_ns(), shard=sid)
+                try:
+                    return run(sid)
+                finally:
+                    done[sid] = now_ns()
+
             futs = [
-                _FANOUT_POOL.submit(cctx.copy().run, run, sid)
+                _FANOUT_POOL.submit(cctx.copy().run, target, sid, now_ns())
                 for sid in range(n)
             ]
             outcomes = []
@@ -2341,6 +2374,8 @@ class IndexService:
                 outcomes.append(
                     self._gather_one(f, sid, deadline, task)
                 )
+                if sid in done:
+                    tr.add_span("fanout.wake", done[sid], now_ns(), shard=sid)
         results: List[Optional[dict]] = [None] * n
         failures: List[dict] = []
         timed_out = False
@@ -2560,7 +2595,7 @@ class IndexService:
         from ..parallel.mesh_executor import MeshUnavailable
 
         t0 = time.perf_counter()
-        tns0 = time.perf_counter_ns()
+        tns0 = now_ns()
         mesh_prof = {"families": {}} if body.get("profile") else None
         try:
             job = self._batcher.submit_nowait(
@@ -2610,7 +2645,7 @@ class IndexService:
         tr = TRACE_CTX.get()
         if tr is not None:
             tr.add_span(
-                "mesh_search", tns0, time.perf_counter_ns(),
+                "mesh_search", tns0, now_ns(),
                 index=self.name, shards=self.num_shards, took_ms=took,
             )
         n = self.num_shards
@@ -2904,7 +2939,7 @@ class IndexService:
             if mesh_resp is not None:
                 return mesh_resp, None, []
         t0 = time.perf_counter()
-        tns = time.perf_counter_ns()
+        tns = now_ns()
         size = int(body.get("size", 10))
         from_ = int(body.get("from", 0))
         # coordinator-side parses (merge keys + agg reduce plan only; the
@@ -2932,7 +2967,7 @@ class IndexService:
         # coordinator-phase marks (profile + tracing): the phase spans
         # tile tns → the reduce mark, so their sum accounts the whole
         # coordinator wall time up to response assembly
-        m_parse = time.perf_counter_ns()
+        m_parse = now_ns()
         # can_match prefilter FIRST (the reference's phase order), so a
         # DFS round never fans out to shards about to be skipped; pinned
         # contexts pin every shard, so the prefilter only runs unpinned
@@ -2940,18 +2975,29 @@ class IndexService:
             skipped_shards, fixed_owners = self._can_match_round(body)
         else:
             skipped_shards, fixed_owners = set(), None
-        m_canmatch = time.perf_counter_ns()
+        m_canmatch = now_ns()
         if body.get("search_type") == "dfs_query_then_fetch":
             dfs = self._dfs_round(body, skipped_shards)
             if dfs is not None:
                 sub["_dfs"] = dfs
-        m_dfs = time.perf_counter_ns()
+        m_dfs = now_ns()
         deadline = deadline_from(body)
-        per_shard, failures, timed_out = self._fan_out(
-            sub, pinned_executors, skipped_shards, fixed_owners,
-            deadline=deadline, task=task,
-        )
-        m_fanout = time.perf_counter_ns()
+        # the coordinator's and fan_out's span ids, reserved so the
+        # shards' spans parent onto fan_out
+        tr = TRACE_CTX.get()
+        coord_id = fan_id = None
+        if tr is not None:
+            coord_id, fan_id = tr.reserve(), tr.reserve()
+            fan_tok = tracing.set_parent(fan_id)
+        try:
+            per_shard, failures, timed_out = self._fan_out(
+                sub, pinned_executors, skipped_shards, fixed_owners,
+                deadline=deadline, task=task,
+            )
+        finally:
+            if tr is not None:
+                tracing.reset_parent(fan_tok)
+        m_fanout = now_ns()
         allow_partial = parse_allow_partial(
             body.get("allow_partial_search_results")
         )
@@ -3008,7 +3054,7 @@ class IndexService:
         out_hits = [
             {"_index": self.name, **h} for _, _, _, h in entries[from_ : from_ + size]
         ]
-        m_reduce = time.perf_counter_ns()
+        m_reduce = now_ns()
         took = int((time.perf_counter() - t0) * 1000)
         self.search_stats["query_total"] += 1
         self.search_stats["query_time_in_millis"] += took
@@ -3048,10 +3094,9 @@ class IndexService:
             "fan_out_ns": m_fanout - m_dfs,
             "reduce_ns": m_reduce - m_fanout,
         }
-        tr = TRACE_CTX.get()
         if tr is not None:
-            root = tr.add_span(
-                "coordinator", tns, m_reduce,
+            tr.add_span(
+                "coordinator", tns, m_reduce, span_id=coord_id,
                 index=self.name, shards=n, took_ms=took,
             )
             prev = tns
@@ -3060,7 +3105,8 @@ class IndexService:
                 ("dfs", m_dfs), ("fan_out", m_fanout),
                 ("reduce", m_reduce),
             ):
-                tr.add_span(pname, prev, mark, parent_id=root)
+                tr.add_span(pname, prev, mark, parent_id=coord_id,
+                            span_id=fan_id if pname == "fan_out" else None)
                 prev = mark
         if profile:
             resp["profile"] = {
@@ -3326,7 +3372,7 @@ class IndexService:
         up front, and every phase (legs, fetch) reads that snapshot, so
         a refresh landing mid-request can't mix two generations."""
         t0 = time.perf_counter()
-        tns = time.perf_counter_ns()
+        tns = now_ns()
         size = int(body.get("size", 10))
         from_ = int(body.get("from", 0))
         source_spec = body.get("_source", True)
@@ -3348,7 +3394,7 @@ class IndexService:
             body["retriever"], window, size, extra_filter, pins,
             **({"prof_out": prof} if prof is not None else {}),
         )
-        m_retr = time.perf_counter_ns()
+        m_retr = now_ns()
         if "rescore" in body and ranked:
             from ..search import rescorer
 
@@ -3361,7 +3407,7 @@ class IndexService:
                     rescore_spec, ranked, pins,
                     **({"prof": prof} if prof is not None else {}),
                 )
-        m_resc = time.perf_counter_ns()
+        m_resc = now_ns()
         page = ranked[from_ : from_ + size]
         from ..search.executor import filter_source
 
@@ -3374,7 +3420,7 @@ class IndexService:
                 if filtered is not None:
                     entry["_source"] = filtered
             out_hits.append(entry)
-        m_fetch = time.perf_counter_ns()
+        m_fetch = now_ns()
         acc = FETCH_ACC.get()
         if acc is not None:
             acc["fetch_ns"] += m_fetch - m_resc
@@ -3495,7 +3541,7 @@ class IndexService:
         window2 = int(params.get("rank_window_size", max(window, size)))
         children = params.get("retrievers", [])
         t_start = time.perf_counter()
-        t_start_ns = time.perf_counter_ns()
+        t_start_ns = now_ns()
         # submit every leg before collecting any: plannable legs enter
         # the batcher (device overlap), the rest ride the leg pool
         handles = [
@@ -3550,7 +3596,7 @@ class IndexService:
             prof_out["fused_on_device"] = device
         tr = TRACE_CTX.get()
         if tr is not None:
-            t_end_ns = time.perf_counter_ns()
+            t_end_ns = now_ns()
             root = tr.add_span(
                 "rrf", t_start_ns, t_end_ns,
                 index=self.name, legs=len(legs), device_fused=device,

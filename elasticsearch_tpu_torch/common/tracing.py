@@ -7,14 +7,21 @@ so a single slow request can be decomposed (queue wait vs. kernel vs.
 merge vs. fetch) without any external collector.
 
 Design:
-  * `Trace` holds a bounded list of `Span`s (monotonic nanosecond
-    clocks, parent/child ids, free-form tags like index/shard/bucket).
+  * `Trace` holds a bounded list of `Span`s (nanosecond marks of one
+    clock, `now_ns()`: CLOCK_MONOTONIC, the clock `time.monotonic()`
+    reads, so a span can be laid over a device trace mapped onto it;
+    parent/child ids, free-form tags like index/shard/bucket).
   * `TRACE_CTX` is a contextvar: the REST layer arms it per request
     (`begin()` / `end()`), and every seam that wants a span just reads
     the var — `None` means tracing is off and costs one dict lookup.
     Fan-out pools propagate the var with `contextvars.copy_context()`;
     the Trace object itself is shared and thread-safe, so spans added
-    from shard/leg worker threads land in the request's tree.
+    from shard/leg worker threads land in the request's tree. The
+    batcher's jobs carry the trace and their parent span id to its
+    worker threads, which record their spans into it from marks.
+  * A span recorded after its children reserves its id first
+    (`Trace.reserve()`, then `add_span(..., span_id=...)`), and code
+    below it parents onto it through `set_parent()`.
   * Completed traces go into a bounded ring (`ES_TPU_TRACE_RING`,
     default 256) queryable via `GET /_internal/traces` — a test/smoke
     surface, not a production exporter.
@@ -58,6 +65,10 @@ MAX_SPANS = 512
 
 _trace_ids = itertools.count(1)
 
+# the clock of every span mark (CLOCK_MONOTONIC)
+CLOCK = "CLOCK_MONOTONIC"
+now_ns = time.monotonic_ns
+
 
 def enabled() -> bool:
     return os.environ.get("ES_TPU_TRACING", "on").lower() not in (
@@ -100,8 +111,8 @@ class Span:
 class Trace:
     """One request's span tree. Thread-safe: fan-out worker threads
     append concurrently (the object rides a copied context into the
-    pools). Clocks are `time.perf_counter_ns()` — monotonic, so spans
-    recorded on different threads order correctly within one host."""
+    pools). Marks are `now_ns()` (CLOCK_MONOTONIC), so spans recorded
+    on different threads order correctly within one host."""
 
     def __init__(self, name: str, opaque_id: Optional[str] = None,
                  **tags: Any):
@@ -109,7 +120,7 @@ class Trace:
         self.name = name
         self.opaque_id = opaque_id
         self.tags = dict(tags)
-        self.start_ns = time.perf_counter_ns()
+        self.start_ns = now_ns()
         self.end_ns: Optional[int] = None
         self.wall_start = time.time()
         self._spans: List[Span] = []
@@ -119,20 +130,27 @@ class Trace:
 
     # ---- recording ----
 
+    def reserve(self) -> int:
+        """A span id for a span recorded later, after its children."""
+        with self._lock:
+            return next(self._span_ids)
+
     def add_span(
         self, name: str, start_ns: int, end_ns: int,
-        parent_id: Optional[int] = None, **tags: Any,
+        parent_id: Optional[int] = None, span_id: Optional[int] = None,
+        **tags: Any,
     ) -> Optional[int]:
-        """Retroactive span from two already-taken perf_counter_ns
-        marks (the cheap pattern for code that timed itself anyway).
-        Returns the span id, or None if the trace is full."""
+        """Retroactive span from two already-taken `now_ns()` marks (the
+        cheap pattern for code that timed itself anyway), under the id
+        `span_id` reserved for it if given. Returns the span id, or None
+        if the trace is full."""
         if parent_id is None:
             parent_id = _PARENT_CTX.get()
         with self._lock:
             if len(self._spans) >= MAX_SPANS:
                 self._dropped += 1
                 return None
-            sid = next(self._span_ids)
+            sid = next(self._span_ids) if span_id is None else span_id
             self._spans.append(
                 Span(sid, parent_id, name, int(start_ns), int(end_ns), tags)
             )
@@ -147,7 +165,7 @@ class Trace:
         """Closes the trace and publishes it to the ring."""
         if self.end_ns is not None:
             return
-        self.end_ns = time.perf_counter_ns()
+        self.end_ns = now_ns()
         _ring_append(self)
 
     # ---- export ----
@@ -156,7 +174,7 @@ class Trace:
         with self._lock:
             spans = [s.to_dict() for s in self._spans]
             dropped = self._dropped
-        end = self.end_ns or time.perf_counter_ns()
+        end = self.end_ns or now_ns()
         return {
             "trace_id": self.trace_id,
             "name": self.name,
@@ -181,7 +199,7 @@ class _SpanScope:
         self._tok = None
 
     def __enter__(self):
-        self.t0 = time.perf_counter_ns()
+        self.t0 = now_ns()
         # reserve the id up front so children can parent onto it; the
         # end time is patched at exit
         with self.trace._lock:
@@ -190,7 +208,7 @@ class _SpanScope:
         return self
 
     def __exit__(self, exc_type, exc, tb):
-        end = time.perf_counter_ns()
+        end = now_ns()
         sid = _PARENT_CTX.get()
         parent = None
         if self._tok is not None:
@@ -257,3 +275,18 @@ def end(handle) -> None:
 
 def current() -> Optional[Trace]:
     return TRACE_CTX.get()
+
+
+def parent() -> Optional[int]:
+    """The id of the span open in the current context (None: none)."""
+    return _PARENT_CTX.get()
+
+
+def set_parent(span_id: Optional[int]):
+    """Parents the spans recorded in the current context onto
+    `span_id` until `reset_parent()` with the returned token."""
+    return _PARENT_CTX.set(span_id)
+
+
+def reset_parent(token) -> None:
+    _PARENT_CTX.reset(token)

@@ -46,7 +46,7 @@ import numpy as np
 import torch
 
 from .ordered_scatter import ordered_scatter_add
-from .scoring import BPAD, TCHUNK, _finalize, _threshold, upload
+from .scoring import BPAD, TCHUNK, _finalize, _threshold, download, upload
 
 TILE_WIDTH = 128
 
@@ -151,11 +151,11 @@ class ImpactScorer:
             k=min(k, self.n_docs),
             block_size=self.block_size,
         )
-        return theta.cpu().numpy(), accmax.cpu().numpy()
+        return download(theta, accmax, site="sparse_threshold")
 
     def finalize(self, acc, cnt, k: int, live=None):
         s, d, tot = self.finalize_device(acc, cnt, k, live=live)
-        return s.cpu().numpy(), d.cpu().numpy(), tot.cpu().numpy()
+        return download(s, d, tot, site="sparse_finalize")
 
     def finalize_device(self, acc, cnt, k: int, live=None):
         """(scores[B,k], docs[B,k], totals[B]) STAYING on the device, in

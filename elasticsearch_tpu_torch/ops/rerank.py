@@ -36,7 +36,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .scoring import topk_desc, upload
+from .scoring import download, topk_desc, upload
 
 
 def rerank_flops(
@@ -139,7 +139,7 @@ def maxsim_rescore_batch(
 
 def unpack_rescore(packed: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]:
     """The ONE packed download: (scores f32 [B, W], perm i32 [B, W])."""
-    out = packed.cpu().numpy()
+    (out,) = download(packed, site="rerank")
     w = out.shape[1] // 2
     scores = out[:, :w].copy().view(np.float32)
     perm = out[:, w:]

@@ -28,11 +28,13 @@ multiply-add, PyTorch rounds the product first.
 
 from __future__ import annotations
 
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..common.tracing import now_ns
 from .ordered_scatter import ordered_scatter_add
 
 
@@ -297,11 +299,11 @@ class ChunkedScorer:
             k=min(k, self.n_docs),
             block_size=self.block_size,
         )
-        return theta.cpu().numpy(), accmax.cpu().numpy()
+        return download(theta, accmax, site="threshold")
 
     def finalize(self, acc, cnt, msm: np.ndarray, k: int, live=None):
         s, d, tot = self.finalize_device(acc, cnt, msm, k, live=live)
-        return s.cpu().numpy(), d.cpu().numpy(), tot.cpu().numpy()
+        return download(s, d, tot, site="finalize")
 
     def finalize_device(self, acc, cnt, msm: np.ndarray, k: int, live=None):
         """Like finalize() but the (scores, docs, totals) triple STAYS on
@@ -354,6 +356,27 @@ def _as_device(x, device, dtype=None):
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype)
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+
+# who listens to this thread's downloads: the batcher sets `sink` to the
+# group it serves (an object with `wait(site, nbytes, t0_ns, t1_ns)`)
+WAITS = threading.local()
+
+
+def download(*tensors: torch.Tensor, site: str) -> Tuple[np.ndarray, ...]:
+    """Device tensors as host arrays: the one way a serving path reads a
+    result back, and so the one place where its host thread waits for
+    the stream (the first `.cpu()` blocks until every kernel queued
+    before it has run). One call is one wait, timed on the span clock
+    and reported with its `site` and bytes to this thread's listener
+    (`WAITS.sink`), which counts it and records a `device.wait` span.
+    On the CPU it is the tensors' own memory, counted the same way."""
+    t0 = now_ns()
+    out = tuple(t.cpu().numpy() for t in tensors)
+    sink = getattr(WAITS, "sink", None)
+    if sink is not None:
+        sink.wait(site, sum(a.nbytes for a in out), t0, now_ns())
+    return out
 
 
 def upload(host: np.ndarray, device) -> torch.Tensor:
@@ -455,7 +478,7 @@ class FusedScorer:
         """Blocks on the device transfer and unpacks to
         (scores f32[B,k], docs i32[B,k], totals i64[B])."""
         out, k = pending
-        out = out.cpu().numpy()
+        (out,) = download(out, site="fused_result")
         scores = out[:, :k].copy().view(np.float32)
         docs = out[:, k : 2 * k]
         totals = out[:, 2 * k].astype(np.int64)
@@ -738,13 +761,16 @@ def merge_segment_topk(items, k: int):
     seg_of_slot = upload(
         np.repeat(np.asarray([si for si, *_ in items], np.int32), widths), device
     )
-    out = _merge_segments(
-        tuple(s for _, s, _, _ in items),
-        tuple(d for _, _, d, _ in items),
-        tuple(t for _, _, _, t in items),
-        seg_of_slot,
-        k=k,
-    ).cpu().numpy()
+    (out,) = download(
+        _merge_segments(
+            tuple(s for _, s, _, _ in items),
+            tuple(d for _, _, d, _ in items),
+            tuple(t for _, _, _, t in items),
+            seg_of_slot,
+            k=k,
+        ),
+        site="merge_topk",
+    )
     scores = out[:, :k].copy().view(np.float32)
     segs = out[:, k : 2 * k]
     docs = out[:, 2 * k : 3 * k]
@@ -787,13 +813,16 @@ def knn_merge_segment_topk(items, nc_rows: np.ndarray, k: int):
         rank_of_slot[None, :] < np.repeat(nc_rows.astype(np.int32), widths, axis=1),
         device,
     )
-    out = _knn_merge_segments(
-        tuple(s for _, s, _ in items),
-        tuple(d for _, _, d in items),
-        seg_of_slot,
-        nc_cat,
-        k=k,
-    ).cpu().numpy()
+    (out,) = download(
+        _knn_merge_segments(
+            tuple(s for _, s, _ in items),
+            tuple(d for _, _, d in items),
+            seg_of_slot,
+            nc_cat,
+            k=k,
+        ),
+        site="knn_merge_topk",
+    )
     scores = out[:, :k].copy().view(np.float32)
     segs = out[:, k : 2 * k]
     docs = out[:, 2 * k : 3 * k]

@@ -1733,7 +1733,7 @@ class MeshExecutor:
         from ..search.aggs_device import _metric_partial
 
         snap = pend["snap"]
-        out = pend["out"].cpu().numpy()  # the ONE download
+        (out,) = scoring.download(pend["out"], site="mesh_agg")  # the ONE download
         totals, maxs = out[:, 0], out[:, 1]
         for ji, j in enumerate(jobs):
             partials = {}

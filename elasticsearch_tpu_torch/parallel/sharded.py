@@ -64,7 +64,7 @@ import torch
 from ..index.segment import INVALID_DOC, TILE, Segment
 from ..models import bm25
 from ..ops.ordered_scatter import ordered_scatter_add
-from ..ops.scoring import TCHUNK, next_bucket, topk_desc, upload
+from ..ops.scoring import TCHUNK, download, next_bucket, topk_desc, upload
 from .mesh import SHARD_AXIS, Mesh, coord_device, fold_factor
 
 
@@ -531,7 +531,7 @@ def pack_page(ms, me, md, tail):
 def unpack_page(packed: torch.Tensor, k: int):
     """The ONE download: (scores f32[B, k], entries i32, docs i32, tail
     i32[B, w])."""
-    out = packed.cpu().numpy()
+    (out,) = download(packed, site="mesh_page")
     return (
         out[:, :k].copy().view(np.float32),
         out[:, k : 2 * k],

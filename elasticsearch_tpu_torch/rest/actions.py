@@ -309,6 +309,7 @@ class RestActions:
         traces = tracing.recent(n)
         return 200, {
             "enabled": tracing.enabled(),
+            "clock": tracing.CLOCK,
             "count": len(traces),
             "traces": traces,
         }
@@ -591,11 +592,14 @@ class RestActions:
             "shed_dead_jobs": 0, "cancelled_jobs": 0, "chunked_jobs": 0,
         }
         # serving-pipeline roofline counters (QueryBatcher.pipeline_stats):
-        # depth/in_flight of the dispatch ring, device-busy and host-stall
-        # wall time, estimated useful flops, and MFU over busy time
+        # depth/in_flight of the dispatch ring, device-busy wall time,
+        # estimated useful flops, and MFU over busy time (host wall time
+        # against the bf16 peak, not device measures); host_syncs counts
+        # the downloads the batcher's workers waited in, host_stall_ms
+        # their time (ops/scoring.py `download`)
         pipeline = {
             "depth": 0, "in_flight": 0, "device_busy_ms": 0.0,
-            "host_stall_ms": 0.0, "flops": 0, "mfu": 0.0,
+            "host_stall_ms": 0.0, "host_syncs": 0, "flops": 0, "mfu": 0.0,
         }
         queue_capacity = 0
         # continuous-batching counters (QueryBatcher.batching_stats):
@@ -633,6 +637,7 @@ class RestActions:
                 pipeline["in_flight"] += ps["in_flight"]
                 pipeline["device_busy_ms"] += ps["device_busy_ms"]
                 pipeline["host_stall_ms"] += ps["host_stall_ms"]
+                pipeline["host_syncs"] += b.host_syncs()
                 pipeline["flops"] += ps["flops"]
                 for row in b.device_stats():
                     d = dev_agg.setdefault(
@@ -1364,6 +1369,29 @@ class RestActions:
     # ------------------------------------------------------------------
 
     def search(self, body, params, qs):
+        """`/<index>/_search`, as the `search` span of the request's
+        trace: the HTTP layer arms the trace (its `http` span is the
+        root); a search called in process arms one of its own."""
+        tags = {
+            "index": str(params["index"]),
+            "profile": bool((body or {}).get("profile")),
+        }
+        handle = None
+        tr = tracing.current()
+        if tr is None:
+            handle = tracing.begin("search", **tags)
+            tr = handle[0] if handle is not None else None
+        else:
+            tr.tags.update(tags)
+        try:
+            if tr is None:
+                return self._search(body, params, qs)
+            with tr.span("search"):
+                return self._search(body, params, qs)
+        finally:
+            tracing.end(handle)
+
+    def _search(self, body, params, qs):
         body = dict(body or {})
         if "size" in qs:
             body["size"] = int(qs["size"][0])
@@ -1437,14 +1465,9 @@ class RestActions:
             desc,
             cancellable=True,
         )
-        handle = tracing.begin(
-            "search", index=str(params["index"]),
-            profile=bool(body.get("profile")),
-        )
         try:
             return 200, self.cluster.search(params["index"], body, task=task)
         finally:
-            tracing.end(handle)
             self.cluster.tasks.unregister(task)
 
     def search_no_index(self, body, params, qs):

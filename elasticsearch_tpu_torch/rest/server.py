@@ -28,6 +28,7 @@ from urllib.parse import parse_qs, unquote, urlparse
 
 from ..cluster import ClusterError, ClusterService
 from ..common.memory import CircuitBreakingException
+from ..common import tracing
 from ..common.tracing import OPAQUE_ID_CTX
 from ..index.engine import EngineError, VersionConflictError
 from ..index.mapping import MappingParseError
@@ -63,29 +64,45 @@ class ElasticHandler(BaseHTTPRequestHandler):
 
     def _respond(
         self, status: int, payload, head_only: bool = False,
-        headers: Optional[dict] = None,
+        headers: Optional[dict] = None, trace=None,
     ) -> None:
+        """Encodes and writes one response; with the request's `trace`,
+        as its `http.encode` and `http.write` spans (the header block
+        and the body are one socket write each)."""
+        t0 = tracing.now_ns()
         if isinstance(payload, (dict, list)):
             data = json.dumps(payload).encode()
             ctype = "application/json"
         else:
             data = str(payload).encode()
             ctype = "text/plain; charset=UTF-8"
+        t1 = tracing.now_ns()
         self.send_response(status)
         self.send_header("X-elastic-product", "Elasticsearch")
         self.send_header("Content-Type", ctype)
         self.send_header("Content-Length", str(len(data)))
         for k, v in (headers or {}).items():
             self.send_header(k, str(v))
+        head = sum(len(b) for b in getattr(self, "_headers_buffer", ()))
         self.end_headers()
         if not head_only:
             self.wfile.write(data)
+        if trace is not None:
+            trace.add_span("http.encode", t0, t1, bytes=len(data))
+            trace.add_span(
+                "http.write", t1, tracing.now_ns(), writes=1 + (not head_only),
+                bytes=head + (0 if head_only else len(data)),
+            )
 
     def _handle(self, method: str) -> None:
+        # a `_search` is traced from here, where its body read starts, to
+        # its response's last byte written (the `http` span)
+        t_read = tracing.now_ns()
         parsed = urlparse(self.path)
         path = parsed.path
         qs = parse_qs(parsed.query, keep_blank_values=True)
         raw = self._read_body()
+        t_body = tracing.now_ns()
         head_only = method == "HEAD"
         route, params, path_exists = self.actions.router.dispatch(method, path)
         # percent-decode extracted path params AFTER routing so an
@@ -121,8 +138,22 @@ class ElasticHandler(BaseHTTPRequestHandler):
         # X-Opaque-Id rides a contextvar for the request's lifetime so
         # task descriptions, traces, and slow logs can stamp it
         opaque_tok = OPAQUE_ID_CTX.set(self.headers.get("X-Opaque-Id"))
+        # only `_search` requests enter the trace ring
+        handle = http_id = parent_tok = None
+        if route.handler == self.actions.search:
+            handle = tracing.begin("search")
+        if handle is not None:
+            tr = handle[0]
+            tr.start_ns = t_read
+            http_id = tr.reserve()
+            tr.add_span("http.read", t_read, t_body, parent_id=http_id,
+                        bytes=len(raw))
+            parent_tok = tracing.set_parent(http_id)
         try:
+            t0 = tracing.now_ns()
             body = self._parse_body(path, raw)
+            if handle is not None:
+                tr.add_span("http.decode", t0, tracing.now_ns())
             status, payload = route.handler(body, params or {}, qs)
         except ClusterError as e:
             status, payload = e.status, error_body(e.status, e.err_type, e.reason)
@@ -161,7 +192,17 @@ class ElasticHandler(BaseHTTPRequestHandler):
             status, payload = 500, error_body(500, "exception", repr(e))
         finally:
             OPAQUE_ID_CTX.reset(opaque_tok)
-        self._respond(status, payload, head_only, headers=resp_headers)
+        if handle is None:
+            self._respond(status, payload, head_only, headers=resp_headers)
+            return
+        try:
+            self._respond(status, payload, head_only, headers=resp_headers,
+                          trace=tr)
+        finally:
+            tracing.reset_parent(parent_tok)
+            tr.add_span("http", t_read, tracing.now_ns(), parent_id=None,
+                        span_id=http_id, method=method, status=status)
+            tracing.end(handle)
 
     def _parse_body(self, path: str, raw: bytes):
         last = path.rstrip("/").rsplit("/", 1)[-1]

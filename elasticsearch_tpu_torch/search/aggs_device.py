@@ -99,7 +99,7 @@ _INT_KEY_TYPES = ("integer", "long", "short", "byte", DATE)
 
 def _host(x) -> np.ndarray:
     """A device result as a host array (the download)."""
-    return x.cpu().numpy()
+    return scoring.download(x, site="agg")[0]
 
 
 class DeviceAggUnsupported(Exception):

@@ -72,6 +72,7 @@ from typing import Deque, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
+from ..common import tracing
 from ..common.faults import InjectedFault, faults
 from ..common.memory import CircuitBreakingException
 from ..common.settings import batch_buckets, bucket_for, bucket_warmup
@@ -451,7 +452,7 @@ class _Job:
 
     __slots__ = (
         "executor", "kind", "plan", "k", "query", "event", "result",
-        "error", "deadline", "t_enq", "prof",
+        "error", "deadline", "t_enq", "prof", "trace", "parent", "t_set",
     )
 
     def __init__(
@@ -469,14 +470,103 @@ class _Job:
         # monotonic deadline (the shard's search-timeout budget): a job
         # still queued past it is dropped at dequeue, never dispatched
         self.deadline = deadline
-        self.t_enq = time.monotonic()
+        self.t_enq = tracing.now_ns()
         # "profile": true — a shared mutable dict the dispatch/collect
         # phases write per-family timing into (None = unprofiled; the
         # submitter owns the dict and reads it after wait())
         self.prof = prof
+        # the submitting request's trace and the span it waits in (the
+        # shard's `shard_search`): the worker records the job's spans
+        # there. None when tracing is off or outside a traced request
+        self.trace = tracing.current()
+        self.parent = tracing.parent() if self.trace is not None else None
+        # when the worker woke the waiter (traced jobs; `batcher.wake`)
+        self.t_set: Optional[int] = None
 
     def done(self) -> bool:
         return self.event.is_set()
+
+
+def _wake(jobs: List[_Job]) -> None:
+    """Wakes the waiters of a finished group whose results (or errors)
+    are set. On a worker, the group's span and profile entries are
+    recorded first (`_Group.close`), so no waiter observes them
+    missing; a traced job notes the mark its `batcher.wake` starts at."""
+    g = _group()
+    if g is not None:
+        g.close()
+    for j in jobs:
+        if not j.event.is_set():
+            if j.trace is not None:
+                j.t_set = tracing.now_ns()
+            j.event.set()
+
+
+class _Group:
+    """The spans, waits and profile marks of one group's dispatch or
+    collect on the worker serving it. While the group's work runs it
+    listens to the worker's downloads (`scoring.WAITS.sink`): each one
+    counts as a host sync and its time as host stall, and becomes a
+    `device.wait` span. In the trace of every traced job the group
+    carries, its span (`batcher.dispatch` or `batcher.collect`) gets an
+    id up front (`targets`), so spans recorded inside it parent onto
+    it; `close` ends it under the job's own parent (its shard's
+    `shard_search`) and writes the profile entries from the same two
+    marks."""
+
+    __slots__ = ("batcher", "jobs", "name", "targets", "tags", "rows",
+                 "t_deq", "express", "t0", "closed")
+
+    def __init__(self, batcher: "QueryBatcher", jobs: List[_Job], name: str,
+                 rows: Optional[int] = None, t_deq: int = 0,
+                 express: bool = False, **tags):
+        self.batcher = batcher
+        self.jobs = jobs
+        self.name = name
+        # (trace, the group span's id in it, the job's parent span)
+        self.targets = [
+            (j.trace, j.trace.reserve(), j.parent)
+            for j in jobs if j.trace is not None
+        ]
+        self.tags = tags
+        self.rows = rows
+        self.t_deq = t_deq
+        self.express = express
+        self.closed = False
+        self.t0 = tracing.now_ns()
+
+    def wait(self, site: str, nbytes: int, t0: int, t1: int) -> None:
+        self.batcher._note_wait(t1 - t0)
+        for tr, sid, _ in self.targets:
+            tr.add_span("device.wait", t0, t1, parent_id=sid, site=site,
+                        bytes=nbytes)
+
+    def span(self, name: str, t0: int, t1: int, **tags) -> None:
+        for tr, sid, _ in self.targets:
+            tr.add_span(name, t0, t1, parent_id=sid, **tags)
+
+    def close(self) -> None:
+        if self.closed:
+            return
+        self.closed = True
+        t1 = tracing.now_ns()
+        if any(j.prof is not None for j in self.jobs):
+            if self.name == "batcher.dispatch":
+                self.batcher._prof_mark(self.jobs, self.rows, self.t_deq,
+                                        self.t0, t1, self.express)
+            else:
+                self.batcher._prof_collect(self.jobs, self.t0, t1)
+        if self.name == "batcher.dispatch":
+            self.tags["rows"] = int(self.rows or 0)
+        for tr, sid, parent in self.targets:
+            tr.add_span(self.name, self.t0, t1, parent_id=parent, span_id=sid,
+                        jobs=len(self.jobs), **self.tags)
+
+
+def _group() -> Optional[_Group]:
+    """The group this worker serves (None: a warm-up launch, or a
+    group run outside a worker)."""
+    return getattr(scoring.WAITS, "sink", None)
 
 
 class _BatchCtx:
@@ -547,6 +637,7 @@ class QueryBatcher:
         self._busy_t0 = 0.0
         self._device_busy_s = 0.0
         self._host_stall_s = 0.0
+        self._host_syncs = 0
         live_batchers.add(self)
         # observability: how many launches / jobs / batched jobs
         self.stats = {
@@ -705,6 +796,10 @@ class QueryBatcher:
     def wait(job: _Job, timeout: Optional[float] = None) -> TopDocs:
         if not job.event.wait(timeout):
             raise TimeoutError("batched query did not complete in time")
+        if job.t_set is not None:
+            t_set, job.t_set = job.t_set, None
+            job.trace.add_span("batcher.wake", t_set, tracing.now_ns(),
+                               parent_id=job.parent)
         if job.error is not None:
             raise job.error
         return job.result
@@ -860,13 +955,22 @@ class QueryBatcher:
         ctx = _BatchCtx(batch)
         self._ring_enter()
         try:
-            # congestion signal for the admission layer's AIMD limit:
-            # the worst enqueue→dispatch wait in this batch (the
-            # "queue delay vs target" the adaptive limit steers on)
-            now = time.monotonic()
+            # the batch's dequeue mark: its jobs' queue wait ends here
+            # (`batcher.queue` spans, the profile's queue_wait_ns); the
+            # worst wait is the congestion signal for the admission
+            # layer's AIMD limit (the "queue delay vs target" the
+            # adaptive limit steers on)
+            now = tracing.now_ns()
             admission.observe_queue_delay(
-                max(now - j.t_enq for j in batch)
+                max(now - j.t_enq for j in batch) * 1e-9
             )
+            worker = threading.current_thread().name
+            for j in batch:
+                if j.trace is not None:
+                    j.trace.add_span(
+                        "batcher.queue", j.t_enq, now, parent_id=j.parent,
+                        worker=worker, batch=len(batch),
+                    )
             with self._lock:
                 self.stats["jobs"] += len(batch)
                 self.stats["max_batch_seen"] = max(
@@ -952,7 +1056,9 @@ class QueryBatcher:
                 prof_on = any(j.prof is not None for j in jobs)
                 if prof_on:
                     self._tl.group_flops = 0
-                    t_prof = time.perf_counter_ns()
+                g = _Group(self, jobs, "batcher.dispatch", rows=rows,
+                           t_deq=now, express=express, family=fam)
+                scoring.WAITS.sink = g
                 try:
                     if not mesh:
                         self._dev_enter(dev_ids)
@@ -967,19 +1073,9 @@ class QueryBatcher:
                         # record BEFORE dispatch: match groups complete
                         # their waiters inside _run_group, and a waiter
                         # must never observe its own launch missing
-                        # from the histogram — the profile mark rides a
-                        # callback for the same reason (it must land
-                        # before the events fire, and before warm loops:
-                        # bucket warming is compile time, not this
-                        # query's time)
+                        # from the histogram
                         self._record_bucket(rows, len(jobs))
-                        cb = None
-                        if prof_on:
-                            cb = (lambda j=jobs, r=rows, t=t_prof, n=now,
-                                  e=express: self._prof_mark(j, r, t, n, e))
-                        self._run_group(jobs, key[2], kb, rows=rows,
-                                        prof_cb=cb)
-                        self._maybe_warm(key, jobs, kb, rows)
+                        self._run_group(jobs, key[2], kb, rows=rows)
                     elif kind == "s":
                         self._record_bucket(rows, len(jobs))
                         ctx.pending.append(
@@ -987,20 +1083,11 @@ class QueryBatcher:
                              self._dispatch_serve_group(jobs, kb, rows=rows),
                              dev_ids)
                         )
-                        dispatched = True
-                        if prof_on:
-                            self._prof_mark(jobs, rows, t_prof, now,
-                                            express)
-                        self._maybe_warm(key, jobs, kb, rows)
                     elif kind == "a":
                         ctx.pending.append(
                             (key, jobs, fam,
                              self._dispatch_agg_group(jobs), dev_ids)
                         )
-                        dispatched = True
-                        if prof_on:
-                            self._prof_mark(jobs, rows, t_prof, now,
-                                            express)
                     elif kind == "v":
                         self._record_bucket(rows, len(jobs))
                         ctx.pending.append(
@@ -1008,11 +1095,6 @@ class QueryBatcher:
                              self._dispatch_sparse_group(jobs, kb, rows=rows),
                              dev_ids)
                         )
-                        dispatched = True
-                        if prof_on:
-                            self._prof_mark(jobs, rows, t_prof, now,
-                                            express)
-                        self._maybe_warm(key, jobs, kb, rows)
                     elif kind == "r":
                         self._record_bucket(rows, len(jobs))
                         ctx.pending.append(
@@ -1020,10 +1102,6 @@ class QueryBatcher:
                              self._dispatch_rerank_group(jobs, rows=rows),
                              dev_ids)
                         )
-                        dispatched = True
-                        if prof_on:
-                            self._prof_mark(jobs, rows, t_prof, now,
-                                            express)
                     elif kind == "k":
                         self._record_bucket(rows, len(jobs))
                         ctx.pending.append(
@@ -1031,11 +1109,6 @@ class QueryBatcher:
                              self._dispatch_knn_group(jobs, rows=rows),
                              dev_ids)
                         )
-                        dispatched = True
-                        if prof_on:
-                            self._prof_mark(jobs, rows, t_prof, now,
-                                            express)
-                        self._maybe_warm(key, jobs, kb, rows)
                     else:  # a mesh family: one launch on the MeshExecutor
                         mex = jobs[0].executor
                         if kind == "Mm":
@@ -1057,20 +1130,25 @@ class QueryBatcher:
                             self.stats["launches"] += 1
                             self.stats["fused_jobs"] += len(jobs)
                         self._add_flops(pend["flops"], dev_ids)
-                        self._record_bucket(pend.get("rows", BPAD), len(jobs))
+                        g.rows = pend.get("rows", BPAD)
+                        self._record_bucket(g.rows, len(jobs))
                         ctx.pending.append((key, jobs, fam, pend, dev_ids))
-                        dispatched = True
-                        if prof_on:
-                            self._prof_mark(
-                                jobs, pend.get("rows", BPAD), t_prof,
-                                now, express,
-                            )
+                    dispatched = kind != "m"
+                    scoring.WAITS.sink = None
+                    # the group's span and profile entries (a match
+                    # group's close as it wakes its waiters), before warm
+                    # loops: bucket warming is compile time, not this
+                    # query's time
+                    g.close()
+                    if kind in ("m", "s", "v", "k"):
+                        self._maybe_warm(key, jobs, kb, rows)
                 except BaseException as e:  # surface to waiters
                     for j in jobs:
                         if not j.event.is_set():
                             j.error = e
                             j.event.set()
                 finally:
+                    scoring.WAITS.sink = None
                     if prof_on:
                         self._tl.group_flops = None
                     if not dispatched:
@@ -1094,8 +1172,8 @@ class QueryBatcher:
         results and finish the waiters. Never raises."""
         try:
             for key, jobs, fam, pend, dev_ids in ctx.pending:
-                prof_on = any(j.prof is not None for j in jobs)
-                tc0 = time.perf_counter_ns() if prof_on else 0
+                g = _Group(self, jobs, "batcher.collect", family=fam)
+                scoring.WAITS.sink = g
                 try:
                     # fault site: a collect-phase failure (device→host
                     # transfer) fails this group's waiters only
@@ -1114,7 +1192,6 @@ class QueryBatcher:
                         self._collect_rerank_group(jobs, pend)
                     elif kind in _MESH_KEYS:
                         mex = jobs[0].executor
-                        t0 = time.perf_counter()
                         if kind in ("Mm", "Ms"):
                             mex.collect_match(jobs, pend)
                         elif kind == "Mk":
@@ -1123,17 +1200,17 @@ class QueryBatcher:
                             mex.collect_agg(jobs, pend)
                         else:
                             mex.collect_sparse(jobs, pend)
-                        self._add_stall(time.perf_counter() - t0)
                     else:
                         self._collect_knn_group(jobs, pend)
-                    if prof_on:
-                        self._prof_collect(jobs, tc0)
+                    # the mesh families wake their waiters themselves
+                    g.close()
                 except BaseException as e:
                     for j in jobs:
                         if not j.event.is_set():
                             j.error = e
                             j.event.set()
                 finally:
+                    scoring.WAITS.sink = None
                     self._exit_kind(fam)
                     self._dev_exit(dev_ids)
         finally:
@@ -1171,63 +1248,67 @@ class QueryBatcher:
 
     # ---- per-request profiling ("profile": true) ----
 
-    def _prof_mark(self, jobs, rows, t0_ns, now_mono, express=False):
+    @staticmethod
+    def _prof_entry(j: _Job) -> dict:
+        """A copy of the job's entry for its family in its prof dict (a
+        new one the first time). Entries are built aside and dict-swapped
+        in, so a reader that races the write never observes a half-built
+        entry."""
+        prev = j.prof.setdefault("families", {}).get(j.kind)
+        e = dict(prev) if prev else {
+            "launches": 0, "dispatch_ns": 0, "collect_ns": 0,
+            "queue_wait_ns": 0, "flops": 0, "bucket": 0,
+            "batch_jobs": 0, "express_lane": False, "pruned": False,
+        }
+        if j.prof.get("pruned_jobs"):
+            e["pruned"] = True
+        return e
+
+    def _prof_mark(self, jobs, rows, t_deq, t0, t1, express=False):
         """Writes the dispatch-side breakdown of one profiled group into
-        every carrying job's prof dict: wall time of the launch, queue
-        wait, the group's flops (even share — the launch is shared),
-        pad bucket, batch width, and express-lane membership. Entries
-        are built aside and dict-swapped in so a reader that races the
-        write never observes a half-built entry."""
-        dt = time.perf_counter_ns() - t0_ns
+        every carrying job's prof dict, from the marks its spans read:
+        queue wait (enqueue → the batch's dequeue, `batcher.queue`),
+        dispatch (`batcher.dispatch`), the group's flops (even share —
+        the launch is shared), pad bucket, batch width, and express-lane
+        membership."""
         fl = int(getattr(self._tl, "group_flops", 0) or 0)
         self._tl.group_flops = None
         n = max(len(jobs), 1)
         for j in jobs:
-            p = j.prof
-            if p is None:
+            if j.prof is None:
                 continue
-            fams = p.setdefault("families", {})
-            prev = fams.get(j.kind)
-            e = dict(prev) if prev else {
-                "launches": 0, "dispatch_ns": 0, "collect_ns": 0,
-                "queue_wait_ns": 0, "flops": 0, "bucket": 0,
-                "batch_jobs": 0, "express_lane": False, "pruned": False,
-            }
+            e = self._prof_entry(j)
             e["launches"] += 1
-            e["dispatch_ns"] += dt
-            e["queue_wait_ns"] += max(0, int((now_mono - j.t_enq) * 1e9))
+            e["dispatch_ns"] += t1 - t0
+            e["queue_wait_ns"] += max(0, t_deq - j.t_enq)
             e["flops"] += fl // n
             e["bucket"] = int(rows or 0)
             e["batch_jobs"] = n
             if express:
                 e["express_lane"] = True
-            if p.get("pruned_jobs"):
-                e["pruned"] = True
-            fams[j.kind] = e
+            j.prof["families"][j.kind] = e
 
-    def _prof_collect(self, jobs, t0_ns):
-        """Collect-side twin of _prof_mark: adds the device→host
-        transfer + host-merge wall time of one profiled group."""
-        dt = time.perf_counter_ns() - t0_ns
+    def _prof_collect(self, jobs, t0, t1):
+        """Collect-side twin of _prof_mark: the device→host transfer +
+        host-merge wall time of one profiled group (`batcher.collect`)."""
         for j in jobs:
-            p = j.prof
-            if p is None:
+            if j.prof is None:
                 continue
-            fams = p.setdefault("families", {})
-            prev = fams.get(j.kind)
-            e = dict(prev) if prev else {
-                "launches": 0, "dispatch_ns": 0, "collect_ns": 0,
-                "queue_wait_ns": 0, "flops": 0, "bucket": 0,
-                "batch_jobs": 0, "express_lane": False, "pruned": False,
-            }
-            e["collect_ns"] += dt
-            if p.get("pruned_jobs"):
-                e["pruned"] = True
-            fams[j.kind] = e
+            e = self._prof_entry(j)
+            e["collect_ns"] += t1 - t0
+            j.prof["families"][j.kind] = e
 
-    def _add_stall(self, seconds: float):
+    def _note_wait(self, ns: int):
+        """One download a worker waited in (`scoring.download`)."""
         with self._lock:
-            self._host_stall_s += seconds
+            self._host_syncs += 1
+            self._host_stall_s += ns * 1e-9
+
+    def host_syncs(self) -> int:
+        """Downloads the workers waited in (`_nodes/stats`
+        `pipeline.host_syncs`; their time is `host_stall_ms`)."""
+        with self._lock:
+            return self._host_syncs
 
     # ---- continuous-batching accounting + bucket warmup ----
 
@@ -1425,13 +1506,13 @@ class QueryBatcher:
         }
 
     def _run_group(self, jobs: List[_Job], field: str, kb: int,
-                   rows: Optional[int] = None, record: bool = True,
-                   prof_cb=None):
+                   rows: Optional[int] = None, record: bool = True):
         """`rows` is the group's padded launch width (a ladder bucket >=
         len(jobs); default BPAD); `record=False` (bucket warmup) skips
-        all stats/flop accounting. `prof_cb` (profiled groups) fires
-        after device work completes but BEFORE waiter events are set, so
-        a profiled request never observes its own launch missing."""
+        all stats/flop accounting. Sets each job's result, then wakes the
+        waiters (`_wake`). The chunked path's host stages are spans of
+        the group (`chunked.plan`, `chunked.score`, `chunked.survive`)."""
+        g = _group()
         ex = jobs[0].executor
         reader = ex.reader
         nj = len(jobs)
@@ -1490,7 +1571,10 @@ class QueryBatcher:
             cs = ex.chunked_scorer(si, field)
             if bmx is None or cs is None:
                 continue
+            if g is not None:
+                g.tags["route"] = "chunked"
             acc, cnt = cs.new_acc(with_cnt, rows=rows)
+            tp = tracing.now_ns()
             a_tiles: List[np.ndarray] = []
             a_w: List[np.ndarray] = []
             deferred: List[list] = []
@@ -1521,7 +1605,12 @@ class QueryBatcher:
                 a_tiles.append(np.concatenate(tl) if tl else empty_i)
                 a_w.append(np.concatenate(wl) if wl else empty_w)
                 deferred.append(hots)
+            t_plan = tracing.now_ns()
             acc, cnt = cs.score_into(acc, cnt, a_tiles, a_w)
+            if g is not None and g.targets:
+                g.span("chunked.plan", tp, t_plan, segment=si)
+                g.span("chunked.score", t_plan, tracing.now_ns(),
+                       segment=si, tiles=sum(len(t) for t in a_tiles))
             if record:
                 with self._lock:
                     self.stats["launches"] += 1
@@ -1532,10 +1621,8 @@ class QueryBatcher:
             if any(deferred):
                 # ---- the threshold broadcast + survival test (the one
                 # host-dependent round: only runs when pruning engages) ----
-                t0 = time.perf_counter()
                 theta, accmax = cs.threshold(acc, kb)
-                if record:
-                    self._add_stall(time.perf_counter() - t0)
+                ts = tracing.now_ns()
                 b_tiles: List[np.ndarray] = []
                 b_w: List[np.ndarray] = []
                 for ji, hots in enumerate(deferred):
@@ -1556,7 +1643,12 @@ class QueryBatcher:
                                 )
                     b_tiles.append(np.concatenate(tl) if tl else empty_i)
                     b_w.append(np.concatenate(wl) if wl else empty_w)
+                t_surv = tracing.now_ns()
                 acc, cnt = cs.score_into(acc, cnt, b_tiles, b_w)
+                if g is not None and g.targets:
+                    g.span("chunked.survive", ts, t_surv, segment=si)
+                    g.span("chunked.score", t_surv, tracing.now_ns(),
+                           segment=si, tiles=sum(len(t) for t in b_tiles))
                 if record:
                     with self._lock:
                         self.stats["launches"] += 1
@@ -1572,16 +1664,12 @@ class QueryBatcher:
         # download per group (score desc, (segment, doc) asc — identical
         # ordering to the old host sort, selection only → float-exact)
         if dev_items:
-            t0 = time.perf_counter()
             ms, mseg, mdoc, mtot = scoring.merge_segment_topk(dev_items, kb)
-            if record:
-                self._add_stall(time.perf_counter() - t0)
         else:
             ms = np.full((nj, 0), -np.inf, np.float32)
             mseg = mdoc = np.zeros((nj, 0), np.int32)
             mtot = np.zeros((nj, 0), np.int64)
-        if prof_cb is not None:
-            prof_cb()
+        th = tracing.now_ns()
         for ji, j in enumerate(jobs):
             finite = np.isfinite(ms[ji])
             hits = [
@@ -1621,7 +1709,11 @@ class QueryBatcher:
                 max_score=hits[0].score if hits else None,
                 relation=relation,
             )
-            j.event.set()
+        if g is not None:
+            g.tags.setdefault("route", "fused")
+            if g.targets:
+                g.span("batcher.hits", th, tracing.now_ns())
+        _wake(jobs)
 
     # ---- dispatch/collect pairs (device work launches in dispatch;
     # only collect blocks on host transfers) ----
@@ -1709,10 +1801,7 @@ class QueryBatcher:
             if tag == "fused"
         ]
         if fused_items:
-            t0 = time.perf_counter()
             ms, mseg, mdoc, mtot = scoring.merge_segment_topk(fused_items, kb)
-            if record:
-                self._add_stall(time.perf_counter() - t0)
             for ji in range(len(jobs)):
                 finite = np.isfinite(ms[ji])
                 for s, si, d in zip(ms[ji][finite], mseg[ji][finite], mdoc[ji][finite]):
@@ -1769,15 +1858,12 @@ class QueryBatcher:
                 continue
             if tag == "err":
                 j.error = pend
-                j.event.set()
                 continue
             try:
-                t0 = time.perf_counter()
                 j.result = j.plan.collect(pend)  # (TopDocs, partials)
-                self._add_stall(time.perf_counter() - t0)
             except BaseException as e:  # surfaced to this job's waiter
                 j.error = e
-            j.event.set()
+        _wake(jobs)
 
     def _dispatch_sparse_group(self, jobs: List[_Job], kb: int,
                                rows: Optional[int] = None,
@@ -1898,10 +1984,7 @@ class QueryBatcher:
             dev_items.append((si, *pend))
             pruned_any |= pruned_flags
         if dev_items:
-            t0 = time.perf_counter()
             ms, mseg, mdoc, mtot = scoring.merge_segment_topk(dev_items, kb)
-            if record:
-                self._add_stall(time.perf_counter() - t0)
             for ji in range(len(jobs)):
                 finite = np.isfinite(ms[ji])
                 for s, si, d in zip(ms[ji][finite], mseg[ji][finite], mdoc[ji][finite]):
@@ -1919,6 +2002,8 @@ class QueryBatcher:
                     [j], [per_job_cands[ji]], totals[ji : ji + 1],
                     si, s1[None, :], d1[None, :], np.array([t1]),
                 )
+        g = _group()
+        th = tracing.now_ns()
         for ji, j in enumerate(jobs):
             cands = per_job_cands[ji]
             cands.sort(key=lambda c: (-c[0], c[1], c[2]))
@@ -1940,7 +2025,9 @@ class QueryBatcher:
                 max_score=hits[0].score if hits else None,
                 relation=relation,
             )
-            j.event.set()
+        if g is not None and g.targets:
+            g.span("batcher.hits", th, tracing.now_ns())
+        _wake(jobs)
 
     def _dispatch_rerank_group(self, jobs: List[_Job],
                                rows: Optional[int] = None) -> Tuple:
@@ -2003,18 +2090,16 @@ class QueryBatcher:
             for j in jobs:
                 if not j.event.is_set():
                     j.result = ("skip", None, None, 0.0)
-                    j.event.set()
+            _wake(jobs)
             return
-        t1 = time.perf_counter()
         scores, perm = rerank_ops.unpack_rescore(out)
-        self._add_stall(time.perf_counter() - t1)
         kernel_ms = (time.perf_counter() - t0) * 1000.0
         for ji, j in enumerate(jobs):
             if j.event.is_set():
                 continue
             w = len(j.plan.first)
             j.result = ("ok", scores[ji][:w], perm[ji][:w], kernel_ms)
-            j.event.set()
+        _wake(jobs)
 
     def _dispatch_knn_group(self, jobs: List[_Job],
                             rows: Optional[int] = None,
@@ -2122,12 +2207,11 @@ class QueryBatcher:
                 for ji, j in enumerate(jobs):
                     nc_rows[ji, ii] = min(j.plan.num_candidates, n)
             k_out = max(max(j.k, 1) for j in jobs)
-            t0 = time.perf_counter()
             ms, mseg, mdoc, counts = scoring.knn_merge_segment_topk(
                 [(si, s, d) for si, _, s, d in items], nc_rows, k_out
             )
-            if record:
-                self._add_stall(time.perf_counter() - t0)
+            g = _group()
+            th = tracing.now_ns()
             for ji, j in enumerate(jobs):
                 finite = np.isfinite(ms[ji])
                 cap = min(j.plan.k, j.k)
@@ -2151,11 +2235,12 @@ class QueryBatcher:
                     max_score=hits[0].score if hits else None,
                     relation="eq",
                 )
-                j.event.set()
+            if g is not None and g.targets:
+                g.span("batcher.hits", th, tracing.now_ns())
+            _wake(jobs)
             return
         for si, n, s, d in items:
-            s = s.cpu().numpy()
-            d = d.cpu().numpy()
+            s, d = scoring.download(s, d, site="knn_segment")
             for ji, j in enumerate(jobs):
                 nc = min(j.plan.num_candidates, n)
                 row_s, row_d = s[ji][:nc], d[ji][:nc]
@@ -2180,7 +2265,10 @@ class QueryBatcher:
                      page_caps=None):
         """Exact (non-pruned) cross-segment merge: score desc,
         (segment, doc) asc. page_caps optionally bounds the candidate
-        pool before the per-job k cut (knn's global num_candidates)."""
+        pool before the per-job k cut (knn's global num_candidates). Sets
+        each job's result, then wakes the waiters (`_wake`)."""
+        g = _group()
+        th = tracing.now_ns()
         for ji, j in enumerate(jobs):
             cands = per_job_cands[ji]
             cands.sort(key=lambda c: (-c[0], c[1], c[2]))
@@ -2202,4 +2290,6 @@ class QueryBatcher:
                 max_score=hits[0].score if hits else None,
                 relation="eq",
             )
-            j.event.set()
+        if g is not None and g.targets:
+            g.span("batcher.hits", th, tracing.now_ns())
+        _wake(jobs)
