@@ -26,6 +26,15 @@ any failure:
      (a) 64 `match` queries through TorchExecutor.search,
      (b) the same queries as 2 batches of 32 through fused_plan →
          FusedScorer.search_async → merge_segment_topk,
+     (a2) 32 `match` queries past the fused slot budget (every fourth
+         with operator "and") as one batcher group, scored on the
+         chunked block-max route by the BM25 tile add, held to the
+         oracle on 8 (totals, or a lower bound where pruned; hits;
+         scores within rtol 1e-5) and run twice to the same bits; the
+         tile add on its largest pass held bit for bit to its plain
+         version and timed beside its byte bound, as again on the
+         largest pass that phase 4's `/small` drive sent over HTTP,
+         whose tile-add launches must be more than 0,
      (c) 32 exact kNN sections (k=10, num_candidates=100),
      (d) QuantizedVectors.search over the same vectors, B=32, k=10,
      (e) 32 `multi_match` (title^2, body, tie_breaker 0.3) as one group
@@ -919,6 +928,172 @@ def scatter_kernel_row(args, device) -> dict:
     return row
 
 
+def capture_tile_add(fn):
+    """Runs `fn` once with ops/scoring.bm25_tile_add wrapped where
+    ChunkedScorer calls it (from any thread: the server's workers too);
+    returns the inputs of its call with the most tiles (acc and cnt as
+    they were before it)."""
+    from elasticsearch_tpu_torch.ops import scoring
+
+    real = scoring.bm25_tile_add
+    most = []
+    lock = threading.Lock()
+
+    def spy(acc, cnt, doc_ids, tfs, inv_norm, tile_lists, weight_lists):
+        tiles = sum(len(x) for x in tile_lists)
+        with lock:
+            if tiles and (not most or tiles > most[0]):
+                most[:] = [tiles, (acc.clone(), None if cnt is None else cnt.clone(), doc_ids, tfs, inv_norm,
+                                   [np.array(x) for x in tile_lists], [np.array(x) for x in weight_lists])]
+        return real(acc, cnt, doc_ids, tfs, inv_norm, tile_lists, weight_lists)
+
+    scoring.bm25_tile_add = spy
+    try:
+        fn()
+    finally:
+        scoring.bm25_tile_add = real
+    check(bool(most), "the route made no BM25 tile add")
+    return most[1]
+
+
+def tile_add_bytes(C: int, doc_ids, tile_lists, planes: int):
+    """(bytes, valid slots, touched cells) of one BM25 tile add pass over
+    [rows, C] accumulators: the pass's postings tiles (doc ids and tfs)
+    and its packed plan read once, each valid doc's inv_norm read once,
+    each touched cell of each plane read and written once."""
+    import torch
+
+    R = len(tile_lists)
+    ids = torch.from_numpy(np.concatenate(tile_lists).astype(np.int64)).to(doc_ids.device)
+    rows = torch.repeat_interleave(torch.arange(R, device=doc_ids.device),
+                                   torch.tensor([len(x) for x in tile_lists], device=doc_ids.device))
+    docs = doc_ids[ids]
+    valid = docs >= 0
+    cells = int(torch.unique((rows[:, None] * C + docs)[valid]).numel())
+    inv_reads = int(torch.unique(docs[valid]).numel())
+    T = ids.numel()
+    nbytes = T * doc_ids.shape[1] * 8 + (2 * (R + 1) + 2 * T) * 4 + inv_reads * 4 + cells * 8 * planes
+    return nbytes, int(valid.sum()), cells
+
+
+def tile_add_kernel_row(args, device) -> dict:
+    """csrc/ordered_scatter.cu's BM25 tile add on one pass's inputs
+    against its plain version on the CPU (`_chunk_scores` and the ordered
+    scatter-add's plain version over each row's whole list), bit for bit
+    and count for count; its time (the wrapper's packing and upload
+    included) and the plain version's on the card; its bound from the
+    bytes the pass needs (`tile_add_bytes`)."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops import ordered_scatter as osc
+    from elasticsearch_tpu_torch.ops import scoring
+
+    acc, cnt, doc_ids, tfs, inv, tiles, weights = args
+    R, C = acc.shape
+    lay = osc.tile_layout(C, [len(x) for x in tiles] + [0] * (R - len(tiles)))
+    want, want_cnt = scoring.bm25_tile_add_plain(
+        *[None if x is None else x.to("cpu", copy=True) for x in (acc, cnt, doc_ids, tfs, inv)], tiles, weights)
+    a, c = acc.clone(), None if cnt is None else cnt.clone()
+    scoring.bm25_tile_add(a, c, doc_ids, tfs, inv, tiles, weights)
+    sync(device)
+    got = a.cpu()
+    differ = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    max_abs = float((got - want).abs().max())
+    check(differ == 0, f"bm25_tile_add [{R}, {C}] x {lay.tiles} tiles: {differ} cells differ from the plain "
+                       f"version (max abs {max_abs:.3e})")
+    check(cnt is None or bool(torch.equal(c.cpu(), want_cnt)), "bm25_tile_add: counts differ")
+    ms = device_ms(lambda: scoring.bm25_tile_add(a, c, doc_ids, tfs, inv, tiles, weights), device)
+    plain_ms = device_ms(lambda: scoring.bm25_tile_add_plain(a, c, doc_ids, tfs, inv, tiles, weights), device,
+                         iters=5)
+    nbytes, valid, cells = tile_add_bytes(C, doc_ids, tiles, 1 if cnt is None else 2)
+    bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    path = "row_kernel" if lay.window == 0 else "chunk_kernel + apply_kernel"
+    row = {"launches": None, "shape": {"R": R, "C": C, "tiles": lay.tiles, "cnt": cnt is not None}, "path": path,
+           "windows": lay.windows, "max_abs_err": max_abs, "cells_differing": differ, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": "bytes", "bound_share": bound_ms / ms, "library_ms": None,
+           "library": "none: no library call gathers, scores and adds a pass in order",
+           "bytes": nbytes, "valid_slots": valid, "touched_cells": cells,
+           "scratch_bytes": lay.scratch_words * 4, "acc_bytes": R * C * 4}
+    log(f"bm25_tile_add [{R}, {C}] x {lay.tiles} tiles (cnt {cnt is not None}, {path}, {lay.windows} windows): "
+        f"0 cells differ, {ms:.4f} ms, plain {plain_ms:.4f}, bound {bound_ms:.4f} ({nbytes} B)")
+    return row
+
+
+def chunked_texts(fs, pf, n: int, seed: int) -> list:
+    """n `match` texts that overflow the fused scorer's rare-tile budget,
+    so that the batcher scores them on the chunked route: from a
+    rotating start among the body terms that have no dense row, most
+    tiles first, terms until their tiles pass the budget, then one
+    mid-frequency term."""
+    order = [int(x) for x in np.argsort(-pf.term_tile_count, kind="stable") if int(x) not in fs.hot_rank]
+    mids = match_texts(pf.term_df, n, seed + 29)
+    out = []
+    for i in range(n):
+        picked, tiles, j = [], 0, i % 64
+        while tiles <= fs.t_rare:
+            picked.append(pf.terms[order[j]])
+            tiles += int(pf.term_tile_count[order[j]])
+            j += 1
+        out.append(" ".join(picked + mids[i].split()[:1]))
+    return out
+
+
+def route_chunked(tex, fs, reader, oracle, seed: int, device) -> dict:
+    """Route (a2): BATCH `match` queries that overflow the fused slot
+    budget (every fourth with operator "and", so the count plane rides
+    along) as one batcher group on this thread, which the chunked
+    block-max route scores through the BM25 tile add (two passes: the
+    essential terms, then the hot terms' surviving tiles), held to the
+    oracle (totals, or a lower bound where tiles were pruned; hits; scores
+    within RTOL), and run again to the same bits."""
+    from elasticsearch_tpu_torch.search import dsl
+    from elasticsearch_tpu_torch.search.batcher import QueryBatcher, extract_match_plan
+
+    pf = reader.segments[0].postings["body"]
+    texts = chunked_texts(fs, pf, BATCH, seed)
+    queries = [dsl.parse_query({"match": {"body": {"query": s, "operator": "and" if i % 4 == 3 else "or"}}})
+               for i, s in enumerate(texts)]
+    plans = [extract_match_plan(q, reader.mappings, reader.analysis) for q in queries]
+    check(all(tex.fused_plan(fs, 0, "body", p.terms, p.boost, p.msm) is None for p in plans),
+          "(a2) a query fits the fused slot budget")
+    gb = QueryBatcher(workers=1)
+    gb._ensure_thread = lambda: None  # groups run on this thread
+
+    def run():
+        jobs = [gb.submit_nowait(tex, p, K) for p in plans]
+        gb._run_group(jobs, "body", 16, rows=BATCH)
+        return [gb.wait(j) for j in jobs]
+
+    try:
+        t = time.perf_counter()
+        res = run()
+        sync(device)
+        wall = time.perf_counter() - t
+        stats = dict(gb.stats)
+        check(stats["chunked_jobs"] == BATCH and stats["fused_overflow_jobs"] == BATCH,
+              f"(a2) the group did not take the chunked route: {stats}")
+        for i in range(ORACLE_QUERIES):
+            ref, got = oracle.search(queries[i], size=K), res[i]
+            check(got.total == ref.total or (got.relation == "gte" and got.total <= ref.total),
+                  f"(a2) total {got.total} ({got.relation}) against oracle {ref.total}")
+            rs = np.array([h.score for h in ref.hits])
+            gs = np.array([h.score for h in got.hits])
+            check(len(gs) == len(rs) and np.allclose(gs, rs, rtol=RTOL, atol=1e-6),
+                  f"(a2) scores {gs} != oracle {rs}")
+            same_ids([h.doc_id for h in ref.hits], rs, [h.doc_id for h in got.hits], f"(a2) match [{texts[i]}]")
+        again = []
+        args = capture_tile_add(lambda: again.extend(run()))
+        for a, b in zip(res, again):
+            check([(h.doc_id, np.float32(h.score).tobytes()) for h in a.hits]
+                  == [(h.doc_id, np.float32(h.score).tobytes()) for h in b.hits], "(a2) run twice: other bits")
+    finally:
+        gb.close()
+    log(f"(a2) chunked group of {BATCH}: {wall * 1e3:.1f} ms, {stats['chunked_launches']} tile-add launches, "
+        f"{sum(r.relation == 'gte' for r in res)} pruned; held to the oracle and run twice the same bits")
+    return {"wall_s": wall, "chunked_launches": stats["chunked_launches"],
+            "pruned_jobs": sum(r.relation == "gte" for r in res), "tile_add_args": args}
+
+
 def phase_main(reader, oracle, vecs, qv, seed: int, device) -> dict:
     import torch
 
@@ -977,6 +1152,7 @@ def phase_main(reader, oracle, vecs, qv, seed: int, device) -> dict:
     int8_knn.int8_dot_scores.launches = 0
     scatter = ordered_scatter.ordered_scatter_add
     scatter.launches = 0
+    ordered_scatter.launch_tile_add.launches = 0
     route_scatters = {}  # the ordered scatter-add's launches by route
 
     # (a) per-query match route
@@ -999,6 +1175,12 @@ def phase_main(reader, oracle, vecs, qv, seed: int, device) -> dict:
     sync(device)
     times["b_match_fused_batches_s"] = time.perf_counter() - t
     route_scatters["b"] = scatter.launches - sum(route_scatters.values())
+
+    # (a2) match queries past the fused slot budget: the chunked route
+    t = time.perf_counter()
+    chunked = route_chunked(tex, fs, reader, oracle, seed, device)
+    times["a2_match_chunked_group_s"] = time.perf_counter() - t
+    route_scatters["a2"] = scatter.launches - sum(route_scatters.values())
 
     # (c) exact kNN sections
     secs = [
@@ -1037,7 +1219,8 @@ def phase_main(reader, oracle, vecs, qv, seed: int, device) -> dict:
     route_scatters["i"] = scatter.launches - sum(route_scatters.values())
 
     launches = {"int8_dot_scores": int8_knn.int8_dot_scores.launches,
-                "ordered_scatter_add": scatter.launches}
+                "ordered_scatter_add": scatter.launches,
+                "bm25_tile_add": ordered_scatter.launch_tile_add.launches}
     log(f"main path done; launches {launches}; the ordered scatter-add's by route {route_scatters}")
     check(all(n > 0 for n in launches.values()), f"a kernel never launched on the main path: {launches}")
 
@@ -1075,6 +1258,15 @@ def phase_main(reader, oracle, vecs, qv, seed: int, device) -> dict:
     log(f"ordered scatter-add: bit for bit at (a), (b) and (f) (first and densest), (b)/(e)/(f) twice "
         f"the same bits, "
         f"{times['ordered_scatter_checks_s']:.2f}s")
+    # ---- the BM25 tile add against its plain version on (a2)'s largest
+    # pass ----
+    t = time.perf_counter()
+    tile_row = {"name": "bm25_tile_add", "route": "cuda",
+                "source": "elasticsearch_tpu_torch/csrc/ordered_scatter.cu",
+                "replaces": "none: the loop of 512-tile chunks of elasticsearch_tpu's "
+                            "ChunkedScorer.score_into (elasticsearch_tpu/ops/scoring.py:264)",
+                **tile_add_kernel_row(chunked.pop("tile_add_args"), device)}
+    times["tile_add_checks_s"] = time.perf_counter() - t
 
     # ---- correctness against the oracle ----
     t = time.perf_counter()
@@ -1137,6 +1329,7 @@ def phase_main(reader, oracle, vecs, qv, seed: int, device) -> dict:
         check(pageable == 0, f"(d) made {pageable} pageable host-to-device copies")
     topk = topk_before_after(device, seed) if device.type == "cuda" else {}
     return {"times": times, "launches": launches, "int8_recall_at_10": recall, "ordered_scatter": scatter_row,
+            "bm25_tile_add": tile_row, "chunked_a2": chunked,
             "sparse_f": fg["f"], "aggs_g": fg["g"], "sorted_i": sort_i,
             "plain_ops": fg["plain_ops"] + [sort_i["plain_op"]], "topk_desc_ms": topk,
             "totals_a": [r.total for r in res_a[:ORACLE_QUERIES]],
@@ -2210,6 +2403,7 @@ def phase_serve(reader, dims: int, seed: int, device, card: str, ann_reader, ann
                 rc: dict, phrase_pairs) -> dict:
     import torch
 
+    from elasticsearch_tpu_torch.ops import ordered_scatter
     from elasticsearch_tpu_torch.rest.server import ElasticsearchTpuServer
     from elasticsearch_tpu_torch.search import dsl
     from elasticsearch_tpu_torch.search.admission import admission
@@ -2330,14 +2524,23 @@ def phase_serve(reader, dims: int, seed: int, device, card: str, ann_reader, ann
         for v in rng.standard_normal((SMALL_QUERIES // 2, dims)).astype(np.float32):
             small_bodies.append({"knn": {"field": "vec", "query_vector": [float(x) for x in v],
                                          "k": K, "num_candidates": 50}})
-        out, rows["small_mixed_8_clients"] = drive_measured(
-            clients_proc, "/small/_search", small_bodies, CLIENTS)
+        served_small = []
+        tile_launches = ordered_scatter.launch_tile_add.launches
+        small_pass = capture_tile_add(lambda: served_small.append(drive_measured(
+            clients_proc, "/small/_search", small_bodies, CLIENTS)))
+        tile_launches = ordered_scatter.launch_tile_add.launches - tile_launches
+        out, rows["small_mixed_8_clients"] = served_small[0]
         for i, body in enumerate(small_bodies):
             same_served(http.ok("POST", "/small_oracle/_search", body), out[i], f"/small body {i}")
         stats_small = node_stats(http)
         chunked = stats_small["search"]["chunked_jobs"] - stats_bench["search"]["chunked_jobs"]
-        log(f"/small: {chunked} (job, segment) pairs through the chunked path")
+        small_launches = stats_small["search"]["chunked_launches"] - stats_bench["search"]["chunked_launches"]
+        log(f"/small: {chunked} (job, segment) pairs through the chunked path, {tile_launches} BM25 tile-add "
+            f"launches ({small_launches} in the batcher's count)")
         check(chunked > 0, "/small: the chunked path was not taken")
+        check(tile_launches > 0, "/small: the chunked path launched no BM25 tile add")
+        tile_add_small = {**tile_add_kernel_row(small_pass, device), "launches": tile_launches,
+                          "batcher_chunked_launches": small_launches}
         times["small_s"] = time.perf_counter() - t
         ex = srv.cluster.get_index("small")._executor(srv.cluster.get_index("small").shards[0])
         check(isinstance(ex, TorchExecutor) and ex.device.type == device.type,
@@ -2436,6 +2639,7 @@ def phase_serve(reader, dims: int, seed: int, device, card: str, ann_reader, ann
                 "sparse_aggs": sparse_aggs, "ann_sort": ann_sort, "rerank": rerank, "nodes": nodes,
                 "plain_ops": plain_ops,
                 "bench_launches_by_bucket": by_bucket, "small_chunked_jobs": chunked,
+                "tile_add_small": tile_add_small,
                 "pipeline": stats_small["pipeline"], "profile": profile,
                 "syncs_per_group": syncs, "concurrency_diagnosis": diagnosis,
                 "float32_matmul_precision": torch.get_float32_matmul_precision()}
@@ -5514,6 +5718,7 @@ def run(device, seed: int, n_docs: int, vocab: int, dims: int, card: str) -> dic
     main = phase_main(reader, oracle, vecs, qv, seed, device)
     phases["3_main_path_s"] = time.perf_counter() - t
     kernels.append(main.pop("ordered_scatter"))
+    kernels.append(main.pop("bm25_tile_add"))
     for k in kernels:
         k["launches"] = main["launches"][k["name"]]
     del oracle, qv
@@ -5554,6 +5759,7 @@ def run(device, seed: int, n_docs: int, vocab: int, dims: int, card: str) -> dic
                         phrase_pairs)
     phases["4_serve_s"] = time.perf_counter() - t
     durable = serve.pop("durable")
+    next(k for k in kernels if k["name"] == "bm25_tile_add")["at_small_http"] = serve.pop("tile_add_small")
     phases["4m_durable_s"] = serve["times"]["durable_s"]
     peaks["phase_4"] = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
     t = time.perf_counter()

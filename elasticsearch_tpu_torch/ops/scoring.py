@@ -18,12 +18,13 @@ the packed int32 plan/result layouts of `FusedScorer` are unchanged, so
 a plan packed for one package is a plan for the other.
 
 Scores are float32 end to end. Every float accumulation goes through
-ops/ordered_scatter.ordered_scatter_add, which adds a doc's
-contributions in tile order on the CPU and on the card alike (the
-order of the reference's `.at[].add`), so a score's bits do not change
-from run to run. The parity tests against the JAX package state rtol
-1e-5: XLA on the CPU contracts `1 + tf * inv_norm` into one fused
-multiply-add, PyTorch rounds the product first.
+ops/ordered_scatter.ordered_scatter_add, or for a chunked pass through
+`bm25_tile_add` (the same kernel's passes over slots it computes from
+the postings), which add a doc's contributions in tile order on the CPU
+and on the card alike (the order of the reference's `.at[].add`), so a
+score's bits do not change from run to run. The parity tests against
+the JAX package state rtol 1e-5: XLA on the CPU contracts `1 + tf *
+inv_norm` into one fused multiply-add, PyTorch rounds the product first.
 """
 
 from __future__ import annotations
@@ -35,7 +36,8 @@ import numpy as np
 import torch
 
 from ..common.tracing import now_ns
-from .ordered_scatter import ordered_scatter_add
+from . import ordered_scatter
+from .ordered_scatter import ordered_scatter_add, ordered_scatter_add_plain
 
 
 def next_bucket(n: int, minimum: int = 8) -> int:
@@ -159,13 +161,14 @@ def knn_flops(n_queries: int, n_docs: int, dims: int) -> int:
 
 # ---------------------------------------------------------------------------
 # Chunked batched scorer — the path for small segments (every segment a
-# `_bulk` + refresh makes) and for fused-slot overflow. Tile lists of any
-# length stream through launches of TCHUNK tiles per query row into a
-# dense [rows, n_docs + 1] accumulator (the extra column takes padding);
-# the accumulator is updated in place, as the reference donates it.
+# `_bulk` + refresh makes) and for fused-slot overflow. Each row's tile
+# list, of any length, is one scoring pass into a dense [rows, n_docs + 1]
+# accumulator (the extra column takes padding), updated in place, as the
+# reference donates it: one packed upload and one call of the ordered
+# BM25 tile add (`bm25_tile_add`) a pass.
 # ---------------------------------------------------------------------------
 
-TCHUNK = 512  # tiles per query row per launch
+TCHUNK = 512  # tiles per query row per launch (the sparse and mesh loops)
 
 
 def _chunk_scores(doc_ids, tfs, inv_norm, ti, tw, tv):
@@ -183,18 +186,47 @@ def _chunk_scores(doc_ids, tfs, inv_norm, ti, tw, tv):
     return tgt, torch.where(valid, s, 0.0), valid
 
 
-def _chunk_add(doc_ids, tfs, inv_norm, acc, ti, tw, tv):
-    """acc[B, n+1] += BM25 contributions of one [B, TCHUNK] tile chunk."""
-    tgt, s, _ = _chunk_scores(doc_ids, tfs, inv_norm, ti, tw, tv)
-    ordered_scatter_add(acc, tgt, s)
-    return acc
+def bm25_tile_add_plain(acc, cnt, doc_ids, tfs, inv_norm, tile_lists, weight_lists):
+    """The same function in plain PyTorch: row by row, `_chunk_scores`
+    over the row's whole list and `ordered_scatter_add_plain` into the
+    row, which on the CPU adds a cell's contributions in slot order."""
+    for r, (tl, wl) in enumerate(zip(tile_lists, weight_lists)):
+        if not len(tl):
+            continue
+        ti = torch.as_tensor(np.asarray(tl, np.int64), device=acc.device)[None]
+        tw = torch.as_tensor(np.asarray(wl, np.float32), device=acc.device)[None]
+        tgt, s, valid = _chunk_scores(doc_ids, tfs, inv_norm, ti, tw, torch.ones_like(ti, dtype=torch.bool))
+        if cnt is None:
+            ordered_scatter_add_plain(acc[r], tgt, s)
+        else:
+            ordered_scatter_add_plain(acc[r], tgt, s, cnt[r], valid.to(torch.int32))
+    return acc, cnt
 
 
-def _chunk_add_cnt(doc_ids, tfs, inv_norm, acc, cnt, ti, tw, tv):
-    """Like _chunk_add but also counts matching terms per doc (for
-    minimum_should_match / operator=and semantics)."""
-    tgt, s, valid = _chunk_scores(doc_ids, tfs, inv_norm, ti, tw, tv)
-    return ordered_scatter_add(acc, tgt, s, cnt, valid.to(torch.int32))
+def bm25_tile_add(acc, cnt, doc_ids, tfs, inv_norm, tile_lists, weight_lists) -> int:
+    """One scoring pass, in place: acc[r, doc] += w - w / (1 + tf *
+    inv_norm[doc]) (and cnt[r, doc] += 1) for every posting (doc, tf) of
+    every tile of row r's list (weight w a tile), each cell's additions
+    in list order. acc (and cnt) [rows, n_docs + 1]; rows past the lists
+    add nothing. CUDA tensors take `csrc/ordered_scatter.cu`'s BM25 tile
+    add (or raise): one packed upload and one call, whatever the pass's
+    length, and no wait for the card; CPU tensors the plain version.
+    Returns the launches made (the kernel's windows, which
+    `ordered_scatter.launch_tile_add.launches` counts; on the CPU the
+    plain version's one pass)."""
+    if len(tile_lists) > acc.shape[0] or len(weight_lists) != len(tile_lists):
+        raise ValueError(f"bm25_tile_add: {len(tile_lists)} lists for {acc.shape[0]} rows")
+    if not any(len(t) for t in tile_lists):
+        return 0
+    if acc.device.type == "cpu":
+        bm25_tile_add_plain(acc, cnt, doc_ids, tfs, inv_norm, tile_lists, weight_lists)
+        return 1
+    rows = int(acc.shape[0])
+    lens = [len(t) for t in tile_lists] + [0] * (rows - len(tile_lists))
+    lay = ordered_scatter.tile_layout(int(acc.shape[-1]), lens)
+    plan = upload(ordered_scatter.pack_tiles(tile_lists, weight_lists, rows), acc.device)
+    ordered_scatter.launch_tile_add(acc, cnt, doc_ids, tfs, inv_norm, plan, lay)
+    return lay.windows
 
 
 def _threshold(acc, live, k: int, block_size: int):
@@ -262,31 +294,16 @@ class ChunkedScorer:
         )
         return acc, cnt
 
+    def score_pass(self, acc, cnt, tile_lists, weight_lists) -> int:
+        """Adds one pass of per-row tile/weight lists (<= acc rows, any
+        length) into the accumulators, in place: one packed upload and one
+        `bm25_tile_add` call that does not wait for the device. Returns
+        the launches it made."""
+        return bm25_tile_add(acc, cnt, self.doc_ids, self.tfs, self.inv_norm, tile_lists, weight_lists)
+
     def score_into(self, acc, cnt, tile_lists, weight_lists):
-        """Streams per-row tile/weight lists (<= acc rows, any length)
-        through TCHUNK-wide launches into the accumulators, in place.
-        Each chunk is one packed int32 upload (tile ids, weights bitcast,
-        validity) that does not wait for the device."""
-        rows = int(acc.shape[0])
-        t_max = max((len(t) for t in tile_lists), default=0)
-        for c0 in range(0, t_max, TCHUNK):
-            plan = np.zeros((3, rows, TCHUNK), np.int32)
-            ti, tw, tv = plan[0], plan[1].view(np.float32), plan[2]
-            for j, (tl, wl) in enumerate(zip(tile_lists, weight_lists)):
-                sl = tl[c0 : c0 + TCHUNK]
-                m = len(sl)
-                if m:
-                    ti[j, :m] = sl
-                    tw[j, :m] = wl[c0 : c0 + TCHUNK]
-                    tv[j, :m] = 1
-            dev = upload(plan, self.device)
-            args = (dev[0].long(), dev[1].view(torch.float32), dev[2] != 0)
-            if cnt is None:
-                acc = _chunk_add(self.doc_ids, self.tfs, self.inv_norm, acc, *args)
-            else:
-                acc, cnt = _chunk_add_cnt(
-                    self.doc_ids, self.tfs, self.inv_norm, acc, cnt, *args
-                )
+        """`score_pass`, returning the accumulators as the reference does."""
+        self.score_pass(acc, cnt, tile_lists, weight_lists)
         return acc, cnt
 
     def threshold(self, acc, k: int, live=None):

@@ -590,6 +590,7 @@ class RestActions:
             "jobs": 0, "launches": 0, "rejected": 0, "fused_jobs": 0,
             "pruned_jobs": 0, "fused_overflow_jobs": 0,
             "shed_dead_jobs": 0, "cancelled_jobs": 0, "chunked_jobs": 0,
+            "chunked_launches": 0,
         }
         # serving-pipeline roofline counters (QueryBatcher.pipeline_stats):
         # depth/in_flight of the dispatch ring, device-busy wall time,
@@ -868,6 +869,8 @@ class RestActions:
                             # (job, segment) pairs the batcher scored
                             # through the chunked block-max path
                             "chunked_jobs": batch["chunked_jobs"],
+                            # the BM25 tile-add launches of their passes
+                            "chunked_launches": batch["chunked_launches"],
                         }
                     },
                     "uptime_in_millis": int(

@@ -667,6 +667,9 @@ class QueryBatcher:
             # path (segments below the fused size, every segment a
             # `_bulk` + refresh makes, or fused-slot overflow)
             "chunked_jobs": 0,
+            # BM25 tile-add launches those jobs' scoring passes made (one a
+            # pass, more where a pass spans several scratch windows)
+            "chunked_launches": 0,
             # device-aggregations job family (size:0/agg bodies riding
             # the dispatch/collect pipeline as segment-sum launches)
             "agg_jobs": 0,
@@ -1606,15 +1609,17 @@ class QueryBatcher:
                 a_w.append(np.concatenate(wl) if wl else empty_w)
                 deferred.append(hots)
             t_plan = tracing.now_ns()
-            acc, cnt = cs.score_into(acc, cnt, a_tiles, a_w)
+            launched = cs.score_pass(acc, cnt, a_tiles, a_w)
             if g is not None and g.targets:
                 g.span("chunked.plan", tp, t_plan, segment=si)
                 g.span("chunked.score", t_plan, tracing.now_ns(),
-                       segment=si, tiles=sum(len(t) for t in a_tiles))
+                       segment=si, tiles=sum(len(t) for t in a_tiles),
+                       launches=launched)
             if record:
                 with self._lock:
                     self.stats["launches"] += 1
                     self.stats["chunked_jobs"] += nj
+                    self.stats["chunked_launches"] += launched
                 self._add_flops(scoring.text_plan_flops(
                     sum(len(t) for t in a_tiles), 0, 0
                 ))
@@ -1644,14 +1649,16 @@ class QueryBatcher:
                     b_tiles.append(np.concatenate(tl) if tl else empty_i)
                     b_w.append(np.concatenate(wl) if wl else empty_w)
                 t_surv = tracing.now_ns()
-                acc, cnt = cs.score_into(acc, cnt, b_tiles, b_w)
+                launched = cs.score_pass(acc, cnt, b_tiles, b_w)
                 if g is not None and g.targets:
                     g.span("chunked.survive", ts, t_surv, segment=si)
                     g.span("chunked.score", t_surv, tracing.now_ns(),
-                           segment=si, tiles=sum(len(t) for t in b_tiles))
+                           segment=si, tiles=sum(len(t) for t in b_tiles),
+                           launches=launched)
                 if record:
                     with self._lock:
                         self.stats["launches"] += 1
+                        self.stats["chunked_launches"] += launched
                     self._add_flops(scoring.text_plan_flops(
                         sum(len(t) for t in b_tiles), 0, 0
                     ))

@@ -24,7 +24,7 @@ import pytest
 import torch
 
 from elasticsearch_tpu_torch.ops import int8_knn
-from scatter_cases import SCATTER_KINDS, applied, hard_scatter_case
+from scatter_cases import SCATTER_KINDS, applied, hard_scatter_case, parent_chunk_pass, tile_pass_case
 
 torch.set_num_threads(1)
 
@@ -295,6 +295,101 @@ def test_ordered_scatter_checks_its_inputs(cuda):
         osc.ordered_scatter_add(acc, tgt.t().contiguous().t(), src)
     with pytest.raises(ValueError, match="several devices"):
         osc.ordered_scatter_add(acc, tgt.cpu(), src)
+
+
+# the cell's width: MS MARCO passage's 8,841,823 docs and the overflow column
+MSMARCO_CELLS = 8_841_824
+RAGGED32 = (10_784, 0, 511, 512, 513, 1_025, 16, 17) + tuple(range(0, 12_000, 500))
+TILE_PASSES = [
+    # (name, C, rows' tiles): the cell's median second pass, 32 ragged rows at
+    # its width, one row across two windows, 32 rows across windows, one launch
+    ("cell", MSMARCO_CELLS, (10_784,)),
+    ("cell_ragged32", MSMARCO_CELLS, RAGGED32),
+    ("cell_two_windows", MSMARCO_CELLS, (30_000,)),
+    ("ragged32_windows", 100_001, tuple(range(0, 3_200, 100))),
+    ("one_launch", 1_000_001, (16, 0, 3, 16)),
+]
+
+
+@pytest.mark.parametrize("with_cnt", [False, True])
+@pytest.mark.parametrize("name,C,lengths", TILE_PASSES)
+def test_bm25_tile_add_matches_plain_and_parent(cuda, name, C, lengths, with_cnt):
+    """csrc/ordered_scatter.cu's BM25 tile add, one call a pass, against
+    its plain version on the CPU and against the parent's path on the
+    card (PyTorch's gathers and formula over 512-tile chunks, then the
+    ordered scatter-add), from the same nonzero accumulators: equal bits
+    and counts, twice; its launches are the layout's windows."""
+    from elasticsearch_tpu_torch.ops import ordered_scatter as osc
+    from elasticsearch_tpu_torch.ops import scoring
+
+    R = len(lengths)
+    doc_ids, tfs, inv, tiles, weights = tile_pass_case(C, lengths, C + R)
+    rng = np.random.default_rng(R)
+    acc0 = torch.from_numpy(rng.random((R, C), np.float32))
+    acc0[:, -1] = 0.0
+    cnt0 = torch.from_numpy(rng.integers(0, 3, (R, C)).astype(np.int32)) if with_cnt else None
+    host = [torch.from_numpy(x) for x in (doc_ids, tfs, inv)]
+    want, want_cnt = scoring.bm25_tile_add_plain(acc0.clone(), None if cnt0 is None else cnt0.clone(), *host,
+                                                 tiles, weights)
+    d, f, iv = (x.to(cuda) for x in host)
+    lay = osc.tile_layout(C, list(lengths))
+    assert (lay.windows >= 2) == name.endswith("windows") and (lay.window == 0) == (name == "one_launch")
+    assert lay.scratch_words <= R * C
+    for _ in range(2):
+        a, c = acc0.to(cuda), None if cnt0 is None else cnt0.to(cuda)
+        before = osc.launch_tile_add.launches
+        assert scoring.bm25_tile_add(a, c, d, f, iv, tiles, weights) == lay.windows
+        torch.cuda.synchronize(cuda)
+        assert osc.launch_tile_add.launches == before + lay.windows
+        assert torch.equal(a.cpu().view(torch.int32), want.view(torch.int32))
+        assert c is None or torch.equal(c.cpu(), want_cnt)
+    a, c = acc0.to(cuda), None if cnt0 is None else cnt0.to(cuda)
+    parent_chunk_pass(a, c, d, f, iv, tiles, weights)
+    torch.cuda.synchronize(cuda)
+    assert torch.equal(a.cpu().view(torch.int32), want.view(torch.int32))
+    assert c is None or torch.equal(c.cpu(), want_cnt)
+
+
+def test_bm25_tile_add_makes_no_host_sync(cuda):
+    """Passes across two windows, in one window and in one launch under
+    torch's sync debug mode "error": the plan goes up pinned and
+    asynchronously, and the layout comes from the tile counts alone."""
+    from elasticsearch_tpu_torch.ops import scoring
+
+    C = 300_001
+    doc_ids, tfs, inv, tiles, weights = tile_pass_case(C, (3_000, 0, 200, 16), 5)
+    d, f, iv = (torch.from_numpy(x).to(cuda) for x in (doc_ids, tfs, inv))
+    a = torch.zeros(4, C, device=cuda)
+    c = torch.zeros(4, C, dtype=torch.int32, device=cuda)
+    passes = [(tiles, weights), (tiles[1:], weights[1:]), ([tiles[3]], [weights[3]])]
+    torch.cuda.synchronize(cuda)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for tl, wl in passes:
+            scoring.bm25_tile_add(a, c, d, f, iv, tl, wl)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want, want_cnt = torch.zeros(4, C), torch.zeros(4, C, dtype=torch.int32)
+    for tl, wl in passes:
+        scoring.bm25_tile_add_plain(want, want_cnt, *(torch.from_numpy(x) for x in (doc_ids, tfs, inv)), tl, wl)
+    assert torch.equal(a.cpu().view(torch.int32), want.view(torch.int32)) and torch.equal(c.cpu(), want_cnt)
+
+
+def test_bm25_tile_add_checks_its_inputs(cuda):
+    """No fallback: what the kernel does not take raises."""
+    from elasticsearch_tpu_torch.ops import scoring
+
+    doc_ids, tfs, inv, tiles, weights = tile_pass_case(1_001, (40, 3), 9)
+    d, f, iv = (torch.from_numpy(x).to(cuda) for x in (doc_ids, tfs, inv))
+    a = torch.zeros(2, 1_001, device=cuda)
+    with pytest.raises(TypeError):
+        scoring.bm25_tile_add(a, None, d.long(), f, iv, tiles, weights)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        scoring.bm25_tile_add(a, None, d.cpu(), f, iv, tiles, weights)
+    with pytest.raises(ValueError, match="inv_norm"):
+        scoring.bm25_tile_add(a, None, d, f, iv[:-1], tiles, weights)
+    with pytest.raises(ValueError, match="lists for 2 rows"):
+        scoring.bm25_tile_add(a, None, d, f, iv, tiles * 2, weights * 2)
 
 
 def test_quantized_search_on_card_matches_cpu(cuda):

@@ -31,7 +31,7 @@ from elasticsearch_tpu_torch.ops import impact as timpact
 from elasticsearch_tpu_torch.ops import ordered_scatter as osc
 from elasticsearch_tpu_torch.ops import scoring as tscoring
 from elasticsearch_tpu_torch.parallel import sharded as tsharded
-from scatter_cases import applied, hard_scatter_case
+from scatter_cases import applied, hard_scatter_case, parent_chunk_pass, parent_chunks
 
 torch.set_num_threads(1)
 
@@ -491,36 +491,215 @@ def test_score_tiles_bits_match_reference(seed):
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
 
 
+def tile_pass_inputs(rng, n, lengths, n_terms=40, max_df=3000):
+    """Postings of `n_terms` terms over n docs, dyadic inv_norm, and one
+    ragged list a row: `lengths[r]` tiles drawn from the postings (so a
+    tile may repeat, as a query's repeated term does), a weight a tile."""
+    doc_ids, tfs = postings(rng, n, n_terms, min(max_df, n))
+    inv = dyadic_inv(rng, n)
+    tiles = [rng.integers(0, len(doc_ids), size=m).astype(np.int64) for m in lengths]
+    weights = [(rng.random(m) * 2 + 0.1).astype(np.float32) for m in lengths]
+    return doc_ids, tfs, inv, tiles, weights
+
+
+PASS_LENGTHS = [
+    # (rows, tiles a row): around one 512-tile chunk, ragged rows, empty rows
+    (1, (511,)), (1, (512,)), (1, (513,)), (1, (1025,)),
+    (3, (513, 0, 1025)),
+    (32, tuple([511, 512, 513, 1025, 0, 3, 16, 17] * 4)),
+]
+
+
+@pytest.mark.parametrize("with_cnt", [False, True])
+@pytest.mark.parametrize("rows,lengths", PASS_LENGTHS)
+def test_pass_bits_match_chunk_loop_and_reference(rows, lengths, with_cnt):
+    """One `bm25_tile_add` call over each row's whole list against the
+    parent's per-512-tile `_chunk_scores` + `ordered_scatter_add` loop and
+    the JAX package's `_chunk_add` / `_chunk_add_cnt` loop, from the same
+    nonzero accumulators: the same bits and counts. Rows past the lists
+    add nothing."""
+    rng = np.random.default_rng(rows * 7 + len(lengths) + with_cnt)
+    n = 2000
+    doc_ids, tfs, inv, tiles, weights = tile_pass_inputs(rng, n, lengths)
+    acc0 = rng.random((rows + 1, n + 1)).astype(np.float32)
+    acc0[:, n] = 0
+    cnt0 = rng.integers(0, 3, size=(rows + 1, n + 1)).astype(np.int32)
+    cnt0[:, n] = 0
+    ta, tc = t(acc0.copy()), t(cnt0.copy()) if with_cnt else None
+    assert tscoring.bm25_tile_add(ta, tc, t(doc_ids), t(tfs), t(inv), tiles, weights) == 1
+
+    la, lc = t(acc0.copy()), t(cnt0.copy()) if with_cnt else None
+    parent_chunk_pass(la, lc, t(doc_ids), t(tfs), t(inv), tiles, weights)
+    np.testing.assert_array_equal(bits(ta.numpy()), bits(la.numpy()))
+
+    ja, jc = jnp.asarray(acc0[:rows]), jnp.asarray(cnt0[:rows])
+    args = (jnp.asarray(doc_ids), jnp.asarray(tfs), jnp.asarray(inv))
+
+    for ti, tw, tv in parent_chunks(rows, tiles, weights, tscoring.TCHUNK):
+        chunk = (jnp.asarray(ti), jnp.asarray(tw), jnp.asarray(tv))
+        if with_cnt:
+            ja, jc = jscoring._chunk_add_cnt(*args, ja, jc, *chunk)
+        else:
+            ja = jscoring._chunk_add(*args, ja, *chunk)
+    np.testing.assert_array_equal(bits(ta.numpy()[:rows]), bits(ja))
+    np.testing.assert_array_equal(bits(ta.numpy()[rows]), bits(acc0[rows]))
+    if with_cnt:
+        np.testing.assert_array_equal(tc.numpy(), lc.numpy())
+        np.testing.assert_array_equal(tc.numpy()[:rows], np.asarray(jc))
+        np.testing.assert_array_equal(tc.numpy()[rows], cnt0[rows])
+
+
 @pytest.mark.parametrize("with_cnt", [False, True])
 def test_chunk_add_bits_match_reference(with_cnt):
+    """Two passes into the same accumulators (the essential terms, then
+    the surviving tiles of the hot terms), through `ChunkedScorer`'s
+    `score_pass` and the JAX package's `score_into` (its `_chunk_add` /
+    `_chunk_add_cnt` loop): the same bits and counts after each."""
     rng = np.random.default_rng(7 + with_cnt)
-    n, B, TC = 900, 4, 16
+    n, B = 900, 4
     doc_ids, tfs = postings(rng, n, 20, 500)
     inv = dyadic_inv(rng, n)
-    acc0 = rng.random((B, n + 1)).astype(np.float32)
-    acc0[:, n] = 0
-    cnt0 = rng.integers(0, 3, size=(B, n + 1)).astype(np.int32)
-    cnt0[:, n] = 0
-    for step in range(2):  # two chunks into the same accumulators
-        ti = rng.integers(0, len(doc_ids), size=(B, TC)).astype(np.int32)
-        ti[:, 3] = ti[:, 0]
-        tw = (rng.random((B, TC)) * 2).astype(np.float32)
-        tv = rng.random((B, TC)) > 0.3
-        args_j = (jnp.asarray(ti), jnp.asarray(tw), jnp.asarray(tv))
-        args_t = (t(ti).long(), t(tw), t(tv))
-        if with_cnt:
-            ja, jc = jscoring._chunk_add_cnt(jnp.asarray(doc_ids), jnp.asarray(tfs), jnp.asarray(inv),
-                                             jnp.asarray(acc0), jnp.asarray(cnt0), *args_j)
-            ta, tc = tscoring._chunk_add_cnt(t(doc_ids), t(tfs), t(inv), t(acc0.copy()), t(cnt0.copy()),
-                                             *args_t)
-            np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
-            cnt0 = np.asarray(jc)
-        else:
-            ja = jscoring._chunk_add(jnp.asarray(doc_ids), jnp.asarray(tfs), jnp.asarray(inv),
-                                     jnp.asarray(acc0), *args_j)
-            ta = tscoring._chunk_add(t(doc_ids), t(tfs), t(inv), t(acc0.copy()), *args_t)
+    js = jscoring.ChunkedScorer(jnp.asarray(doc_ids), jnp.asarray(tfs), inv)
+    ts = tscoring.ChunkedScorer(t(doc_ids), t(tfs), inv)
+    ja, jc = js.new_acc(with_cnt, rows=B)
+    ta, tc = ts.new_acc(with_cnt, rows=B)
+    for lengths in ((16, 0, 600, 3), (513, 40, 0, 1)):
+        tl = [rng.integers(0, len(doc_ids), size=m).astype(np.int64) for m in lengths]
+        tl[0][3:5] = tl[0][0]  # one tile twice
+        wl = [(rng.random(m) * 2).astype(np.float32) for m in lengths]
+        ja, jc = js.score_into(ja, jc, tl, wl)
+        assert ts.score_pass(ta, tc, tl, wl) == 1
         np.testing.assert_array_equal(bits(ta.numpy()), bits(ja))
-        acc0 = np.asarray(ja)
+        if with_cnt:
+            np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+
+
+def tile_passes(acc, cnt, doc_ids, tfs, inv_norm, tile_lists, weight_lists):
+    """csrc/ordered_scatter.cu's BM25 tile add in plain torch on the CPU,
+    over `tile_layout` and `pack_tiles` and with the kernels' own index
+    arithmetic: the window's chunks, rows end to end; a chunk block finds
+    its row by the chunk offsets, reads its 16 tiles from the postings,
+    keeps the valid slots in slot order with their contributions, and
+    stages them by (bucket, position) at its place; the count table is
+    bucket-major over each row's chunks of the window; a (row, bucket)
+    block gathers its slots chunk by chunk in pieces of CHUNK and adds each
+    piece's runs. With window 0, each (row, bucket) keeps the row's slots
+    that aim in its bucket and adds their runs."""
+    R, C = acc.shape
+    lens = [len(x) for x in tile_lists] + [0] * (R - len(tile_lists))
+    lay = osc.tile_layout(C, lens)
+    plan = osc.pack_tiles(tile_lists, weight_lists, R)
+    off, coff = plan[: R + 1], plan[R + 1 : 2 * R + 2]
+    tiles = plan[2 * R + 2 : 2 * R + 2 + lay.tiles]
+    weights = plan[2 * R + 2 + lay.tiles :].view(np.float32)
+    CH, TPC, nb, width = osc.CHUNK, osc.TILES_A_CHUNK, lay.buckets, lay.width
+
+    def slots(r, q0):  # row r's slots q0 .. q0 + CHUNK: targets, contributions, in slot order
+        js = np.arange(off[r] + q0 // 128, min(off[r] + q0 // 128 + TPC, off[r + 1]))
+        if not len(js):
+            return torch.zeros(0, dtype=torch.long), torch.zeros(0)
+        ti = t(tiles[js].astype(np.int64))[None]
+        tgt, s, valid = tscoring._chunk_scores(doc_ids, tfs, inv_norm, ti, t(weights[js])[None],
+                                               torch.ones_like(ti, dtype=torch.bool))
+        keep = valid.flatten() & (tgt.flatten() < C - 1)
+        return tgt.flatten()[keep].long(), s.flatten()[keep]
+
+    def row_chunks(r, g0, g1):
+        a, b = max(coff[r], g0), min(coff[r + 1], g1)
+        return a - g0, max(b - a, 0)
+
+    if not lay.window:
+        for r in range(R):
+            tg, v = slots(r, 0)
+            for b in range(nb):
+                keep = (tg >= b * width) & (tg < min((b + 1) * width, C - 1))
+                if keep.any():
+                    _add_runs(acc[r], None if cnt is None else cnt[r], tg[keep], v[keep],
+                              torch.ones(int(keep.sum()), dtype=torch.int32))
+        return lay
+    for g0 in range(0, lay.chunks, lay.window):
+        g1 = min(g0 + lay.window, lay.chunks)
+        W = g1 - g0
+        counts = np.full(nb * W, -1, np.int64)
+        stage = [None] * W
+        for f in range(W):
+            g = g0 + f
+            r = int(np.searchsorted(coff, g, side="right")) - 1  # the last row starting at or before g
+            lo, n = row_chunks(r, g0, g1)
+            c = f - lo
+            tg, v = slots(r, int(g - coff[r]) * CH)
+            order = torch.sort(tg // width, stable=True).indices
+            tg, v = tg[order], v[order]
+            stage[lo + c] = (tg, v)
+            bk = (tg // width).numpy()
+            for b in range(nb):
+                idx = np.flatnonzero(bk == b)
+                counts[nb * lo + b * n + c] = (int(idx[0]) << 16 | len(idx)) if len(idx) else 0
+        for r in range(R):
+            lo, n = row_chunks(r, g0, g1)
+            for b in range(nb):
+                parts = []
+                for c in range(n):
+                    p = int(counts[nb * lo + b * n + c])
+                    tg, v = stage[lo + c]
+                    parts.append((tg[p >> 16 : (p >> 16) + (p & 0xFFFF)], v[p >> 16 : (p >> 16) + (p & 0xFFFF)]))
+                tg = torch.cat([x[0] for x in parts]) if parts else torch.zeros(0, dtype=torch.long)
+                v = torch.cat([x[1] for x in parts]) if parts else torch.zeros(0)
+                for p0 in range(0, len(tg), CH):
+                    _add_runs(acc[r], None if cnt is None else cnt[r], tg[p0 : p0 + CH], v[p0 : p0 + CH],
+                              torch.ones(len(tg[p0 : p0 + CH]), dtype=torch.int32))
+        assert (counts >= 0).all()  # every (chunk, bucket) word written
+    return lay
+
+
+@pytest.mark.parametrize("rows,lengths,C,windows", [
+    (1, (16,), 5_001, 1),  # one launch, row_kernel
+    (3, (16, 0, 9), 2_001, 1),
+    (1, (513,), 100_001, 2),  # one row across windows
+    (4, (40, 0, 300, 17), 3_001, 12),  # ragged rows, two chunks a window
+    (5, (100, 33, 0, 250, 64), 20_001, 2),  # a row split across two windows
+])
+def test_tile_passes_match_plain(rows, lengths, C, windows):
+    """The kernels' passes (`tile_passes`) against the plain version,
+    with and without the count plane: the same bits and counts; the
+    layout takes the windows named, its scratch within the accumulator's
+    words (at least one chunk)."""
+    rng = np.random.default_rng(C + rows)
+    doc_ids, tfs, inv, tiles, weights = tile_pass_inputs(rng, C - 1, lengths)
+    acc0 = rng.standard_normal((rows, C)).astype(np.float32)
+    acc0[:, -1] = 0
+    cnt0 = rng.integers(0, 3, size=(rows, C)).astype(np.int32)
+    args = (t(doc_ids), t(tfs), t(inv), tiles, weights)
+    for with_cnt in (False, True):
+        want, want_cnt = tscoring.bm25_tile_add_plain(t(acc0.copy()), t(cnt0.copy()) if with_cnt else None, *args)
+        got, got_cnt = t(acc0.copy()), t(cnt0.copy()) if with_cnt else None
+        lay = tile_passes(got, got_cnt, *args)
+        assert lay.windows == windows, lay
+        assert lay.scratch_words <= max(rows * C, lay.buckets + 2 * osc.CHUNK)
+        np.testing.assert_array_equal(bits(got.numpy()), bits(want.numpy()))
+        if with_cnt:
+            np.testing.assert_array_equal(got_cnt.numpy(), want_cnt.numpy())
+
+
+def test_tile_layout_follows_the_pass():
+    """The scratch follows the pass's own tiles (not rows x its longest
+    row) and never exceeds the accumulator's words but by one chunk's; a
+    window holds at most MAX_CHUNKS chunks; the cell's one-row passes take
+    one window, or two past 1,726 chunks; rows of at most 16 tiles take
+    one launch and no scratch."""
+    C = 8_841_824
+    one = osc.tile_layout(C, [10_784])
+    assert (one.chunks, one.window, one.windows) == (674, 674, 1) and one.scratch_words <= C
+    assert osc.tile_layout(C, [28_000]).windows == 2
+    ragged = osc.tile_layout(C, [10_784] + [0] * 31)
+    assert ragged.scratch_words == one.scratch_words and ragged.buckets == one.buckets
+    wide = osc.tile_layout(C, [65_536] * 32)
+    assert wide.window == osc.MAX_CHUNKS and wide.windows == 8 and wide.scratch_words <= 32 * C
+    assert osc.tile_layout(C, [16, 3, 0]).window == 0 == osc.tile_layout(C, [16]).scratch_words
+    tiny = osc.tile_layout(301, [40])
+    assert tiny.window == 1 and tiny.windows == 3 and tiny.scratch_words == tiny.buckets + 2 * osc.CHUNK
+    with pytest.raises(ValueError, match="no layout"):
+        osc.tile_layout(C, [0, 0])
 
 
 def fused_inputs(seed, with_live=False):

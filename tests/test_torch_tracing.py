@@ -81,15 +81,24 @@ def pipeline(srv):
 
 
 def traced(srv, body, index="tr"):
-    """(response, its one trace, monotonic_ns before, after)."""
+    """(response, its one trace, monotonic_ns marks: before the request,
+    when the response is held, after the trace was found)."""
     call(srv, "DELETE", "/_internal/traces")
     t0 = time.monotonic_ns()
     resp = call(srv, "POST", f"/{index}/_search", body)
     t1 = time.monotonic_ns()
+    # the server closes `http.write` and `http` and enters the trace after
+    # the response's last byte is written, so the client may hold the
+    # response first: wait for the trace
+    deadline = time.monotonic() + 5.0
     out = call(srv, "GET", "/_internal/traces")
+    while out["count"] == 0 and time.monotonic() < deadline:
+        time.sleep(0.01)
+        out = call(srv, "GET", "/_internal/traces")
+    t2 = time.monotonic_ns()
     assert out["clock"] == "CLOCK_MONOTONIC"
     assert out["count"] == 1, [t["name"] for t in out["traces"]]
-    return resp, out["traces"][0], t0, t1
+    return resp, out["traces"][0], (t0, t1, t2)
 
 
 def by_name(trace, name):
@@ -106,15 +115,22 @@ def end(s):
     return s["start_ns"] + s["duration_ns"]
 
 
-def check_tree(trace, t0, t1):
+# the spans that close after the response's last byte is written
+AFTER_WRITE = ("http", "http.write")
+
+
+def check_tree(trace, marks):
     """One root, `http`; every span inside its parent and inside the
-    call's own monotonic marks."""
+    call's own monotonic marks: it starts after the request was sent and
+    ends before the client held the response, or, for AFTER_WRITE, before
+    the trace was found."""
+    t0, t1, t2 = marks
     spans = {s["id"]: s for s in trace["spans"]}
     assert trace["dropped_spans"] == 0
     roots = [s for s in spans.values() if s["parent_id"] is None]
     assert [s["name"] for s in roots] == ["http"]
     for s in spans.values():
-        assert t0 <= s["start_ns"] <= end(s) <= t1, s
+        assert t0 <= s["start_ns"] <= end(s) <= (t2 if s["name"] in AFTER_WRITE else t1), s
         if s["parent_id"] is not None:
             p = spans[s["parent_id"]]
             assert p["start_ns"] <= s["start_ns"] and end(s) <= end(p), (s, p)
@@ -126,9 +142,9 @@ def hits(resp):
 
 
 def test_chunked_match_is_one_tree_across_the_worker(srv):
-    resp, tr, t0, t1 = traced(srv, MATCH)
+    resp, tr, marks = traced(srv, MATCH)
     assert hits(resp) and tr["name"] == "search" and tr["tags"]["index"] == "tr"
-    spans = check_tree(tr, t0, t1)
+    spans = check_tree(tr, marks)
     http = one(tr, "http")
     for name in ("http.read", "http.decode", "search", "http.encode", "http.write"):
         assert one(tr, name)["parent_id"] == http["id"]
@@ -160,10 +176,49 @@ def test_chunked_match_is_one_tree_across_the_worker(srv):
     assert len(spans) == len(tr["spans"])
 
 
+def test_chunked_pass_is_one_call(srv, monkeypatch):
+    """A pass of more than 512 tiles (520 one-tile terms) makes one call
+    to `bm25_tile_add`; `chunked_launches` counts its launches (the
+    plain version's one pass on the CPU, the kernel's windows on the
+    card) and the pass's `chunked.score` span carries them."""
+    from elasticsearch_tpu_torch.ops import ordered_scatter as osc
+
+    n = 600
+    if "wide" not in srv.cluster.indices:
+        call(srv, "PUT", "/wide", {"settings": {"number_of_shards": 1, "search.backend": "torch"},
+                                   "mappings": {"properties": {"body": {"type": "text"}}}})
+        lines = []
+        for i in range(n):
+            lines.append(json.dumps({"index": {"_index": "wide", "_id": str(i)}}))
+            lines.append(json.dumps({"body": f"u{i} filler"}))
+        call(srv, "POST", "/_bulk?refresh=true", raw=("\n".join(lines) + "\n").encode())
+        srv.cluster.get_index("wide")._batcher.warmup_enabled = False
+    body = {"query": {"match": {"body": " ".join(f"u{i}" for i in range(520))}}}
+    call(srv, "POST", "/wide/_search", body)  # builds the executor and its scorers
+    real, calls = scoring.bm25_tile_add, []
+
+    def spy(acc, cnt, doc_ids, tfs, inv_norm, tile_lists, weight_lists):
+        calls.append((acc.device.type, acc.shape[-1], [len(t) for t in tile_lists]))
+        return real(acc, cnt, doc_ids, tfs, inv_norm, tile_lists, weight_lists)
+
+    monkeypatch.setattr(scoring, "bm25_tile_add", spy)
+    _, s0 = pipeline(srv)
+    resp, tr, _ = traced(srv, body, index="wide")
+    _, s1 = pipeline(srv)
+    assert resp["hits"]["total"]["value"] == 520
+    (score,) = by_name(tr, "chunked.score")
+    (device, cells, lens), = calls
+    assert score["tags"]["tiles"] == 520 and lens == [520] and cells == n + 1
+    want = 1 if device == "cpu" else osc.tile_layout(cells, lens).windows
+    assert score["tags"]["launches"] == want
+    assert s1["chunked_jobs"] - s0["chunked_jobs"] == 1
+    assert s1["chunked_launches"] - s0["chunked_launches"] == want
+
+
 def test_knn_collect_and_wake(srv):
-    resp, tr, t0, t1 = traced(srv, KNN)
+    resp, tr, marks = traced(srv, KNN)
     assert len(hits(resp)) == 5
-    check_tree(tr, t0, t1)
+    check_tree(tr, marks)
     shard = one(tr, "shard_search")
     dispatch, collect = one(tr, "batcher.dispatch"), one(tr, "batcher.collect")
     assert dispatch["parent_id"] == shard["id"] == collect["parent_id"]
@@ -209,7 +264,7 @@ def test_host_stall_is_the_device_waits(srv, monkeypatch):
 
     monkeypatch.setattr(scoring, "_merge_segments", slow_merge)
     p0, _ = pipeline(srv)
-    _, tr, _, _ = traced(srv, MATCH)
+    _, tr, _ = traced(srv, MATCH)
     p1, _ = pipeline(srv)
     waits = by_name(tr, "device.wait")
     assert p1["host_syncs"] - p0["host_syncs"] == len(waits) == 2
@@ -219,12 +274,12 @@ def test_host_stall_is_the_device_waits(srv, monkeypatch):
 
 
 def test_profile_entries_are_the_span_durations(srv):
-    resp, tr, _, _ = traced(srv, dict(MATCH, profile=True))
+    resp, tr, _ = traced(srv, dict(MATCH, profile=True))
     fam = resp["profile"]["shards"][0]["families"]["match"]
     assert fam["queue_wait_ns"] == one(tr, "batcher.queue")["duration_ns"]
     assert fam["dispatch_ns"] == one(tr, "batcher.dispatch")["duration_ns"]
     assert fam["collect_ns"] == 0
-    resp, tr, _, _ = traced(srv, dict(KNN, profile=True))
+    resp, tr, _ = traced(srv, dict(KNN, profile=True))
     fam = resp["profile"]["shards"][0]["families"]["knn"]
     assert fam["queue_wait_ns"] == one(tr, "batcher.queue")["duration_ns"]
     assert fam["dispatch_ns"] == one(tr, "batcher.dispatch")["duration_ns"]
