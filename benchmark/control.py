@@ -5,8 +5,9 @@ size on the card (not run by the benchmark's runs).
     python3 benchmark/control.py --workload <name> --seed <n> [--seed <n> ...]
 
 The plain reference is put in the program's place and computed in the
-precision below the configuration's float32: BM25 in bfloat16, the kNN
-matmul in TF32. Its pages for the queries a run would send (the mix's
+precision below the configuration's, as the configuration's kind
+(`kinds/<kind>.py`'s `control`) says: for float32, BM25 in bfloat16,
+the kNN matmul in TF32. Its pages for the queries a run would send (the mix's
 clients, in turn) are judged by the same check as the program's, and
 each number is printed beside its limit with the `correct` that a run
 would report (`check.verdict`): it has to be false, or the check could
@@ -37,44 +38,19 @@ def records(maker, n: int, clients: int, pages) -> list:
     return out
 
 
-def control_readings(config: dict, traffic: dict, seed: int, n: int, device) -> dict:
+def control_readings(config: dict, traffic: dict, seed: int, n: int, device,
+                     bench_dir=None) -> dict:
     """The control's readings at `config`'s size for `n` requests (none
-    of them failed)."""
-    import numpy as np
-    import torch
-
-    from benchmark.harness import check, corpus
+    of them failed): the kind's `control` (`kinds/<kind>.py`)."""
+    from benchmark.harness import corpus, spec
     from benchmark.harness.traffic import QueryMaker
 
-    corp = corpus.make(config, seed, device)
-    maker = QueryMaker(traffic, config, corpus.client_context(config, corp), seed)
-    size, clients = int(traffic["size"]), int(traffic["clients"])
-    if config["kind"] == "text":
-        from benchmark.reference.bm25 import Bm25
-
-        low = Bm25(corp["stream"], corp["lengths"], corp["vocab"], config["k1"], config["b"],
-                   dtype=torch.bfloat16)
-
-        def pages(c, i):
-            docs, vals, count, *_ = low.top(maker.terms(c, i), size)
-            return docs, vals.float(), count
-
-        recs = records(maker, n, clients, pages)
-        del low
-        ref = Bm25(corp["stream"], corp["lengths"], corp["vocab"], config["k1"], config["b"])
-        return {**check.judge_text(ref, maker, recs, size), "failed": 0}
-    from benchmark.reference import knn
-
-    rows = corp["vectors"]
-    q = torch.from_numpy(np.stack([maker.vector(j % clients, j // clients)
-                                   for j in range(n)])).to(rows.device)
-    tops = []
-    for lo in range(0, n, 64):
-        S = knn.scores(q[lo:lo + 64], rows, tf32=True)
-        tops += [knn.top(S[j], size) for j in range(len(S))]
-        del S
-    recs = records(maker, n, clients, lambda c, i: (*tops[i * clients + c], size))
-    return {**check.judge_knn(rows, maker, recs, size), "failed": 0}
+    bench_dir = bench_dir or spec.BENCH_DIR
+    corp = corpus.make(config, seed, device, bench_dir)
+    maker = QueryMaker(traffic, config, corpus.client_context(config, corp, bench_dir), seed,
+                       bench_dir)
+    readings = spec.kind(config, bench_dir).control(config, traffic, corp, maker, n)
+    return {**readings, "failed": 0}
 
 
 def main(argv=None) -> int:
@@ -95,7 +71,7 @@ def main(argv=None) -> int:
     n = args.queries or int(cell.traffic["check_sample"])
     for seed in args.seed:
         t = time.monotonic()
-        got = control_readings(cell.config, cell.traffic, seed, n, "cuda")
+        got = control_readings(cell.config, cell.traffic, seed, n, "cuda", cell.bench_dir)
         correct, compared = check.verdict(got, cell.config["limits"])
         print(json.dumps({"workload": cell.name, "seed": seed, "queries": n,
                           "seconds": time.monotonic() - t, "correct": correct,

@@ -3,17 +3,18 @@
 Once the window has closed and the program's state is freed, a sample of
 the requests completed in the window, drawn from the seed and holding
 the slowest one, is answered again by the plain reference (`reference/`)
-from the corpus made again from the seed. Each served page is judged by
-what it says:
+from the corpus made again from the seed, by the configuration's kind
+(`kinds/<kind>.py`'s `judge`). Each served page is judged by what it
+says:
 
   * `score_err`: the widest relative gap between a served hit's score
     and the reference's score of that same doc;
   * `hit_gap`: the widest relative amount by which the reference's score
     of the doc served at rank r lies below the reference's r-th best
     score (a wrong, missing or repeated doc reads 1);
-  * `total_err` (text): pages whose `hits.total` disagrees with the
-    number of matching docs (an `eq` total must equal it; a `gte` one
-    may not exceed it);
+  * `total_err` (where the kind reads totals): pages whose `hits.total`
+    disagrees with the number of matching docs (an `eq` total must
+    equal it; a `gte` one may not exceed it);
   * `failed`: requests of the window that returned an error.
 
 Each number is compared with its limit from the configuration's
@@ -25,9 +26,8 @@ too).
 from __future__ import annotations
 
 import numpy as np
-import torch
 
-from .traffic import QueryMaker, norm_seed
+from .traffic import norm_seed
 
 
 def sample(records: list, n: int, seed: int) -> list:
@@ -63,58 +63,6 @@ def _page(ref_vals, score_of, hits, k_expected):
         best = float(ref_vals[r])
         gap = max(gap, max(0.0, (best - rs) / best))
     return score_err, gap
-
-
-def judge_text(ref, maker: QueryMaker, sampled: list, size: int) -> dict:
-    worst = {"score_err": 0.0, "hit_gap": 0.0, "total_err": 0}
-    for client, i, _t0, _t1, _ok, dig in sampled:
-        terms = maker.terms(client, i)
-        _docs, vals, count, s, hit = ref.top(terms, size)
-        vals = vals.double().cpu().numpy()
-        s_host = {}
-
-        def score_of(d):
-            if d < 0 or d >= ref.n:
-                return None
-            if d not in s_host:
-                s_host[d] = float(s[d]) if bool(hit[d]) else None
-            return s_host[d]
-
-        e, g = _page(vals, score_of, dig["hits"], min(size, count))
-        worst["score_err"] = max(worst["score_err"], e)
-        worst["hit_gap"] = max(worst["hit_gap"], g)
-        total = dig.get("total")
-        if isinstance(total, list):
-            value, rel = total
-            bad = (value != count) if rel == "eq" else not (value is not None and value <= count)
-        else:
-            bad = total != count
-        worst["total_err"] += int(bad)
-    return worst
-
-
-def judge_knn(rows: torch.Tensor, maker: QueryMaker, sampled: list, size: int,
-              block: int = 64) -> dict:
-    from ..reference import knn
-
-    worst = {"score_err": 0.0, "hit_gap": 0.0}
-    for lo in range(0, len(sampled), block):
-        part = sampled[lo:lo + block]
-        q = torch.from_numpy(np.stack([maker.vector(c, i) for c, i, *_ in part])).to(rows.device)
-        S = knn.scores(q, rows)
-        for j, (_c, _i, _t0, _t1, _ok, dig) in enumerate(part):
-            _docs, vals = knn.top(S[j], size)
-            vals = vals.double().cpu().numpy()
-            sj = S[j]
-
-            def score_of(d, sj=sj):
-                return float(sj[d]) if 0 <= d < len(sj) else None
-
-            e, g = _page(vals, score_of, dig["hits"], min(size, len(rows)))
-            worst["score_err"] = max(worst["score_err"], e)
-            worst["hit_gap"] = max(worst["hit_gap"], g)
-        del S
-    return worst
 
 
 def compare(readings: dict, limits: dict) -> list:

@@ -37,7 +37,7 @@ def _digest(resp: dict) -> dict:
             "total": total}
 
 
-def _client_thread(port: int, path: str, maker: QueryMaker, client: int, t_end: float,
+def _client_thread(port: int, path: str, maker, client: int, t_end: float,
                    stop: threading.Event, out: list) -> None:
     conn = None
     i = 0
@@ -66,14 +66,14 @@ def _client_thread(port: int, path: str, maker: QueryMaker, client: int, t_end: 
 
 
 def client_process(conn, port: int, path: str, traffic: dict, config: dict, context: dict,
-                   seed: int, clients: list, cpus) -> None:
+                   seed: int, clients: list, cpus, bench_dir) -> None:
     """The client process: moves to `cpus`, builds its bodies'
     generator, reports ready, waits for ("run", t_end), runs its clients
     until `t_end` or until it receives "stop", and sends back their
     records."""
     if cpus:
         os.sched_setaffinity(0, cpus)
-    maker = QueryMaker(traffic, config, context, seed)
+    maker = QueryMaker(traffic, config, context, seed, bench_dir)
     conn.send(("ready", None))
     msg = conn.recv()
     if msg is None:
@@ -104,16 +104,17 @@ def client_process(conn, port: int, path: str, traffic: dict, config: dict, cont
 
 class ClientPool:
     """The mix's `traffic["clients"]` clients, in one spawned process
-    that runs on `cpus` (all this process may use where None)."""
+    that runs on `cpus` (all this process may use where None), their
+    bodies from `bench_dir`'s `bodies/`."""
 
     def __init__(self, port: int, path: str, traffic: dict, config: dict, context: dict,
-                 seed: int, cpus=None):
+                 seed: int, bench_dir, cpus=None):
         n = int(traffic["clients"])
         ctx = multiprocessing.get_context("spawn")
         parent, child = ctx.Pipe()
         proc = ctx.Process(target=client_process, daemon=True,
                            args=(child, port, path, traffic, config, context, seed,
-                                 list(range(n)), cpus))
+                                 list(range(n)), cpus, bench_dir))
         proc.start()
         child.close()
         self.conn, self.proc = parent, proc

@@ -6,11 +6,16 @@ per-layer metric sits in a file of its own, found by name:
 
   * a configuration: the `file` its `configs` entry names (JSON);
   * a traffic mix: `traffic/<name>.json`;
+  * a configuration's `kind`: `kinds/<kind>.py`, everything that differs
+    by kind (the corpus, the clients' context, the port's segment, the
+    index's mapping and own settings, the check against the plain
+    reference, the lower-precision control);
+  * a mix's `body`: `bodies/<body>.py`, the maker of its request bodies;
   * a per-layer metric: `metrics/<name>.py`, whose `read(ctx)` returns
     the metric's value or None when the run gave it nothing to read.
 
-So a later cell, mix or metric is new files plus new entries, and no
-file here changes.
+So a later cell, mix, metric or kind is new files plus new entries, and
+no file here changes.
 """
 
 from __future__ import annotations
@@ -49,6 +54,8 @@ class Cell:
     chips: int
     end_to_end: List[Metric]
     per_layer: List[Metric]
+    # where the cell's kind, body and metric modules were found
+    bench_dir: Path = BENCH_DIR
 
 
 def _load_json(path: Path) -> dict:
@@ -59,21 +66,46 @@ def _load_json(path: Path) -> dict:
         raise SpecError(f"{path} is missing") from e
 
 
-def load_reader(bench_dir: Path, name: str) -> Callable:
-    """`metrics/<name>.py`'s `read`, loaded from its path (a metric's
-    name may hold dots)."""
-    path = bench_dir / "metrics" / f"{name}.py"
-    # readers share metrics/_common.py
-    if str(path.parent) not in sys.path:
-        sys.path.insert(0, str(path.parent))
+def module_path(bench_dir: Path, group: str, name) -> Path:
+    """`<group>/<name>.py` under `bench_dir`, which has to exist."""
+    if not isinstance(name, str) or not NAME_RE.match(name):
+        raise SpecError(f"{group}: bad name {name!r}")
+    path = bench_dir / group / f"{name}.py"
     if not path.is_file():
-        raise SpecError(f"metric {name!r} has no reader at {path}")
-    spec = importlib.util.spec_from_file_location(f"bench_metric_{name.replace('.', '_')}", path)
+        raise SpecError(f"{group}: no module {name!r} at {path}")
+    return path
+
+
+def load_module(bench_dir: Path, group: str, name: str):
+    """`<group>/<name>.py`, loaded from its path (a name may hold dots)."""
+    path = module_path(bench_dir, group, name)
+    spec = importlib.util.spec_from_file_location(
+        f"bench_{group}_{name.replace('.', '_')}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
+    return mod
+
+
+def kind(config: dict, bench_dir: Path = BENCH_DIR):
+    """The configuration's kind module, `kinds/<kind>.py`."""
+    return load_module(bench_dir, "kinds", config.get("kind"))
+
+
+def body(traffic: dict, bench_dir: Path = BENCH_DIR):
+    """The mix's body module, `bodies/<body>.py`."""
+    return load_module(bench_dir, "bodies", traffic.get("body"))
+
+
+def load_reader(bench_dir: Path, name: str) -> Callable:
+    """`metrics/<name>.py`'s `read`."""
+    # readers share metrics/_common.py
+    metrics = str(bench_dir / "metrics")
+    if metrics not in sys.path:
+        sys.path.insert(0, metrics)
+    mod = load_module(bench_dir, "metrics", name)
     read = getattr(mod, "read", None)
     if not callable(read):
-        raise SpecError(f"{path} defines no read(ctx)")
+        raise SpecError(f"{mod.__file__} defines no read(ctx)")
     return read
 
 
@@ -111,6 +143,8 @@ def resolve(root: Path, workload: str, bench_dir: Path = BENCH_DIR) -> Cell:
         raise SpecError(f"workload {workload}: no config {w['config']!r}")
     config = _load_json(root / configs[w["config"]]["file"])
     traffic = _load_json(bench_dir / "traffic" / f"{w['traffic']}.json")
+    module_path(bench_dir, "kinds", config.get("kind"))
+    module_path(bench_dir, "bodies", traffic.get("body"))
 
     def applies(m: Metric) -> bool:
         return m.workloads is None or workload in m.workloads
@@ -123,7 +157,7 @@ def resolve(root: Path, workload: str, bench_dir: Path = BENCH_DIR) -> Cell:
             m.reader = load_reader(bench_dir, m.name)
             layer.append(m)
     return Cell(name=workload, config=config, traffic=traffic, chips=int(w["chips"]),
-                end_to_end=e2e, per_layer=layer)
+                end_to_end=e2e, per_layer=layer, bench_dir=bench_dir)
 
 
 def read_layer_metrics(cell: Cell, ctx: dict) -> Dict[str, dict]:

@@ -1,13 +1,13 @@
 """The system under test: the port's REST server in this process, with
 one index whose one shard holds the generated corpus as one segment.
 
-This is the only module of the benchmark that imports the port
-(`elasticsearch_tpu_torch`). The segment is handed over the way a
-force-merged shard holds it (chip_smoke.py's `install_segment`
-pattern): `_bulk` of millions of documents through host analysis would
-be set-up, not what is served. The postings are laid out on the device
-from the token stream and copied to the host, where the port's
-`Segment` keeps its columns; the port uploads and derives the rest.
+This module and the kinds' `segment` are the only code of the benchmark
+that imports the port (`elasticsearch_tpu_torch`). The segment is handed
+over the way a force-merged shard holds it (chip_smoke.py's
+`install_segment` pattern): `_bulk` of millions of documents through
+host analysis would be set-up, not what is served. The configuration's
+kind (`kinds/<kind>.py`) lays its columns out and names its mapping and
+any index settings of its own; the port uploads and derives the rest.
 """
 
 from __future__ import annotations
@@ -16,95 +16,36 @@ import json
 import urllib.request
 
 import numpy as np
-import torch
 
-from .traffic import term_name
+from .spec import BENCH_DIR, kind
 
 INDEX = "bench"
 
 
-def postings(stream: torch.Tensor, lengths: torch.Tensor, vocab: int):
-    """The port's `PostingsField` over a token stream: postings
-    term-major and doc-ascending in tiles of 128 lanes, norms as Lucene's
-    one-byte lengths. Laid out on the stream's device."""
-    from elasticsearch_tpu_torch.index.segment import INVALID_DOC, TILE, FieldStats, PostingsField
-    from elasticsearch_tpu_torch.utils.smallfloat import encode_norms
+def whole_segment(n: int, postings=None, vectors=None, **columns):
+    """The port's `Segment` of `n` docs (ids "0".."n-1", no sources)
+    holding the given columns (`postings`, `vectors`, `sparse`, ...)."""
+    from elasticsearch_tpu_torch.index.segment import Segment
 
-    dev = stream.device
-    n = int(lengths.numel())
-    doc_of = torch.repeat_interleave(torch.arange(n, device=dev), lengths)
-    key = stream.to(torch.int64) * n + doc_of
-    del doc_of
-    uniq, counts = torch.unique(key, sorted=True, return_counts=True)
-    del key
-    u_t = uniq // n
-    u_d = (uniq % n).to(torch.int32)
-    del uniq
-    tf = counts.to(torch.int32)
-    term_df = torch.bincount(u_t, minlength=vocab)
-    term_total_tf = torch.zeros(vocab, dtype=torch.int64, device=dev).index_add_(0, u_t, counts)
-    tile_count = (term_df + TILE - 1) // TILE
-    tile_start = torch.cumsum(tile_count, 0) - tile_count
-    n_tiles = int(tile_count.sum())
-    post_start = torch.cumsum(term_df, 0) - term_df
-    rank = torch.arange(len(u_t), device=dev) - post_start[u_t]
-    slot = tile_start[u_t] * TILE + rank
-    del rank
-    doc_ids = torch.full((n_tiles * TILE,), INVALID_DOC, dtype=torch.int32, device=dev)
-    tfs = torch.zeros(n_tiles * TILE, dtype=torch.int32, device=dev)
-    doc_ids[slot] = u_d
-    tfs[slot] = tf
-    del slot, u_t, u_d, tf, counts
-    doc_ids = doc_ids.view(n_tiles, TILE)
-    tfs = tfs.view(n_tiles, TILE)
-    norms = encode_norms(lengths.cpu().numpy())
-    norms_dev = torch.from_numpy(norms.astype(np.int32)).to(dev)
-    valid = doc_ids >= 0
-    tile_norms = torch.where(valid, norms_dev[doc_ids.clamp(min=0)], 255)
-    tile_min_norm = tile_norms.amin(1).to(torch.uint8)
-    del tile_norms, valid, norms_dev
-    host = lambda t: t.cpu().numpy()  # noqa: E731
-    return PostingsField(
-        terms=[term_name(i) for i in range(vocab)],
-        term_df=host(term_df.to(torch.int32)),
-        term_total_tf=host(term_total_tf),
-        term_tile_start=host(tile_start.to(torch.int32)),
-        term_tile_count=host(tile_count.to(torch.int32)),
-        doc_ids=host(doc_ids),
-        tfs=host(tfs),
-        tile_max_tf=host(tfs.amax(1)),
-        tile_min_norm=host(tile_min_norm),
-        norms=norms,
-        stats=FieldStats(doc_count=n, sum_total_term_freq=int(lengths.sum()),
-                         sum_doc_freq=int(term_df.sum())),
-    )
-
-
-def segment(config: dict, corpus: dict):
-    """The port's `Segment` of the configuration's corpus."""
-    from elasticsearch_tpu_torch.index.segment import Segment, VectorField
-
-    field = config["field"]
-    post, vecs = {}, {}
-    if config["kind"] == "text":
-        n = int(corpus["lengths"].numel())
-        post[field] = postings(corpus["stream"], corpus["lengths"], corpus["vocab"])
-    else:
-        rows = corpus["vectors"].cpu().numpy()
-        n = rows.shape[0]
-        # the rows are unit vectors already: one array serves both
-        vecs[field] = VectorField(vectors=rows, exists=np.ones(n, bool),
-                                  similarity=config["similarity"], unit_vectors=rows)
     return Segment(num_docs=n, doc_ids=[str(i) for i in range(n)], sources=[None] * n,
-                   postings=post, numerics={}, ordinals={}, vectors=vecs)
+                   postings=postings or {}, numerics={}, ordinals={}, vectors=vectors or {},
+                   **columns)
 
 
-def mapping(config: dict) -> dict:
-    f = config["field"]
-    if config["kind"] == "text":
-        return {"properties": {f: {"type": "text"}}}
-    return {"properties": {f: {"type": "dense_vector", "dims": int(config["dims"]),
-                               "similarity": config["similarity"]}}}
+def segment(config: dict, corpus: dict, bench_dir=BENCH_DIR):
+    """The port's `Segment` of the configuration's corpus."""
+    return kind(config, bench_dir).segment(config, corpus)
+
+
+def index_body(config: dict, bench_dir=BENCH_DIR) -> dict:
+    """The index's `PUT` body: the deployment's shape and the shared
+    settings, then the kind's own settings and its mapping."""
+    own = kind(config, bench_dir).index(config)
+    d = config["deployment_shape"]
+    return {"settings": {"number_of_shards": d["shards"], "number_of_replicas": d["replicas"],
+                         "search.backend": "torch", "refresh_interval": "-1",
+                         **own.get("settings", {})},
+            "mappings": own["mappings"]}
 
 
 def http_json(port: int, method: str, path: str, body=None) -> dict:
@@ -118,7 +59,7 @@ def http_json(port: int, method: str, path: str, body=None) -> dict:
 class System:
     """The port's server with the corpus installed, on `device`."""
 
-    def __init__(self, config: dict, seg, device):
+    def __init__(self, config: dict, seg, device, bench_dir):
         from elasticsearch_tpu_torch.rest.server import ElasticsearchTpuServer
         from elasticsearch_tpu_torch.search.admission import admission
 
@@ -126,11 +67,7 @@ class System:
         self.srv = ElasticsearchTpuServer(port=0, device=device)
         self.srv.start_background()
         self.port = self.srv.port
-        d = config["deployment_shape"]
-        http_json(self.port, "PUT", f"/{INDEX}", {
-            "settings": {"number_of_shards": d["shards"], "number_of_replicas": d["replicas"],
-                         "search.backend": "torch", "refresh_interval": "-1"},
-            "mappings": mapping(config)})
+        http_json(self.port, "PUT", f"/{INDEX}", index_body(config, bench_dir))
         eng = self.srv.cluster.get_index(INDEX).shards[0]
         n = seg.num_docs
         eng.segments = [seg]

@@ -112,7 +112,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
     from benchmark.harness.clients import ClientPool
     from benchmark.harness.traffic import QueryMaker
 
-    cfg, tr = cell.config, cell.traffic
+    cfg, tr, bench = cell.config, cell.traffic, cell.bench_dir
     cuda = torch.device(device).type == "cuda"
 
     marks = [("imports", time.monotonic())]
@@ -122,19 +122,19 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
             torch.cuda.synchronize()
         marks.append((what, time.monotonic()))
 
-    corp = corpus.make(cfg, seed, device)
+    corp = corpus.make(cfg, seed, device, bench)
     mark("corpus")
-    context = corpus.client_context(cfg, corp)
-    seg = system.segment(cfg, corp)
+    context = corpus.client_context(cfg, corp, bench)
+    seg = system.segment(cfg, corp, bench)
     del corp
     mark("segment")
     if cuda:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-    sut = system.System(cfg, seg, device)
+    sut = system.System(cfg, seg, device, bench)
     pool = None
     try:
-        maker = QueryMaker(tr, cfg, context, seed)
+        maker = QueryMaker(tr, cfg, context, seed, bench)
         mark("server")
         sut.prewarm()
         mark("prewarm")
@@ -144,7 +144,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
         mark("first_request")
         sut.wait_warm()
         mark("bucket_warmup")
-        pool = ClientPool(sut.port, sut.path, tr, cfg, context, seed, client_cpus)
+        pool = ClientPool(sut.port, sut.path, tr, cfg, context, seed, bench, client_cpus)
         mark("clients")
         t0 = time.monotonic() + float(tr["warmup_s"])
         t1 = t0 + seconds
@@ -237,17 +237,9 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
     # the reference, once the program's state is freed
     t_ref = time.monotonic()
     sampled = check.sample(ok, int(tr["check_sample"]), seed)
-    corp = corpus.make(cfg, seed, device)
-    if cfg["kind"] == "text":
-        from benchmark.reference.bm25 import Bm25
-
-        ref = Bm25(corp["stream"], corp["lengths"], corp["vocab"], cfg["k1"], cfg["b"])
-        del corp
-        readings = check.judge_text(ref, maker, sampled, int(tr["size"]))
-        del ref
-    else:
-        readings = check.judge_knn(corp["vectors"], maker, sampled, int(tr["size"]))
-        del corp
+    # the corpus goes to the kind's check alone, which may free it
+    readings = spec.kind(cfg, bench).judge(cfg, corpus.make(cfg, seed, device, bench), maker,
+                                           sampled, int(tr["size"]))
     readings["failed"] = failed
     out["correct"], compared = check.verdict(readings, cfg["limits"], bool(ok))
     log(f"checked {len(sampled)} of {len(ok)} answers in {time.monotonic() - t_ref:.1f} s",
