@@ -116,13 +116,15 @@ class ImpactScorer:
         cnt = torch.zeros(rows, self.n_docs + 1, dtype=torch.int32, device=self.device)
         return acc, cnt
 
-    def score_into(self, acc, cnt, tile_lists, weight_lists):
+    def score_pass(self, acc, cnt, tile_lists, weight_lists) -> int:
         """Streams per-row tile/weight lists (<= acc rows, any length)
         through TCHUNK-wide launches into the accumulators, in place.
         Each chunk is one packed int32 upload (tile ids, weights bitcast,
-        validity) that does not wait for the device."""
+        validity) that does not wait for the device, and one
+        `ordered_scatter_add`. Returns the launches it made (the chunks)."""
         rows = int(acc.shape[0])
         t_max = max((len(t) for t in tile_lists), default=0)
+        launches = 0
         for c0 in range(0, t_max, TCHUNK):
             plan = np.zeros((3, rows, TCHUNK), np.int32)
             ti, tw, tv = plan[0], plan[1].view(np.float32), plan[2]
@@ -134,10 +136,16 @@ class ImpactScorer:
                     tw[j, :m] = wl[c0 : c0 + TCHUNK]
                     tv[j, :m] = 1
             dev = upload(plan, self.device)
-            acc, cnt = _impact_chunk_add(
+            _impact_chunk_add(
                 self.doc_ids, self.values, acc, cnt,
                 dev[0].long(), dev[1].view(torch.float32), dev[2] != 0,
             )
+            launches += 1
+        return launches
+
+    def score_into(self, acc, cnt, tile_lists, weight_lists):
+        """`score_pass`, returning the accumulators as the reference does."""
+        self.score_pass(acc, cnt, tile_lists, weight_lists)
         return acc, cnt
 
     def threshold(self, acc, k: int, live=None):

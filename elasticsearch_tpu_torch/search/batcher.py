@@ -677,6 +677,9 @@ class QueryBatcher:
             # riding the dispatch/collect pipeline as impact-tile
             # launches with block-max pruning)
             "sparse_jobs": 0,
+            # launches of those jobs' impact-tile scoring passes (one
+            # `ordered_scatter_add` a chunk of TCHUNK tiles, both phases)
+            "sparse_launches": 0,
             # second-stage rerank job family (rescore bodies riding the
             # dispatch/collect pipeline as maxsim launches between
             # merge and fetch)
@@ -1889,6 +1892,8 @@ class QueryBatcher:
         from ..ops import impact as impact_ops
         from . import sparse as sparse_mod
 
+        g = _group()
+        traced = g is not None and bool(g.targets)
         ex = jobs[0].executor
         reader = ex.reader
         nj = len(jobs)
@@ -1917,6 +1922,7 @@ class QueryBatcher:
             # max by up to scale/2, so the fp32 bounds alone would be
             # unsound against quantized scores
             bound = sfh.tile_qmax if spec.quantized else sfh.tile_max
+            tp = tracing.now_ns()
             bms = []
             prunable = []
             for j in jobs:
@@ -1932,18 +1938,24 @@ class QueryBatcher:
                 # weights; a negative query weight keeps the job exact
                 # but unpruned
                 prunable.append(bool((tws >= 0).all()))
+            if traced:
+                g.span("sparse.plan", tp, tracing.now_ns(), segment=si)
             thetas = np.full(len(jobs), -np.inf, np.float32)
+            launches = 0
             if any(p and bm.n_tail_tiles for p, bm in zip(prunable, bms)):
                 acc, cnt = sc.new_acc(rows)
-                acc, cnt = sc.score_into(
-                    acc, cnt,
-                    [bm.phase_a()[0] for bm in bms],
-                    [bm.phase_a()[1] for bm in bms],
-                )
+                ta = tracing.now_ns()
+                a_tiles = [bm.phase_a()[0] for bm in bms]
+                n = sc.score_pass(acc, cnt, a_tiles, [bm.phase_a()[1] for bm in bms])
+                launches += n
+                if traced:
+                    g.span("sparse.score", ta, tracing.now_ns(), segment=si, phase="a",
+                           tiles=sum(len(t) for t in a_tiles), launches=n)
                 th, _ = sc.threshold(acc, kb)
                 for ji in range(len(jobs)):
                     if prunable[ji]:
                         thetas[ji] = th[ji]
+            ts = tracing.now_ns()
             tile_lists: List[np.ndarray] = []
             weight_lists: List[np.ndarray] = []
             pruned_flags = np.zeros(len(jobs), bool)
@@ -1956,14 +1968,22 @@ class QueryBatcher:
                 pruned_flags[ji] = dropped > 0
                 tiles_scored += len(t)
                 tiles_pruned += dropped
+            if traced:
+                g.span("sparse.survive", ts, tracing.now_ns(), segment=si)
             acc, cnt = sc.new_acc(rows)
-            acc, cnt = sc.score_into(acc, cnt, tile_lists, weight_lists)
+            tk = tracing.now_ns()
+            n = sc.score_pass(acc, cnt, tile_lists, weight_lists)
+            launches += n
+            if traced:
+                g.span("sparse.score", tk, tracing.now_ns(), segment=si, phase="kept",
+                       tiles=tiles_scored, launches=n)
             pend = sc.finalize_device(acc, cnt, kb)
             if record:
                 sparse_mod.note_search(nj, spec.quantized, tiles_scored, tiles_pruned)
                 with self._lock:
                     self.stats["launches"] += 1
                     self.stats["sparse_jobs"] += nj
+                    self.stats["sparse_launches"] += launches
                 self._add_flops(impact_ops.sparse_flops(tiles_scored))
             items.append(("dev", si, (pend, pruned_flags)))
         return items

@@ -319,3 +319,68 @@ def test_shared_group_span_in_every_member_trace(srv, monkeypatch):
         assert all(s["tags"]["jobs"] == n for s in spans)
         assert len({(s["start_ns"], s["duration_ns"]) for s in spans}) == 1
     assert all(one(tr, "batcher.queue")["tags"]["batch"] == n for tr in traces)
+
+
+def test_sparse_vector_stages_are_spans_of_the_dispatch(srv):
+    """A bare `sparse_vector` query rides the batcher's `sparse` family:
+    its host stages are spans of the group's `batcher.dispatch` (the
+    plans, each scoring pass with its phase, tiles and launches, the
+    survival test), and `sparse_launches` counts the passes' launches."""
+    if "sp" not in srv.cluster.indices:
+        call(srv, "PUT", "/sp", {
+            "settings": {"number_of_shards": 1, "search.backend": "torch",
+                         "sparse.quantization": "none"},
+            "mappings": {"properties": {"ml": {"type": "sparse_vector"}}}})
+        lines = []
+        for i in range(N_DOCS):
+            lines.append(json.dumps({"index": {"_index": "sp", "_id": str(i)}}))
+            # "common" in every doc: three tiles, so phase A runs
+            lines.append(json.dumps({"ml": {"common": 0.5 + (i % 97) / 50, f"t{i % 5}": 1.0}}))
+        call(srv, "POST", "/_bulk?refresh=true", raw=("\n".join(lines) + "\n").encode())
+        srv.cluster.get_index("sp")._batcher.warmup_enabled = False
+    body = {"query": {"sparse_vector": {"field": "ml",
+                                        "query_vector": {"common": 1.0, "t1": 0.5}}}}
+    call(srv, "POST", "/sp/_search", body)  # builds the executor and its scorers
+    node = lambda: next(iter(call(srv, "GET", "/_nodes/stats")["nodes"].values()))  # noqa: E731
+    n0 = node()
+    resp, tr, marks = traced(srv, body, index="sp")
+    n1 = node()
+    assert len(hits(resp)) == 10
+    check_tree(tr, marks)
+    dispatch = one(tr, "batcher.dispatch")
+    assert dispatch["tags"]["family"] == "sparse"
+    for name in ("sparse.plan", "sparse.survive"):
+        assert one(tr, name)["parent_id"] == dispatch["id"]
+    scores = by_name(tr, "sparse.score")
+    assert [s["parent_id"] for s in scores] == [dispatch["id"]] * 2
+    assert [s["tags"]["phase"] for s in scores] == ["a", "kept"]
+    # phase A scores each token's first tile; the kept pass the four
+    # tiles less those the block-max bounds dropped
+    pruned = n1["sparse"]["tiles_pruned"] - n0["sparse"]["tiles_pruned"]
+    assert [s["tags"]["tiles"] for s in scores] == [2, 4 - pruned]
+    assert all(s["tags"]["launches"] == 1 for s in scores)
+    plan, survive = one(tr, "sparse.plan"), one(tr, "sparse.survive")
+    assert end(plan) <= scores[0]["start_ns"] and end(scores[0]) <= survive["start_ns"]
+    assert end(survive) <= scores[1]["start_ns"]
+    launched = (n1["thread_pool"]["search"]["sparse_launches"]
+                - n0["thread_pool"]["search"]["sparse_launches"])
+    assert launched == 2
+
+
+def test_impact_score_pass_counts_its_chunks():
+    """`ImpactScorer.score_pass` adds into the accumulators in place and
+    returns its launches, one a chunk of TCHUNK tiles of the longest
+    row; `score_into` returns the same accumulators."""
+    from elasticsearch_tpu_torch.ops import impact
+
+    rng = np.random.default_rng(3)
+    doc_ids = rng.integers(-1, 50, (6, 128)).astype(np.int32)
+    values = rng.uniform(0.1, 2.0, (6, 128)).astype(np.float32)
+    sc = impact.ImpactScorer(doc_ids, values, 50, device="cpu")
+    lists = [rng.integers(0, 6, 1100), rng.integers(0, 6, 7)]
+    weights = [rng.uniform(0.5, 1.5, len(t)).astype(np.float32) for t in lists]
+    acc, cnt = sc.new_acc(2)
+    assert sc.score_pass(acc, cnt, lists, weights) == -(-1100 // scoring.TCHUNK) == 3
+    want_acc, want_cnt = sc.score_into(*sc.new_acc(2), lists, weights)
+    assert torch.equal(acc, want_acc) and torch.equal(cnt, want_cnt) and acc.abs().sum() > 0
+    assert sc.score_pass(*sc.new_acc(2), [np.zeros(0, np.int64)] * 2, [np.zeros(0, np.float32)] * 2) == 0
