@@ -42,12 +42,16 @@ any failure:
          merge_segment_topk;
      (f) 32 `sparse_vector` queries as one batcher sparse group, int8
          then fp32 (phase A, one theta download, the kept tiles, one
-         merge), held to the oracle: fp32 pages by ids, int8 by
-         recall@10 >= 0.95;
+         merge; each pass one impact tile add), held to the oracle:
+         fp32 pages by ids, int8 by recall@10 >= 0.95; the impact tile
+         add on each group's largest pass, and on one pass at the ELSER
+         cell's shape (about 68,352 tiles over 8,841,823 docs, f32 and
+         int8), held bit for bit to its plain version and the replaced
+         512-tile loop and timed beside them and its byte bound;
      (g) one `cold_agg` body and one dashboard body with metric subs and
          percentiles through DeviceAggPlan dispatch + collect, equal to
          the host AggCollector; each plain PyTorch op these routes run
-         (`_impact_chunk_add`, `sorted_bucket_counts`/`_metrics`,
+         (`sorted_bucket_counts`/`_metrics`,
          `masked_sorted`, ...) timed alone beside its byte bound, and
          `topk_desc` beside its earlier two-scan version on the same
          input;
@@ -847,22 +851,18 @@ def sparse_pages(res: list) -> list:
              np.asarray([h.score for h in td.hits], np.float32)) for td in res]
 
 
-def capture_scatter(fn, densest: bool = False):
+def capture_scatter(fn):
     """Runs `fn` once with ops/ordered_scatter.ordered_scatter_add wrapped
-    where the scorers call it; returns the inputs of its first call, or
-    of the call with the most valid slots (acc and cnt as they were
-    before it)."""
+    where the scorers call it; returns the inputs of its first call (acc
+    and cnt as they were before it)."""
     from elasticsearch_tpu_torch.ops import impact, ordered_scatter, scoring
 
     real = ordered_scatter.ordered_scatter_add
     first = []
-    most = [-1]
 
     def spy(acc, tgt, src, cnt=None, inc=None):
-        valid = int((tgt != acc.shape[-1] - 1).sum()) if densest else 0
-        if not first or valid > most[0]:
-            most[0] = valid
-            first[:] = [[None if x is None else x.clone() for x in (acc, tgt, src, cnt, inc)]]
+        if not first:
+            first.append([None if x is None else x.clone() for x in (acc, tgt, src, cnt, inc)])
         return real(acc, tgt, src, cnt, inc)
 
     scoring.ordered_scatter_add = impact.ordered_scatter_add = spy
@@ -928,39 +928,40 @@ def scatter_kernel_row(args, device) -> dict:
     return row
 
 
-def capture_tile_add(fn):
-    """Runs `fn` once with ops/scoring.bm25_tile_add wrapped where
-    ChunkedScorer calls it (from any thread: the server's workers too);
-    returns the inputs of its call with the most tiles (acc and cnt as
-    they were before it)."""
+def capture_tile_add(fn, impact: bool = False):
+    """Runs `fn` once with ops/scoring.bm25_tile_add (or, with `impact`,
+    ops/impact.impact_tile_add) wrapped where ChunkedScorer (ImpactScorer)
+    calls it, from any thread: the server's workers too; returns the inputs
+    of its call with the most tiles (acc and cnt as they were before it)."""
+    from elasticsearch_tpu_torch.ops import impact as impact_ops
     from elasticsearch_tpu_torch.ops import scoring
 
-    real = scoring.bm25_tile_add
+    mod, name = (impact_ops, "impact_tile_add") if impact else (scoring, "bm25_tile_add")
+    real = getattr(mod, name)
     most = []
     lock = threading.Lock()
 
-    def spy(acc, cnt, doc_ids, tfs, inv_norm, tile_lists, weight_lists):
+    def spy(acc, cnt, *rest):
+        *planes, tile_lists, weight_lists = rest
         tiles = sum(len(x) for x in tile_lists)
         with lock:
             if tiles and (not most or tiles > most[0]):
-                most[:] = [tiles, (acc.clone(), None if cnt is None else cnt.clone(), doc_ids, tfs, inv_norm,
+                most[:] = [tiles, (acc.clone(), None if cnt is None else cnt.clone(), *planes,
                                    [np.array(x) for x in tile_lists], [np.array(x) for x in weight_lists])]
-        return real(acc, cnt, doc_ids, tfs, inv_norm, tile_lists, weight_lists)
+        return real(acc, cnt, *rest)
 
-    scoring.bm25_tile_add = spy
+    setattr(mod, name, spy)
     try:
         fn()
     finally:
-        scoring.bm25_tile_add = real
-    check(bool(most), "the route made no BM25 tile add")
+        setattr(mod, name, real)
+    check(bool(most), f"the route made no {name}")
     return most[1]
 
 
-def tile_add_bytes(C: int, doc_ids, tile_lists, planes: int):
-    """(bytes, valid slots, touched cells) of one BM25 tile add pass over
-    [rows, C] accumulators: the pass's postings tiles (doc ids and tfs)
-    and its packed plan read once, each valid doc's inv_norm read once,
-    each touched cell of each plane read and written once."""
+def pass_cells(C: int, doc_ids, tile_lists) -> tuple:
+    """(tiles, valid slots, touched cells, distinct valid docs) of one
+    tile-add pass over [rows, C] accumulators."""
     import torch
 
     R = len(tile_lists)
@@ -970,10 +971,18 @@ def tile_add_bytes(C: int, doc_ids, tile_lists, planes: int):
     docs = doc_ids[ids]
     valid = docs >= 0
     cells = int(torch.unique((rows[:, None] * C + docs)[valid]).numel())
-    inv_reads = int(torch.unique(docs[valid]).numel())
-    T = ids.numel()
+    return ids.numel(), int(valid.sum()), cells, int(torch.unique(docs[valid]).numel())
+
+
+def tile_add_bytes(C: int, doc_ids, tile_lists, planes: int):
+    """(bytes, valid slots, touched cells) of one BM25 tile add pass over
+    [rows, C] accumulators: the pass's postings tiles (doc ids and tfs)
+    and its packed plan read once, each valid doc's inv_norm read once,
+    each touched cell of each plane read and written once."""
+    T, valid, cells, inv_reads = pass_cells(C, doc_ids, tile_lists)
+    R = len(tile_lists)
     nbytes = T * doc_ids.shape[1] * 8 + (2 * (R + 1) + 2 * T) * 4 + inv_reads * 4 + cells * 8 * planes
-    return nbytes, int(valid.sum()), cells
+    return nbytes, valid, cells
 
 
 def tile_add_kernel_row(args, device) -> dict:
@@ -1017,6 +1026,172 @@ def tile_add_kernel_row(args, device) -> dict:
     log(f"bm25_tile_add [{R}, {C}] x {lay.tiles} tiles (cnt {cnt is not None}, {path}, {lay.windows} windows): "
         f"0 cells differ, {ms:.4f} ms, plain {plain_ms:.4f}, bound {bound_ms:.4f} ({nbytes} B)")
     return row
+
+
+def profiled_ms(fn, device, n: int = 10):
+    """Device ms of one of `n` calls of fn: every kernel, copy and memset
+    torch.profiler sees on the card (None off the card)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if device.type != "cuda":
+        return None
+    fn()
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize(device)
+    us = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+             for e in prof.key_averages() if e.device_type != DeviceType.CPU)
+    return us / n / 1e3
+
+
+ELSER_CONFIG = Path(__file__).resolve().parent / "benchmark" / "configs" / "msmarco-passage-elser.json"
+ELSER_JOB_TILES = 68_352  # tiles a job in the ELSER cell (ledger, PR 23)
+
+
+def impact_cell_pass(seed: int, device, quantized: bool, passages=None) -> tuple:
+    """One learned-sparse pass at the ELSER cell's shape, drawn as
+    `benchmark/kinds/sparse.py` draws its column: of 64 queries drawn as
+    `bodies/sparse_vector.py` draws them (8 + Binomial(44, 0.5) tokens by
+    document frequency, log-normal float32 weights), the one whose tiles
+    come nearest ELSER_JOB_TILES; each token's df passages a uniform
+    sample, its weights log-normal cut to 9 significant bits, laid out by
+    weight desc then doc asc in 128-slot tiles padded with doc -1 (int8:
+    the token's scale max/127 folded into the tile weight). Returns
+    (acc, cnt, doc_ids, values, [tile list], [weights]) for one row on
+    `device`, the accumulators zero."""
+    import torch
+
+    from benchmark.kinds.sparse import doc_freqs
+
+    config = json.loads(ELSER_CONFIG.read_text())
+    n = int(passages or config["passages"])
+    df = doc_freqs({**config, "passages": n})
+    tiles_of = -(-df // 128)
+    p = df / df.sum()
+    law = config["assumed"]["weight"]
+    rng = np.random.default_rng(seed)
+    best = None
+    for _ in range(64):
+        ids = rng.choice(len(p), size=8 + int(rng.binomial(44, 0.5)), replace=False, p=p)
+        if best is None or abs(int(tiles_of[ids].sum()) - ELSER_JOB_TILES) < abs(int(tiles_of[best].sum())
+                                                                                 - ELSER_JOB_TILES):
+            best = ids
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    docs, vals, weights = [], [], []
+    for t in best:
+        d = int(df[t])
+        doc = torch.randperm(n, generator=gen, device=device)[:d]
+        z = torch.randn(d, generator=gen, device=device)
+        w = torch.clamp(torch.exp(np.log(law["median"]) + law["sigma"] * z), max=float(law["max"]))
+        w = (w.view(torch.int32) >> 15 << 15).view(torch.float32)
+        order = torch.argsort(doc)  # doc asc, then a stable sort by weight desc
+        doc, w = doc[order], w[order]
+        order = torch.sort(w, descending=True, stable=True).indices
+        doc, w = doc[order].int(), w[order]
+        nt = int(tiles_of[t])
+        dp = torch.full((nt * 128,), -1, dtype=torch.int32, device=device)
+        wp = torch.zeros(nt * 128, device=device)
+        dp[:d], wp[:d] = doc, w
+        qw = np.float32(np.exp(np.log(law["median"]) + law["sigma"] * rng.standard_normal()))
+        if quantized:
+            scale = float(w[0]) / 127.0
+            wp = torch.round(wp / scale).clamp(0, 127).to(torch.int8)
+            qw = np.float32(qw * np.float32(scale))
+        docs.append(dp.view(nt, 128))
+        vals.append(wp.view(nt, 128))
+        weights.append(np.full(nt, qw, np.float32))
+    doc_ids, values = torch.cat(docs), torch.cat(vals)
+    acc = torch.zeros(1, n + 1, device=device)
+    cnt = torch.zeros(1, n + 1, dtype=torch.int32, device=device)
+    return acc, cnt, doc_ids, values, [np.arange(len(doc_ids), dtype=np.int64)], [np.concatenate(weights)]
+
+
+def impact_add_bytes(C: int, doc_ids, values, tile_lists, planes: int):
+    """(bytes, valid slots, touched cells) of one impact tile add pass
+    over [rows, C] accumulators: the pass's tiles (doc ids and stored
+    impacts, 8 bytes a slot in f32, 5 in int8) and its packed plan read
+    once, each touched cell of each plane read and written once."""
+    T, valid, cells, _ = pass_cells(C, doc_ids, tile_lists)
+    R = len(tile_lists)
+    nbytes = (T * doc_ids.shape[1] * (4 + values.element_size()) + (2 * (R + 1) + 2 * T) * 4
+              + cells * 8 * planes)
+    return nbytes, valid, cells
+
+
+def impact_add_kernel_row(args, device) -> dict:
+    """csrc/ordered_scatter.cu's impact tile add on one pass's inputs
+    against its plain version on the CPU (`_impact_chunk_add` over each
+    row's whole list) and the replaced 512-tile loop on the card
+    (`tests/scatter_cases.py:parent_impact_pass`), bit for bit and count
+    for count; its time by events (the wrapper's packing and upload
+    included) and by the profiler's device time; the plain version's time
+    on the card (PyTorch's gathers and product over the whole list, then
+    the ordered scatter-add) and the replaced loop's; its bound from the
+    bytes the pass needs (`impact_add_bytes`). The launch counters are left
+    as the main path made them."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops import impact
+    from elasticsearch_tpu_torch.ops import ordered_scatter as osc
+
+    tests = str(Path(__file__).resolve().parent / "tests")
+    if tests not in sys.path:
+        sys.path.append(tests)
+    from scatter_cases import parent_impact_pass
+
+    acc, cnt, doc_ids, values, tiles, weights = args
+    R, C = acc.shape
+    lay = osc.tile_layout(C, [len(x) for x in tiles] + [0] * (R - len(tiles)))
+    counts = (osc.launch_impact_add.launches, osc.ordered_scatter_add.launches)
+    want, want_cnt = impact.impact_tile_add_plain(
+        *[x.to("cpu", copy=True) for x in (acc, cnt, doc_ids, values)], tiles, weights)
+    a, c = acc.clone(), cnt.clone()
+    impact.impact_tile_add(a, c, doc_ids, values, tiles, weights)
+    old, old_c = acc.clone(), cnt.clone()
+    parent_impact_pass(old, old_c, doc_ids, values, tiles, weights)
+    sync(device)
+    got = a.cpu()
+    differ = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    differ_replaced = int((old.cpu().view(torch.int32) != got.view(torch.int32)).sum())
+    max_abs = float((got - want).abs().max())
+    what = f"impact_tile_add [{R}, {C}] x {lay.tiles} tiles, {values.dtype}"
+    check(differ == 0 and differ_replaced == 0, f"{what}: {differ} cells differ from the plain version, "
+                                                f"{differ_replaced} from the replaced loop (max abs {max_abs:.3e})")
+    check(bool(torch.equal(c.cpu(), want_cnt)) and bool(torch.equal(old_c, c)), f"{what}: counts differ")
+    ms = device_ms(lambda: impact.impact_tile_add(a, c, doc_ids, values, tiles, weights), device)
+    dev_ms = profiled_ms(lambda: impact.impact_tile_add(a, c, doc_ids, values, tiles, weights), device)
+    plain_ms = device_ms(lambda: impact.impact_tile_add_plain(a, c, doc_ids, values, tiles, weights), device,
+                         iters=5)
+    replaced_ms = device_ms(lambda: parent_impact_pass(a, c, doc_ids, values, tiles, weights), device, iters=5)
+    osc.launch_impact_add.launches, osc.ordered_scatter_add.launches = counts
+    nbytes, valid, cells = impact_add_bytes(C, doc_ids, values, tiles, 2)
+    bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    path = "row_kernel" if lay.window == 0 else "chunk_kernel + apply_kernel"
+    row = {"launches": None, "shape": {"R": R, "C": C, "tiles": lay.tiles, "values": str(values.dtype)},
+           "path": path, "windows": lay.windows, "max_abs_err": max_abs, "cells_differing": differ,
+           "cells_differing_replaced": differ_replaced, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+           "replaced_ms": replaced_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+           "bound_share": bound_ms / (dev_ms or ms), "library_ms": None,
+           "library": "none: no library call gathers, multiplies and adds a pass in order",
+           "bytes": nbytes, "valid_slots": valid, "touched_cells": cells,
+           "scratch_bytes": lay.scratch_words * 4, "acc_bytes": 2 * R * C * 4}
+    log(f"{what} ({path}, {lay.windows} windows): 0 cells differ, {ms:.4f} ms, device {dev_ms}, plain "
+        f"{plain_ms:.4f}, replaced loop {replaced_ms:.4f}, bound {bound_ms:.4f} ({nbytes} B)")
+    return row
+
+
+def impact_cell_rows(seed: int, device) -> dict:
+    """`impact_add_kernel_row` on a pass at the ELSER cell's shape
+    (`impact_cell_pass`: one row, about 68,352 tiles, 8,841,823 docs on
+    the card; 100,000 docs off it), f32 and int8."""
+    passages = None if device.type == "cuda" else 100_000
+    return {name: impact_add_kernel_row(impact_cell_pass(seed, device, quantized, passages), device)
+            for name, quantized in (("fp32", False), ("int8", True))}
 
 
 def chunked_texts(fs, pf, n: int, seed: int) -> list:
@@ -1153,6 +1328,7 @@ def phase_main(reader, oracle, vecs, qv, seed: int, device) -> dict:
     scatter = ordered_scatter.ordered_scatter_add
     scatter.launches = 0
     ordered_scatter.launch_tile_add.launches = 0
+    ordered_scatter.launch_impact_add.launches = 0
     route_scatters = {}  # the ordered scatter-add's launches by route
 
     # (a) per-query match route
@@ -1220,7 +1396,8 @@ def phase_main(reader, oracle, vecs, qv, seed: int, device) -> dict:
 
     launches = {"int8_dot_scores": int8_knn.int8_dot_scores.launches,
                 "ordered_scatter_add": scatter.launches,
-                "bm25_tile_add": ordered_scatter.launch_tile_add.launches}
+                "bm25_tile_add": ordered_scatter.launch_tile_add.launches,
+                "impact_tile_add": ordered_scatter.launch_impact_add.launches}
     log(f"main path done; launches {launches}; the ordered scatter-add's by route {route_scatters}")
     check(all(n > 0 for n in launches.values()), f"a kernel never launched on the main path: {launches}")
 
@@ -1241,22 +1418,17 @@ def phase_main(reader, oracle, vecs, qv, seed: int, device) -> dict:
     for name, fn in f_runs.items():
         same_bits(sparse_pages(fg[f"f_{name}_res"]), sparse_pages(again[f"f_{name}"]), f"(f) {name} run twice")
     kernel_b = scatter_kernel_row(capture_scatter(route_b), device)
-    kernel_f = scatter_kernel_row(capture_scatter(f_runs["int8"]), device)
-    kernel_f_dense = scatter_kernel_row(capture_scatter(f_runs["int8"], densest=True), device)
     q_a = dsl.parse_query({"match": {"body": texts[0]}})
     kernel_a = scatter_kernel_row(capture_scatter(lambda: tex.search(q_a, size=K)), device)
-    for row in (kernel_f, kernel_f_dense, kernel_a):
-        row["launches"] = None  # the main path's count is the entry's
+    kernel_a["launches"] = None  # the main path's count is the entry's
     scatter_row = {"name": "ordered_scatter_add", "route": "cuda",
                    "source": "elasticsearch_tpu_torch/csrc/ordered_scatter.cu",
                    "replaces": "none: the order of elasticsearch_tpu's `.at[].add` scatters "
                                "(elasticsearch_tpu/ops/scoring.py:549, ops/impact.py:94)",
-                   **kernel_b, "at_route_f": kernel_f, "at_route_f_densest": kernel_f_dense,
-                   "at_route_a": kernel_a,
+                   **kernel_b, "at_route_a": kernel_a,
                    "launches_by_route": route_scatters}
     times["ordered_scatter_checks_s"] = time.perf_counter() - t
-    log(f"ordered scatter-add: bit for bit at (a), (b) and (f) (first and densest), (b)/(e)/(f) twice "
-        f"the same bits, "
+    log(f"ordered scatter-add: bit for bit at (a) and (b), (b)/(e)/(f) twice the same bits, "
         f"{times['ordered_scatter_checks_s']:.2f}s")
     # ---- the BM25 tile add against its plain version on (a2)'s largest
     # pass ----
@@ -1267,6 +1439,17 @@ def phase_main(reader, oracle, vecs, qv, seed: int, device) -> dict:
                             "ChunkedScorer.score_into (elasticsearch_tpu/ops/scoring.py:264)",
                 **tile_add_kernel_row(chunked.pop("tile_add_args"), device)}
     times["tile_add_checks_s"] = time.perf_counter() - t
+    # ---- the impact tile add against its plain version and the replaced
+    # loop on (f)'s largest passes and at the ELSER cell's shape ----
+    t = time.perf_counter()
+    impact_row = {"name": "impact_tile_add", "route": "cuda",
+                  "source": "elasticsearch_tpu_torch/csrc/ordered_scatter.cu",
+                  "replaces": "none: the loop of 512-tile chunks of elasticsearch_tpu's "
+                              "ImpactScorer.score_into (elasticsearch_tpu/ops/impact.py:133)",
+                  **{f"at_route_f_{n}": impact_add_kernel_row(capture_tile_add(fn, impact=True), device)
+                     for n, fn in f_runs.items()},
+                  "at_elser_cell": impact_cell_rows(seed, device)}
+    times["impact_add_checks_s"] = time.perf_counter() - t
 
     # ---- correctness against the oracle ----
     t = time.perf_counter()
@@ -1329,7 +1512,7 @@ def phase_main(reader, oracle, vecs, qv, seed: int, device) -> dict:
         check(pageable == 0, f"(d) made {pageable} pageable host-to-device copies")
     topk = topk_before_after(device, seed) if device.type == "cuda" else {}
     return {"times": times, "launches": launches, "int8_recall_at_10": recall, "ordered_scatter": scatter_row,
-            "bm25_tile_add": tile_row, "chunked_a2": chunked,
+            "bm25_tile_add": tile_row, "impact_tile_add": impact_row, "chunked_a2": chunked,
             "sparse_f": fg["f"], "aggs_g": fg["g"], "sorted_i": sort_i,
             "plain_ops": fg["plain_ops"] + [sort_i["plain_op"]], "topk_desc_ms": topk,
             "totals_a": [r.total for r in res_a[:ORACLE_QUERIES]],
@@ -1387,7 +1570,7 @@ def topk_before_after(device, seed: int) -> dict:
 
 class OpCounter:
     """Counts the calls of module-level functions while a route runs and
-    keeps the widest call's arguments (to time the op alone afterwards)."""
+    keeps the first call's arguments (to time the op alone afterwards)."""
 
     def __init__(self, targets):
         self.targets = targets  # [(module, name)]
@@ -1402,10 +1585,7 @@ class OpCounter:
 
             def wrapped(*a, _fn=fn, _name=name):
                 self.calls[_name] = self.calls.get(_name, 0) + 1
-                # keep the widest call (the impact scatter's chunks carry
-                # different tile counts; the agg ops' calls are alike)
-                if _name not in self.args or _width(_name, a) > _width(_name, self.args[_name]):
-                    self.args[_name] = a
+                self.args.setdefault(_name, a)  # a route's calls of one op are alike
                 return _fn(*a)
 
             setattr(mod, name, wrapped)
@@ -1416,25 +1596,12 @@ class OpCounter:
             setattr(mod, name, fn)
 
 
-def _width(name: str, a) -> int:
-    return int(a[6].sum()) if name == "_impact_chunk_add" else 0
-
-
 def op_bytes(name: str, a) -> int:
     """Bytes the op must move for these inputs (each input read once,
-    each output written once); for the impact scatter, what this chunk's
-    valid tiles and slots need."""
+    each output written once)."""
     def nb(t):
         return t.numel() * t.element_size()
 
-    if name == "_impact_chunk_add":
-        doc_ids, values, _acc, _cnt, ti, tw, tv = a
-        tiles = ti[tv]
-        slots = int((doc_ids[tiles] >= 0).sum())
-        per_tile = doc_ids.shape[1] * (doc_ids.element_size() + values.element_size())
-        # the gathered tiles, a read-modify-write of acc and cnt per
-        # valid slot (4 + 4 bytes each way), the packed plan
-        return int(tiles.numel()) * per_tile + slots * 16 + nb(ti) + nb(tw) + nb(tv)
     if name == "sorted_bucket_counts":
         mask, mp, gate, bounds = a
         return nb(mask) + nb(mp) + nb(gate) + nb(bounds) + 4 * (bounds.numel() - 1)
@@ -1454,21 +1621,12 @@ def op_bytes(name: str, a) -> int:
 def plain_op_rows(counter: OpCounter, jobs: int, route: str, device) -> list:
     """One row per plain PyTorch op a route ran: calls per request, its
     time alone on the widest call's inputs, and its byte bound."""
-    from elasticsearch_tpu_torch.ops import agg_kernels, impact, ordered_scatter
+    from elasticsearch_tpu_torch.ops import agg_kernels
 
     rows = []
     for name, calls in sorted(counter.calls.items()):
         a = counter.args[name]
-        fn = getattr(impact if name == "_impact_chunk_add" else agg_kernels, name)
-        if name == "_impact_chunk_add":
-            # time on copies: the op adds into its accumulators in place;
-            # its timing launches are not the main path's
-            acc, cnt = a[2].clone(), a[3].clone()
-            launches = ordered_scatter.ordered_scatter_add.launches
-            ms = device_ms(lambda: fn(a[0], a[1], acc, cnt, *a[4:]), device)
-            ordered_scatter.ordered_scatter_add.launches = launches
-        else:
-            ms = device_ms(lambda: fn(*a), device)
+        ms = device_ms(lambda: getattr(agg_kernels, name)(*a), device)
         nbytes = op_bytes(name, a)
         bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
         rows.append({"op": name, "route": route, "calls_per_request": calls / jobs, "ms": ms,
@@ -1488,7 +1646,7 @@ def routes_sparse_aggs(tex, reader, oracle, seed: int, device) -> dict:
     aggregations equal to AggCollector's over the oracle's masks."""
     import torch
 
-    from elasticsearch_tpu_torch.ops import agg_kernels, impact
+    from elasticsearch_tpu_torch.ops import agg_kernels, ordered_scatter
     from elasticsearch_tpu_torch.search import aggs_device, dsl
     from elasticsearch_tpu_torch.search import sparse as sparse_mod
     from elasticsearch_tpu_torch.search.aggs import AggCollector, parse_aggs, reduce_aggs
@@ -1511,20 +1669,18 @@ def routes_sparse_aggs(tex, reader, oracle, seed: int, device) -> dict:
         run()  # the column's upload is set-up
         sync(device)
         st0 = dict(sparse_mod.SPARSE_STATS)
-        with OpCounter([(impact, "_impact_chunk_add")]) as ops:
-            t = time.perf_counter()
-            res = run()
-            sync(device)
-            wall = time.perf_counter() - t
+        launches = ordered_scatter.launch_impact_add.launches
+        t = time.perf_counter()
+        res = run()
+        sync(device)
+        wall = time.perf_counter() - t
         st1 = dict(sparse_mod.SPARSE_STATS)
         fns[f"f_sparse_{name}_group32"] = run
         out[f"f_{name}_res"] = res
         out["f"][name] = {"wall_s": wall, "tiles_scored": st1["tiles_scored"] - st0["tiles_scored"],
                           "tiles_pruned": st1["tiles_pruned"] - st0["tiles_pruned"],
                           "pruned_jobs": sum(r.relation == "gte" for r in res),
-                          "chunk_launches": ops.calls.get("_impact_chunk_add", 0)}
-        if name == "int8":
-            out["plain_ops"] += plain_op_rows(ops, BATCH, "(f) sparse group of 32, int8", device)
+                          "launches": ordered_scatter.launch_impact_add.launches - launches}
         page = lambda td: {"hits": {"total": {"value": td.total, "relation": td.relation},
                                     "hits": [{"_id": h.doc_id, "_score": h.score} for h in td.hits]}}
         recalls, modes = [], []

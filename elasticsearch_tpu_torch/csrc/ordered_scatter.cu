@@ -1,5 +1,5 @@
-// Ordered scatter-add for NVIDIA Hopper (sm_90a), and the ordered BM25 tile
-// add built on the same passes.
+// Ordered scatter-add for NVIDIA Hopper (sm_90a), and the ordered BM25 and
+// impact tile adds built on the same passes.
 //
 //     for s in 0 .. S-1:  acc[r, tgt[r, s]] += src[r, s]     (every row r)
 //     and, when cnt is given, cnt[r, tgt[r, s]] += inc[r, s] in the same pass
@@ -84,6 +84,26 @@
 // of at most MAX_CHUNKS chunks whose scratch the wrapper sizes from the
 // pass's own tile counts (`ops/ordered_scatter.py:tile_layout`). A pass whose
 // rows hold at most CAP slots each takes row_kernel alone.
+//
+// The impact tile add (`es_impact_tile_add`) is the same pass over a
+// learned-sparse column: row r's list is tiles of the impact column (doc ids
+// and stored impacts [n_tiles, 128], f32 or int8) with one float weight a
+// tile (for int8 the dequant scale is folded into it on the host), and slot
+// (doc, v) gives
+//     tgt = doc,  src = __fmul_rn(w, (float)v),  inc = 1
+// where doc >= 0: one rounding, as `ops/impact.py:impact_tile_contrib` rounds
+// it, so the contributions, their order and the bits are those of
+// `_impact_chunk_add` + `ordered_scatter_add` over the whole list, in 512-tile
+// chunks or not. It replaces the port's host loop of 512-tile chunks
+// (`ImpactScorer.score_pass`: a plan, a pinned upload, two gathers, a cast, a
+// multiply, two `where`s and an ordered scatter-add a chunk) and, in the JAX
+// package, the `_impact_chunk_add` loop under XLA; no TPU kernel. What bounds
+// it: the pass's postings read once (doc id and impact, 8 bytes a slot in
+// f32, 5 in int8) and each valid slot's cell read and written on both planes
+// (a 32-byte sector each). Design: the BM25 pass's staging and apply, with
+// the list walk and the doc-id loads shared (TileList); only the contribution
+// differs (Impacts<V>: the stored impacts of the 16-byte groups that hold a
+// valid doc, 16 bytes a thread in f32 and 4 in int8, multiplied in registers).
 //
 // Scratch and grids come from the shapes alone (the wrapper's `layout`), the
 // worst case of every slot valid; nothing is read back by the host. The
@@ -274,13 +294,12 @@ __device__ __forceinline__ float bm25(float w, int tf, float inv) {
   return __fsub_rn(w, __fdiv_rn(w, __fadd_rn(__fmul_rn(__int2float_rn(tf), inv), 1.0f)));
 }
 
-// The slots of a BM25 pass: row r's list is tiles[off[r] .. off[r+1]) of the
-// postings (doc_ids, tfs: [n_tiles, 128]) with one weight a tile, and its
-// chunks (CAP / 128 tiles each) are coff[r] .. coff[r+1] of the pass.
-struct Tiles {
+// A pass's lists of tiles: row r's list is tiles[off[r] .. off[r+1]) of a
+// column of [n_tiles, 128] postings (doc ids `doc_ids`, -1 for padding) with
+// one weight a tile, and its chunks (CAP / 128 tiles each) are coff[r] ..
+// coff[r+1] of the pass. The sources below add a slot's contribution.
+struct TileList {
   const int* doc_ids;
-  const int* tfs;
-  const float* inv_norm;
   const int* tiles;
   const float* weights;
   const int* off;
@@ -300,17 +319,25 @@ struct Tiles {
     const int2 span = row_chunks(coff, a, chunks, g0, g1);
     return {a, (int)blockIdx.x - span.x, (g - __ldg(coff + a)) * CAP, span};
   }
-  // the doc ids of slots q .. q+3 of row r (lanes q % 128 .. of its list's
-  // tile q / 128), -1 past the list's end
+  // the list entry of slot q of row r: its tile is tiles[entry], its lane q % 128
+  __device__ int entry(int r, int q) const { return __ldg(off + r) + q / TILE; }
+  // the doc ids of slots q .. q+3 of row r, -1 past the list's end
   __device__ int4 targets(int r, int q) const {
-    const int j = __ldg(off + r) + q / TILE;
+    const int j = entry(r, q);
     if (j >= __ldg(off + r + 1)) return make_int4(-1, -1, -1, -1);
     return load_int4(doc_ids + (size_t)__ldg(tiles + j) * TILE, q % TILE, TILE, vec);
   }
+};
+
+// The slots of a BM25 pass: the postings' tfs beside the doc ids.
+struct Tiles : TileList {
+  const int* tfs;
+  const float* inv_norm;
+
   // their contributions where the doc lies in [lo, lo+lim) (inv_norm is read
   // for those alone), and increments of 1
   __device__ void values(int r, int q, const int* t, unsigned lo, unsigned lim, float* v, int* in) const {
-    const int j = __ldg(off + r) + q / TILE;
+    const int j = entry(r, q);
     const float w = __ldg(weights + j);
     const int4 f = load_int4(tfs + (size_t)__ldg(tiles + j) * TILE, q % TILE, TILE, vec);
     const int tf[4] = {f.x, f.y, f.z, f.w};
@@ -319,6 +346,34 @@ struct Tiles {
       v[e] = (unsigned)t[e] - lo < lim ? bm25(w, tf[e], __ldg(inv_norm + t[e])) : 0.0f;
       in[e] = 1;
     }
+  }
+};
+
+// four stored impacts at p[0 .. 3] as floats: 16 bytes of f32, or 4 of int8
+// (the cast is exact)
+__device__ __forceinline__ float4 load_impacts(const float* __restrict__ p, bool vec) {
+  return load_float4(p, 0, vec);
+}
+__device__ __forceinline__ float4 load_impacts(const int8_t* __restrict__ p, bool vec) {
+  const char4 c = vec ? __ldg(reinterpret_cast<const char4*>(p))
+                      : make_char4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
+  return make_float4(__int2float_rn(c.x), __int2float_rn(c.y), __int2float_rn(c.z), __int2float_rn(c.w));
+}
+
+// The slots of a learned-sparse pass: the stored impacts (f32, or int8 with
+// the dequant scale folded into the tile's weight on the host) beside the doc
+// ids. A slot contributes w * f32(impact), one rounding (`ops/impact.py:
+// impact_tile_contrib`), and an increment of 1.
+template <class V>
+struct Impacts : TileList {
+  const V* impacts;
+
+  __device__ void values(int r, int q, const int*, unsigned, unsigned, float* v, int* in) const {
+    const int j = entry(r, q);
+    const float w = __ldg(weights + j);
+    const float4 x = load_impacts(impacts + (size_t)__ldg(tiles + j) * TILE + q % TILE, vec);
+    v[0] = __fmul_rn(w, x.x), v[1] = __fmul_rn(w, x.y), v[2] = __fmul_rn(w, x.z), v[3] = __fmul_rn(w, x.w);
+    in[0] = in[1] = in[2] = in[3] = 1;
   }
 };
 
@@ -532,8 +587,6 @@ cudaError_t smem_limit_once(const void* fn, std::atomic<unsigned long long>& don
 std::atomic<unsigned long long> chunk_limit_set{0};
 std::atomic<unsigned long long> apply_limit_set{0};
 std::atomic<unsigned long long> row_limit_set{0};
-std::atomic<unsigned long long> tile_chunk_limit_set{0};
-std::atomic<unsigned long long> tile_row_limit_set{0};
 
 // the checks both entries make of a layout's buckets
 bool buckets_ok(int R, int C, int nb, int width) {
@@ -541,6 +594,64 @@ bool buckets_ok(int R, int C, int nb, int width) {
          (long long)nb * width >= C - 1 && (long long)(nb - 1) * width < C - 1 &&
          (long long)R * nb <= 0x7FFFFFFFll;
 }
+
+// One pass of a tile source (Tiles, Impacts) on `stream`: acc (and cnt,
+// optional) R rows of C cells (the last the overflow column); `src` holds the
+// pass's T tiles. `window`, `nb` and `width` are the wrapper's layout
+// (ops/ordered_scatter.py `tile_layout`): chunks a window, buckets a row,
+// cells a bucket. window == 0 (rows of at most CAP slots) takes row_kernel
+// alone and no scratch; otherwise the pass's `chunks` chunks are taken in
+// windows of `window`, one after another, over `scratch`: nb*window count
+// words and 2 planes of window*CAP staged slots. Returns the first
+// cudaGetLastError() that is not 0 as an int.
+template <class Src>
+int tile_pass(const Src& src, float* a, int* ci, void* scratch, int R, int C, int T, int chunks, int window,
+              int nb, int width, cudaStream_t st) {
+  static std::atomic<unsigned long long> row_set{0}, chunk_set{0};
+  if (R <= 0 || C <= 1 || T <= 0) return 0;
+  if (!buckets_ok(R, C, nb, width) || window < 0 || window > MAX_CHUNKS || (window > 0) != (chunks > 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  if (window == 0) {
+    err = smem_limit_once(reinterpret_cast<const void*>(&row_kernel<Src>), row_set);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    row_kernel<Src><<<dim3(nb, R), THREADS, sizeof(PieceSmem), st>>>(a, ci, src, C, width);
+    return static_cast<int>(cudaGetLastError());
+  }
+  err = smem_limit_once(reinterpret_cast<const void*>(&chunk_kernel<Src>), chunk_set);
+  if (err == cudaSuccess)
+    err = smem_limit_once(reinterpret_cast<const void*>(&apply_kernel), apply_limit_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  auto* counts = static_cast<unsigned*>(scratch);
+  auto* st_tgt = reinterpret_cast<int*>(counts + (size_t)nb * window);
+  auto* st_val = reinterpret_cast<float*>(st_tgt + (size_t)window * CAP);
+  // windows of the pass's chunks, rows end to end, one after another on the
+  // stream: a row's chunks keep their order across windows
+  for (int g0 = 0; g0 < chunks; g0 += window) {
+    const int g1 = min(g0 + window, chunks);
+    chunk_kernel<Src><<<(unsigned)(g1 - g0), THREADS, sizeof(ChunkSmem), st>>>(
+        src, st_tgt, st_val, nullptr, counts, C, g1 - g0, nb, width, g0, g1);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    apply_kernel<<<(unsigned)(R * nb), THREADS, apply_smem(g1 - g0), st>>>(
+        a, ci, st_tgt, st_val, nullptr, counts, src.coff, C, g1 - g0, nb, width, g0, g1);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
+// the pass's list as the wrapper packs it (`pack_tiles`): int32 words off[R+1]
+// (each row's first tile in the list), coff[R+1] (its first chunk), tiles[T],
+// then the tiles' float weights[T]
+TileList tile_list(const void* doc_ids, const void* plan, int R, int T, bool vec) {
+  auto* words = static_cast<const int*>(plan);
+  return {static_cast<const int*>(doc_ids), words + 2 * (R + 1),
+          reinterpret_cast<const float*>(words + 2 * (R + 1) + T), words, words + R + 1, R, vec};
+}
+
+bool aligned(const void* p, uintptr_t bytes) { return !(reinterpret_cast<uintptr_t>(p) % bytes); }
 
 }  // namespace
 
@@ -611,58 +722,35 @@ extern "C" int es_ordered_scatter_add(void* acc, void* cnt, const void* tgt,
   return 0;
 }
 
-// The BM25 tile add of one pass, on `stream`: acc (and cnt, optional) R rows
-// of C cells (the last the overflow column); doc_ids and tfs the postings,
-// [n_tiles, 128] int32; inv_norm C-1 floats; `plan` the pass, int32 words
-// off[R+1] (each row's first tile in the list), coff[R+1] (its first chunk),
-// tiles[T], then the tiles' float weights[T]. `window`, `nb` and `width` are
-// the wrapper's layout (ops/ordered_scatter.py `tile_layout`): chunks a
-// window, buckets a row, cells a bucket. window == 0 (rows of at most CAP
-// slots) takes row_kernel alone and no scratch; otherwise the pass's
-// `chunks` chunks are taken in windows of `window`, one after another, over
-// `scratch`: nb*window count words and 2 planes of window*CAP staged slots.
-// Returns the first cudaGetLastError() that is not 0 as an int.
+// The BM25 tile add of one pass, on `stream` (tile_pass): doc_ids and tfs the
+// postings, [n_tiles, 128] int32; inv_norm C-1 floats; `plan` the pass
+// (tile_list).
 extern "C" int es_bm25_tile_add(void* acc, void* cnt, const void* doc_ids, const void* tfs,
                                 const void* inv_norm, const void* plan, void* scratch, int R, int C,
                                 int T, int chunks, int window, int nb, int width, void* stream) {
-  if (R <= 0 || C <= 1 || T <= 0) return 0;
-  if (!buckets_ok(R, C, nb, width) || window < 0 || window > MAX_CHUNKS || (window > 0) != (chunks > 0))
-    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = aligned(doc_ids, 16) && aligned(tfs, 16);
+  const Tiles src{tile_list(doc_ids, plan, R, T, vec), static_cast<const int*>(tfs),
+                  static_cast<const float*>(inv_norm)};
+  return tile_pass(src, static_cast<float*>(acc), static_cast<int*>(cnt), scratch, R, C, T, chunks, window, nb,
+                   width, static_cast<cudaStream_t>(stream));
+}
+
+// The impact tile add of one learned-sparse pass, on `stream` (tile_pass):
+// doc_ids [n_tiles, 128] int32 and the stored impacts [n_tiles, 128], int8
+// when `quantized` (the tiles' weights carry the dequant scale) or else f32;
+// `plan` the pass (tile_list).
+extern "C" int es_impact_tile_add(void* acc, void* cnt, const void* doc_ids, const void* impacts,
+                                  const void* plan, void* scratch, int quantized, int R, int C, int T,
+                                  int chunks, int window, int nb, int width, void* stream) {
   auto* a = static_cast<float*>(acc);
   auto* ci = static_cast<int*>(cnt);
-  auto* words = static_cast<const int*>(plan);
-  const bool vec = !((reinterpret_cast<uintptr_t>(doc_ids) | reinterpret_cast<uintptr_t>(tfs)) & 15);
-  const Tiles src{static_cast<const int*>(doc_ids), static_cast<const int*>(tfs),
-                  static_cast<const float*>(inv_norm), words + 2 * (R + 1),
-                  reinterpret_cast<const float*>(words + 2 * (R + 1) + T), words, words + R + 1, R, vec};
   auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (window == 0) {
-    err = smem_limit_once(reinterpret_cast<const void*>(&row_kernel<Tiles>), tile_row_limit_set);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    row_kernel<Tiles><<<dim3(nb, R), THREADS, sizeof(PieceSmem), st>>>(a, ci, src, C, width);
-    return static_cast<int>(cudaGetLastError());
+  if (quantized) {
+    const bool vec = aligned(doc_ids, 16) && aligned(impacts, 4);
+    const Impacts<int8_t> src{tile_list(doc_ids, plan, R, T, vec), static_cast<const int8_t*>(impacts)};
+    return tile_pass(src, a, ci, scratch, R, C, T, chunks, window, nb, width, st);
   }
-  err = smem_limit_once(reinterpret_cast<const void*>(&chunk_kernel<Tiles>), tile_chunk_limit_set);
-  if (err == cudaSuccess)
-    err = smem_limit_once(reinterpret_cast<const void*>(&apply_kernel), apply_limit_set);
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  auto* counts = static_cast<unsigned*>(scratch);
-  auto* st_tgt = reinterpret_cast<int*>(counts + (size_t)nb * window);
-  auto* st_val = reinterpret_cast<float*>(st_tgt + (size_t)window * CAP);
-  // windows of the pass's chunks, rows end to end, one after another on the
-  // stream: a row's chunks keep their order across windows
-  for (int g0 = 0; g0 < chunks; g0 += window) {
-    const int g1 = min(g0 + window, chunks);
-    chunk_kernel<Tiles><<<(unsigned)(g1 - g0), THREADS, sizeof(ChunkSmem), st>>>(
-        src, st_tgt, st_val, nullptr, counts, C, g1 - g0, nb, width, g0, g1);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    apply_kernel<<<(unsigned)(R * nb), THREADS, apply_smem(g1 - g0), st>>>(
-        a, ci, st_tgt, st_val, nullptr, counts, src.coff, C, g1 - g0, nb, width, g0, g1);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
+  const bool vec = aligned(doc_ids, 16) && aligned(impacts, 16);
+  const Impacts<float> src{tile_list(doc_ids, plan, R, T, vec), static_cast<const float*>(impacts)};
+  return tile_pass(src, a, ci, scratch, R, C, T, chunks, window, nb, width, st);
 }

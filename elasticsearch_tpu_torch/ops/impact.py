@@ -9,15 +9,19 @@ and a weighted sum:
   [n_tiles, 128] planes, int8 or f32 (the cast to f32 comes AFTER the
   gather, so the int8 column keeps its 4x memory saving)
   → contribution = query_weight * impact
-  → ops/ordered_scatter.ordered_scatter_add into a dense per-doc
-    accumulator (term-at-a-time)
+  → an ordered add into a dense per-doc accumulator (term-at-a-time)
   → ops/scoring.topk_desc (doc asc among equal scores).
 
-`ImpactScorer` mirrors ops/scoring.ChunkedScorer: tile lists of any
-length stream through [rows, TCHUNK] launches into accumulators updated
-in place (where the reference donates its JAX buffers), and finalize is
-the ONE `_finalize` of ops/scoring, so its device triples feed
-`merge_segment_topk` unchanged.
+`ImpactScorer` mirrors ops/scoring.ChunkedScorer: each scoring pass of
+per-row tile lists, of any length, is one `impact_tile_add` call into
+accumulators updated in place (where the reference donates its JAX
+buffers): on the card one packed upload and one call of
+`csrc/ordered_scatter.cu`'s impact tile add, which gathers, multiplies
+and adds the whole pass in list order; on the CPU the plain version.
+The reference streams a pass through [rows, TCHUNK] chunks of
+`_impact_chunk_add`; the contributions and their order are the same, so
+the bits are. finalize is the ONE `_finalize` of ops/scoring, so its
+device triples feed `merge_segment_topk` unchanged.
 
 `SparseBlockMax` is the ops/wand.py analog for impact-ordered tiles.
 Every term's postings are sorted by impact desc, so the per-tile
@@ -45,8 +49,9 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from . import ordered_scatter
 from .ordered_scatter import ordered_scatter_add
-from .scoring import BPAD, TCHUNK, _finalize, _threshold, download, upload
+from .scoring import BPAD, _finalize, _threshold, download, upload
 
 TILE_WIDTH = 128
 
@@ -82,15 +87,55 @@ def _resident(x, device) -> torch.Tensor:
 
 
 def _impact_chunk_add(doc_ids, values, acc, cnt, ti, tw, tv):
-    """acc[B, n+1] += impact contributions of one [B, TCHUNK] chunk, in
-    place; cnt counts matching postings per doc (one per term — the
-    sparse match mask is cnt > 0)."""
+    """acc[B, n+1] += impact contributions of [B, TC] tiles `ti` (weights
+    `tw`, validity `tv`), in place; cnt counts matching postings per doc
+    (one per term — the sparse match mask is cnt > 0)."""
     n_docs = acc.shape[1] - 1
     rows_d = doc_ids[ti]  # [B, TC, 128]
     rows_v = values[ti]  # stored dtype; cast after the gather
     valid = (rows_d >= 0) & tv[:, :, None]
     tgt, s = impact_tile_contrib(rows_d, rows_v, tw[:, :, None], valid, n_docs)
     return ordered_scatter_add(acc, tgt, s, cnt, valid.to(torch.int32))
+
+
+def impact_tile_add_plain(acc, cnt, doc_ids, values, tile_lists, weight_lists):
+    """The same function in plain PyTorch: row by row, the row's whole
+    list through `_impact_chunk_add` (on the CPU, `ordered_scatter_add`'s
+    plain version adds a cell's contributions in slot order)."""
+    for r, (tl, wl) in enumerate(zip(tile_lists, weight_lists)):
+        if not len(tl):
+            continue
+        ti = torch.as_tensor(np.asarray(tl, np.int64), device=acc.device)[None]
+        tw = torch.as_tensor(np.asarray(wl, np.float32), device=acc.device)[None]
+        _impact_chunk_add(doc_ids, values, acc[r : r + 1], cnt[r : r + 1], ti, tw,
+                          torch.ones_like(ti, dtype=torch.bool))
+    return acc, cnt
+
+
+def impact_tile_add(acc, cnt, doc_ids, values, tile_lists, weight_lists) -> int:
+    """One scoring pass, in place: acc[r, doc] += w * f32(v) and cnt[r,
+    doc] += 1 for every posting (doc, v) of every tile of row r's list
+    (weight w a tile, the dequant scale folded in for an int8 column),
+    each cell's additions in list order. acc and cnt [rows, n_docs + 1];
+    rows past the lists add nothing. CUDA tensors take
+    `csrc/ordered_scatter.cu`'s impact tile add (or raise): one packed
+    upload and one call, whatever the pass's length, and no wait for the
+    card; CPU tensors the plain version. Returns the launches made (the
+    kernel's windows, which `ordered_scatter.launch_impact_add.launches`
+    counts; on the CPU the plain version's one pass)."""
+    if len(tile_lists) > acc.shape[0] or len(weight_lists) != len(tile_lists):
+        raise ValueError(f"impact_tile_add: {len(tile_lists)} lists for {acc.shape[0]} rows")
+    if not any(len(t) for t in tile_lists):
+        return 0
+    if acc.device.type == "cpu":
+        impact_tile_add_plain(acc, cnt, doc_ids, values, tile_lists, weight_lists)
+        return 1
+    rows = int(acc.shape[0])
+    lens = [len(t) for t in tile_lists] + [0] * (rows - len(tile_lists))
+    lay = ordered_scatter.tile_layout(int(acc.shape[-1]), lens)
+    plan = upload(ordered_scatter.pack_tiles(tile_lists, weight_lists, rows), acc.device)
+    ordered_scatter.launch_impact_add(acc, cnt, doc_ids, values, plan, lay)
+    return lay.windows
 
 
 class ImpactScorer:
@@ -117,31 +162,11 @@ class ImpactScorer:
         return acc, cnt
 
     def score_pass(self, acc, cnt, tile_lists, weight_lists) -> int:
-        """Streams per-row tile/weight lists (<= acc rows, any length)
-        through TCHUNK-wide launches into the accumulators, in place.
-        Each chunk is one packed int32 upload (tile ids, weights bitcast,
-        validity) that does not wait for the device, and one
-        `ordered_scatter_add`. Returns the launches it made (the chunks)."""
-        rows = int(acc.shape[0])
-        t_max = max((len(t) for t in tile_lists), default=0)
-        launches = 0
-        for c0 in range(0, t_max, TCHUNK):
-            plan = np.zeros((3, rows, TCHUNK), np.int32)
-            ti, tw, tv = plan[0], plan[1].view(np.float32), plan[2]
-            for j, (tl, wl) in enumerate(zip(tile_lists, weight_lists)):
-                sl = tl[c0 : c0 + TCHUNK]
-                m = len(sl)
-                if m:
-                    ti[j, :m] = sl
-                    tw[j, :m] = wl[c0 : c0 + TCHUNK]
-                    tv[j, :m] = 1
-            dev = upload(plan, self.device)
-            _impact_chunk_add(
-                self.doc_ids, self.values, acc, cnt,
-                dev[0].long(), dev[1].view(torch.float32), dev[2] != 0,
-            )
-            launches += 1
-        return launches
+        """Adds one pass of per-row tile/weight lists (<= acc rows, any
+        length) into the accumulators, in place: one packed upload and one
+        `impact_tile_add` call that does not wait for the device. Returns
+        the launches it made."""
+        return impact_tile_add(acc, cnt, self.doc_ids, self.values, tile_lists, weight_lists)
 
     def score_into(self, acc, cnt, tile_lists, weight_lists):
         """`score_pass`, returning the accumulators as the reference does."""

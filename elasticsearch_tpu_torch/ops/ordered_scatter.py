@@ -34,12 +34,14 @@ launch and no scratch; rows of more than MAX_CHUNKS chunks are taken in
 windows, one after another. This module owns the layout: its constants
 reach the CUDA source as `-D` flags at build time (`DEFINES`).
 
-The same source holds the ordered BM25 tile add of one scoring pass
-(`es_bm25_tile_add`): the kernels compute each slot's target and
-contribution from the postings themselves, row r's tiles in list order.
-`ops/scoring.py:bm25_tile_add` is its entry and its plain version; here
-are its layout (`tile_layout`), its packed plan (`pack_tiles`) and its
-launch (`launch_tile_add`).
+The same source holds the ordered tile adds of one scoring pass, BM25
+(`es_bm25_tile_add`) and learned-sparse impacts (`es_impact_tile_add`):
+the kernels compute each slot's target and contribution from the
+postings themselves, row r's tiles in list order.
+`ops/scoring.py:bm25_tile_add` and `ops/impact.py:impact_tile_add` are
+their entries and their plain versions; here are their layout
+(`tile_layout`), their packed plan (`pack_tiles`) and their launches
+(`launch_tile_add`, `launch_impact_add`).
 """
 
 from __future__ import annotations
@@ -119,7 +121,7 @@ TILES_A_CHUNK = CHUNK // TILE_WIDTH
 
 
 class TileLayout(NamedTuple):
-    """The BM25 tile add's grids and scratch for one pass of R rows of C
+    """A tile add's grids and scratch for one pass of R rows of C
     cells. The rows' lists lie end to end, CHUNK slots (16 tiles) a
     chunk; with window 0 every row holds at most one chunk and the pass
     takes one launch, grid (buckets, R), and no scratch; else the pass's
@@ -144,9 +146,9 @@ def tile_layout(C: int, row_tiles: Sequence[int]) -> TileLayout:
     R = len(row_tiles)
     tiles = int(sum(row_tiles))
     if C - 1 < 1 or R < 1 or tiles < 1:
-        raise ValueError(f"bm25_tile_add: no layout for R={R}, C={C}, {tiles} tiles")
+        raise ValueError(f"tile_layout: no layout for R={R}, C={C}, {tiles} tiles")
     if max(row_tiles) * TILE_WIDTH > 2**31 - 1:
-        raise ValueError(f"bm25_tile_add: a row of {max(row_tiles)} tiles exceeds 2^31 slots")
+        raise ValueError(f"tile_layout: a row of {max(row_tiles)} tiles exceeds 2^31 slots")
     buckets, width = _buckets(C - 1, tiles * TILE_WIDTH, sum(1 for n in row_tiles if n))
     if max(row_tiles) <= TILES_A_CHUNK:
         return TileLayout(tiles, 0, 0, 1, buckets, width, 0)
@@ -175,32 +177,48 @@ def pack_tiles(tile_lists, weight_lists, rows: int) -> np.ndarray:
     return buf
 
 
+def _pass_device(name, acc, cnt, doc_ids, plane, plan, lay: TileLayout, extra=()):
+    """Checks what both tile adds take of one pass (one CUDA device, f32 acc,
+    int32 cnt, postings and plan, [n_tiles, 128] planes, contiguity) and
+    returns the device, or raises."""
+    tensors = [x for x in (acc, cnt, doc_ids, plane, plan, *extra) if x is not None]
+    devices = {x.device for x in tensors}
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"{name}: the kernel takes tensors on one CUDA device, got {devices}")
+    ints = [x for x in (cnt, doc_ids, plan) if x is not None]
+    if acc.dtype != torch.float32 or any(x.dtype != torch.int32 for x in ints):
+        raise TypeError(f"{name}: f32 acc, int32 cnt, doc ids and plan; got {acc.dtype}, "
+                        f"{[x.dtype for x in ints]}")
+    if acc.dim() != 2 or (cnt is not None and cnt.shape != acc.shape):
+        raise ValueError(f"{name}: acc [R, C] (and cnt alike), got {tuple(acc.shape)}")
+    if doc_ids.dim() != 2 or doc_ids.shape[1] != TILE_WIDTH or plane.shape != doc_ids.shape:
+        raise ValueError(f"{name}: postings [n_tiles, {TILE_WIDTH}], got {tuple(doc_ids.shape)} "
+                         f"and {tuple(plane.shape)}")
+    R = acc.shape[0]
+    if plan.shape != (2 * (R + 1) + 2 * lay.tiles,):
+        raise ValueError(f"{name}: plan {tuple(plan.shape)} does not match {R} rows and {lay.tiles} tiles")
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError(f"{name}: tensors must be contiguous")
+    return next(iter(devices))
+
+
+def _scratch(lay: TileLayout, device):
+    return torch.empty(lay.scratch_words, dtype=torch.int32, device=device) if lay.window else None
+
+
 def launch_tile_add(acc, cnt, doc_ids, tfs, inv_norm, plan, lay: TileLayout) -> None:
     """Launches the BM25 tile add of one pass (`plan`, `pack_tiles` on the
     card) into acc (and cnt) on the current stream, or raises. Nothing is
     read back. Each window's launches add one to `launch_tile_add.launches`."""
-    tensors = [x for x in (acc, cnt, doc_ids, tfs, inv_norm, plan) if x is not None]
-    devices = {x.device for x in tensors}
-    if len(devices) != 1 or next(iter(devices)).type != "cuda":
-        raise ValueError(f"bm25_tile_add: the kernel takes tensors on one CUDA device, got {devices}")
-    (device,) = devices
-    floats, ints = (acc, inv_norm), [x for x in (cnt, doc_ids, tfs, plan) if x is not None]
-    if any(x.dtype != torch.float32 for x in floats) or any(x.dtype != torch.int32 for x in ints):
-        raise TypeError(f"bm25_tile_add: f32 acc and inv_norm, int32 cnt, postings and plan; got "
-                        f"{[x.dtype for x in floats]}, {[x.dtype for x in ints]}")
-    if acc.dim() != 2 or (cnt is not None and cnt.shape != acc.shape):
-        raise ValueError(f"bm25_tile_add: acc [R, C] (and cnt alike), got {tuple(acc.shape)}")
+    device = _pass_device("bm25_tile_add", acc, cnt, doc_ids, tfs, plan, lay, (inv_norm,))
+    if tfs.dtype != torch.int32 or inv_norm.dtype != torch.float32:
+        raise TypeError(f"bm25_tile_add: int32 tfs and f32 inv_norm, got {tfs.dtype}, {inv_norm.dtype}")
     R, C = acc.shape
-    if doc_ids.dim() != 2 or doc_ids.shape[1] != TILE_WIDTH or tfs.shape != doc_ids.shape:
-        raise ValueError(f"bm25_tile_add: postings [n_tiles, {TILE_WIDTH}], got {tuple(doc_ids.shape)}")
-    if inv_norm.shape != (C - 1,) or plan.shape != (2 * (R + 1) + 2 * lay.tiles,):
-        raise ValueError(f"bm25_tile_add: inv_norm {tuple(inv_norm.shape)} / plan {tuple(plan.shape)} "
-                         f"do not match {R} rows of {C} cells and {lay.tiles} tiles")
-    if not all(x.is_contiguous() for x in tensors):
-        raise ValueError("bm25_tile_add: tensors must be contiguous")
+    if inv_norm.shape != (C - 1,):
+        raise ValueError(f"bm25_tile_add: inv_norm {tuple(inv_norm.shape)} does not match {C} cells")
     lib = _library()
     with torch.cuda.device(device):
-        scratch = torch.empty(lay.scratch_words, dtype=torch.int32, device=device) if lay.window else None
+        scratch = _scratch(lay, device)
         rc = lib.es_bm25_tile_add(
             acc.data_ptr(), None if cnt is None else cnt.data_ptr(), doc_ids.data_ptr(), tfs.data_ptr(),
             inv_norm.data_ptr(), plan.data_ptr(), None if scratch is None else scratch.data_ptr(),
@@ -213,6 +231,33 @@ def launch_tile_add(acc, cnt, doc_ids, tfs, inv_norm, plan, lay: TileLayout) -> 
 
 
 launch_tile_add.launches = 0
+
+
+def launch_impact_add(acc, cnt, doc_ids, impacts, plan, lay: TileLayout) -> None:
+    """Launches the impact tile add of one learned-sparse pass (`plan`,
+    `pack_tiles` on the card, whose weights carry the dequant scale for an
+    int8 column) into acc (and cnt) on the current stream, or raises.
+    `impacts` is the stored plane, f32 or int8. Nothing is read back. Each
+    window's launches add one to `launch_impact_add.launches`."""
+    device = _pass_device("impact_tile_add", acc, cnt, doc_ids, impacts, plan, lay)
+    if impacts.dtype not in (torch.float32, torch.int8):
+        raise TypeError(f"impact_tile_add: f32 or int8 impacts, got {impacts.dtype}")
+    R, C = acc.shape
+    lib = _library()
+    with torch.cuda.device(device):
+        scratch = _scratch(lay, device)
+        rc = lib.es_impact_tile_add(
+            acc.data_ptr(), None if cnt is None else cnt.data_ptr(), doc_ids.data_ptr(), impacts.data_ptr(),
+            plan.data_ptr(), None if scratch is None else scratch.data_ptr(), int(impacts.dtype == torch.int8),
+            R, C, lay.tiles, lay.chunks, lay.window, lay.buckets, lay.width,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"impact_tile_add: kernel launch failed (cudaError {rc})")
+    launch_impact_add.launches += lay.windows
+
+
+launch_impact_add.launches = 0
 
 
 def build() -> Tuple[Path, str]:
@@ -231,6 +276,9 @@ def _library() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     fn = lib.es_bm25_tile_add
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.es_impact_tile_add
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 

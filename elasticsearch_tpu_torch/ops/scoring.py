@@ -168,7 +168,7 @@ def knn_flops(n_queries: int, n_docs: int, dims: int) -> int:
 # BM25 tile add (`bm25_tile_add`) a pass.
 # ---------------------------------------------------------------------------
 
-TCHUNK = 512  # tiles per query row per launch (the sparse and mesh loops)
+TCHUNK = 512  # tiles per query row per launch (the mesh route's loops)
 
 
 def _chunk_scores(doc_ids, tfs, inv_norm, ti, tw, tv):

@@ -677,8 +677,9 @@ class QueryBatcher:
             # riding the dispatch/collect pipeline as impact-tile
             # launches with block-max pruning)
             "sparse_jobs": 0,
-            # launches of those jobs' impact-tile scoring passes (one
-            # `ordered_scatter_add` a chunk of TCHUNK tiles, both phases)
+            # impact tile-add launches those jobs' scoring passes made
+            # (one a pass, more where a pass spans several scratch
+            # windows; both phases)
             "sparse_launches": 0,
             # second-stage rerank job family (rescore bodies riding the
             # dispatch/collect pipeline as maxsim launches between

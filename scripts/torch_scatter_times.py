@@ -19,7 +19,7 @@ once in a term's postings; the kernel's earlier one-launch design relied
 on it), the rest at the overflow column with +0.0; slots are drawn on
 the card from `--seed`.
 
-    python scripts/torch_scatter_times.py [--root DIR]
+    python scripts/torch_scatter_times.py [--root DIR] [--impact-only]
 
 Then the BM25 tile add (`ops/scoring.py:bm25_tile_add`, one call a
 chunked scoring pass) at the MS MARCO passage cell's width (8,841,823
@@ -35,6 +35,14 @@ device time by kernel, the bound (`chip_smoke.tile_add_bytes`: the
 postings and the plan read once, each valid doc's inv_norm read once,
 each touched cell read and written once) and the scratch. A checkout without the
 entry skips these.
+
+Then the impact tile add (`ops/impact.py:impact_tile_add`, one call a
+learned-sparse scoring pass) at the ELSER cell's shape, f32 and int8:
+`chip_smoke.impact_cell_rows` (one row of about 68,352 tiles over
+8,841,823 docs, held bit for bit to the plain version and the replaced
+512-tile loop, each timed, with the bound), plus the device time by
+kernel. A checkout without the entry skips it; `--impact-only` runs it
+alone.
 
 `--root` names the checkout whose `chip_smoke.py` and
 `elasticsearch_tpu_torch` are imported (default: this one), so that one
@@ -130,6 +138,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent.parent))
     ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--impact-only", action="store_true", help="time the impact tile add alone")
     args = ap.parse_args(argv)
 
     import torch
@@ -154,7 +163,7 @@ def main(argv=None) -> int:
     gen.manual_seed(args.seed)
 
     out = {}
-    for name, R, C, S, with_cnt, share in CASES:
+    for name, R, C, S, with_cnt, share in [] if args.impact_only else CASES:
         valid = torch.rand(R, S, device=dev, generator=gen) < share
         lane = torch.arange(S, device=dev, dtype=torch.int32) % 128  # distinct within a tile
         doc = torch.randint(0, (C - 1) // 128, (R, S), device=dev, generator=gen, dtype=torch.int32) * 128 + lane
@@ -176,10 +185,21 @@ def main(argv=None) -> int:
     from elasticsearch_tpu_torch.ops import scoring
 
     passes = {}
-    if hasattr(scoring, "bm25_tile_add"):
+    if hasattr(scoring, "bm25_tile_add") and not args.impact_only:
         for name, C, lengths in TILE_CASES:
             passes[name] = tile_pass_row(cs, scoring, osc, C, lengths, dev, gen)
-    print(json.dumps({"card": card, "root": str(root), "cases": out, "passes": passes}), flush=True)
+    impact = {}
+    if hasattr(cs, "impact_cell_rows"):
+        from elasticsearch_tpu_torch.ops import impact as impact_ops
+
+        for name, quantized in (("fp32", False), ("int8", True)):
+            a, c, d, v, tiles, weights = pass_args = cs.impact_cell_pass(args.seed, dev, quantized)
+            row = cs.impact_add_kernel_row(pass_args, dev)
+            kernels = kernel_us(lambda: impact_ops.impact_tile_add(a, c, d, v, tiles, weights), PROFILED)
+            impact[name] = {**row, "kernels_us": kernels}
+            print(f"impact_tile_add {name}: {kernels}", file=sys.stderr, flush=True)
+    print(json.dumps({"card": card, "root": str(root), "cases": out, "passes": passes, "impact": impact}),
+          flush=True)
     return 0
 
 

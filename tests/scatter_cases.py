@@ -1,10 +1,11 @@
 """Inputs for the ordered scatter-add's tests, on the CPU
 (`test_torch_ordered_scatter.py`) and on the card (`test_torch_cuda.py`):
 hard cases made with numpy from a seed at any shape, and the slots the
-function applies; the BM25 tile add's passes, and the path it replaced
-(`parent_chunk_pass`), which the card's tests and
-`scripts/torch_scatter_times.py` hold it to. Imports numpy only; the
-port's ops are imported when a pass is scored."""
+function applies; the BM25 and impact tile adds' passes, and the paths
+they replaced (`parent_chunk_pass`, `parent_impact_pass`), which the
+card's tests, `chip_smoke.py` and `scripts/torch_scatter_times.py` hold
+them to. Imports numpy only; the port's ops are imported when a pass is
+scored."""
 
 import numpy as np
 
@@ -125,3 +126,38 @@ def parent_chunk_pass(acc, cnt, doc_ids, tfs, inv_norm, tiles, weights):
         tgt, s, valid = scoring._chunk_scores(doc_ids, tfs, inv_norm, dev[0].long(), dev[1].view(torch.float32),
                                               dev[2] != 0)
         ordered_scatter.ordered_scatter_add(acc, tgt, s, cnt, None if cnt is None else valid.to(torch.int32))
+
+
+def impact_pass_case(C, lengths, seed, quantized):
+    """A learned-sparse pass's inputs over C - 1 docs as numpy arrays: the
+    impact column's doc_ids int32 [table, 128] (as `tile_pass_case` draws
+    them) and its stored impacts [table, 128], f32 in (0, 4] or int8 in
+    [1, 127] (padding slots keep a value, which is not applied), and row
+    r's list of `lengths[r]` tiles drawn from the table with a weight a
+    tile (for int8, a query weight times a dequant scale)."""
+    rng = np.random.default_rng(seed)
+    doc_ids, _, _, tiles, _ = tile_pass_case(C, lengths, seed)
+    shape = doc_ids.shape
+    if quantized:
+        values = rng.integers(1, 128, shape).astype(np.int8)
+        weights = [(rng.uniform(0.1, 4.0, len(t)) * rng.uniform(0.001, 0.04, len(t))).astype(np.float32)
+                   for t in tiles]
+    else:
+        values = np.minimum(np.exp(np.log(0.4) + 0.7 * rng.standard_normal(shape)), 4.0).astype(np.float32)
+        weights = [rng.uniform(0.1, 4.0, len(t)).astype(np.float32) for t in tiles]
+    return doc_ids, values, tiles, weights
+
+
+def parent_impact_pass(acc, cnt, doc_ids, values, tiles, weights):
+    """One pass into acc [rows, C] and cnt as the port scored it before the
+    impact tile add (`ImpactScorer.score_pass`'s loop): a host step a
+    TCHUNK-tile chunk (`parent_chunks`), each one packed upload, then
+    PyTorch's gathers and product (`_impact_chunk_add`) and the ordered
+    scatter-add."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops import impact, scoring
+
+    for ti, tw, tv in parent_chunks(acc.shape[0], tiles, weights, scoring.TCHUNK):
+        dev = scoring.upload(np.stack([ti, tw.view(np.int32), tv.astype(np.int32)]), acc.device)
+        impact._impact_chunk_add(doc_ids, values, acc, cnt, dev[0].long(), dev[1].view(torch.float32), dev[2] != 0)

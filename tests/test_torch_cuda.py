@@ -24,7 +24,8 @@ import pytest
 import torch
 
 from elasticsearch_tpu_torch.ops import int8_knn
-from scatter_cases import SCATTER_KINDS, applied, hard_scatter_case, parent_chunk_pass, tile_pass_case
+from scatter_cases import (SCATTER_KINDS, applied, hard_scatter_case, impact_pass_case, parent_chunk_pass,
+                           parent_impact_pass, tile_pass_case)
 
 torch.set_num_threads(1)
 
@@ -390,6 +391,108 @@ def test_bm25_tile_add_checks_its_inputs(cuda):
         scoring.bm25_tile_add(a, None, d, f, iv[:-1], tiles, weights)
     with pytest.raises(ValueError, match="lists for 2 rows"):
         scoring.bm25_tile_add(a, None, d, f, iv, tiles * 2, weights * 2)
+
+
+# the ELSER cell's mean pass (68,352 tiles a job) at its width, 32 ragged rows
+# at that width, 32 rows across windows, one launch
+IMPACT_PASSES = [
+    ("cell", MSMARCO_CELLS, (68_352,)),
+    ("cell_ragged32", MSMARCO_CELLS, RAGGED32),
+    ("ragged32_windows", 100_001, tuple(range(0, 3_200, 100))),
+    ("one_launch", 1_000_001, (16, 0, 3, 16)),
+]
+
+
+@pytest.mark.parametrize("name,C,lengths", IMPACT_PASSES)
+@pytest.mark.parametrize("quantized", [False, True])
+def test_impact_tile_add_matches_plain_and_parent(cuda, quantized, name, C, lengths):
+    """csrc/ordered_scatter.cu's impact tile add, one call a pass, f32 and
+    int8 impacts, against its plain version on the CPU and against the
+    replaced 512-tile loop on the card (`parent_impact_pass`), from the
+    same nonzero accumulators: equal bits and counts, twice; its launches
+    are the layout's windows."""
+    from elasticsearch_tpu_torch.ops import impact
+    from elasticsearch_tpu_torch.ops import ordered_scatter as osc
+
+    R = len(lengths)
+    doc_ids, values, tiles, weights = impact_pass_case(C, lengths, C + R, quantized)
+    rng = np.random.default_rng(R)
+    acc0 = torch.from_numpy(rng.random((R, C), np.float32))
+    acc0[:, -1] = 0.0
+    cnt0 = torch.from_numpy(rng.integers(0, 3, (R, C)).astype(np.int32))
+    host = [torch.from_numpy(x) for x in (doc_ids, values)]
+    want, want_cnt = impact.impact_tile_add_plain(acc0.clone(), cnt0.clone(), *host, tiles, weights)
+    d, v = (x.to(cuda) for x in host)
+    lay = osc.tile_layout(C, list(lengths))
+    assert (lay.windows >= 2) == (name in ("cell", "ragged32_windows")) and (lay.window == 0) == (name == "one_launch")
+    for _ in range(2):
+        a, c = acc0.to(cuda), cnt0.to(cuda)
+        before = osc.launch_impact_add.launches
+        assert impact.impact_tile_add(a, c, d, v, tiles, weights) == lay.windows
+        torch.cuda.synchronize(cuda)
+        assert osc.launch_impact_add.launches == before + lay.windows
+        assert torch.equal(a.cpu().view(torch.int32), want.view(torch.int32))
+        assert torch.equal(c.cpu(), want_cnt)
+    a, c = acc0.to(cuda), cnt0.to(cuda)
+    parent_impact_pass(a, c, d, v, tiles, weights)
+    torch.cuda.synchronize(cuda)
+    assert torch.equal(a.cpu().view(torch.int32), want.view(torch.int32))
+    assert torch.equal(c.cpu(), want_cnt)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_impact_score_pass_launches_the_kernel(cuda, quantized):
+    """`ImpactScorer.score_pass` on the card is one `impact_tile_add` call
+    a pass: it advances `launch_impact_add.launches` by the layout's
+    windows, makes no host sync (torch's sync debug mode "error"), and
+    matches the plain version on the CPU bit for bit."""
+    from elasticsearch_tpu_torch.ops import impact
+    from elasticsearch_tpu_torch.ops import ordered_scatter as osc
+
+    C = 300_001
+    lengths = (3_000, 0, 200, 16)
+    doc_ids, values, tiles, weights = impact_pass_case(C, lengths, 5, quantized)
+    sc = impact.ImpactScorer(doc_ids, values, C - 1, device=cuda)
+    acc, cnt = sc.new_acc(4)
+    passes = [(tiles, weights), (tiles[2:], weights[2:])]
+    torch.cuda.synchronize(cuda)
+    before = osc.launch_impact_add.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        launched = [sc.score_pass(acc, cnt, tl, wl) for tl, wl in passes]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert launched == [osc.tile_layout(C, [len(x) for x in tl] + [0] * (4 - len(tl))).windows
+                        for tl, _ in passes]
+    assert osc.launch_impact_add.launches == before + sum(launched) and launched[0] >= 1
+    want, want_cnt = torch.zeros(4, C), torch.zeros(4, C, dtype=torch.int32)
+    for tl, wl in passes:
+        impact.impact_tile_add_plain(want, want_cnt, torch.from_numpy(doc_ids), torch.from_numpy(values), tl, wl)
+    assert torch.equal(acc.cpu().view(torch.int32), want.view(torch.int32)) and torch.equal(cnt.cpu(), want_cnt)
+
+
+def test_impact_tile_add_checks_its_inputs(cuda):
+    """No fallback: what the kernel does not take raises."""
+    from elasticsearch_tpu_torch.ops import impact
+
+    doc_ids, values, tiles, weights = impact_pass_case(1_001, (40, 3), 9, False)
+    d, v = (torch.from_numpy(x).to(cuda) for x in (doc_ids, values))
+    a = torch.zeros(2, 1_001, device=cuda)
+    c = torch.zeros(2, 1_001, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        impact.impact_tile_add(a, c, d.cpu(), v, tiles, weights)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        impact.impact_tile_add(a, c.cpu(), d, v, tiles, weights)
+    with pytest.raises(TypeError, match="f32 or int8 impacts"):
+        impact.impact_tile_add(a, c, d, v.half(), tiles, weights)
+    with pytest.raises(TypeError):
+        impact.impact_tile_add(a, c, d.long(), v, tiles, weights)
+    with pytest.raises(TypeError):
+        impact.impact_tile_add(a.double(), c, d, v, tiles, weights)
+    with pytest.raises(ValueError, match="postings"):
+        impact.impact_tile_add(a, c, d, v[:-1].contiguous(), tiles, weights)
+    with pytest.raises(ValueError, match="lists for 2 rows"):
+        impact.impact_tile_add(a, c, d, v, tiles * 2, weights * 2)
 
 
 def test_quantized_search_on_card_matches_cpu(cuda):

@@ -31,7 +31,8 @@ from elasticsearch_tpu_torch.ops import impact as timpact
 from elasticsearch_tpu_torch.ops import ordered_scatter as osc
 from elasticsearch_tpu_torch.ops import scoring as tscoring
 from elasticsearch_tpu_torch.parallel import sharded as tsharded
-from scatter_cases import applied, hard_scatter_case, parent_chunk_pass, parent_chunks
+from scatter_cases import (applied, hard_scatter_case, impact_pass_case, parent_chunk_pass, parent_chunks,
+                           parent_impact_pass)
 
 torch.set_num_threads(1)
 
@@ -574,17 +575,37 @@ def test_chunk_add_bits_match_reference(with_cnt):
             np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
 
 
-def tile_passes(acc, cnt, doc_ids, tfs, inv_norm, tile_lists, weight_lists):
-    """csrc/ordered_scatter.cu's BM25 tile add in plain torch on the CPU,
-    over `tile_layout` and `pack_tiles` and with the kernels' own index
-    arithmetic: the window's chunks, rows end to end; a chunk block finds
-    its row by the chunk offsets, reads its 16 tiles from the postings,
-    keeps the valid slots in slot order with their contributions, and
-    stages them by (bucket, position) at its place; the count table is
-    bucket-major over each row's chunks of the window; a (row, bucket)
-    block gathers its slots chunk by chunk in pieces of CHUNK and adds each
-    piece's runs. With window 0, each (row, bucket) keeps the row's slots
-    that aim in its bucket and adds their runs."""
+def bm25_source(doc_ids, tfs, inv_norm):
+    """The BM25 tile add's slots: (targets, contributions, valid) of tiles
+    `ti` [1, m] with weights `tw` [1, m], as the `Tiles` source makes them."""
+    def score(ti, tw):
+        return tscoring._chunk_scores(doc_ids, tfs, inv_norm, ti, tw, torch.ones_like(ti, dtype=torch.bool))
+    return score
+
+
+def impact_source(doc_ids, values, n_docs):
+    """The impact tile add's slots, as the `Impacts` source makes them:
+    target doc, contribution w * f32(v), valid where doc >= 0."""
+    def score(ti, tw):
+        rows_d = doc_ids[ti]
+        valid = rows_d >= 0
+        tgt, s = timpact.impact_tile_contrib(rows_d, values[ti], tw[:, :, None], valid, n_docs)
+        return tgt, s, valid
+    return score
+
+
+def tile_passes(acc, cnt, score, tile_lists, weight_lists):
+    """csrc/ordered_scatter.cu's tile add in plain torch on the CPU, over
+    `tile_layout` and `pack_tiles` and with the kernels' own index
+    arithmetic, for the slots that `score` makes (`bm25_source`,
+    `impact_source`): the window's chunks, rows end to end; a chunk block
+    finds its row by the chunk offsets, reads its 16 tiles from the
+    postings, keeps the valid slots in slot order with their
+    contributions, and stages them by (bucket, position) at its place; the
+    count table is bucket-major over each row's chunks of the window; a
+    (row, bucket) block gathers its slots chunk by chunk in pieces of CHUNK
+    and adds each piece's runs. With window 0, each (row, bucket) keeps the
+    row's slots that aim in its bucket and adds their runs."""
     R, C = acc.shape
     lens = [len(x) for x in tile_lists] + [0] * (R - len(tile_lists))
     lay = osc.tile_layout(C, lens)
@@ -598,9 +619,7 @@ def tile_passes(acc, cnt, doc_ids, tfs, inv_norm, tile_lists, weight_lists):
         js = np.arange(off[r] + q0 // 128, min(off[r] + q0 // 128 + TPC, off[r + 1]))
         if not len(js):
             return torch.zeros(0, dtype=torch.long), torch.zeros(0)
-        ti = t(tiles[js].astype(np.int64))[None]
-        tgt, s, valid = tscoring._chunk_scores(doc_ids, tfs, inv_norm, ti, t(weights[js])[None],
-                                               torch.ones_like(ti, dtype=torch.bool))
+        tgt, s, valid = score(t(tiles[js].astype(np.int64))[None], t(weights[js])[None])
         keep = valid.flatten() & (tgt.flatten() < C - 1)
         return tgt.flatten()[keep].long(), s.flatten()[keep]
 
@@ -673,12 +692,71 @@ def test_tile_passes_match_plain(rows, lengths, C, windows):
     for with_cnt in (False, True):
         want, want_cnt = tscoring.bm25_tile_add_plain(t(acc0.copy()), t(cnt0.copy()) if with_cnt else None, *args)
         got, got_cnt = t(acc0.copy()), t(cnt0.copy()) if with_cnt else None
-        lay = tile_passes(got, got_cnt, *args)
+        lay = tile_passes(got, got_cnt, bm25_source(*args[:3]), *args[3:])
         assert lay.windows == windows, lay
         assert lay.scratch_words <= max(rows * C, lay.buckets + 2 * osc.CHUNK)
         np.testing.assert_array_equal(bits(got.numpy()), bits(want.numpy()))
         if with_cnt:
             np.testing.assert_array_equal(got_cnt.numpy(), want_cnt.numpy())
+
+
+IMPACT_PASSES = [
+    # (rows, tiles a row): empty, one tile, one chunk, past one chunk, past
+    # one 512-tile chunk of the replaced loop; ragged rows with empty ones
+    (1, (0,)), (1, (1,)), (1, (16,)), (1, (17,)), (1, (513,)), (1, (600,)),
+    (5, (0, 1, 16, 17, 600)), (5, (513, 600, 0, 17, 1)),
+]
+
+
+@pytest.mark.parametrize("small_windows", [False, True])
+@pytest.mark.parametrize("rows,lengths", IMPACT_PASSES)
+@pytest.mark.parametrize("quantized", [False, True])
+def test_impact_passes_match_plain_loop_and_jax(quantized, rows, lengths, small_windows, monkeypatch):
+    """The impact tile add, one call a pass: its plain version
+    (`impact_tile_add`) and the kernels' passes with the impact source
+    (`tile_passes`) against the replaced 512-tile loop
+    (`tests/scatter_cases.py:parent_impact_pass`) and the JAX package's
+    `ImpactScorer.score_into` (its `_impact_chunk_add` loop), from the same
+    nonzero accumulators, f32 and int8 impacts, one tile listed twice,
+    padding docs -1 with values that must not be applied, and windows
+    forced to two chunks: the same bits and the same counts."""
+    C = 20_001
+    doc_ids, values, tiles, weights = impact_pass_case(C, lengths, C + rows + 7 * len(lengths), quantized)
+    for tl in tiles:
+        if len(tl) >= 2:
+            tl[1] = tl[0]  # one tile listed twice
+    tiles[-1][: len(tiles[0][:1])] = tiles[0][:1]  # and again in another row
+    assert (doc_ids < 0).any() and (values[doc_ids < 0] != 0).any()
+    rng = np.random.default_rng(rows)
+    acc0 = rng.standard_normal((rows, C)).astype(np.float32)
+    acc0[:, -1] = 0
+    cnt0 = rng.integers(0, 3, size=(rows, C)).astype(np.int32)
+    cnt0[:, -1] = 0
+    if small_windows:
+        monkeypatch.setattr(osc, "MAX_CHUNKS", 2)
+    d, v = t(doc_ids), t(values)
+
+    got, got_cnt = t(acc0.copy()), t(cnt0.copy())
+    assert timpact.impact_tile_add(got, got_cnt, d, v, tiles, weights) == (1 if sum(lengths) else 0)
+    old, old_cnt = t(acc0.copy()), t(cnt0.copy())
+    parent_impact_pass(old, old_cnt, d, v, tiles, weights)
+    ja, jc = jimpact.ImpactScorer(jnp.asarray(doc_ids), jnp.asarray(values), C - 1).score_into(
+        jnp.asarray(acc0), jnp.asarray(cnt0), tiles, weights)
+    for a, c in ((old, old_cnt), (np.asarray(ja), np.asarray(jc))):
+        np.testing.assert_array_equal(bits(got.numpy()), bits(np.asarray(a)))
+        np.testing.assert_array_equal(got_cnt.numpy(), np.asarray(c))
+
+    if not sum(lengths):
+        np.testing.assert_array_equal(bits(got.numpy()), bits(acc0))
+        with pytest.raises(ValueError, match="no layout"):
+            osc.tile_layout(C, list(lengths))
+        return
+    passes, passes_cnt = t(acc0.copy()), t(cnt0.copy())
+    lay = tile_passes(passes, passes_cnt, impact_source(d, v, C - 1), tiles, weights)
+    assert (lay.window == 0) == (max(lengths) <= osc.TILES_A_CHUNK)
+    assert not small_windows or lay.window <= 2
+    np.testing.assert_array_equal(bits(passes.numpy()), bits(got.numpy()))
+    np.testing.assert_array_equal(passes_cnt.numpy(), got_cnt.numpy())
 
 
 def test_tile_layout_follows_the_pass():

@@ -369,8 +369,10 @@ def test_sparse_vector_stages_are_spans_of_the_dispatch(srv):
 
 def test_impact_score_pass_counts_its_chunks():
     """`ImpactScorer.score_pass` adds into the accumulators in place and
-    returns its launches, one a chunk of TCHUNK tiles of the longest
-    row; `score_into` returns the same accumulators."""
+    returns its launches: one a pass on the CPU (the plain version; on
+    the card the impact tile add's windows), whatever the longest row's
+    length; `score_into` returns the same accumulators, and a pass with
+    no tiles launches nothing."""
     from elasticsearch_tpu_torch.ops import impact
 
     rng = np.random.default_rng(3)
@@ -380,7 +382,7 @@ def test_impact_score_pass_counts_its_chunks():
     lists = [rng.integers(0, 6, 1100), rng.integers(0, 6, 7)]
     weights = [rng.uniform(0.5, 1.5, len(t)).astype(np.float32) for t in lists]
     acc, cnt = sc.new_acc(2)
-    assert sc.score_pass(acc, cnt, lists, weights) == -(-1100 // scoring.TCHUNK) == 3
+    assert sc.score_pass(acc, cnt, lists, weights) == 1
     want_acc, want_cnt = sc.score_into(*sc.new_acc(2), lists, weights)
     assert torch.equal(acc, want_acc) and torch.equal(cnt, want_cnt) and acc.abs().sum() > 0
     assert sc.score_pass(*sc.new_acc(2), [np.zeros(0, np.int64)] * 2, [np.zeros(0, np.float32)] * 2) == 0
