@@ -929,33 +929,33 @@ def scatter_kernel_row(args, device) -> dict:
 
 
 def capture_tile_add(fn, impact: bool = False):
-    """Runs `fn` once with ops/scoring.bm25_tile_add (or, with `impact`,
-    ops/impact.impact_tile_add) wrapped where ChunkedScorer (ImpactScorer)
-    calls it, from any thread: the server's workers too; returns the inputs
-    of its call with the most tiles (acc and cnt as they were before it)."""
+    """Runs `fn` once with ops/scoring.tile_pass, the pass body that
+    ChunkedScorer and ImpactScorer call, wrapped from any thread (the
+    server's workers too); returns the inputs of the BM25 (with `impact`,
+    the impact) source's call with the most tiles, as the entry takes them
+    (acc and cnt as they were before it)."""
     from elasticsearch_tpu_torch.ops import impact as impact_ops
     from elasticsearch_tpu_torch.ops import scoring
 
-    mod, name = (impact_ops, "impact_tile_add") if impact else (scoring, "bm25_tile_add")
-    real = getattr(mod, name)
+    want = impact_ops.IMPACT_TILES if impact else scoring.BM25_TILES
+    real = scoring.tile_pass
     most = []
     lock = threading.Lock()
 
-    def spy(acc, cnt, *rest):
-        *planes, tile_lists, weight_lists = rest
+    def spy(source, acc, cnt, planes, tile_lists, weight_lists):
         tiles = sum(len(x) for x in tile_lists)
         with lock:
-            if tiles and (not most or tiles > most[0]):
+            if source is want and tiles and (not most or tiles > most[0]):
                 most[:] = [tiles, (acc.clone(), None if cnt is None else cnt.clone(), *planes,
                                    [np.array(x) for x in tile_lists], [np.array(x) for x in weight_lists])]
-        return real(acc, cnt, *rest)
+        return real(source, acc, cnt, planes, tile_lists, weight_lists)
 
-    setattr(mod, name, spy)
+    scoring.tile_pass = spy
     try:
         fn()
     finally:
-        setattr(mod, name, real)
-    check(bool(most), f"the route made no {name}")
+        scoring.tile_pass = real
+    check(bool(most), f"the route made no {want.name}")
     return most[1]
 
 

@@ -786,13 +786,6 @@ class IndexService:
                 lambda: self._op_permits.get(sid, 0) == 0, timeout
             )
 
-    def is_handed_off(self, sid: int) -> bool:
-        return sid in self._handed_off
-
-    def clear_handoff(self, sid: int) -> None:
-        with self._permit_cond:
-            self._handed_off.discard(sid)
-
     @property
     def shards(self) -> List[ShardEngine]:
         """Locally-held shard engines (all shards in local mode)."""
@@ -888,12 +881,6 @@ class IndexService:
                 f"shard [{self.name}][{sid}] is not allocated to this node"
             )
         return eng
-
-    def shard_for(self, doc_id: str, routing: Optional[str] = None) -> ShardEngine:
-        sid = route_shard_id(
-            routing if routing is not None else doc_id, self.num_shards
-        )
-        return self.local_shard(sid)
 
     # ---- document ops ----
 
@@ -2438,17 +2425,6 @@ class IndexService:
             )
             pins.append({"node": owner, "ctx": out["ctx"]})
         return pins
-
-
-    def release_pins(self, pins: List) -> None:
-        for pin in pins or []:
-            if isinstance(pin, dict):
-                try:
-                    self.remote_call(
-                        pin["node"], ACTION_CTX_CLOSE, {"ctx": pin["ctx"]}
-                    )
-                except Exception:
-                    pass  # best-effort (context TTL reaps it anyway)
 
     # ---- whole-index serving (parallel/mesh_executor.py): one stacked
     # launch over every (shard, segment) entry replaces the per-shard

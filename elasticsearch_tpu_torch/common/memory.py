@@ -191,9 +191,3 @@ class HbmLedger:
 # process-wide ledger (one device per process in this deployment shape)
 hbm_ledger = HbmLedger()
 
-
-def array_nbytes(a) -> int:
-    try:
-        return int(a.nbytes)
-    except AttributeError:
-        return 0

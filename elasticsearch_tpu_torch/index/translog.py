@@ -95,12 +95,6 @@ def durability_stats_snapshot() -> dict:
         return dict(DURABILITY_STATS)
 
 
-def reset_durability_stats() -> None:
-    with _DSTATS_LOCK:
-        DURABILITY_STATS.clear()
-        DURABILITY_STATS.update(_DSTATS_ZERO)
-
-
 class Translog:
     def __init__(
         self,

@@ -59,15 +59,3 @@ def score_freqs(
     return (w - w / (np.float32(1.0) + freqs.astype(np.float32) * inv)).astype(
         np.float32
     )
-
-
-def tile_upper_bound(
-    tile_max_tf: np.ndarray,
-    tile_min_norm: np.ndarray,
-    weight: float,
-    cache: np.ndarray,
-) -> np.ndarray:
-    """Per-tile score upper bound (block-max WAND analog): tf/(tf+d) is
-    increasing in tf and decreasing in d, so max_tf with min-norm denom
-    bounds every posting in the tile."""
-    return score_freqs(tile_max_tf, tile_min_norm, weight, cache)

@@ -12,16 +12,17 @@ and a weighted sum:
   → an ordered add into a dense per-doc accumulator (term-at-a-time)
   → ops/scoring.topk_desc (doc asc among equal scores).
 
-`ImpactScorer` mirrors ops/scoring.ChunkedScorer: each scoring pass of
-per-row tile lists, of any length, is one `impact_tile_add` call into
-accumulators updated in place (where the reference donates its JAX
-buffers): on the card one packed upload and one call of
-`csrc/ordered_scatter.cu`'s impact tile add, which gathers, multiplies
-and adds the whole pass in list order; on the CPU the plain version.
-The reference streams a pass through [rows, TCHUNK] chunks of
-`_impact_chunk_add`; the contributions and their order are the same, so
-the bits are. finalize is the ONE `_finalize` of ops/scoring, so its
-device triples feed `merge_segment_topk` unchanged.
+`ImpactScorer` is ops/scoring's `TileScorer`, as `ChunkedScorer` is,
+with the impact source: each scoring pass of per-row tile lists, of any
+length, is one `impact_tile_add` call into accumulators updated in
+place (where the reference donates its JAX buffers): on the card one
+packed upload and one call of `csrc/ordered_scatter.cu`'s impact tile
+add, which gathers, multiplies and adds the whole pass in list order;
+on the CPU the plain version. The reference streams a pass through
+[rows, TCHUNK] chunks of `_impact_chunk_add`; the contributions and
+their order are the same, so the bits are. finalize is the ONE
+`_finalize` of ops/scoring, so its device triples feed
+`merge_segment_topk` unchanged.
 
 `SparseBlockMax` is the ops/wand.py analog for impact-ordered tiles.
 Every term's postings are sorted by impact desc, so the per-tile
@@ -44,6 +45,7 @@ run after run (ops/ordered_scatter.py).
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -51,7 +53,7 @@ import torch
 
 from . import ordered_scatter
 from .ordered_scatter import ordered_scatter_add
-from .scoring import BPAD, _finalize, _threshold, download, upload
+from .scoring import BPAD, TileScorer, TileSource, _resident, tile_pass, tile_pass_plain
 
 TILE_WIDTH = 128
 
@@ -78,14 +80,6 @@ def impact_tile_contrib(rows_d, rows_v, tw, valid, n_docs):
     return tgt, torch.where(valid, s, 0.0)
 
 
-def _resident(x, device) -> torch.Tensor:
-    """A plane already on the device as it is; a host array through
-    ops/scoring.upload (pinned, asynchronous)."""
-    if isinstance(x, torch.Tensor):
-        return x.to(device)
-    return upload(np.asarray(x), device)
-
-
 def _impact_chunk_add(doc_ids, values, acc, cnt, ti, tw, tv):
     """acc[B, n+1] += impact contributions of [B, TC] tiles `ti` (weights
     `tw`, validity `tv`), in place; cnt counts matching postings per doc
@@ -102,106 +96,49 @@ def impact_tile_add_plain(acc, cnt, doc_ids, values, tile_lists, weight_lists):
     """The same function in plain PyTorch: row by row, the row's whole
     list through `_impact_chunk_add` (on the CPU, `ordered_scatter_add`'s
     plain version adds a cell's contributions in slot order)."""
-    for r, (tl, wl) in enumerate(zip(tile_lists, weight_lists)):
-        if not len(tl):
-            continue
-        ti = torch.as_tensor(np.asarray(tl, np.int64), device=acc.device)[None]
-        tw = torch.as_tensor(np.asarray(wl, np.float32), device=acc.device)[None]
-        _impact_chunk_add(doc_ids, values, acc[r : r + 1], cnt[r : r + 1], ti, tw,
-                          torch.ones_like(ti, dtype=torch.bool))
-    return acc, cnt
+    return tile_pass_plain(acc, cnt, tile_lists, weight_lists, functools.partial(_impact_chunk_add, doc_ids, values))
+
+
+IMPACT_TILES = TileSource("impact_tile_add", impact_tile_add_plain, ordered_scatter.launch_impact_add)
 
 
 def impact_tile_add(acc, cnt, doc_ids, values, tile_lists, weight_lists) -> int:
-    """One scoring pass, in place: acc[r, doc] += w * f32(v) and cnt[r,
-    doc] += 1 for every posting (doc, v) of every tile of row r's list
-    (weight w a tile, the dequant scale folded in for an int8 column),
-    each cell's additions in list order. acc and cnt [rows, n_docs + 1];
-    rows past the lists add nothing. CUDA tensors take
-    `csrc/ordered_scatter.cu`'s impact tile add (or raise): one packed
-    upload and one call, whatever the pass's length, and no wait for the
-    card; CPU tensors the plain version. Returns the launches made (the
-    kernel's windows, which `ordered_scatter.launch_impact_add.launches`
-    counts; on the CPU the plain version's one pass)."""
-    if len(tile_lists) > acc.shape[0] or len(weight_lists) != len(tile_lists):
-        raise ValueError(f"impact_tile_add: {len(tile_lists)} lists for {acc.shape[0]} rows")
-    if not any(len(t) for t in tile_lists):
-        return 0
-    if acc.device.type == "cpu":
-        impact_tile_add_plain(acc, cnt, doc_ids, values, tile_lists, weight_lists)
-        return 1
-    rows = int(acc.shape[0])
-    lens = [len(t) for t in tile_lists] + [0] * (rows - len(tile_lists))
-    lay = ordered_scatter.tile_layout(int(acc.shape[-1]), lens)
-    plan = upload(ordered_scatter.pack_tiles(tile_lists, weight_lists, rows), acc.device)
-    ordered_scatter.launch_impact_add(acc, cnt, doc_ids, values, plan, lay)
-    return lay.windows
+    """One learned-sparse scoring pass (`tile_pass`): acc[r, doc] += w *
+    f32(v) and cnt[r, doc] += 1 for every posting (doc, v) of every tile
+    of row r's list (weight w a tile, the dequant scale folded in for an
+    int8 column). acc and cnt [rows, n_docs + 1]. The kernel is
+    `csrc/ordered_scatter.cu`'s impact tile add, counted by
+    `ordered_scatter.launch_impact_add.launches`."""
+    return tile_pass(IMPACT_TILES, acc, cnt, (doc_ids, values), tile_lists, weight_lists)
 
 
-class ImpactScorer:
-    """Batched learned-sparse scoring over one segment's impact-ordered
-    tiled postings with fixed launch shapes (ChunkedScorer's serving
-    recipe applied to the sparse column — see the module comment). All
-    tensors live on `device`."""
+class ImpactScorer(TileScorer):
+    """Learned-sparse scoring over one segment's impact-ordered tiled
+    postings (`impact_tile_add`; the stored plane int8 or f32, cast after
+    the gather). The count plane is always there, and a doc matches
+    where its count is positive: every query term is optional."""
+
+    source = IMPACT_TILES
+    sites = ("sparse_threshold", "sparse_finalize")
 
     def __init__(self, doc_ids, values, n_docs: int, live=None,
                  block_size: int = 4096, device="cuda"):
-        self.device = torch.device(device)
-        self.doc_ids = _resident(doc_ids, self.device)
-        # stored dtype (int8 qweights or f32 weights): the cast happens
-        # after the gather
-        self.values = _resident(values, self.device)
-        self.n_docs = int(n_docs)
-        self.live = None if live is None else _resident(live, self.device).to(torch.bool)
-        self.block_size = block_size
+        device = torch.device(device)
+        self.doc_ids = _resident(doc_ids, device)
+        self.values = _resident(values, device)
+        super().__init__((self.doc_ids, self.values), n_docs, live, block_size, device)
 
     def new_acc(self, rows: int = BPAD):
         """Zeroed accumulators at one query-row bucket of the ladder."""
-        acc = torch.zeros(rows, self.n_docs + 1, dtype=torch.float32, device=self.device)
-        cnt = torch.zeros(rows, self.n_docs + 1, dtype=torch.int32, device=self.device)
-        return acc, cnt
-
-    def score_pass(self, acc, cnt, tile_lists, weight_lists) -> int:
-        """Adds one pass of per-row tile/weight lists (<= acc rows, any
-        length) into the accumulators, in place: one packed upload and one
-        `impact_tile_add` call that does not wait for the device. Returns
-        the launches it made."""
-        return impact_tile_add(acc, cnt, self.doc_ids, self.values, tile_lists, weight_lists)
-
-    def score_into(self, acc, cnt, tile_lists, weight_lists):
-        """`score_pass`, returning the accumulators as the reference does."""
-        self.score_pass(acc, cnt, tile_lists, weight_lists)
-        return acc, cnt
-
-    def threshold(self, acc, k: int, live=None):
-        """Host (theta[B], accmax[B, n_blocks]) after phase A — the kth
-        best partial score per row (a sound lower bound on the final kth
-        best, so pruning against it stays exact). The one download of
-        the two-phase plan."""
-        theta, accmax = _threshold(
-            acc,
-            live if live is not None else self.live,
-            k=min(k, self.n_docs),
-            block_size=self.block_size,
-        )
-        return download(theta, accmax, site="sparse_threshold")
+        return self._zeroed(rows, True)
 
     def finalize(self, acc, cnt, k: int, live=None):
-        s, d, tot = self.finalize_device(acc, cnt, k, live=live)
-        return download(s, d, tot, site="sparse_finalize")
+        return self._final(acc, cnt, None, k, live, host=True)
 
     def finalize_device(self, acc, cnt, k: int, live=None):
         """(scores[B,k], docs[B,k], totals[B]) STAYING on the device, in
-        the merge_segment_topk triple shape. The sparse match mask is
-        cnt > 0 (every query term is optional): `_finalize` at msm=1."""
-        rows = int(acc.shape[0])
-        return _finalize(
-            acc,
-            cnt,
-            live if live is not None else self.live,
-            torch.ones(rows, dtype=torch.int32, device=self.device),
-            k=min(k, self.n_docs),
-        )
+        the merge_segment_topk triple shape."""
+        return self._final(acc, cnt, None, k, live)
 
 
 class SparseBlockMax:

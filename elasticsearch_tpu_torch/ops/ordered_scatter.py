@@ -177,11 +177,13 @@ def pack_tiles(tile_lists, weight_lists, rows: int) -> np.ndarray:
     return buf
 
 
-def _pass_device(name, acc, cnt, doc_ids, plane, plan, lay: TileLayout, extra=()):
-    """Checks what both tile adds take of one pass (one CUDA device, f32 acc,
-    int32 cnt, postings and plan, [n_tiles, 128] planes, contiguity) and
-    returns the device, or raises."""
-    tensors = [x for x in (acc, cnt, doc_ids, plane, plan, *extra) if x is not None]
+def _launch_pass(name, entry, acc, cnt, doc_ids, planes, plan, lay: TileLayout, flags=()) -> None:
+    """Checks what both tile adds take of one pass (one CUDA device, f32
+    acc, int32 cnt, postings and plan, [n_tiles, 128] planes, contiguity),
+    then calls the C entry `entry` with its scratch on the current stream,
+    or raises. `planes` are the source's planes after the doc ids, and
+    `flags` its int arguments before the shapes, in the entry's order."""
+    tensors = [x for x in (acc, cnt, doc_ids, *planes, plan) if x is not None]
     devices = {x.device for x in tensors}
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         raise ValueError(f"{name}: the kernel takes tensors on one CUDA device, got {devices}")
@@ -191,42 +193,36 @@ def _pass_device(name, acc, cnt, doc_ids, plane, plan, lay: TileLayout, extra=()
                         f"{[x.dtype for x in ints]}")
     if acc.dim() != 2 or (cnt is not None and cnt.shape != acc.shape):
         raise ValueError(f"{name}: acc [R, C] (and cnt alike), got {tuple(acc.shape)}")
-    if doc_ids.dim() != 2 or doc_ids.shape[1] != TILE_WIDTH or plane.shape != doc_ids.shape:
+    if doc_ids.dim() != 2 or doc_ids.shape[1] != TILE_WIDTH or planes[0].shape != doc_ids.shape:
         raise ValueError(f"{name}: postings [n_tiles, {TILE_WIDTH}], got {tuple(doc_ids.shape)} "
-                         f"and {tuple(plane.shape)}")
-    R = acc.shape[0]
+                         f"and {tuple(planes[0].shape)}")
+    R, C = acc.shape
     if plan.shape != (2 * (R + 1) + 2 * lay.tiles,):
         raise ValueError(f"{name}: plan {tuple(plan.shape)} does not match {R} rows and {lay.tiles} tiles")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError(f"{name}: tensors must be contiguous")
-    return next(iter(devices))
-
-
-def _scratch(lay: TileLayout, device):
-    return torch.empty(lay.scratch_words, dtype=torch.int32, device=device) if lay.window else None
+    (device,) = devices
+    lib = _library()
+    with torch.cuda.device(device):
+        scratch = torch.empty(lay.scratch_words, dtype=torch.int32, device=device) if lay.window else None
+        rc = getattr(lib, entry)(
+            *(None if x is None else x.data_ptr() for x in (acc, cnt, doc_ids, *planes, plan, scratch)),
+            *flags, R, C, lay.tiles, lay.chunks, lay.window, lay.buckets, lay.width,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc})")
 
 
 def launch_tile_add(acc, cnt, doc_ids, tfs, inv_norm, plan, lay: TileLayout) -> None:
     """Launches the BM25 tile add of one pass (`plan`, `pack_tiles` on the
     card) into acc (and cnt) on the current stream, or raises. Nothing is
     read back. Each window's launches add one to `launch_tile_add.launches`."""
-    device = _pass_device("bm25_tile_add", acc, cnt, doc_ids, tfs, plan, lay, (inv_norm,))
     if tfs.dtype != torch.int32 or inv_norm.dtype != torch.float32:
         raise TypeError(f"bm25_tile_add: int32 tfs and f32 inv_norm, got {tfs.dtype}, {inv_norm.dtype}")
-    R, C = acc.shape
-    if inv_norm.shape != (C - 1,):
-        raise ValueError(f"bm25_tile_add: inv_norm {tuple(inv_norm.shape)} does not match {C} cells")
-    lib = _library()
-    with torch.cuda.device(device):
-        scratch = _scratch(lay, device)
-        rc = lib.es_bm25_tile_add(
-            acc.data_ptr(), None if cnt is None else cnt.data_ptr(), doc_ids.data_ptr(), tfs.data_ptr(),
-            inv_norm.data_ptr(), plan.data_ptr(), None if scratch is None else scratch.data_ptr(),
-            R, C, lay.tiles, lay.chunks, lay.window, lay.buckets, lay.width,
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"bm25_tile_add: kernel launch failed (cudaError {rc})")
+    if inv_norm.shape != (acc.shape[-1] - 1,):
+        raise ValueError(f"bm25_tile_add: inv_norm {tuple(inv_norm.shape)} does not match {acc.shape[-1]} cells")
+    _launch_pass("bm25_tile_add", "es_bm25_tile_add", acc, cnt, doc_ids, (tfs, inv_norm), plan, lay)
     launch_tile_add.launches += lay.windows
 
 
@@ -239,21 +235,10 @@ def launch_impact_add(acc, cnt, doc_ids, impacts, plan, lay: TileLayout) -> None
     int8 column) into acc (and cnt) on the current stream, or raises.
     `impacts` is the stored plane, f32 or int8. Nothing is read back. Each
     window's launches add one to `launch_impact_add.launches`."""
-    device = _pass_device("impact_tile_add", acc, cnt, doc_ids, impacts, plan, lay)
     if impacts.dtype not in (torch.float32, torch.int8):
         raise TypeError(f"impact_tile_add: f32 or int8 impacts, got {impacts.dtype}")
-    R, C = acc.shape
-    lib = _library()
-    with torch.cuda.device(device):
-        scratch = _scratch(lay, device)
-        rc = lib.es_impact_tile_add(
-            acc.data_ptr(), None if cnt is None else cnt.data_ptr(), doc_ids.data_ptr(), impacts.data_ptr(),
-            plan.data_ptr(), None if scratch is None else scratch.data_ptr(), int(impacts.dtype == torch.int8),
-            R, C, lay.tiles, lay.chunks, lay.window, lay.buckets, lay.width,
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"impact_tile_add: kernel launch failed (cudaError {rc})")
+    _launch_pass("impact_tile_add", "es_impact_tile_add", acc, cnt, doc_ids, (impacts,), plan, lay,
+                 flags=(int(impacts.dtype == torch.int8),))
     launch_impact_add.launches += lay.windows
 
 

@@ -30,7 +30,7 @@ inv_norm` into one fused multiply-add, PyTorch rounds the product first.
 from __future__ import annotations
 
 import threading
-from typing import Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -160,15 +160,65 @@ def knn_flops(n_queries: int, n_docs: int, dims: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Chunked batched scorer — the path for small segments (every segment a
-# `_bulk` + refresh makes) and for fused-slot overflow. Each row's tile
-# list, of any length, is one scoring pass into a dense [rows, n_docs + 1]
-# accumulator (the extra column takes padding), updated in place, as the
-# reference donates it: one packed upload and one call of the ordered
-# BM25 tile add (`bm25_tile_add`) a pass.
+# Tile-pass scoring: the term-at-a-time route of the chunked BM25 path
+# (small segments, every segment a `_bulk` + refresh makes, and fused-slot
+# overflow) and of the learned-sparse path (ops/impact.py). Each row's
+# tile list, of any length, is one scoring pass into a dense
+# [rows, n_docs + 1] accumulator (the extra column takes padding),
+# updated in place, as the reference donates it: one packed upload and
+# one call of a hand-written ordered tile add a pass, whose source
+# (`TileSource`) computes each slot's contribution from the postings.
 # ---------------------------------------------------------------------------
 
 TCHUNK = 512  # tiles per query row per launch (the mesh route's loops)
+
+
+class TileSource(NamedTuple):
+    """One slot source of the ordered tile add: its pass entry's name,
+    its plain version (CPU tensors) and its kernel's launcher (CUDA
+    tensors), called as plain(acc, cnt, *planes, tile_lists,
+    weight_lists) and launch(acc, cnt, *planes, plan, layout)."""
+
+    name: str
+    plain: Callable
+    launch: Callable
+
+
+def tile_pass(source: TileSource, acc, cnt, planes, tile_lists, weight_lists) -> int:
+    """One scoring pass of `source` over its postings `planes`, in place:
+    row r's tiles add into acc[r] (and cnt[r]), each cell's additions in
+    list order; rows past the lists add nothing. CUDA tensors take the
+    source's kernel (or raise): one packed upload and one call, whatever
+    the pass's length, and no wait for the card; CPU tensors its plain
+    version. Returns the launches made (the kernel's windows, which the
+    launcher counts; on the CPU the plain version's one pass)."""
+    if len(tile_lists) > acc.shape[0] or len(weight_lists) != len(tile_lists):
+        raise ValueError(f"{source.name}: {len(tile_lists)} lists for {acc.shape[0]} rows")
+    if not any(len(t) for t in tile_lists):
+        return 0
+    if acc.device.type == "cpu":
+        source.plain(acc, cnt, *planes, tile_lists, weight_lists)
+        return 1
+    rows = int(acc.shape[0])
+    lens = [len(t) for t in tile_lists] + [0] * (rows - len(tile_lists))
+    lay = ordered_scatter.tile_layout(int(acc.shape[-1]), lens)
+    plan = upload(ordered_scatter.pack_tiles(tile_lists, weight_lists, rows), acc.device)
+    source.launch(acc, cnt, *planes, plan, lay)
+    return lay.windows
+
+
+def tile_pass_plain(acc, cnt, tile_lists, weight_lists, add):
+    """The plain versions' row loop: row r's whole list as one [1, T]
+    chunk of tile ids and weights, every tile valid, through
+    `add(acc[r:r+1], cnt[r:r+1], ti, tw, tv)`. Returns (acc, cnt)."""
+    for r, (tl, wl) in enumerate(zip(tile_lists, weight_lists)):
+        if not len(tl):
+            continue
+        ti = torch.as_tensor(np.asarray(tl, np.int64), device=acc.device)[None]
+        tw = torch.as_tensor(np.asarray(wl, np.float32), device=acc.device)[None]
+        add(acc[r : r + 1], None if cnt is None else cnt[r : r + 1], ti, tw,
+            torch.ones_like(ti, dtype=torch.bool))
+    return acc, cnt
 
 
 def _chunk_scores(doc_ids, tfs, inv_norm, ti, tw, tv):
@@ -190,43 +240,24 @@ def bm25_tile_add_plain(acc, cnt, doc_ids, tfs, inv_norm, tile_lists, weight_lis
     """The same function in plain PyTorch: row by row, `_chunk_scores`
     over the row's whole list and `ordered_scatter_add_plain` into the
     row, which on the CPU adds a cell's contributions in slot order."""
-    for r, (tl, wl) in enumerate(zip(tile_lists, weight_lists)):
-        if not len(tl):
-            continue
-        ti = torch.as_tensor(np.asarray(tl, np.int64), device=acc.device)[None]
-        tw = torch.as_tensor(np.asarray(wl, np.float32), device=acc.device)[None]
-        tgt, s, valid = _chunk_scores(doc_ids, tfs, inv_norm, ti, tw, torch.ones_like(ti, dtype=torch.bool))
-        if cnt is None:
-            ordered_scatter_add_plain(acc[r], tgt, s)
-        else:
-            ordered_scatter_add_plain(acc[r], tgt, s, cnt[r], valid.to(torch.int32))
-    return acc, cnt
+
+    def add(a, c, ti, tw, tv):
+        tgt, s, valid = _chunk_scores(doc_ids, tfs, inv_norm, ti, tw, tv)
+        ordered_scatter_add_plain(a, tgt, s, c, None if c is None else valid.to(torch.int32))
+
+    return tile_pass_plain(acc, cnt, tile_lists, weight_lists, add)
+
+
+BM25_TILES = TileSource("bm25_tile_add", bm25_tile_add_plain, ordered_scatter.launch_tile_add)
 
 
 def bm25_tile_add(acc, cnt, doc_ids, tfs, inv_norm, tile_lists, weight_lists) -> int:
-    """One scoring pass, in place: acc[r, doc] += w - w / (1 + tf *
-    inv_norm[doc]) (and cnt[r, doc] += 1) for every posting (doc, tf) of
-    every tile of row r's list (weight w a tile), each cell's additions
-    in list order. acc (and cnt) [rows, n_docs + 1]; rows past the lists
-    add nothing. CUDA tensors take `csrc/ordered_scatter.cu`'s BM25 tile
-    add (or raise): one packed upload and one call, whatever the pass's
-    length, and no wait for the card; CPU tensors the plain version.
-    Returns the launches made (the kernel's windows, which
-    `ordered_scatter.launch_tile_add.launches` counts; on the CPU the
-    plain version's one pass)."""
-    if len(tile_lists) > acc.shape[0] or len(weight_lists) != len(tile_lists):
-        raise ValueError(f"bm25_tile_add: {len(tile_lists)} lists for {acc.shape[0]} rows")
-    if not any(len(t) for t in tile_lists):
-        return 0
-    if acc.device.type == "cpu":
-        bm25_tile_add_plain(acc, cnt, doc_ids, tfs, inv_norm, tile_lists, weight_lists)
-        return 1
-    rows = int(acc.shape[0])
-    lens = [len(t) for t in tile_lists] + [0] * (rows - len(tile_lists))
-    lay = ordered_scatter.tile_layout(int(acc.shape[-1]), lens)
-    plan = upload(ordered_scatter.pack_tiles(tile_lists, weight_lists, rows), acc.device)
-    ordered_scatter.launch_tile_add(acc, cnt, doc_ids, tfs, inv_norm, plan, lay)
-    return lay.windows
+    """One BM25 scoring pass (`tile_pass`): acc[r, doc] += w - w / (1 +
+    tf * inv_norm[doc]) (and cnt[r, doc] += 1) for every posting (doc,
+    tf) of every tile of row r's list (weight w a tile). acc (and cnt)
+    [rows, n_docs + 1]. The kernel is `csrc/ordered_scatter.cu`'s BM25
+    tile add, counted by `ordered_scatter.launch_tile_add.launches`."""
+    return tile_pass(BM25_TILES, acc, cnt, (doc_ids, tfs, inv_norm), tile_lists, weight_lists)
 
 
 def _threshold(acc, live, k: int, block_size: int):
@@ -264,28 +295,31 @@ def _finalize(acc, cnt, live, msm, k: int):
     return s, d.to(torch.int32), mask.sum(dim=1, dtype=torch.int32)
 
 
-class ChunkedScorer:
-    """Batched BM25 scoring over one segment's tiled postings with fixed
-    launch shapes (see the section comment above).
+class TileScorer:
+    """Batched term-at-a-time scoring over one segment's [n_tiles, 128]
+    postings planes with fixed launch shapes (see the section comment
+    above): zeroed accumulators, scoring passes of `source` over
+    `planes`, the block-max threshold and the top-k.
 
-    Reference analog: the per-leaf BM25 scoring loop
-    (BM25Similarity.score inside Weight.scorer iteration); the dense
-    [rows, n_docs] accumulator replaces the doc-at-a-time heap, and the
-    threshold/finalize split is the WAND phase boundary. All tensors
-    live on the device of `doc_ids`."""
+    Reference analog: the per-leaf scoring loop (Weight.scorer
+    iteration); the dense [rows, n_docs] accumulator replaces the
+    doc-at-a-time heap, and the threshold/finalize split is the WAND
+    phase boundary. A subclass names its source and planes, whether the
+    count plane is optional (`new_acc`), its match rule (the msm it hands
+    `_final`) and the `device.wait` sites of its two downloads. All
+    tensors live on `device`."""
 
-    def __init__(self, doc_ids, tfs, inv_norm, live=None, block_size: int = 4096):
-        self.device = doc_ids.device
-        self.doc_ids = doc_ids
-        self.tfs = tfs
-        self.inv_norm = _as_device(inv_norm, self.device, torch.float32)
-        self.live = _as_device(live, self.device, torch.bool)
-        self.n_docs = int(self.inv_norm.shape[0])
+    source: TileSource
+    sites = ("threshold", "finalize")
+
+    def __init__(self, planes, n_docs: int, live, block_size: int, device):
+        self.device = torch.device(device)
+        self.planes = tuple(planes)
+        self.n_docs = int(n_docs)
+        self.live = None if live is None else _resident(live, self.device).to(torch.bool)
         self.block_size = block_size
 
-    def new_acc(self, with_cnt: bool, rows: int = BPAD):
-        """Zeroed accumulators for one launch of `rows` query rows (the
-        group's ladder bucket)."""
+    def _zeroed(self, rows: int, with_cnt: bool):
         acc = torch.zeros(rows, self.n_docs + 1, dtype=torch.float32, device=self.device)
         cnt = (
             torch.zeros(rows, self.n_docs + 1, dtype=torch.int32, device=self.device)
@@ -297,9 +331,9 @@ class ChunkedScorer:
     def score_pass(self, acc, cnt, tile_lists, weight_lists) -> int:
         """Adds one pass of per-row tile/weight lists (<= acc rows, any
         length) into the accumulators, in place: one packed upload and one
-        `bm25_tile_add` call that does not wait for the device. Returns
-        the launches it made."""
-        return bm25_tile_add(acc, cnt, self.doc_ids, self.tfs, self.inv_norm, tile_lists, weight_lists)
+        `tile_pass` call that does not wait for the device. Returns the
+        launches it made."""
+        return tile_pass(self.source, acc, cnt, self.planes, tile_lists, weight_lists)
 
     def score_into(self, acc, cnt, tile_lists, weight_lists):
         """`score_pass`, returning the accumulators as the reference does."""
@@ -307,32 +341,61 @@ class ChunkedScorer:
         return acc, cnt
 
     def threshold(self, acc, k: int, live=None):
-        """Host (theta[B], accmax[B, n_blocks]) — the one host-dependent
-        round of block-max pruning. `live` optionally overrides the
-        constructor's live-docs mask."""
+        """Host (theta[B], accmax[B, n_blocks]) after the first pass —
+        the one host-dependent round of block-max pruning. theta is each
+        row's kth best partial score over live docs (a sound lower bound
+        on the final kth best, so pruning against it stays exact). `live`
+        optionally overrides the constructor's live-docs mask."""
         theta, accmax = _threshold(
             acc,
             live if live is not None else self.live,
             k=min(k, self.n_docs),
             block_size=self.block_size,
         )
-        return download(theta, accmax, site="threshold")
+        return download(theta, accmax, site=self.sites[0])
+
+    def _final(self, acc, cnt, msm, k: int, live, host: bool = False):
+        """(scores[B,k], docs[B,k], totals[B]), on the device in the
+        merge_segment_topk triple shape, or downloaded with `host`. A doc
+        matches where its count reaches its row's `msm` (host ints), or
+        is positive with msm None; without a count plane, where its score
+        is positive."""
+        floor = (
+            torch.ones(int(acc.shape[0]), dtype=torch.int32, device=self.device)
+            if msm is None
+            else upload(np.asarray(msm, np.int32), self.device)
+        )
+        out = _finalize(acc, cnt, live if live is not None else self.live, floor, k=min(k, self.n_docs))
+        return download(*out, site=self.sites[1]) if host else out
+
+
+class ChunkedScorer(TileScorer):
+    """BM25 over one segment's block-aligned tiling (`bm25_tile_add`),
+    the chunked path's scorer. The count plane is optional: only an msm
+    above 1 needs it."""
+
+    source = BM25_TILES
+
+    def __init__(self, doc_ids, tfs, inv_norm, live=None, block_size: int = 4096):
+        self.doc_ids = doc_ids
+        self.tfs = tfs
+        self.inv_norm = _as_device(inv_norm, doc_ids.device, torch.float32)
+        super().__init__((doc_ids, tfs, self.inv_norm), self.inv_norm.shape[0], live, block_size,
+                         doc_ids.device)
+
+    def new_acc(self, with_cnt: bool, rows: int = BPAD):
+        """Zeroed accumulators for one launch of `rows` query rows (the
+        group's ladder bucket)."""
+        return self._zeroed(rows, with_cnt)
 
     def finalize(self, acc, cnt, msm: np.ndarray, k: int, live=None):
-        s, d, tot = self.finalize_device(acc, cnt, msm, k, live=live)
-        return download(s, d, tot, site="finalize")
+        return self._final(acc, cnt, msm, k, live, host=True)
 
     def finalize_device(self, acc, cnt, msm: np.ndarray, k: int, live=None):
         """Like finalize() but the (scores, docs, totals) triple STAYS on
         the device, so the cross-segment merge consumes it with no
         per-segment host sync."""
-        return _finalize(
-            acc,
-            cnt,
-            live if live is not None else self.live,
-            upload(np.asarray(msm, np.int32), self.device),
-            k=min(k, self.n_docs),
-        )
+        return self._final(acc, cnt, msm, k, live)
 
 
 # ---------------------------------------------------------------------------
@@ -373,6 +436,14 @@ def _as_device(x, device, dtype=None):
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype)
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+
+def _resident(x, device) -> torch.Tensor:
+    """A plane already on the device as it is; a host array through
+    `upload` (pinned, asynchronous)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return upload(np.asarray(x), device)
 
 
 # who listens to this thread's downloads: the batcher sets `sink` to the

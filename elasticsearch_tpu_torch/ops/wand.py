@@ -36,6 +36,9 @@ Split of responsibilities (the round-3 redesign):
     here would make pruned and unpruned scores diverge in multi-segment
     shards) applied to the tiling to get per-tile bounds and the
     per-(hot term, block) MaxScoreCache table.
+  * ``RowPlan`` — per query row: the essential/hot split, the first
+    pass's tiles and the surviving tiles of the second. The batcher's
+    chunked path and the filtered executor both run it.
 
 Deletions do NOT disable pruning: bounds computed without liveDocs only
 overestimate (a deleted doc can only remove a candidate), so the skip
@@ -52,7 +55,7 @@ process never hands a jax array to torch or the other way round.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -300,3 +303,68 @@ class BlockMaxIndex:
         if block_live is not None:
             keep = keep & block_live[blocks]
         return np.arange(sl.start, sl.stop, dtype=np.int64)[keep]
+
+    def row_plan(self, terms: List[str], boost: float = 1.0, prune: bool = True) -> "RowPlan":
+        """One query row's two-phase plan (`RowPlan`); with `prune`
+        False every term is essential and nothing is deferred."""
+        return RowPlan(self, self.plan(list(terms), boost), prune)
+
+
+def _runs(runs) -> Tuple[np.ndarray, np.ndarray]:
+    """(tiles int64, weights f32) of (tile ids, weight) runs laid end to
+    end, in run order."""
+    if not runs:
+        return np.zeros(0, np.int64), np.zeros(0, np.float32)
+    return (
+        np.concatenate([t for t, _ in runs]),
+        np.concatenate([np.full(len(t), w, np.float32) for t, w in runs]),
+    )
+
+
+class RowPlan:
+    """One query row's two-phase block-max plan over a BlockMaxIndex, the
+    BM25 counterpart of ops/impact.SparseBlockMax (see the module
+    docstring). Its terms split into the essential ones, every tile of
+    which the first pass scores, and, when the row may prune, the hot
+    ones, deferred to the survival test against the first pass's theta.
+    When no term is essential the hot term with the fewest tiles is
+    promoted, or theta would be -inf and nothing could prune. Host numpy
+    only; the scoring passes stay on the device."""
+
+    def __init__(self, bmx: BlockMaxIndex, plans: List[TermPlan], prune: bool):
+        self.bmx = bmx
+        self.essential: List[TermPlan] = []
+        self.hot: List[TermPlan] = []
+        for p in plans:
+            (self.hot if prune and p.hot else self.essential).append(p)
+        if not self.essential and self.hot:
+            self.hot.sort(key=lambda p: p.tile_count)
+            self.essential.append(self.hot.pop(0))
+
+    def first(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(tiles, weights) of the first pass: every tile of every
+        essential term, term by term."""
+        return _runs([
+            (np.arange(p.tile_start, p.tile_start + p.tile_count, dtype=np.int64), p.weight)
+            for p in self.essential
+        ])
+
+    def kept(
+        self, accmax_row: np.ndarray, theta: float, block_live: Optional[np.ndarray] = None
+    ) -> Tuple[np.ndarray, np.ndarray, bool]:
+        """(tiles, weights, pruned) of the second pass: each deferred hot
+        term's surviving tiles (`surviving_tiles` against accmax_row plus
+        the hot terms' summed block bounds), term by term; `pruned` when
+        any tile was dropped, which makes the row's total a lower bound.
+        `block_live` also drops blocks without a live or filter-passing
+        doc."""
+        if not self.hot:
+            return (*_runs([]), False)
+        sum_bounds = np.zeros(self.bmx.tiling.n_blocks, np.float32)
+        for p in self.hot:
+            sum_bounds += self.bmx.block_bounds(p)
+        potential = accmax_row + sum_bounds
+        runs = [(self.bmx.surviving_tiles(p, potential, theta, block_live=block_live), p.weight)
+                for p in self.hot]
+        pruned = any(len(t) < p.tile_count for (t, _), p in zip(runs, self.hot))
+        return (*_runs(runs), pruned)

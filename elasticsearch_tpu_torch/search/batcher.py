@@ -1541,8 +1541,6 @@ class QueryBatcher:
         # + one packed download replaces the per-segment host syncs
         dev_items: List[Tuple] = []  # (si, s_dev, d_dev, tot_dev)
         pruned_flags = [False] * nj
-        empty_i = np.empty(0, np.int64)
-        empty_w = np.empty(0, np.float32)
         for si in range(len(reader.segments)):
             n_docs = reader.segments[si].num_docs
             # ---- fused single-round-trip path (large segments) ----
@@ -1582,36 +1580,9 @@ class QueryBatcher:
                 g.tags["route"] = "chunked"
             acc, cnt = cs.new_acc(with_cnt, rows=rows)
             tp = tracing.now_ns()
-            a_tiles: List[np.ndarray] = []
-            a_w: List[np.ndarray] = []
-            deferred: List[list] = []
-            for ji, j in enumerate(jobs):
-                plans = bmx.plan(list(j.plan.terms), j.plan.boost)
-                tl, wl, hots = [], [], []
-                for p in plans:
-                    if prune[ji] and p.hot:
-                        hots.append(p)
-                    else:
-                        tl.append(
-                            np.arange(
-                                p.tile_start, p.tile_start + p.tile_count, dtype=np.int64
-                            )
-                        )
-                        wl.append(np.full(p.tile_count, p.weight, np.float32))
-                if not tl and hots:
-                    # the essential set must be non-empty or θ is -inf
-                    # and nothing prunes: promote the cheapest hot term
-                    hots.sort(key=lambda p: p.tile_count)
-                    p = hots.pop(0)
-                    tl.append(
-                        np.arange(
-                            p.tile_start, p.tile_start + p.tile_count, dtype=np.int64
-                        )
-                    )
-                    wl.append(np.full(p.tile_count, p.weight, np.float32))
-                a_tiles.append(np.concatenate(tl) if tl else empty_i)
-                a_w.append(np.concatenate(wl) if wl else empty_w)
-                deferred.append(hots)
+            rps = [bmx.row_plan(j.plan.terms, j.plan.boost, prune[ji]) for ji, j in enumerate(jobs)]
+            firsts = [rp.first() for rp in rps]
+            a_tiles, a_w = [t for t, _ in firsts], [w for _, w in firsts]
             t_plan = tracing.now_ns()
             launched = cs.score_pass(acc, cnt, a_tiles, a_w)
             if g is not None and g.targets:
@@ -1627,31 +1598,17 @@ class QueryBatcher:
                 self._add_flops(scoring.text_plan_flops(
                     sum(len(t) for t in a_tiles), 0, 0
                 ))
-            if any(deferred):
+            if any(rp.hot for rp in rps):
                 # ---- the threshold broadcast + survival test (the one
                 # host-dependent round: only runs when pruning engages) ----
                 theta, accmax = cs.threshold(acc, kb)
                 ts = tracing.now_ns()
-                b_tiles: List[np.ndarray] = []
-                b_w: List[np.ndarray] = []
-                for ji, hots in enumerate(deferred):
-                    tl, wl = [], []
-                    if hots:
-                        sum_bounds = np.zeros(bmx.tiling.n_blocks, np.float32)
-                        for p in hots:
-                            sum_bounds += bmx.block_bounds(p)
-                        potential = accmax[ji] + sum_bounds
-                        for p in hots:
-                            kept = bmx.surviving_tiles(p, potential, theta[ji])
-                            if len(kept) < p.tile_count:
-                                pruned_flags[ji] = True
-                            if len(kept):
-                                tl.append(kept)
-                                wl.append(
-                                    np.full(len(kept), p.weight, np.float32)
-                                )
-                    b_tiles.append(np.concatenate(tl) if tl else empty_i)
-                    b_w.append(np.concatenate(wl) if wl else empty_w)
+                b_tiles, b_w = [], []
+                for ji, rp in enumerate(rps):
+                    tl, wl, pruned = rp.kept(accmax[ji], theta[ji])
+                    b_tiles.append(tl)
+                    b_w.append(wl)
+                    pruned_flags[ji] = pruned_flags[ji] or pruned
                 t_surv = tracing.now_ns()
                 launched = cs.score_pass(acc, cnt, b_tiles, b_w)
                 if g is not None and g.targets:
@@ -1671,60 +1628,18 @@ class QueryBatcher:
             dev_items.append(
                 (si, *cs.finalize_device(acc, cnt, msm, kb))
             )
+        if g is not None:
+            g.tags.setdefault("route", "fused")
         # device-side cross-segment merge: ONE top-k kernel + ONE packed
         # download per group (score desc, (segment, doc) asc — identical
         # ordering to the old host sort, selection only → float-exact)
+        per_job_cands: List[List[Tuple[float, int, int]]] = [[] for _ in jobs]
+        totals = np.zeros(nj, np.int64)
         if dev_items:
-            ms, mseg, mdoc, mtot = scoring.merge_segment_topk(dev_items, kb)
-        else:
-            ms = np.full((nj, 0), -np.inf, np.float32)
-            mseg = mdoc = np.zeros((nj, 0), np.int32)
-            mtot = np.zeros((nj, 0), np.int64)
-        th = tracing.now_ns()
-        for ji, j in enumerate(jobs):
-            finite = np.isfinite(ms[ji])
-            hits = [
-                Hit(
-                    score=float(s),
-                    segment=int(si),
-                    local_doc=int(d),
-                    doc_id=reader.segments[int(si)].doc_ids[int(d)],
-                )
-                for s, si, d in zip(
-                    ms[ji][finite][: j.k],
-                    mseg[ji][finite][: j.k],
-                    mdoc[ji][finite][: j.k],
-                )
-            ]
-            total = int(mtot[ji].sum())
-            relation = "eq"
-            if pruned_flags[ji]:
-                if record:
-                    with self._lock:
-                        self.stats["pruned_jobs"] += 1
-                if record and j.prof is not None:
-                    j.prof["pruned_jobs"] = (
-                        j.prof.get("pruned_jobs", 0) + 1
-                    )
-                # pruned tiles mean the collected count is a lower bound —
-                # never report it as exact, even at tth_cap == 0 where the
-                # REST layer omits totals (internal consumers of TopDocs
-                # would otherwise see an exact-looking undercount)
-                relation = "gte"
-                if j.plan.tth_cap:
-                    # eligibility proof guaranteed ≥ cap live matches
-                    total = max(total, j.plan.tth_cap)
-            j.result = TopDocs(
-                total=total,
-                hits=hits,
-                max_score=hits[0].score if hits else None,
-                relation=relation,
-            )
-        if g is not None:
-            g.tags.setdefault("route", "fused")
-            if g.targets:
-                g.span("batcher.hits", th, tracing.now_ns())
-        _wake(jobs)
+            self._merge_into(dev_items, kb, per_job_cands, totals)
+        # a pruned total is at least the tth_cap that made the job eligible
+        self._finish_jobs(jobs, per_job_cands, totals, reader, pruned=pruned_flags,
+                          floors=[j.plan.tth_cap or 0 for j in jobs], record=record)
 
     # ---- dispatch/collect pairs (device work launches in dispatch;
     # only collect blocks on host transfers) ----
@@ -1802,8 +1717,6 @@ class QueryBatcher:
         (below the fused size / slot overflow) run per job through
         `segment_topk` and join the final merge. Totals are exact (the
         fused scorer prunes nothing)."""
-        ex = jobs[0].executor
-        reader = ex.reader
         per_job_cands: List[List[Tuple[float, int, int]]] = [[] for _ in jobs]
         totals = np.zeros(len(jobs), np.int64)
         fused_items = [
@@ -1812,35 +1725,38 @@ class QueryBatcher:
             if tag == "fused"
         ]
         if fused_items:
-            ms, mseg, mdoc, mtot = scoring.merge_segment_topk(fused_items, kb)
-            for ji in range(len(jobs)):
-                finite = np.isfinite(ms[ji])
-                for s, si, d in zip(ms[ji][finite], mseg[ji][finite], mdoc[ji][finite]):
-                    per_job_cands[ji].append((float(s), int(si), int(d)))
-                totals[ji] += int(mtot[ji].sum())
+            self._merge_into(fused_items, kb, per_job_cands, totals)
         for tag, si, _fs, _pend in items:
-            if tag != "fallback":
-                continue
-            for ji, j in enumerate(jobs):
-                s1, d1, t1 = ex.segment_topk(j.query, si, kb)
-                if record:
-                    with self._lock:
-                        self.stats["launches"] += 1
-                self._collect(
-                    [j], [per_job_cands[ji]], totals[ji : ji + 1],
-                    si, s1[None, :], d1[None, :], np.array([t1]),
-                )
-        self._finish_jobs(jobs, per_job_cands, totals, reader)
+            if tag == "fallback":
+                self._segment_fallback(jobs, kb, si, per_job_cands, totals, record)
+        self._finish_jobs(jobs, per_job_cands, totals, jobs[0].executor.reader)
 
     @staticmethod
-    def _collect(jobs, per_job_cands, totals, si, s, d, t):
-        for ji in range(len(jobs)):
-            srow = s[ji]
-            drow = d[ji]
-            finite = np.isfinite(srow)
-            for sc, doc in zip(srow[finite], drow[finite]):
+    def _merge_into(items, kb: int, per_job_cands, totals) -> None:
+        """One device-side merge of the segments' candidate triples
+        (`merge_segment_topk`, one packed download): each job's finite
+        candidates join its list and its segment totals its total."""
+        ms, mseg, mdoc, mtot = scoring.merge_segment_topk(items, kb)
+        for ji, cands in enumerate(per_job_cands):
+            finite = np.isfinite(ms[ji])
+            for s, si, d in zip(ms[ji][finite], mseg[ji][finite], mdoc[ji][finite]):
+                cands.append((float(s), int(si), int(d)))
+            totals[ji] += int(mtot[ji].sum())
+
+    def _segment_fallback(self, jobs, kb: int, si: int, per_job_cands, totals, record: bool) -> None:
+        """Segment `si` of a group scored per job through the executor's
+        `segment_topk` (below the fused size, slot overflow, an injected
+        fault or the memory budget); its candidates join the final merge."""
+        ex = jobs[0].executor
+        for ji, j in enumerate(jobs):
+            s1, d1, t1 = ex.segment_topk(j.query, si, kb)
+            if record:
+                with self._lock:
+                    self.stats["launches"] += 1
+            finite = np.isfinite(s1)
+            for sc, doc in zip(s1[finite], d1[finite]):
                 per_job_cands[ji].append((float(sc), si, int(doc)))
-            totals[ji] += int(t[ji])
+            totals[ji] += int(t1)
 
     def _dispatch_agg_group(self, jobs: List[_Job]) -> List[Tuple]:
         """Launches the device-aggregation plans (search/aggs_device
@@ -1999,63 +1915,22 @@ class QueryBatcher:
         exact either way; totals turn relation "gte" when block-max
         pruning dropped tiles (the dropped docs provably score below the
         kth best, but they are no longer counted)."""
-        ex = jobs[0].executor
-        reader = ex.reader
         per_job_cands: List[List[Tuple[float, int, int]]] = [[] for _ in jobs]
         totals = np.zeros(len(jobs), np.int64)
-        pruned_any = np.zeros(len(jobs), bool)
+        pruned = np.zeros(len(jobs), bool)
         dev_items = []
         for tag, si, payload in items:
-            if tag != "dev":
-                continue
-            pend, pruned_flags = payload
-            dev_items.append((si, *pend))
-            pruned_any |= pruned_flags
+            if tag == "dev":
+                pend, pruned_flags = payload
+                dev_items.append((si, *pend))
+                pruned |= pruned_flags
         if dev_items:
-            ms, mseg, mdoc, mtot = scoring.merge_segment_topk(dev_items, kb)
-            for ji in range(len(jobs)):
-                finite = np.isfinite(ms[ji])
-                for s, si, d in zip(ms[ji][finite], mseg[ji][finite], mdoc[ji][finite]):
-                    per_job_cands[ji].append((float(s), int(si), int(d)))
-                totals[ji] += int(mtot[ji].sum())
+            self._merge_into(dev_items, kb, per_job_cands, totals)
         for tag, si, _payload in items:
-            if tag != "fallback":
-                continue
-            for ji, j in enumerate(jobs):
-                s1, d1, t1 = ex.segment_topk(j.query, si, kb)
-                if record:
-                    with self._lock:
-                        self.stats["launches"] += 1
-                self._collect(
-                    [j], [per_job_cands[ji]], totals[ji : ji + 1],
-                    si, s1[None, :], d1[None, :], np.array([t1]),
-                )
-        g = _group()
-        th = tracing.now_ns()
-        for ji, j in enumerate(jobs):
-            cands = per_job_cands[ji]
-            cands.sort(key=lambda c: (-c[0], c[1], c[2]))
-            hits = [
-                Hit(score=s, segment=si, local_doc=d, doc_id=reader.segments[si].doc_ids[d])
-                for s, si, d in cands[: j.k]
-            ]
-            relation = "eq"
-            if pruned_any[ji]:
-                if record:
-                    with self._lock:
-                        self.stats["pruned_jobs"] += 1
-                if record and j.prof is not None:
-                    j.prof["pruned_jobs"] = j.prof.get("pruned_jobs", 0) + 1
-                relation = "gte"
-            j.result = TopDocs(
-                total=int(totals[ji]),
-                hits=hits,
-                max_score=hits[0].score if hits else None,
-                relation=relation,
-            )
-        if g is not None and g.targets:
-            g.span("batcher.hits", th, tracing.now_ns())
-        _wake(jobs)
+            if tag == "fallback":
+                self._segment_fallback(jobs, kb, si, per_job_cands, totals, record)
+        self._finish_jobs(jobs, per_job_cands, totals, jobs[0].executor.reader,
+                          pruned=pruned, record=record)
 
     def _dispatch_rerank_group(self, jobs: List[_Job],
                                rows: Optional[int] = None) -> Tuple:
@@ -2290,19 +2165,23 @@ class QueryBatcher:
         )
 
     def _finish_jobs(self, jobs, per_job_cands, totals, reader,
-                     page_caps=None):
-        """Exact (non-pruned) cross-segment merge: score desc,
-        (segment, doc) asc. page_caps optionally bounds the candidate
-        pool before the per-job k cut (knn's global num_candidates). Sets
+                     page_caps=None, pruned=None, floors=None,
+                     record: bool = True):
+        """The page tail of a group: each job's candidates in score desc,
+        (segment, doc) asc order, cut at `page_caps` (knn's global
+        num_candidates) if given, then at the job's k. A job whose
+        `pruned` flag is set dropped tiles, so the collected count is a
+        lower bound: its relation is "gte" (even at tth_cap == 0, where
+        the REST layer omits totals, so that internal consumers of
+        TopDocs never see an exact-looking undercount), its total at
+        least its `floors` entry, and it counts in `pruned_jobs`. Sets
         each job's result, then wakes the waiters (`_wake`)."""
         g = _group()
         th = tracing.now_ns()
         for ji, j in enumerate(jobs):
-            cands = per_job_cands[ji]
-            cands.sort(key=lambda c: (-c[0], c[1], c[2]))
+            cands = sorted(per_job_cands[ji], key=lambda c: (-c[0], c[1], c[2]))
             if page_caps is not None:
                 cands = cands[: page_caps[ji]]
-            page = cands[: j.k]
             hits = [
                 Hit(
                     score=s,
@@ -2310,13 +2189,24 @@ class QueryBatcher:
                     local_doc=d,
                     doc_id=reader.segments[si].doc_ids[d],
                 )
-                for s, si, d in page
+                for s, si, d in cands[: j.k]
             ]
+            total = int(totals[ji])
+            relation = "eq"
+            if pruned is not None and pruned[ji]:
+                if record:
+                    with self._lock:
+                        self.stats["pruned_jobs"] += 1
+                    if j.prof is not None:
+                        j.prof["pruned_jobs"] = j.prof.get("pruned_jobs", 0) + 1
+                relation = "gte"
+                if floors is not None:
+                    total = max(total, floors[ji])
             j.result = TopDocs(
-                total=int(totals[ji]),
+                total=total,
                 hits=hits,
                 max_score=hits[0].score if hits else None,
-                relation="eq",
+                relation=relation,
             )
         if g is not None and g.targets:
             g.span("batcher.hits", th, tracing.now_ns())

@@ -552,30 +552,11 @@ class TorchExecutor:
         # pruning only when totals are untracked: a term's doc_freq
         # can't prove >= cap FILTERED matches, so the unfiltered path's
         # capped-total shortcut is unsound here
-        prune_ok = plan.wand_ok and plan.tth_cap == 0
-        acc, cnt = cs.new_acc(plan.msm > 1, rows=1)
-        empty_i = np.empty(0, np.int64)
-        empty_w = np.empty(0, np.float32)
-        ess, hots = [], []
-        for p in bmx.plan(list(plan.terms), plan.boost):
-            (hots if (prune_ok and p.hot) else ess).append(p)
-        if not ess and hots:
-            # the essential set must be non-empty or θ is -inf
-            hots.sort(key=lambda p: p.tile_count)
-            ess.append(hots.pop(0))
-
-        def tiles_of(ps):
-            tl = [np.arange(p.tile_start, p.tile_start + p.tile_count, dtype=np.int64) for p in ps]
-            wl = [np.full(p.tile_count, p.weight, np.float32) for p in ps]
-            return (
-                np.concatenate(tl) if tl else empty_i,
-                np.concatenate(wl) if wl else empty_w,
-            )
-
-        t_ess, w_ess = tiles_of(ess)
-        acc, cnt = cs.score_into(acc, cnt, [t_ess], [w_ess])
+        rp = bmx.row_plan(plan.terms, plan.boost, plan.wand_ok and plan.tth_cap == 0)
+        tl, wl = rp.first()
+        acc, cnt = cs.score_into(*cs.new_acc(plan.msm > 1, rows=1), [tl], [wl])
         pruned = False
-        if hots:
+        if rp.hot:
             theta, accmax = cs.threshold(acc, kk, live=base)
             # blocks with zero filter-passing docs can never contribute
             # a candidate — mask them out of the survival test
@@ -584,24 +565,8 @@ class TorchExecutor:
             padded = np.zeros(nb * bs, bool)
             padded[:n] = base.cpu().numpy()
             block_live = padded.reshape(nb, bs).any(axis=1)
-            sum_bounds = np.zeros(nb, np.float32)
-            for p in hots:
-                sum_bounds += bmx.block_bounds(p)
-            potential = accmax[0] + sum_bounds
-            tl2, wl2 = [], []
-            for p in hots:
-                kept = bmx.surviving_tiles(p, potential, theta[0], block_live=block_live)
-                if len(kept) < p.tile_count:
-                    pruned = True
-                if len(kept):
-                    tl2.append(kept)
-                    wl2.append(np.full(len(kept), p.weight, np.float32))
-            acc, cnt = cs.score_into(
-                acc,
-                cnt,
-                [np.concatenate(tl2) if tl2 else empty_i],
-                [np.concatenate(wl2) if wl2 else empty_w],
-            )
+            tl, wl, pruned = rp.kept(accmax[0], theta[0], block_live=block_live)
+            acc, cnt = cs.score_into(acc, cnt, [tl], [wl])
         msm_arr = np.asarray([plan.msm], np.int32)
         s, d, tot = cs.finalize(acc, cnt, msm_arr, kk, live=base)
         return s[0], d[0], int(tot[0]), pruned

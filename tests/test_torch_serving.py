@@ -278,6 +278,94 @@ def test_block_max_index_matches_reference(segment_pair, block_size, hot_min):
             )
 
 
+def reference_row_lists(jb, terms, boost, prune, accmax_row, theta, block_live=None):
+    """The lists that the JAX package builds inline for one row, in its
+    batcher's chunked path (`elasticsearch_tpu/search/batcher.py`) and its
+    filtered executor: the essential terms' tiles, the cheapest hot term
+    promoted when none is essential, then the deferred hot terms'
+    surviving tiles against accmax_row + their summed block bounds.
+    Returns ((tiles, weights), (tiles, weights, pruned) or None)."""
+    empty_i, empty_w = np.empty(0, np.int64), np.empty(0, np.float32)
+    tl, wl, hots = [], [], []
+    for p in jb.plan(list(terms), boost):
+        if prune and p.hot:
+            hots.append(p)
+        else:
+            tl.append(np.arange(p.tile_start, p.tile_start + p.tile_count, dtype=np.int64))
+            wl.append(np.full(p.tile_count, p.weight, np.float32))
+    if not tl and hots:
+        hots.sort(key=lambda p: p.tile_count)
+        p = hots.pop(0)
+        tl.append(np.arange(p.tile_start, p.tile_start + p.tile_count, dtype=np.int64))
+        wl.append(np.full(p.tile_count, p.weight, np.float32))
+    first = (np.concatenate(tl) if tl else empty_i, np.concatenate(wl) if wl else empty_w)
+    if not hots:
+        return first, None
+    sum_bounds = np.zeros(jb.tiling.n_blocks, np.float32)
+    for p in hots:
+        sum_bounds += jb.block_bounds(p)
+    potential = accmax_row + sum_bounds
+    tl, wl, pruned = [], [], False
+    for p in hots:
+        kept = jb.surviving_tiles(p, potential, theta, block_live=block_live)
+        pruned = pruned or len(kept) < p.tile_count
+        if len(kept):
+            tl.append(kept)
+            wl.append(np.full(len(kept), p.weight, np.float32))
+    return first, (np.concatenate(tl) if tl else empty_i, np.concatenate(wl) if wl else empty_w, pruned)
+
+
+ROW_TERMS = [
+    ["alpha", "kilo"], ["alpha", "bravo", "lima"], ["alpha", "bravo"], ["charlie", "bravo", "alpha"],
+    ["november", "mike"], ["zulu"], ["alpha", "zulu", "juliet"],
+]
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("prune", [False, True])
+@pytest.mark.parametrize("boost", [1.0, 2.5])
+def test_row_plan_matches_reference_lists(segment_pair, boost, prune, masked):
+    """`BlockMaxIndex.row_plan`'s `first` and `kept` against the lists
+    the JAX package builds inline (`reference_row_lists`) from its own
+    BlockMaxIndex over the same tiling: the same tiles, weights, hot set
+    and pruned flag, with and without a block mask, for rows with rare
+    and hot terms, only hot terms (the promotion), and none."""
+    jr, tr = segment_pair
+    jpf, tpf = jr.segments[0].postings["body"], tr.segments[0].postings["body"]
+    n = jr.segments[0].num_docs
+    jt = jwand.get_tiling(jpf, n, 16, 4)
+    tt = wand.get_tiling(tpf, n, 16, 4, device="cpu")
+    weights = executor_jax.JaxExecutor(jr)._segment_weights(0, "body")
+    cache = executor_jax.JaxExecutor(jr)._oracle._field_cache("body")
+    jb, tb = jwand.BlockMaxIndex(jt, weights, cache), wand.BlockMaxIndex(tt, weights, cache)
+    assert tt.term_hot.sum() >= 2 and not tt.term_hot.all()
+    rng = np.random.default_rng(int(boost * 10) + 2 * prune + masked)
+    seen_pruned = seen_hot = 0
+    for terms in ROW_TERMS:
+        accmax_row = rng.uniform(0, 4, tt.n_blocks).astype(np.float32)
+        theta = np.float32(rng.uniform(3.0, 6.0))
+        block_live = rng.random(tt.n_blocks) < 0.6 if masked else None
+        want_first, want_kept = reference_row_lists(jb, terms, boost, prune, accmax_row, theta, block_live)
+        rp = tb.row_plan(terms, boost, prune)
+        got_first = rp.first()
+        for got, want in zip(got_first, want_first):
+            assert got.dtype == want.dtype
+            np.testing.assert_array_equal(got, want, err_msg=str(terms))
+        assert bool(rp.hot) == (want_kept is not None), terms
+        if want_kept is None:
+            tl, wl, pruned = rp.kept(accmax_row, theta, block_live)
+            assert len(tl) == len(wl) == 0 and pruned is False
+            continue
+        seen_hot += 1
+        got_kept = rp.kept(accmax_row, theta, block_live)
+        for got, want in zip(got_kept[:2], want_kept[:2]):
+            assert got.dtype == want.dtype
+            np.testing.assert_array_equal(got, want, err_msg=str(terms))
+        assert got_kept[2] == want_kept[2], terms
+        seen_pruned += want_kept[2]
+    assert (seen_hot > 0) == prune and (seen_pruned > 0) == prune
+
+
 def test_tiling_cache_is_the_ports_own(segment_pair):
     """A field tiled by both packages keeps a jax tiling and a torch
     tiling side by side: neither hands the other its arrays."""
@@ -486,6 +574,87 @@ def test_batcher_block_max_round_matches_reference(serving_pair, monkeypatch, ro
     finally:
         jb.close()
         tb.close()
+
+
+HOT_BODIES = ["alpha kilo", "alpha bravo lima", "bravo mike november", "alpha bravo",
+              "charlie juliet alpha", "alpha november kilo", "bravo", "alpha zulu"]
+
+
+@pytest.fixture(scope="module")
+def hot_pair():
+    """(JAX IndexService, port IndexService) over 600 docs in two
+    segments with 20 deletes, whose frequent words are hot at the small
+    tiling of `small_tiling`."""
+    pair = build_pair(make_docs(600, seed=9), waves=2, deletes=[f"d{i}" for i in range(3, 600, 30)],
+                      name="hot")
+    yield pair
+    close_pair(pair)
+
+
+@pytest.fixture
+def small_tiling(monkeypatch):
+    """Both packages' executors tile at 16 docs a block and call a term
+    hot at 4 postings a block, so a small corpus has hot terms and many
+    blocks to prune, as the JAX package's `test_wand_pallas` builds one."""
+    import functools
+
+    for mod in (jwand, wand):
+        monkeypatch.setattr(mod, "get_tiling", functools.partial(
+            mod.get_tiling, block_size=16, hot_min_postings_per_block=4))
+
+
+@pytest.mark.parametrize("rows", [1, 8])
+def test_pruned_match_through_the_batcher_matches_reference(hot_pair, small_tiling, monkeypatch, rows):
+    """`match` queries with hot terms through the batcher's `_run_group`
+    with totals capped at 5 (pruning engaged): the row plan defers the
+    hot terms, the survival test drops tiles, and the pages, totals and
+    relation ("gte" where tiles were dropped, at least the cap) match
+    the JAX package's."""
+    jsvc, tsvc = hot_pair
+    jex = executor_jax.JaxExecutor(jsvc.shards[0].reader())
+    tex = TorchExecutor(tsvc.shards[0].reader(), device="cpu")
+    assert len(tex.reader.segments) == 2
+    assert tex.block_index(0, "body").tiling.block_size == 16
+    plans = []
+    for body in (HOT_BODIES * 2)[:rows]:
+        jq, tq = jdsl.parse_query({"match": {"body": body}}), dsl.parse_query({"match": {"body": body}})
+        jp = j_match_plan(jq, jsvc.mappings, jsvc.analysis, 5)
+        tp = extract_match_plan(tq, tsvc.mappings, tsvc.analysis, 5)
+        assert vars(tp) == vars(jp) and tp.wand_ok
+        plans.append(((jp, jq), (tp, tq)))
+    jb, tb = _workerless(JBatcher, monkeypatch), _workerless(QueryBatcher, monkeypatch)
+    try:
+        ref = _run_group(jb, jex, [p[0] for p in plans], "match", rows)
+        got = _run_group(tb, tex, [p[1] for p in plans], "match", rows)
+        for i, (r, g) in enumerate(zip(ref, got)):
+            same_td(r, g, f"pruned rows={rows} job {i}")
+            assert g.relation == "eq" or g.total >= 5
+        assert tb.stats["pruned_jobs"] == jb.stats["pruned_jobs"] > 0
+        assert any(g.relation == "gte" for g in got)
+    finally:
+        jb.close()
+        tb.close()
+
+
+@pytest.mark.parametrize("tag", ["t0", "t1", "t3"])
+def test_pruned_filtered_match_matches_reference(hot_pair, small_tiling, tag):
+    """The same `match` queries as a bool's must with a `term` filter,
+    through `search_plan_filtered` with totals untracked (the filtered
+    route prunes only then, and skips blocks the filter empties): pages,
+    totals and relation match the JAX package's."""
+    jsvc, tsvc = hot_pair
+    jex = executor_jax.JaxExecutor(jsvc.shards[0].reader())
+    tex = TorchExecutor(tsvc.shards[0].reader(), device="cpu")
+    relations = []
+    for body in HOT_BODIES:
+        q = {"bool": {"must": [{"match": {"body": body}}], "filter": [{"term": {"tag": tag}}]}}
+        js, ts = j_split(jdsl.parse_query(q)), split_filtered_bool(dsl.parse_query(q))
+        ref = jex.search_plan_filtered(*js, 10, False, jsvc.mappings, jsvc.analysis)
+        got = tex.search_plan_filtered(*ts, 10, False, tsvc.mappings, tsvc.analysis)
+        assert ref is not None and got is not None
+        same_td(ref, got, f"filtered {tag} {body!r}")
+        relations.append(got.relation)
+    assert "gte" in relations
 
 
 @pytest.mark.parametrize("depth", [1, 2])

@@ -178,9 +178,10 @@ def test_chunked_match_is_one_tree_across_the_worker(srv):
 
 def test_chunked_pass_is_one_call(srv, monkeypatch):
     """A pass of more than 512 tiles (520 one-tile terms) makes one call
-    to `bm25_tile_add`; `chunked_launches` counts its launches (the
-    plain version's one pass on the CPU, the kernel's windows on the
-    card) and the pass's `chunked.score` span carries them."""
+    to the shared pass body `tile_pass` with the BM25 source;
+    `chunked_launches` counts its launches (the plain version's one pass
+    on the CPU, the kernel's windows on the card) and the pass's
+    `chunked.score` span carries them."""
     from elasticsearch_tpu_torch.ops import ordered_scatter as osc
 
     n = 600
@@ -195,19 +196,20 @@ def test_chunked_pass_is_one_call(srv, monkeypatch):
         srv.cluster.get_index("wide")._batcher.warmup_enabled = False
     body = {"query": {"match": {"body": " ".join(f"u{i}" for i in range(520))}}}
     call(srv, "POST", "/wide/_search", body)  # builds the executor and its scorers
-    real, calls = scoring.bm25_tile_add, []
+    real, calls = scoring.tile_pass, []
 
-    def spy(acc, cnt, doc_ids, tfs, inv_norm, tile_lists, weight_lists):
-        calls.append((acc.device.type, acc.shape[-1], [len(t) for t in tile_lists]))
-        return real(acc, cnt, doc_ids, tfs, inv_norm, tile_lists, weight_lists)
+    def spy(source, acc, cnt, planes, tile_lists, weight_lists):
+        calls.append((source, acc.device.type, acc.shape[-1], [len(t) for t in tile_lists]))
+        return real(source, acc, cnt, planes, tile_lists, weight_lists)
 
-    monkeypatch.setattr(scoring, "bm25_tile_add", spy)
+    monkeypatch.setattr(scoring, "tile_pass", spy)
     _, s0 = pipeline(srv)
     resp, tr, _ = traced(srv, body, index="wide")
     _, s1 = pipeline(srv)
     assert resp["hits"]["total"]["value"] == 520
     (score,) = by_name(tr, "chunked.score")
-    (device, cells, lens), = calls
+    (source, device, cells, lens), = calls
+    assert source is scoring.BM25_TILES
     assert score["tags"]["tiles"] == 520 and lens == [520] and cells == n + 1
     want = 1 if device == "cpu" else osc.tile_layout(cells, lens).windows
     assert score["tags"]["launches"] == want
